@@ -1,0 +1,102 @@
+"""Parameter bridge: the JAX package's flax parameter trees, as numpy
+arrays, into the port's state dicts.
+
+The port's modules carry the flax module names as attribute names, so a
+flax path ``down_0_res_0/conv1/kernel`` becomes ``down_0_res_0.conv1.weight``.
+Leaves change layout as follows:
+
+- ``Conv`` kernel HWIO -> ``Conv2d`` weight OIHW;
+- ``Dense`` kernel (in, out) -> ``Linear`` weight (out, in);
+- norm ``scale`` -> ``weight``; ``Embed`` ``embedding`` -> ``weight``;
+- ``bias`` and plain parameters (``position_embedding``) as they are.
+
+`module_to_flax` goes the other way, from a port module to a flax tree.
+This is how the tests hand the same weights to both packages. Loading the
+diffusers checkpoints that real runs use is a separate, later step.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+__all__ = ["flax_to_state_dict", "unet_state_dict", "vae_state_dict",
+           "clip_text_state_dict", "module_to_flax"]
+
+
+def _leaf(name: str, arr: np.ndarray) -> tuple[str, np.ndarray]:
+    if name == "kernel":
+        if arr.ndim == 4:
+            return "weight", arr.transpose(3, 2, 0, 1)
+        if arr.ndim == 2:
+            return "weight", arr.T
+        raise ValueError(f"kernel of rank {arr.ndim}")
+    if name in ("scale", "embedding"):
+        return "weight", arr
+    return name, arr
+
+
+def flax_to_state_dict(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """Flatten a flax parameter tree (with or without the top-level
+    ``params`` collection) into a torch state dict (f32 copies)."""
+    if set(tree.keys()) == {"params"}:
+        tree = tree["params"]
+    out: dict[str, torch.Tensor] = {}
+
+    def walk(node, prefix):
+        for key, value in node.items():
+            if isinstance(value, Mapping):
+                walk(value, prefix + (key,))
+            else:
+                name, arr = _leaf(key, np.asarray(value, dtype=np.float32))
+                out[".".join(prefix + (name,))] = torch.from_numpy(
+                    np.ascontiguousarray(arr))
+
+    walk(tree, ())
+    return out
+
+
+def unet_state_dict(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """`UNet2DCondition` parameters (tclight_tpu/models/unet.py)."""
+    return flax_to_state_dict(params)
+
+
+def vae_state_dict(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """`AutoencoderKL` parameters (tclight_tpu/models/vae.py): the encoder
+    and decoder subtrees."""
+    sd = flax_to_state_dict(params)
+    if not all(k.startswith(("encoder.", "decoder.")) for k in sd):
+        raise ValueError("VAE parameter tree must hold encoder/decoder only")
+    return sd
+
+
+def clip_text_state_dict(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """`CLIPTextModel` parameters (tclight_tpu/models/clip_text.py)."""
+    return flax_to_state_dict(params)
+
+
+def module_to_flax(module: nn.Module) -> dict[str, Any]:
+    """A port module's parameters as a flax tree {"params": ...} of f32
+    numpy arrays (the inverse of `flax_to_state_dict`)."""
+    tree: dict[str, Any] = {}
+    for mod_name, m in module.named_modules():
+        for p_name, p in m.named_parameters(recurse=False):
+            arr = p.detach().float().cpu().numpy()
+            key = p_name
+            if p_name == "weight":
+                if isinstance(m, nn.Linear):
+                    key, arr = "kernel", arr.T
+                elif isinstance(m, nn.Conv2d):
+                    key, arr = "kernel", arr.transpose(2, 3, 1, 0)
+                elif isinstance(m, (nn.GroupNorm, nn.LayerNorm)):
+                    key = "scale"
+                elif isinstance(m, nn.Embedding):
+                    key = "embedding"
+            node = tree
+            for part in filter(None, mod_name.split(".")):
+                node = node.setdefault(part, {})
+            node[key] = np.ascontiguousarray(arr)
+    return {"params": tree}
