@@ -9,14 +9,25 @@ Phases, one line each:
   3. K1 flash attention against its plain version at the UNet's
      self-attention shapes of a 960x720 run (levels 0, 1 and 2);
   4. K2 ToMe matcher against its plain version at the level-0 merge shapes;
-  5. reference: the tiny stack end to end on a small input, on the card in
-     bf16 against the CPU in f32 (`check_small_reference`);
+  5. reference: the tiny stack end to end on a small input, post-
+     optimization included (3 + 3 epochs), on the card in bf16 against the
+     CPU in f32 (`check_small_reference`);
   6. the main path: `python -m tclight_torch.run` on the full-width random
      SD1.5 IC-Light stack, 8 frames of a synthetic rolling video at
-     960x720, 4 DPM++ steps, post-optimization off; checks the mp4 and
-     that the path launched both kernels; then a traced run of 2 sampling
-     steps gives the device time per kernel group (torch.profiler);
-  7. one JSON line with every kernel's launches, error and times.
+     960x720, 4 DPM++ steps, then the post-optimization on Farneback flows
+     (35 exposure + 70 UVT epochs); checks the mp4, that the path launched
+     K1-K4, finite loss histories, the banded UVT route, and that the
+     output's warp L1 under the known roll flow is below the same path's
+     with the post-optimization off;
+  7. K3 window warp (forward and adjoint) against its plain version at the
+     post-opt batch (16, 720, 960, 3), with the main video's flows and with
+     random flows; K4 banded gather against its plain version on the main
+     path's UVT plans, both directions;
+  8. K5: the K-window gather against its plain version on synthetic
+     turnover-heavy track ids, and its own path: `run_uvt` on those ids;
+  9. a traced run of 2 sampling steps and of 2 + 2 post-opt epochs gives
+     the device time per kernel group (torch.profiler);
+ 10. one JSON line with every kernel's launches, error and times.
 The last line is {"ok": true, "device": {...}}. Any failed phase exits
 nonzero. Needs the repository around it and a CUDA device.
 """
@@ -37,11 +48,14 @@ import torch.nn.functional as F
 REPO = Path(__file__).resolve().parent
 OUT = REPO / "build" / "chip_smoke"  # videos and run outputs (ignored by git)
 
-# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, HBM3
+# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32
+# outside the tensor cores, HBM3
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
 WIDTH, HEIGHT, FRAMES, STEPS, CHUNK = 960, 720, 8, 4, 4
+POST_BATCH = 16  # the post-opt batch: the 8 frames padded to batch_size
 LOCAL_RATIO, GLOBAL_RATIO, HEADS = 0.6, 0.5, 8
 PROMPT = "warm golden hour sunlight, photoreal"
 
@@ -63,9 +77,21 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(n_bytes: float, flops: float) -> tuple[float, str]:
-    t_bytes, t_ops = n_bytes / PEAK_BYTES * 1e3, flops / PEAK_BF16_FLOPS * 1e3
+def bound_ms(n_bytes: float, flops: float, peak_flops: float = PEAK_BF16_FLOPS
+             ) -> tuple[float, str]:
+    t_bytes, t_ops = n_bytes / PEAK_BYTES * 1e3, flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def timed_once(fn) -> tuple[object, float]:
+    """(fn(), its milliseconds on the device): one call between CUDA
+    events, for the plain versions, which are slow and need no warm-up."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def attention_shapes() -> list[tuple[str, int, int, int]]:
@@ -198,15 +224,21 @@ def make_video(path: Path, frames: int = FRAMES, height: int = HEIGHT,
     save_frames(np.stack([np.roll(base, 2 * t, axis=1) for t in range(frames)]), path)
 
 
+SMALL_POSTOPT = {"apply_opt": True, "epochs_exposure": 3, "epochs": 3, "batch_size": 4,
+                 "ms_ssim_levels": 2}
+
+
 def check_small_reference() -> tuple[float, float]:
     """The pipeline on a small input, against a reference: the tiny IC-Light
-    stack relights 8 frames of 32x32 through `Generator.__call__` three
+    stack relights 8 frames of 32x32 through `Generator.__call__`, the
+    post-optimization included (3 + 3 epochs on Farneback flows), three
     times, with the same weights and the same injected noise: on the CPU in
-    f32 (the reference), on the CPU in bf16 (the plain versions), and on
-    the card in bf16 (through both kernels). The merge ratios
-    are 0, so every ToMe stage runs but no merge choice can flip between
-    precisions. Returns the max abs difference of the output frames from
-    the reference's, of the CPU bf16 run and of the device run."""
+    f32 (the reference), on the CPU in bf16 (the plain versions, gather
+    warps and the dense palette route), and on the card in bf16 (K1-K4:
+    window warps and the banded route). The merge ratios are 0, so every
+    ToMe stage runs but no merge choice can flip between precisions.
+    Returns the max abs difference of the output frames from the
+    reference's, of the CPU bf16 run and of the device run."""
     from tclight_torch.config import ConfigDict
     from tclight_torch.data.dataparsers import VideoDataParser
     from tclight_torch.pipeline.generator import Generator
@@ -229,52 +261,51 @@ def check_small_reference() -> tuple[float, float]:
         cfg = ConfigDict({
             "work_dir": str(OUT / "small" / "wd"),
             "data": {"scene_type": "video", "rgb_path": str(vid), "height": size,
-                     "width": size, "fps": 8},
+                     "width": size, "fps": 8, "flow_model": "farneback"},
             "generation": {"n_timesteps": steps, "chunk_size": 4, "chunk_ord": "mix-4",
                            "local_merge_ratio": 0.0, "global_merge_ratio": 0.0,
                            "prompt": {"small": PROMPT}, "save_frame": False},
-            "post_opt": {"apply_opt": False}, "seed": 0})
+            "post_opt": dict(SMALL_POSTOPT), "seed": 0})
         models = build_tiny_iclight(num_inference_steps=steps, dtype=dt,
                                     state_dicts=weights, device=dev)
         gen = Generator(models, cfg, data_parser=VideoDataParser(cfg.data), device=dev)
         outs.append(gen(None, OUT / "small" / f"out_{len(outs)}", list(range(n)),
                         init_noise=init, step_noises=step_noises)["small"])
+        if not all(np.isfinite(h).all() and h.size for h in gen.last_postopt_losses.values()):
+            raise SystemExit(f"small reference run on {dev}: bad loss histories")
     ref, plain, out = outs
     if out.shape != (n, size, size, 3) or not np.isfinite(out).all():
         raise SystemExit(f"small reference run: bad output {out.shape}")
     return float(np.abs(plain - ref).max()), float(np.abs(out - ref).max())
 
 
-def run_main_path() -> dict:
+def warp_l1(frames_dir: Path) -> float:
+    """Warp consistency under the video's known flow (a roll of 2 px per
+    frame), as tests/test_golden_regression.py measures it: fully static
+    content would give 0."""
     import cv2
-    import yaml
 
-    from tclight_torch.ops import kernels
-    from tclight_torch.run import main
+    files = sorted(frames_dir.glob("*.png"))
+    out = np.stack([cv2.cvtColor(cv2.imread(str(f)), cv2.COLOR_BGR2RGB) for f in files])
+    out = out.astype(np.float32) / 255.0
+    rolled = np.stack([np.roll(out[t], 2, axis=1) for t in range(len(out) - 1)])
+    return float(np.abs(rolled - out[1:]).mean())
 
-    vid = OUT / "vid"
-    make_video(vid)
-    work = OUT / "wd"
-    args = ["--config", str(REPO / "configs" / "tclight_default.yaml"),
-            "-i", str(vid), "-p", PROMPT,
-            "--full-width-random", "post_opt.apply_opt=false",
+
+def main_args(work: Path, apply_opt: bool) -> list[str]:
+    return ["--config", str(REPO / "configs" / "tclight_default.yaml"),
+            "-i", str(OUT / "vid"), "-p", PROMPT, "--full-width-random",
+            f"post_opt.apply_opt={str(apply_opt).lower()}", "data.flow_model=farneback",
             f"generation.n_timesteps={STEPS}", f"generation.chunk_size={CHUNK}",
             "generation.chunk_ord=mix-4", f"generation.frame_range=[0,{FRAMES},1]",
             f"data.height={HEIGHT}", f"data.width={WIDTH}",
-            "generation.save_frame=false", f"work_dir={work}"]
-    torch.cuda.reset_peak_memory_stats()
-    kernels.reset_stats()
-    t0 = time.perf_counter()
-    rc = main(args)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    stats = {k: (v.launches, dict(v.shapes)) for k, v in kernels.STATS.items()}
-    if rc != 0:
-        raise SystemExit(f"main path exited {rc}")
-    mp4s = sorted(work.rglob("output.mp4"))
-    if len(mp4s) != 1:
-        raise SystemExit(f"expected one output.mp4, found {mp4s}")
-    cap = cv2.VideoCapture(str(mp4s[0]))
+            "generation.save_frame=true", f"work_dir={work}"]
+
+
+def read_mp4(path: Path) -> tuple[int, tuple | None]:
+    import cv2
+
+    cap = cv2.VideoCapture(str(path))
     n, shape = 0, None
     while True:
         ok, frame = cap.read()
@@ -282,62 +313,283 @@ def run_main_path() -> dict:
             break
         n, shape = n + 1, frame.shape
     cap.release()
-    cfg = yaml.safe_load((mp4s[0].parent / "config.yaml").read_text())
+    return n, shape
+
+
+def run_main_path() -> dict:
+    import yaml
+
+    from tclight_torch.ops import kernels
+    from tclight_torch.pipeline import postopt
+    from tclight_torch.run import main
+
+    make_video(OUT / "vid")
+    work = OUT / "wd"
+    args = main_args(work, True)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_stats()
+    t0 = time.perf_counter()
+    rc = main(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stats = {k: (v.launches, dict(v.shapes)) for k, v in kernels.STATS.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if rc != 0:
+        raise SystemExit(f"main path exited {rc}")
+    mp4s = sorted(work.rglob("output.mp4"))
+    if len(mp4s) != 1:
+        raise SystemExit(f"expected one output.mp4, found {mp4s}")
+    out_dir = mp4s[0].parent
+    n, shape = read_mp4(mp4s[0])
+    cfg = yaml.safe_load((out_dir / "config.yaml").read_text())
     st = cfg["stage_times"]
+    losses = {k: np.load(out_dir / f"loss_{k}.npy") for k in ("exposure", "unique_tensor")}
+    cached = postopt._UVT_TABLE_CACHE.get("slot")
+    route = ("banded" if cached is not None and len(cached[1]) == 10 else "dense/sorted")
     flash, match = stats["flash_attention"], stats["online_argmax_scores"]
+    warp, band = stats["window_warp"], stats["banded_gather"]
     flash_dims = sorted(flash[1])
     merges = {"global" if s == d else "local" for s, d in match[1]}
+    warp_on = warp_l1(out_dir / "frames")
+
+    # the same path with the post-optimization off, for the warp L1
+    work_off = OUT / "wd_off"
+    if main(main_args(work_off, False)) != 0:
+        raise SystemExit("main path with apply_opt=false failed")
+    warp_off = warp_l1(next(work_off.rglob("output.mp4")).parent / "frames")
+
+    finite = all(h.size and np.isfinite(h).all() for h in losses.values())
     ok = (n == FRAMES and shape == (HEIGHT, WIDTH, 3) and flash[0] > 0
           and {40, 80, 160} <= set(flash_dims) and match[0] > 0
-          and merges == {"global", "local"})
+          and merges == {"global", "local"} and warp[0] > 0 and band[0] > 0
+          and finite and route == "banded" and warp_on < warp_off)
+    steady = lambda xs: float(np.mean(xs[1:])) if len(xs) > 1 else float("nan")
     phase("main", ok=ok, frames=n, frame_shape=shape, wall_s=wall,
           sampling_s=st["sampling"], step_s=st["step_times"], encode_s=st["encode"],
-          decode_s=st["decode"], peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+          decode_s=st["decode"], flow_data_s=st["flow_data"],
+          exposure_s=st["exposure"], exposure_epochs=len(st["exposure_epochs"]),
+          exposure_epoch_first_s=st["exposure_epochs"][0],
+          exposure_epoch_steady_s=steady(st["exposure_epochs"]),
+          uvt_s=st["uvt"], uvt_epochs=len(st["uvt_epochs"]),
+          uvt_epoch_first_s=st["uvt_epochs"][0], uvt_epoch_steady_s=steady(st["uvt_epochs"]),
+          output_save_s=st["output_save"], peak_mem_gb=peak,
           flash_launches=flash[0], flash_head_dims=flash_dims,
           match_launches=match[0], match_merges=sorted(merges),
-          match_shapes=sorted(match[1]))
+          warp_launches=warp[0], warp_shapes=sorted(warp[1].items()),
+          banded_launches=band[0], banded_multi_launches=stats["banded_gather_multi"][0],
+          uvt_route=route, exposure_loss=[float(losses["exposure"][0]),
+                                          float(losses["exposure"][-1])],
+          uvt_loss=[float(losses["unique_tensor"][0]), float(losses["unique_tensor"][-1])],
+          warp_l1_postopt=warp_on, warp_l1_no_postopt=warp_off)
     if not ok:
         raise SystemExit("main path check failed")
-    profile_sampling(args)
-    return {"flash_attention": flash[0], "online_argmax_scores": match[0]}
+    return {"flash_attention": flash[0], "online_argmax_scores": match[0],
+            "window_warp": warp[0], "banded_gather": band[0]}
+
+
+def post_batch() -> np.ndarray:
+    """Frame indices of the main path's post-opt batch: its 8 frames, padded
+    to the batch size with frame 0 as the epochs pad them."""
+    return np.array(list(range(FRAMES)) + [0] * (POST_BATCH - FRAMES))
+
+
+def check_warp(gen: torch.Generator) -> dict:
+    from tclight_torch.ops.warp_kernel import window_warp_cuda, window_warp_plain
+    from tclight_torch.pipeline.postopt import flow_radius
+
+    cache = OUT / "vid_past_flow_farneback"
+    past = np.stack([np.load(cache / f"{i:05d}.npy") for i in range(FRAMES)])
+    radius = flow_radius(past)
+    if radius is None:
+        raise SystemExit("the main video's flows exceed the window-warp cap")
+    shape = (POST_BATCH, HEIGHT, WIDTH)
+    x = torch.rand(*shape, 3, device="cuda", generator=gen)
+    cases = (("farneback", torch.from_numpy(past[post_batch()]).cuda(), radius),
+             ("random", (torch.rand(*shape, 2, device="cuda", generator=gen) * 2 - 1) * 24, 24))
+    rows = []
+    for label, f, r in cases:
+        xt = x.permute(0, 3, 1, 2).contiguous().requires_grad_(True)
+        grid = torch.stack([2 * (torch.arange(WIDTH, device="cuda") + f[..., 0]) / (WIDTH - 1) - 1,
+                            2 * (torch.arange(HEIGHT, device="cuda")[:, None] + f[..., 1])
+                            / (HEIGHT - 1) - 1], dim=-1)
+        lib_out = F.grid_sample(xt, grid, mode="bicubic", padding_mode="zeros",
+                                align_corners=True)
+        g = torch.randn_like(lib_out)
+        for adjoint in (False, True):
+            out = window_warp_cuda(x, f, r, adjoint=adjoint)
+            torch.cuda.synchronize()
+            ref, p_ms = timed_once(lambda: window_warp_plain(x, f, r, adjoint=adjoint))
+            err = (out - ref).abs().max().item()
+            # the same f32 taps summed in another order, with fused
+            # multiply-adds: ~1e-6 of values of order 1 per window
+            tol = 1e-5 * (2 * r + 5)
+            ok = math.isfinite(err) and err <= tol
+            k_ms = cuda_ms(lambda: window_warp_cuda(x, f, r, adjoint=adjoint), 5)
+            if adjoint:
+                l_ms = cuda_ms(lambda: torch.autograd.grad(lib_out, xt, g, retain_graph=True), 5)
+            else:
+                l_ms = cuda_ms(lambda: F.grid_sample(xt, grid, mode="bicubic",
+                                                     padding_mode="zeros",
+                                                     align_corners=True), 5)
+            n_px = x.numel() // 3
+            # x, flows and out cross memory once; 16 taps carry weight per
+            # (source or output) pixel: 3 multiply-adds and 2 weights each
+            b_ms, by = bound_ms(4 * (x.numel() + f.numel() + out.numel()),
+                                n_px * 16 * (2 * 3 + 2 * 10), PEAK_F32_FLOPS)
+            row = dict(shape=f"{'adjoint' if adjoint else 'forward'} {label} "
+                       f"N={POST_BATCH} {HEIGHT}x{WIDTH}x3 radius={r}",
+                       max_abs_err=err, tol=tol, ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                       bound_ms=b_ms, bound_by=by)
+            phase("K3", ok=ok, **row)
+            if not ok:
+                raise SystemExit(f"K3 disagrees with its plain version at {row['shape']}")
+            rows.append(row)
+            del out, ref
+        del xt, grid, lib_out, g
+        torch.cuda.empty_cache()
+    return {"rows": rows}
+
+
+def _banded_rows(tag: str, gen, tables, hw: int, p_pad: int, batch: np.ndarray) -> list:
+    """Both gather directions of a UVT batch through the kernel (K4 for
+    single-window plans, K5 for K-window ones) against the plain versions,
+    on the planner's real plans."""
+    from tclight_torch.ops import banded_gather as bg
+    from tclight_torch.pipeline.postopt import _banded_windows
+
+    multi = tables[1].dim() == 3
+    kern = bg.banded_gather_multi_cuda if multi else bg.banded_gather_cuda
+    plain = ((lambda t, s_, o, w: bg.banded_gather_plain_multi(t, s_, o, w)) if multi
+             else (lambda t, s_, o, w: bg.banded_gather_plain(t, s_, o)))
+    idx = torch.from_numpy(batch).cuda()
+    b = len(batch)
+    wf, wb = _banded_windows(hw, p_pad)
+    base = torch.arange(b, dtype=torch.int32, device="cuda") * (bg.frame_tiles(hw) * 128)
+    fst, foff, bst, boff = (tables[i][idx] for i in (1, 2, 6, 7))
+    k = fst.shape[-1] if multi else 1
+    feats = torch.randn(p_pad, 3, device="cuda", generator=gen)
+    cot = bg.pack_frames(torch.randn(b, hw, 3, device="cuda", generator=gen))
+    bst = bst + (base[:, None, None] if multi else base[:, None])
+    cases = (("render", feats, fst.reshape(-1, k) if multi else fst.reshape(-1),
+              foff.reshape(-1, 512), wf),
+             ("adjoint", cot, bst.reshape(-1, k) if multi else bst.reshape(-1),
+              boff.reshape(-1, 512), wb))
+    rows = []
+    for label, table, starts, offs, window in cases:
+        starts, offs = starts.contiguous(), offs.contiguous()
+        out = kern(table, starts, offs, window)
+        torch.cuda.synchronize()
+        ref, p_ms = timed_once(lambda: plain(table, starts, offs, window))
+        err = (out - ref).abs().max().item()
+        ok = err == 0.0  # a gather: exact
+        k_ms = cuda_ms(lambda: kern(table, starts, offs, window), 10)
+        if multi:
+            o = offs.long().clamp(min=0)
+            kk = o // window
+            lib_idx = torch.take_along_dim(starts.long(), kk, 1) + o - kk * window
+        else:
+            lib_idx = starts[:, None].long() + offs.long()
+        l_ms = cuda_ms(lambda: table[lib_idx], 10)
+        b_ms, by = bound_ms(4 * out.numel() + offs.numel() * offs.element_size()
+                            + 4 * starts.numel() + 4 * table.numel(), 0.0)
+        row = dict(shape=f"{label} B={b} hw={hw} p_pad={p_pad} NB={offs.shape[0]} "
+                   f"window={window} K={k} offs={str(offs.dtype)[6:]}",
+                   max_abs_err=err, tol=0.0, ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                   bound_ms=b_ms, bound_by=by)
+        phase(tag, ok=ok, **row)
+        if not ok:
+            raise SystemExit(f"{tag} disagrees with its plain version at {row['shape']}")
+        rows.append(row)
+        del out, ref, lib_idx
+    return rows
+
+
+def check_banded(gen: torch.Generator) -> dict:
+    from tclight_torch.pipeline import postopt
+
+    key, tables, _ = postopt._UVT_TABLE_CACHE["slot"]
+    if len(tables) != 10 or tables[1].dim() != 2:
+        raise SystemExit("the main path's UVT tables are not single-window banded plans")
+    return {"rows": _banded_rows("K4", gen, tables, HEIGHT * WIDTH, key[4], post_batch())}
+
+
+def turnover_ids(n: int, h: int, w: int, bands: int = 2) -> np.ndarray:
+    """Per-frame track ids that mix `bands` creation generations in every
+    scanline block (each generation in scanline order), in the style of
+    tests/test_banded_gather.py: no single window covers a block."""
+    hw = h * w
+    base = np.arange(hw).reshape(h, w)
+    ids = np.stack([np.roll(base, -3 * t, axis=1) for t in range(n)]).reshape(n, hw)
+    for g in range(1, bands):
+        m = np.zeros(hw, bool)
+        m[g::bands] = True
+        fresh = np.arange(m.sum()) + g * (hw + 40_000) + 177
+        for t in range(1, n):
+            ids[t, np.roll(m, 3 * t * g)] = fresh
+    return ids
+
+
+def check_turnover(gen: torch.Generator) -> dict:
+    """K5 on the planner's K = 2 plans of turnover-heavy ids, then its own
+    path: `run_uvt` on those ids for 3 epochs, the launch counts set to 0
+    just before it and read just after."""
+    from tclight_torch.ops import kernels
+    from tclight_torch.ops.flow import voxelization
+    from tclight_torch.pipeline import postopt
+
+    ids = turnover_ids(FRAMES, HEIGHT, WIDTH)
+    unq_inv = voxelization(ids.reshape(-1))
+    n_unique = int(unq_inv.max()) + 1
+    p_pad = max(128, -(-n_unique // 128) * 128)
+    tables, _ = postopt.build_uvt_tables(unq_inv, FRAMES, HEIGHT, WIDTH, p_pad, device="cuda")
+    if len(tables) != 10 or tables[1].dim() != 3 or tables[1].shape[-1] != 2:
+        raise SystemExit("the turnover ids did not take K = 2 banded plans")
+    rows = _banded_rows("K5", gen, tables, HEIGHT * WIDTH, p_pad, post_batch())
+    frames = torch.rand(FRAMES, HEIGHT, WIDTH, 3, device="cuda", generator=gen)
+    flows = torch.zeros(FRAMES, HEIGHT, WIDTH, 2, device="cuda")
+    masks = torch.ones(FRAMES, HEIGHT, WIDTH, device="cuda")
+    cfg = postopt.PostOptConfig(epochs=3)
+    kernels.reset_stats()
+    t0 = time.perf_counter()
+    out, hist, times = postopt.run_uvt(frames, flows, masks, unq_inv, n_unique, cfg,
+                                       warp_radius=postopt.flow_radius(flows.cpu().numpy()))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.STATS["banded_gather_multi"].launches
+    ok = (launches > 0 and out.shape == frames.shape and np.isfinite(hist).all()
+          and bool(torch.isfinite(out).all()))
+    phase("K5-path", ok=ok, ids=f"{FRAMES}x{HEIGHT}x{WIDTH} tracks={n_unique} K=2",
+          run_uvt_s=wall, epoch_s=times.tolist(), loss=hist.tolist(),
+          k5_launches=launches, k3_launches=kernels.STATS["window_warp"].launches)
+    if not ok:
+        raise SystemExit("run_uvt on turnover ids did not run through K5")
+    return {"rows": rows, "launches": launches}
 
 
 KERNEL_GROUPS = (("K1 flash_attention", ("flash_fwd_kernel",)),
                  ("K2 match_argmax", ("match_argmax_kernel",)),
-                 ("convolution", ("conv", "fprop", "winograd")),
+                 ("K3 window_warp", ("window_warp_kernel",)),
+                 ("K5 banded_gather_multi", ("banded_gather_multi_kernel",)),
+                 ("K4 banded_gather", ("banded_gather_kernel",)),
+                 ("convolution", ("conv", "fprop", "winograd", "dgrad", "wgrad")),
                  ("matmul", ("gemm", "nvjet", "cutlass", "xmma")))
 
 
-def profile_sampling(args: list[str]) -> None:
-    """A traced run of 2 sampling steps (torch.profiler) on the main path's
-    config and inputs: device time per kernel group per step, the top
-    kernels, and the device's busy share of the traced wall."""
+def profile_window(tag: str, fn, units: int, unit: str) -> None:
+    """Trace fn() with torch.profiler: device time per kernel group per
+    unit of work, the top kernels, and the device's busy share of the
+    traced wall."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from tclight_torch.config import load_config
-    from tclight_torch.data.dataparsers import VideoDataParser
-    from tclight_torch.pipeline.generator import Generator
-    from tclight_torch.pipeline.iclight import build_full_width_random
-
-    steps = 2
-    config = load_config([a for a in args if a != "--full-width-random"])
-    config.set_path("generation.n_timesteps", steps)
-    gen = Generator(build_full_width_random(num_inference_steps=steps), config,
-                    data_parser=VideoDataParser(config.data))
-    frames = gen.data_parser.load_video(frame_ids=list(range(FRAMES)))
-    conds = gen.encode_imgs_batch(frames)
-    cond, uncond = gen.encode_prompt_pair(PROMPT, gen.negative_prompt)
-    x = gen.prepare_init_noise(FRAMES, HEIGHT, WIDTH,
-                               torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        gen.ddim_sample(x, (uncond, cond), conds)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     groups: dict[str, float] = {}
-    kernels = []
+    top = []
     for evt in prof.key_averages():
         if evt.device_type != DeviceType.CUDA:
             continue
@@ -346,24 +598,65 @@ def profile_sampling(args: list[str]) -> None:
         group = next((g for g, keys in KERNEL_GROUPS if any(k in name for k in keys)),
                      "other")
         groups[group] = groups.get(group, 0.0) + ms
-        kernels.append((ms, evt.count, evt.key[:70]))
+        top.append((ms, evt.count, evt.key[:70]))
     busy = sum(groups.values())
     if busy == 0:
-        phase("profile", ok=True, note="the profiler saw no device time")
+        phase(tag, ok=True, note="the profiler saw no device time")
         return
-    phase("profile", ok=True, steps=steps, traced_wall_ms=wall_ms, device_busy_ms=busy,
+    phase(tag, ok=True, **{unit + "s": units}, traced_wall_ms=wall_ms, device_busy_ms=busy,
           busy_share=busy / wall_ms,
-          ms_per_step={g: round(ms / steps, 3)
-                       for g, ms in sorted(groups.items(), key=lambda x: -x[1])})
-    for ms, count, key in sorted(kernels, reverse=True)[:10]:
-        phase("profile-top", ms_per_step=round(ms / steps, 3), calls_per_step=count / steps,
-              kernel=key)
+          **{f"ms_per_{unit}": {g: round(ms / units, 3)
+                                for g, ms in sorted(groups.items(), key=lambda x: -x[1])}})
+    for ms, count, key in sorted(top, reverse=True)[:10]:
+        phase(tag + "-top", **{f"ms_per_{unit}": round(ms / units, 3),
+                               f"calls_per_{unit}": count / units}, kernel=key)
 
 
-def kernel_entry(name, source, replaces, launches, rows) -> dict:
+def profile_main_path() -> None:
+    """Traced runs on the main path's config and inputs: 2 sampling steps,
+    then 2 exposure and 2 UVT epochs (one batch of 16 each) on the main
+    video's flows, masks and tracks."""
+    from tclight_torch.config import load_config
+    from tclight_torch.data.dataparsers import VideoDataParser
+    from tclight_torch.pipeline import postopt
+    from tclight_torch.pipeline.generator import Generator
+    from tclight_torch.pipeline.iclight import build_full_width_random
+
+    steps = 2
+    config = load_config([a for a in main_args(OUT / "wd_prof", True)
+                          if a != "--full-width-random"])
+    config.set_path("generation.n_timesteps", steps)
+    gen = Generator(build_full_width_random(num_inference_steps=steps), config,
+                    data_parser=VideoDataParser(config.data))
+    frames = gen.data_parser.load_video(frame_ids=list(range(FRAMES)))
+    conds = gen.encode_imgs_batch(frames)
+    cond, uncond = gen.encode_prompt_pair(PROMPT, gen.negative_prompt)
+    x = gen.prepare_init_noise(FRAMES, HEIGHT, WIDTH,
+                               torch.Generator(device="cuda").manual_seed(0))
+    profile_window("profile", lambda: gen.ddim_sample(x, (uncond, cond), conds), steps, "step")
+
+    rgbs, _, _, _, past, masks = gen.data_parser.load_data(list(range(FRAMES)), device="cuda")
+    parser = gen.data_parser
+    del gen, conds, x
+    torch.cuda.empty_cache()
+    f_d, p_d, m_d = (torch.from_numpy(a).cuda() for a in (rgbs, past, masks))
+    radius = postopt.flow_radius(past)
+    cfg = postopt.PostOptConfig(epochs_exposure=2, epochs=2)
+
+    def post():
+        aligned, _, _, _ = postopt.run_exposure_align(f_d, p_d, m_d, cfg, warp_radius=radius)
+        postopt.run_uvt(aligned, p_d, m_d, parser.unq_inv, parser.n_unique, cfg,
+                        warp_radius=radius)
+
+    post()  # warm-up: cuDNN's algorithm search for the MS-SSIM convolutions
+    profile_window("profile-postopt", post, 4, "epoch")
+
+
+def kernel_entry(name, source, replaces, launches, rows, path="main") -> dict:
     head = rows[0]
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches, "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "launches": launches, "launches_path": path,
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             "shape": head["shape"], "per_shape": rows}
@@ -406,6 +699,10 @@ def main() -> int:
     if not dev_err <= tol:
         raise SystemExit("the card's small run disagrees with the f32 reference")
     launches = run_main_path()
+    warp = check_warp(gen)
+    banded = check_banded(gen)
+    turnover = check_turnover(gen)
+    profile_main_path()
 
     print(json.dumps({"kernels": [
         kernel_entry("flash_attention", "tclight_torch/csrc/flash_attention.cu",
@@ -414,6 +711,15 @@ def main() -> int:
         kernel_entry("online_argmax_scores", "tclight_torch/csrc/match_argmax.cu",
                      "tclight_tpu/ops/match_kernel.py:34",
                      launches["online_argmax_scores"], match["rows"]),
+        kernel_entry("window_warp", "tclight_torch/csrc/window_warp.cu",
+                     "tclight_tpu/ops/warp_kernel.py:108", launches["window_warp"],
+                     warp["rows"]),
+        kernel_entry("banded_gather", "tclight_torch/csrc/banded_gather.cu",
+                     "tclight_tpu/ops/banded_gather.py:434", launches["banded_gather"],
+                     banded["rows"]),
+        kernel_entry("banded_gather_multi", "tclight_torch/csrc/banded_gather.cu",
+                     "tclight_tpu/ops/banded_gather.py:465", turnover["launches"],
+                     turnover["rows"], path="run_uvt on turnover-heavy ids"),
     ]}), flush=True)
     print(f"nvidia-smi: {smi}", flush=True)
     print(json.dumps({"ok": True, "device": {

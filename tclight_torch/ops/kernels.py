@@ -30,6 +30,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tclight_torch"
 SOURCES = {
     "flash_attention": "flash_attention.cu",
     "match_argmax": "match_argmax.cu",
+    "window_warp": "window_warp.cu",
+    "banded_gather": "banded_gather.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
@@ -51,7 +53,9 @@ class KernelStats:
         self.shapes.clear()
 
 
-STATS = {"flash_attention": KernelStats(), "online_argmax_scores": KernelStats()}
+STATS = {name: KernelStats() for name in (
+    "flash_attention", "online_argmax_scores", "window_warp", "banded_gather",
+    "banded_gather_multi")}
 
 _libs: dict[str, ctypes.CDLL] = {}
 

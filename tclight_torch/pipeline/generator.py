@@ -1,9 +1,12 @@
-"""The TC-Light relighting pipeline, xy-only sampling without the
+"""The TC-Light relighting pipeline, xy-only sampling with the
 post-optimization (counterpart of tclight_tpu/pipeline/generator.py).
 
-Stages: load the video, VAE-encode the frames as IC-Light concat
-conditions, CLIP-encode the prompts, run the DPM++ (SDE) steps over random
-chunk plans with VidToMe token merging, VAE-decode, write the mp4s.
+Stages: load the video, and with `post_opt.apply_opt` its flows, soft
+masks and pixel tracks (`load_data`); VAE-encode the frames as IC-Light
+concat conditions, CLIP-encode the prompts, run the DPM++ (SDE) steps over
+random chunk plans with VidToMe token merging, VAE-decode; then the
+exposure alignment and the UVT refinement (pipeline/postopt.py); write the
+mp4s.
 
 Each step runs its chunk slots in order in a Python loop that carries the
 global token banks from slot to slot, as `_slot0_core` / `_group_core` do
@@ -12,10 +15,16 @@ package's, so both packages draw the same chunk plans, dst frames and
 flips; the Gaussian noise comes from `torch.Generator`s, or from the
 caller (`init_noise`, `step_noises`).
 
+The post-optimization follows the device: on the card the warps are the
+window sums at `flow_radius` (K3) and the UVT palette takes the banded
+route where the ids allow it (K4/K5); on the CPU the warps are gather warps
+and the palette adjoint the dense route, as the JAX package does off the
+TPU. A failure in it raises.
+
 Not ported in this slice, and refused with NotImplementedError: the yt
-pass (`alpha_t > 0`), the post-optimization (`apply_opt: true`), PnP and
-ControlNet (`control != none`), background conditioning, the int8
-attention variants and the prompt upsampler (a missing prompt).
+pass (`alpha_t > 0`), PnP and ControlNet (`control != none`), background
+conditioning, the int8 attention variants and the prompt upsampler (a
+missing prompt).
 """
 
 from __future__ import annotations
@@ -32,6 +41,8 @@ from tclight_torch.config import ConfigDict, save_config
 from tclight_torch.models.unet import ToMeSpec
 from tclight_torch.pipeline import chunks as chunklib
 from tclight_torch.pipeline.iclight import ICLightModels
+from tclight_torch.pipeline.postopt import (PostOptConfig, flow_radius,
+                                            run_exposure_align, run_uvt)
 from tclight_torch.utils.device import resolve_device
 from tclight_torch.utils.logging import CostTracker, get_logger
 from tclight_torch.utils.video_io import save_frames, save_video
@@ -67,10 +78,23 @@ class Generator:
         self.seed = int(config.get("seed", 12345))
         control = str(_cfg_get(gen, "control", "none") or "none")
         post = config.get("post_opt", {})
-        self.apply_opt = _cfg_get(post, "apply_opt", True)
+        self.apply_opt = bool(_cfg_get(post, "apply_opt", True))
+        self.post_cfg = PostOptConfig(
+            epochs_exposure=_cfg_get(post, "epochs_exposure", 35),
+            epochs=_cfg_get(post, "epochs", 70),
+            batch_size=_cfg_get(post, "batch_size", 16),
+            lambda_dssim=_cfg_get(post, "lambda_dssim", 0.2),
+            lambda_flow=_cfg_get(post, "lambda_flow", 0.8),
+            lambda_tv=_cfg_get(post, "lambda_tv", 0.05),
+            feature_lr=_cfg_get(post, "feature_lr", 0.05),
+            exposure_lr_init=_cfg_get(post, "exposure_lr_init", 0.01),
+            exposure_lr_final=_cfg_get(post, "exposure_lr_final", 0.001),
+            exposure_lr_delay_steps=_cfg_get(post, "exposure_lr_delay_steps", 0),
+            exposure_lr_delay_mult=_cfg_get(post, "exposure_lr_delay_mult", 0.0),
+            ms_ssim_levels=_cfg_get(post, "ms_ssim_levels", 5),
+        )
         refused = {
             "generation.alpha_t > 0 (the yt pass)": self.alpha_t > 0,
-            "post_opt.apply_opt: true (the post-optimization)": self.apply_opt,
             f"generation.control: {control} (PnP / ControlNet)": control != "none",
             "generation.background_cond": bool(_cfg_get(gen, "background_cond", False)),
             "generation.attn_qk_int8 (int8 attention)": bool(_cfg_get(gen, "attn_qk_int8", False)),
@@ -96,6 +120,7 @@ class Generator:
         self._vae_batch = 8
         self.stage_times: dict = {}
         self._last_step_times: list[float] = []
+        self.last_postopt_losses: dict = {}
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -283,6 +308,15 @@ class Generator:
         self._sync()
         self.stage_times["encode"] = time.perf_counter() - t_s
 
+        # flows, masks and tracks up front (prompt-independent; the flows
+        # are cached on disk)
+        optimize = self.apply_opt and self.data_parser is not None
+        if optimize:
+            t_s = time.perf_counter()
+            _, _, _, _, past_flows, mask_bwds = self.data_parser.load_data(
+                frame_ids, device=self.device)
+            self.stage_times["flow_data"] = time.perf_counter() - t_s
+
         results = {}
         for edit_name, edit_prompt in self.prompts.items():
             if edit_prompt is None:
@@ -298,8 +332,14 @@ class Generator:
                 raise FloatingPointError("sampling produced non-finite latents")
             self.stage_times["step_times"] = list(self._last_step_times)
             t_s = time.perf_counter()
-            clean_frames = self.decode_latents_batch(clean_latent).cpu().numpy()
+            clean_frames = self.decode_latents_batch(clean_latent)
+            self._sync()
             self.stage_times["decode"] = time.perf_counter() - t_s
+            losses_exposure = losses_uvt = np.zeros(0)
+            if optimize:
+                clean_frames, losses_exposure, losses_uvt = self._post_optimize(
+                    clean_frames, past_flows, mask_bwds)
+            clean_frames = clean_frames.cpu().numpy()
 
             t_s = time.perf_counter()
             save_name = (f"lmr_{self.tome_spec.local_ratio}_gmr_"
@@ -315,10 +355,47 @@ class Generator:
             self.stage_times["output_save"] = time.perf_counter() - t_s
             cost = tracker.finish(n, h, w)
             self._save_run_config(out_dir, cost, edit_name, edit_prompt)
+            self.last_postopt_losses = {"exposure": losses_exposure, "uvt": losses_uvt}
+            if optimize:  # the loss curves, as arrays (JAX plots them)
+                np.save(out_dir / "loss_exposure.npy", losses_exposure)
+                np.save(out_dir / "loss_unique_tensor.npy", losses_uvt)
             results[edit_name] = clean_frames
             log.info("done [%s]: %.1fs total, %.2fs/frame", edit_name,
                      cost["total_time"], cost["sec_per_frame"])
         return results
+
+    @torch.inference_mode(False)
+    def _post_optimize(self, frames: torch.Tensor, past_flows: np.ndarray,
+                       mask_bwds: np.ndarray):
+        """Exposure alignment, then the UVT refinement, of the decoded
+        frames (N, H, W, 3) on the device. Returns (frames, exposure loss
+        history, UVT loss history)."""
+        cfg = self.post_cfg
+        with torch.enable_grad():
+            # a clone outside inference mode is a tensor autograd may save
+            frames = frames.clone()
+            radius = flow_radius(past_flows) if self.device.type == "cuda" else None
+            flows = torch.from_numpy(np.ascontiguousarray(past_flows)).to(self.device)
+            masks = torch.from_numpy(np.ascontiguousarray(mask_bwds)).to(self.device)
+            log.info("exposure alignment (%d epochs)...", cfg.epochs_exposure)
+            t_s = time.perf_counter()
+            frames, _, losses_exposure, exp_times = run_exposure_align(
+                frames, flows, masks, cfg, seed=self.seed, warp_radius=radius)
+            self._sync()
+            self.stage_times["exposure"] = time.perf_counter() - t_s
+            self.stage_times["exposure_epochs"] = exp_times.tolist()
+            log.info("UVT optimization (%d epochs)...", cfg.epochs)
+            t_s = time.perf_counter()
+            frames, losses_uvt, uvt_times = run_uvt(
+                frames, flows, masks, self.data_parser.unq_inv,
+                self.data_parser.n_unique, cfg, seed=self.seed, warp_radius=radius)
+            self._sync()
+            self.stage_times["uvt"] = time.perf_counter() - t_s
+            self.stage_times["uvt_epochs"] = uvt_times.tolist()
+        for name, hist in (("exposure", losses_exposure), ("uvt", losses_uvt)):
+            if not np.isfinite(hist).all():
+                raise FloatingPointError(f"the {name} loss history is not finite")
+        return frames.detach(), losses_exposure, losses_uvt
 
     def _save_run_config(self, out_dir: Path, cost, edit_name, edit_prompt):
         cfg = ConfigDict(self.config.copy() if isinstance(self.config, ConfigDict)

@@ -2,14 +2,16 @@
 
 Usage:
     python -m tclight_torch.run --config configs/tclight_default.yaml \\
-        -i video.mp4 -p "prompt" post_opt.apply_opt=false --full-width-random
+        -i video.mp4 -p "prompt" data.flow_model=farneback --full-width-random
 
 Runs on the CUDA device; `main(argv, device="cpu")` runs the plain CPU
-path (the tests do). Weights: with
+path (the tests do). With `post_opt.apply_opt` (the default) the relit
+frames go through the exposure alignment and the UVT refinement, on
+Farneback flows (`data.flow_model=farneback`): the RAFT and MemFlow
+backends need checkpoints and are not ported, and raise. Weights: with
 `--full-width-random`, the SD1.5 IC-Light stack on random weights; with
 TCLIGHT_TINY=1, the tiny random stack. Loading checkpoints from
-`model_dir` and the post-optimization (hence `post_opt.apply_opt=false`)
-are not ported yet.
+`model_dir` is not ported yet.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import torch
 
 def main(argv=None, device: str = "cuda") -> int:
     from tclight_torch.config import load_config
-    from tclight_torch.data.dataparsers import VideoDataParser
+    from tclight_torch.data.dataparsers import make_data_parser
     from tclight_torch.pipeline.generator import Generator
     from tclight_torch.pipeline.iclight import (build_full_width_random,
                                                build_tiny_iclight)
@@ -43,6 +45,11 @@ def main(argv=None, device: str = "cuda") -> int:
         raise NotImplementedError("only sd_version: iclight is ported")
     if str(config.get_path("data.scene_type", "video")).lower() != "video":
         raise NotImplementedError("only data.scene_type: video is ported")
+    flow_model = str(config.get_path("data.flow_model", "farneback"))
+    if config.get_path("post_opt.apply_opt", True) and flow_model != "farneback":
+        raise NotImplementedError(
+            f"data.flow_model: {flow_model} is not ported yet (ROADMAP A9: its "
+            "checkpoint is not in the repository); pass data.flow_model=farneback")
     steps = config.get_path("generation.n_timesteps", 25) or 25
     model_dir = config.get("model_dir")
     if model_dir and Path(str(model_dir)).exists():
@@ -61,7 +68,7 @@ def main(argv=None, device: str = "cuda") -> int:
                   "TCLIGHT_TINY=1 (checkpoint loading is not ported yet)")
         return 2
 
-    parser = VideoDataParser(config.data)
+    parser = make_data_parser(config.data)
     frame_ids = get_frame_ids(config.get_path("generation.frame_range"),
                               config.get_path("generation.frame_ids"),
                               n_total=count_frames(config.data.rgb_path))

@@ -1,6 +1,6 @@
-"""The port stands alone: importing every module of tclight_torch loads
-neither JAX nor the JAX package, and its entry points refuse to run on the
-CPU unless asked to."""
+"""The port stands alone: importing every module of tclight_torch (the
+post-optimization's included) loads neither JAX, optax nor the JAX
+package, and its entry points refuse to run on the CPU unless asked to."""
 
 import os
 import subprocess
@@ -19,9 +19,15 @@ names = [m.name for m in pkgutil.walk_packages(tclight_torch.__path__, "tclight_
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "tclight_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "tclight_tpu"))
 print(len(names), "modules")
 assert not bad, bad
+# the post-optimization slice's modules are among those imported
+slice2 = {"tclight_torch.ops." + m for m in (
+    "color", "schedules", "resample", "warp_kernel", "flow", "banded_gather", "losses")}
+slice2 |= {"tclight_torch.native", "tclight_torch.data.flow_backends",
+           "tclight_torch.data.dataparsers", "tclight_torch.pipeline.postopt"}
+assert slice2 <= set(names), sorted(slice2 - set(names))
 """
 
 
@@ -30,7 +36,7 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert int(proc.stdout.split()[0]) >= 20
+    assert int(proc.stdout.split()[0]) >= 31
 
 
 def _require_no_cuda():

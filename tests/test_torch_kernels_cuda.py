@@ -1,8 +1,12 @@
 """The port's hand-written CUDA kernels against their plain versions, on the
 card, at small and ragged shapes: head dims that need padding to the MMA
 depth, kv and q lengths that end inside a tile, dst counts that end inside
-a tile, channel counts on every shared-memory path of the matcher, and
-exact ties. Every test here needs a CUDA device and skips without one; on
+a tile, channel counts on every shared-memory path of the matcher, exact
+ties; for the window warp (K3) frames that end inside a tile, flows that
+leave the frame and tap ranges wider than one staged chunk; for the banded
+gathers (K4, K5) masked entries, int16 and int32 offsets, windows that run
+past the table's end and K = 2, 3 windows. Every test here needs a CUDA
+device and skips without one; on
 the card run them with
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py -q
@@ -12,14 +16,18 @@ machine does not need). Tolerances: K1's output is bf16 (2^-8 relative)
 and its p.v product takes p in bf16, so it is held to 2e-2 of the largest
 output; K2 sums exact bf16 products in f32 in another order than the
 plain version, so its maxima agree to 1e-4 and an index may differ only
-where the best two scores are that close."""
+where the best two scores are that close. K3 sums the same f32 taps in
+another order (and with fused multiply-adds), within 1e-5 of values of
+order 1 per unit of window taps; K4 and K5 copy rows and agree exactly."""
 
 import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
 
-from tclight_torch.ops import attention, kernels, match_kernel
+from tclight_torch.ops import attention, banded_gather, kernels, match_kernel, warp_kernel
+
+pytestmark = pytest.mark.cuda
 
 
 @pytest.fixture
@@ -104,3 +112,120 @@ def test_match_kernel_ties_pick_first_b_major(cuda):
     bt[1, 5] = 1.0
     _, i = match_kernel.online_argmax_scores(a, bt)
     np.testing.assert_array_equal(i.cpu().numpy(), 200)
+
+
+@pytest.mark.parametrize("n,h,w,c,radius,fmax,mode", [
+    (2, 37, 70, 3, 4, 3.5, "bicubic"),     # tiles ragged in both axes
+    (1, 64, 96, 3, 24, 24.0, "bicubic"),   # tap range wider than a chunk
+    (3, 33, 40, 2, 8, 12.0, "bicubic"),    # flows beyond the radius: taps dropped
+    (1, 50, 45, 1, 4, 4.0, "bilinear"),
+    (2, 32, 32, 4, 0, 0.4, "bicubic"),     # radius 0
+])
+@pytest.mark.parametrize("adjoint", [False, True])
+def test_window_warp_kernel_matches_plain(cuda, n, h, w, c, radius, fmax, mode, adjoint):
+    x = torch.rand(n, h, w, c, device="cuda", generator=cuda)
+    f = (torch.rand(n, h, w, 2, device="cuda", generator=cuda) * 2 - 1) * fmax
+    before = kernels.STATS["window_warp"].launches
+    out = warp_kernel.window_warp(x, f, radius, mode, adjoint)
+    torch.cuda.synchronize()
+    assert kernels.STATS["window_warp"].launches == before + 1
+    ref = warp_kernel.window_warp_plain(x, f, radius, mode, adjoint)
+    assert out.shape == ref.shape
+    assert (out - ref).abs().max().item() <= 1e-5 * (2 * radius + 5)
+
+
+def test_window_warp_autograd_runs_the_adjoint_kernel(cuda):
+    x = torch.rand(2, 40, 50, 3, device="cuda", generator=cuda, requires_grad=True)
+    f = torch.randn(2, 40, 50, 2, device="cuda", generator=cuda) * 2
+    before = kernels.STATS["window_warp"].launches
+    warp_kernel.warp_flow_window(x, f, 8).square().sum().backward()
+    assert kernels.STATS["window_warp"].launches == before + 2
+    ref = warp_kernel.window_warp_plain(
+        2 * warp_kernel.window_warp_plain(x.detach(), f, 8), f, 8, adjoint=True)
+    assert (x.grad - ref).abs().max().item() <= 1e-4
+
+
+def _ids(n, h, w, shift=3):
+    base = np.arange(h * w).reshape(h, w)
+    return np.stack([np.roll(base, -shift * t, axis=1) for t in range(n)]).reshape(n, h * w)
+
+
+@pytest.mark.parametrize("offs_dtype", [np.int16, np.int32])
+@pytest.mark.parametrize("c", [1, 3, 4])
+def test_banded_gather_kernel_matches_plain(cuda, offs_dtype, c):
+    ids = _ids(3, 8, 700).copy()
+    ids[1, ::37] += 5000  # window misses: overflow entries, offs -1
+    ids[0, 20:90] = -1    # masked entries
+    seg, st, offs, _, _, ok = banded_gather.plan_banded_gather_rows_robust(ids)
+    assert ok
+    p = int(ids.max()) + 1  # the last windows run past the table's end
+    table = torch.randn(p, c, device="cuda", generator=cuda)
+    st_t = torch.from_numpy(st.reshape(-1)).cuda()
+    offs_t = torch.from_numpy(offs.reshape(-1, 512).astype(offs_dtype)).cuda()
+    before = kernels.STATS["banded_gather"].launches
+    out = banded_gather.banded_gather(table, st_t, offs_t, 2048)
+    torch.cuda.synchronize()
+    assert kernels.STATS["banded_gather"].launches == before + 1
+    assert torch.equal(out, banded_gather.banded_gather_plain(table, st_t, offs_t))
+
+
+@pytest.mark.parametrize("k", [2, 3])
+def test_banded_gather_multi_kernel_matches_plain(cuda, k):
+    n, h, w = 3, 8, 512
+    hw = h * w
+    ids = _ids(n, h, w).copy()
+    for g in range(1, k):
+        m = np.zeros(hw, bool)
+        m[g::k] = True
+        gen = np.arange(m.sum()) + g * (hw + 40_000) + 177
+        for t in range(1, n):
+            ids[t, np.roll(m, 3 * t * g)] = gen
+    ids[0, 40:50] = -1
+    seg, st, offs, _, _, ok = banded_gather.plan_banded_gather_rows_multi(ids, n_windows=k)
+    assert ok
+    table = torch.randn(int(ids.max()) + 1, 3, device="cuda", generator=cuda)
+    st_t = torch.from_numpy(st.reshape(-1, k)).cuda()
+    offs_t = torch.from_numpy(offs.reshape(-1, 512)).cuda()
+    before = kernels.STATS["banded_gather_multi"].launches
+    out = banded_gather.banded_gather_multi(table, st_t, offs_t, 2048)
+    torch.cuda.synchronize()
+    assert kernels.STATS["banded_gather_multi"].launches == before + 1
+    assert torch.equal(out, banded_gather.banded_gather_plain_multi(table, st_t, offs_t, 2048))
+
+
+@pytest.mark.parametrize("nwin", [1, 2])
+def test_banded_gather_kernels_write_rows_past_their_windows(cuda, nwin):
+    """Offsets no staged window holds: K4 reads them from the table, as the
+    plain version does, and K5 gives zero rows. The output's memory held
+    NaNs before, so a row left unwritten would show."""
+    window, nb = 256, 6
+    table = torch.randn(nb * 300 + 4 * window, 3, device="cuda", generator=cuda)
+    starts = torch.arange(0, nb * 256, 256, dtype=torch.int32, device="cuda")
+    if nwin > 1:
+        starts = torch.stack([starts, starts + 1000], dim=1)
+    offs = torch.randint(-1, nwin * window, (nb, 512), device="cuda", generator=cuda)
+    offs[:, ::5] = nwin * window + torch.arange(0, 103, device="cuda")[: offs[:, ::5].shape[1]]
+    offs = offs.to(torch.int32)
+    # a freed block of NaNs of the output's size, which the caching
+    # allocator hands to the kernel's output
+    nan = torch.full((nb, 512, 3), float("nan"), device="cuda")
+    del nan
+    if nwin == 1:
+        out = banded_gather.banded_gather(table, starts, offs, window)
+        ref = banded_gather.banded_gather_plain(table, starts, offs)
+    else:
+        out = banded_gather.banded_gather_multi(table, starts, offs, window)
+        ref = banded_gather.banded_gather_plain_multi(table, starts, offs, window)
+        assert (ref[:, ::5] == 0).all()
+    assert torch.equal(out, ref)
+
+
+def test_banded_gather_refuses_a_misaligned_table(cuda):
+    table = torch.randn(4097, 3, device="cuda", generator=cuda)[1:]
+    assert table.is_contiguous() and table.data_ptr() % 16
+    starts = torch.zeros(1, dtype=torch.int32, device="cuda")
+    offs = torch.zeros(1, 512, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="aligned"):
+        banded_gather.banded_gather(table, starts, offs, 2048)
+    with pytest.raises(ValueError, match="aligned"):
+        banded_gather.banded_gather_multi(table, starts[:, None], offs, 2048)
