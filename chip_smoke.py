@@ -9,25 +9,39 @@ Phases, one line each:
   3. K1 flash attention against its plain version at the UNet's
      self-attention shapes of a 960x720 run (levels 0, 1 and 2);
   4. K2 ToMe matcher against its plain version at the level-0 merge shapes;
-  5. reference: the tiny stack end to end on a small input, post-
+  5. K6 and K7, the int8 flash attentions (int8 q.k^T; K7 also int8 p.v),
+     against their plain version on the same inputs at the xy shapes of
+     phase 3 and at the yt pass's level-0 and level-1 shapes of a 30-frame
+     960x720 run, beside K1 and SDPA at the same shapes and the
+     quantization error against the fp attention;
+  6. reference: the tiny stack end to end on a small input, post-
      optimization included (3 + 3 epochs), on the card in bf16 against the
      CPU in f32 (`check_small_reference`);
-  6. the main path: `python -m tclight_torch.run` on the full-width random
+  7. the main path: `python -m tclight_torch.run` on the full-width random
      SD1.5 IC-Light stack, 8 frames of a synthetic rolling video at
      960x720, 4 DPM++ steps, then the post-optimization on Farneback flows
      (35 exposure + 70 UVT epochs); checks the mp4, that the path launched
      K1-K4, finite loss histories, the banded UVT route, and that the
      output's warp L1 under the known roll flow is below the same path's
      with the post-optimization off;
-  7. K3 window warp (forward and adjoint) against its plain version at the
+  8. K3 window warp (forward and adjoint) against its plain version at the
      post-opt batch (16, 720, 960, 3), with the main video's flows and with
      random flows; K4 banded gather against its plain version on the main
      path's UVT plans, both directions;
-  8. K5: the K-window gather against its plain version on synthetic
+  9. K5: the K-window gather against its plain version on synthetic
      turnover-heavy track ids, and its own path: `run_uvt` on those ids;
-  9. a traced run of 2 sampling steps and of 2 + 2 post-opt epochs gives
-     the device time per kernel group (torch.profiler);
- 10. one JSON line with every kernel's launches, error and times.
+ 10. yt-int8: `tclight_torch.run.main` on configs/examples/tclight_navsim.yaml's
+     settings (alpha_t 0.4, 30 frames at 960x720, of the synthetic video)
+     with generation.attn_qk_int8=true, 4 steps, post-optimization off:
+     a 30-frame mp4, K6 launched at xy and at yt shapes, K1 never, K2 yes;
+ 11. int8 / int8pv: the 8-frame main config with the post-optimization
+     off and attn_qk_int8 (then attn_pv_int8 too): K6 (then K7) launched,
+     K1 never, and the frames against the fp run's (max abs difference,
+     PSNR);
+ 12. traced runs of 2 sampling steps (fp, then int8 q.k^T), of one step
+     of the yt-int8 config and of 2 + 2 post-opt epochs give the device
+     time per kernel group (torch.profiler);
+ 13. one JSON line with every kernel's launches, error and times.
 The last line is {"ok": true, "device": {...}}. Any failed phase exits
 nonzero. Needs the repository around it and a CUDA device.
 """
@@ -36,6 +50,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -51,10 +66,12 @@ OUT = REPO / "build" / "chip_smoke"  # videos and run outputs (ignored by git)
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32
 # outside the tensor cores, HBM3
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
 WIDTH, HEIGHT, FRAMES, STEPS, CHUNK = 960, 720, 8, 4, 4
+YT_FRAMES = 30  # configs/examples/tclight_navsim.yaml: frame_range [0, 30, 1]
 POST_BATCH = 16  # the post-opt batch: the 8 frames padded to batch_size
 LOCAL_RATIO, GLOBAL_RATIO, HEADS = 0.6, 0.5, 8
 PROMPT = "warm golden hour sunlight, photoreal"
@@ -94,24 +111,32 @@ def timed_once(fn) -> tuple[object, float]:
     return out, start.elapsed_time(end)
 
 
-def attention_shapes() -> list[tuple[str, int, int, int]]:
-    """(level, batch, tokens, head dim) of the UNet self-attentions that go
-    to K1 at 960x720: levels 0 and 1 merged (local chain + global bank),
-    level 2 unmerged per frame (skv > 512)."""
+def merged_tokens(tnum: int) -> tuple[int, int]:
+    """Tokens of a merged self-attention of a chunk of CHUNK frames of
+    `tnum` tokens each: after the local merge chain alone (a plan's first
+    slot), and with the global bank merged in (every later slot)."""
     from tclight_torch.ops.tome import plan_local_levels
 
-    lat_h, lat_w = HEIGHT // 8, WIDTH // 8
+    last = plan_local_levels(CHUNK, tnum, LOCAL_RATIO)[-1]
+    local = last.unm_pre + (last.n_src - last.r) + last.n_dst_frames * tnum
+    return local, local + local - min(local, int(local * GLOBAL_RATIO))
+
+
+def attention_shapes(lat_h: int = HEIGHT // 8, lat_w: int = WIDTH // 8,
+                     prefix: str = "") -> list[tuple[str, int, int, int]]:
+    """(level, batch, tokens, head dim) of the UNet self-attentions that go
+    to the flash kernels (skv > 512) for latent images of lat_h x lat_w:
+    levels 0 and 1 merged (local chain + global bank), level 2 unmerged per
+    frame. The xy pass of a 960x720 run has 90 x 120 latent images; its yt
+    pass has (frames x 90) ones, one per latent column."""
     out = []
     h, w = lat_h, lat_w
     for level, dim in enumerate((320, 640, 1280)):
         tnum = h * w
         if level < 2:  # merging is active up to downsample 2
-            last = plan_local_levels(CHUNK, tnum, LOCAL_RATIO)[-1]
-            local = last.unm_pre + (last.n_src - last.r) + last.n_dst_frames * tnum
-            tokens = local + local - min(local, int(local * GLOBAL_RATIO))
-            out.append((f"L{level}", 2, tokens, dim // HEADS))
-        else:
-            out.append((f"L{level}", 2 * CHUNK, tnum, dim // HEADS))
+            out.append((f"{prefix}L{level}", 2, merged_tokens(tnum)[1], dim // HEADS))
+        elif tnum > 512:
+            out.append((f"{prefix}L{level}", 2 * CHUNK, tnum, dim // HEADS))
         h, w = (h - 2) // 2 + 1, (w - 2) // 2 + 1
     return out
 
@@ -147,6 +172,68 @@ def check_flash(gen: torch.Generator) -> dict:
             raise SystemExit(f"K1 disagrees with its plain version at {row['shape']}")
         rows.append(row)
         del q, k, v, out, ref, qt, kt, vt
+        torch.cuda.empty_cache()
+    return {"rows": rows}
+
+
+def check_int8(gen: torch.Generator, pv_int8: bool) -> dict:
+    """K6 (pv_int8 False) or K7 against the plain int8 version on the same
+    bf16 inputs, at the xy shapes and the 30-frame yt pass's shapes. `ms`
+    is the wrapper's (the quantization pre-pass, plain torch ops, and the
+    kernel), `prepass_ms` the pre-pass alone. Beside them K1 and SDPA at
+    the same shape (the library has no call for the quantized function),
+    and the quantization error of the plain version against the fp
+    attention."""
+    from tclight_torch.ops.attention import (flash_attention_cuda,
+                                             flash_attention_int8_cuda,
+                                             flash_attention_int8_plain,
+                                             flash_attention_plain, int8_prepass)
+
+    tag = "K7" if pv_int8 else "K6"
+    rows = []
+    shapes = attention_shapes() + attention_shapes(YT_FRAMES, HEIGHT // 8, "yt-")
+    for level, b, s, d in shapes:
+        q, k, v = (torch.randn(b, s, HEADS, d, device="cuda", generator=gen,
+                               dtype=torch.bfloat16) for _ in range(3))
+        scale = d ** -0.5
+        out = flash_attention_int8_cuda(q, k, v, scale, pv_int8)
+        torch.cuda.synchronize()
+        ref, p_ms = timed_once(lambda: flash_attention_int8_plain(q, k, v, scale, pv_int8))
+        ref = ref.float()
+        fp = flash_attention_plain(q.float(), k.float(), v.float(), scale)
+        err = (out.float() - ref).abs().max().item()
+        # bf16 output rounding and exp2 rounding, as K1; K6 also takes p in
+        # bf16 for p.v, and a K7 p8 at a rounding tie moves by one step
+        # (1/127 of its block's max)
+        tol = 2e-2 * ref.abs().max().item()
+        quant_err = (ref - fp).abs().max().item() / fp.abs().max().item()
+        kernel_fp_err = (out.float() - fp).abs().max().item() / fp.abs().max().item()
+        ok = math.isfinite(err) and err <= tol
+        reps = 3 if s > 20000 else 10
+        k_ms = cuda_ms(lambda: flash_attention_int8_cuda(q, k, v, scale, pv_int8), reps)
+        pre_ms = cuda_ms(lambda: int8_prepass(q, k, v, pv_int8), reps)
+        k1_ms = cuda_ms(lambda: flash_attention_cuda(q, k, v, scale), reps)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale), reps)
+        # the kernel's operands cross memory once: q8, k8 (head dim padded
+        # to 32) and v8 (to 16) or v in bf16, the scales, the bf16 output;
+        # q.k^T at the int8 peak, p.v at the int8 (K7) or bf16 (K6) peak
+        dk, dv, bh = -(-d // 32) * 32, -(-d // 16) * 16, b * HEADS
+        n_bytes = (bh * s * dk * 2 + (bh * s * dv if pv_int8 else 2 * v.numel())
+                   + 2 * q.numel() + 4 * bh * (s + -(-s // 1024) + (dv if pv_int8 else 0)))
+        prod = 2.0 * bh * s * s * d
+        t_ops = (prod / PEAK_INT8_OPS + prod / (PEAK_INT8_OPS if pv_int8 else PEAK_BF16_FLOPS)) * 1e3
+        t_bytes = n_bytes / PEAK_BYTES * 1e3
+        b_ms, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+        row = dict(shape=f"{level} B={b} S={s} H={HEADS} D={d}", max_abs_err=err, tol=tol,
+                   quant_rel_err_plain_vs_fp=quant_err, rel_err_kernel_vs_fp=kernel_fp_err,
+                   ms=k_ms, prepass_ms=pre_ms, plain_ms=p_ms, library_ms=None,
+                   k1_ms=k1_ms, sdpa_ms=sdpa_ms, bound_ms=b_ms, bound_by=by)
+        phase(tag, ok=ok, **row)
+        if not ok:
+            raise SystemExit(f"{tag} disagrees with its plain version at {row['shape']}")
+        rows.append(row)
+        del q, k, v, out, ref, fp, qt, kt, vt
         torch.cuda.empty_cache()
     return {"rows": rows}
 
@@ -387,6 +474,114 @@ def run_main_path() -> dict:
             "window_warp": warp[0], "banded_gather": band[0]}
 
 
+def read_frames(frames_dir: Path) -> np.ndarray:
+    """The run's saved PNG frames, (N, H, W, 3) in [0, 1]."""
+    import cv2
+
+    files = sorted(frames_dir.glob("*.png"))
+    out = np.stack([cv2.cvtColor(cv2.imread(str(f)), cv2.COLOR_BGR2RGB) for f in files])
+    return out.astype(np.float32) / 255.0
+
+
+def run_yt_int8() -> dict:
+    """The yt pass with int8 attention: configs/examples/tclight_navsim.yaml
+    (alpha_t 0.4, 30 frames at 960x720) on a 30-frame synthetic video, with
+    attn_qk_int8, 4 steps and the post-optimization off. The launch counts
+    are set to 0 just before and read just after."""
+    import yaml
+
+    from tclight_torch.ops import kernels
+    from tclight_torch.run import main
+
+    make_video(OUT / "vid30", YT_FRAMES)
+    work = OUT / "wd_yt"
+    args = ["--config", str(REPO / "configs" / "examples" / "tclight_navsim.yaml"),
+            "-i", str(OUT / "vid30"), "--full-width-random", "post_opt.apply_opt=false",
+            "generation.attn_qk_int8=true", f"generation.n_timesteps={STEPS}",
+            "generation.save_frame=true", f"work_dir={work}"]
+    kernels.reset_stats()
+    t0 = time.perf_counter()
+    rc = main(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stats = {k: (v.launches, dict(v.shapes)) for k, v in kernels.STATS.items()}
+    if rc != 0:
+        raise SystemExit(f"yt-int8 run exited {rc}")
+    mp4s = sorted(work.rglob("output.mp4"))
+    if len(mp4s) != 1:
+        raise SystemExit(f"expected one output.mp4, found {mp4s}")
+    n, shape = read_mp4(mp4s[0])
+    cfg = yaml.safe_load((mp4s[0].parent / "config.yaml").read_text())
+    frames = read_frames(mp4s[0].parent / "frames")
+    k6, k7 = stats["flash_attention_int8"], stats["flash_attention_int8pv"]
+    sq_seen = {key[0] for key in k6[1]}
+    xy_l0 = set(merged_tokens((HEIGHT // 8) * (WIDTH // 8)))
+    yt_l0 = set(merged_tokens(YT_FRAMES * (HEIGHT // 8)))
+    ok = (n == YT_FRAMES and shape == (HEIGHT, WIDTH, 3) and cfg["generation"]["alpha_t"] > 0
+          and k6[0] > 0 and bool(sq_seen & xy_l0) and bool(sq_seen & yt_l0)
+          and stats["flash_attention"][0] == 0 and k7[0] == 0
+          and stats["online_argmax_scores"][0] > 0
+          and frames.shape == (YT_FRAMES, HEIGHT, WIDTH, 3) and float(frames.std()) > 0)
+    st = cfg["stage_times"]
+    phase("yt-int8", ok=ok, frames=n, frame_shape=shape, alpha_t=cfg["generation"]["alpha_t"],
+          wall_s=wall, sampling_s=st["sampling"], step_s=st["step_times"],
+          encode_s=st["encode"], decode_s=st["decode"], k6_launches=k6[0],
+          k6_xy_l0=sorted(sq_seen & xy_l0), k6_yt_l0=sorted(sq_seen & yt_l0),
+          k6_shapes=sorted(k6[1].items()), k1_launches=stats["flash_attention"][0],
+          k2_launches=stats["online_argmax_scores"][0])
+    if not ok:
+        raise SystemExit("yt-int8 run check failed")
+    return {"flash_attention_int8": k6[0]}
+
+
+def run_int8_variants() -> dict:
+    """The 8-frame main config with the post-optimization off, with int8
+    q.k^T (K6), then with int8 q.k^T and p.v (K7); each frame set against
+    the fp run's (`wd_off` of the main path: same seed, same noise). The
+    launch counts are set to 0 before each run and read after it."""
+    import yaml
+
+    from tclight_torch.ops import kernels
+    from tclight_torch.run import main
+
+    fp_frames = read_frames(next((OUT / "wd_off").rglob("output.mp4")).parent / "frames")
+    launches = {}
+    for tag, flags, name in (("int8", ["generation.attn_qk_int8=true"], "flash_attention_int8"),
+                             ("int8pv", ["generation.attn_qk_int8=true",
+                                         "generation.attn_pv_int8=true"],
+                              "flash_attention_int8pv")):
+        work = OUT / f"wd_{tag}"
+        kernels.reset_stats()
+        t0 = time.perf_counter()
+        rc = main(main_args(work, False) + flags)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        stats = {k: v.launches for k, v in kernels.STATS.items()}
+        if rc != 0:
+            raise SystemExit(f"{tag} run exited {rc}")
+        out_dir = next(work.rglob("output.mp4")).parent
+        n, _ = read_mp4(out_dir / "output.mp4")
+        frames = read_frames(out_dir / "frames")
+        st = yaml.safe_load((out_dir / "config.yaml").read_text())["stage_times"]
+        diff = np.abs(frames - fp_frames)
+        psnr = 10 * math.log10(1.0 / max(float((diff ** 2).mean()), 1e-12))
+        others = [k for k in ("flash_attention", "flash_attention_int8", "flash_attention_int8pv")
+                  if k != name]
+        ok = (n == FRAMES and stats[name] > 0 and all(stats[k] == 0 for k in others)
+              and frames.shape == fp_frames.shape and float(frames.std()) > 0)
+        steady = float(np.mean(st["step_times"][1:]))
+        phase(tag, ok=ok, frames=n, wall_s=wall, step_s=st["step_times"],
+              step_steady_s=steady, launches=stats[name],
+              other_flash_launches={k: stats[k] for k in others},
+              frames_max_abs_diff_vs_fp=float(diff.max()),
+              frames_mean_abs_diff_vs_fp=float(diff.mean()), psnr_vs_fp_db=psnr,
+              note="frames are the saved 8-bit PNGs of both runs")
+        if not ok:
+            raise SystemExit(f"{tag} run check failed")
+        launches[name] = stats[name]
+    return launches
+
+
 def post_batch() -> np.ndarray:
     """Frame indices of the main path's post-opt batch: its 8 frames, padded
     to the batch size with frame 0 as the epochs pad them."""
@@ -566,7 +761,8 @@ def check_turnover(gen: torch.Generator) -> dict:
     return {"rows": rows, "launches": launches}
 
 
-KERNEL_GROUPS = (("K1 flash_attention", ("flash_fwd_kernel",)),
+KERNEL_GROUPS = (("K6/K7 flash_attention_int8", ("flash_int8_kernel",)),
+                 ("K1 flash_attention", ("flash_fwd_kernel",)),
                  ("K2 match_argmax", ("match_argmax_kernel",)),
                  ("K3 window_warp", ("window_warp_kernel",)),
                  ("K5 banded_gather_multi", ("banded_gather_multi_kernel",)),
@@ -614,8 +810,9 @@ def profile_window(tag: str, fn, units: int, unit: str) -> None:
 
 def profile_main_path() -> None:
     """Traced runs on the main path's config and inputs: 2 sampling steps,
-    then 2 exposure and 2 UVT epochs (one batch of 16 each) on the main
-    video's flows, masks and tracks."""
+    the same 2 steps with int8 q.k^T (K6), one step of the yt-int8 run's
+    config (30 frames, the yt pass, K6), then 2 exposure and 2 UVT epochs
+    (one batch of 16 each) on the main video's flows, masks and tracks."""
     from tclight_torch.config import load_config
     from tclight_torch.data.dataparsers import VideoDataParser
     from tclight_torch.pipeline import postopt
@@ -626,14 +823,32 @@ def profile_main_path() -> None:
     config = load_config([a for a in main_args(OUT / "wd_prof", True)
                           if a != "--full-width-random"])
     config.set_path("generation.n_timesteps", steps)
-    gen = Generator(build_full_width_random(num_inference_steps=steps), config,
-                    data_parser=VideoDataParser(config.data))
+    models = build_full_width_random(num_inference_steps=steps)
+    gen = Generator(models, config, data_parser=VideoDataParser(config.data))
     frames = gen.data_parser.load_video(frame_ids=list(range(FRAMES)))
     conds = gen.encode_imgs_batch(frames)
     cond, uncond = gen.encode_prompt_pair(PROMPT, gen.negative_prompt)
     x = gen.prepare_init_noise(FRAMES, HEIGHT, WIDTH,
                                torch.Generator(device="cuda").manual_seed(0))
     profile_window("profile", lambda: gen.ddim_sample(x, (uncond, cond), conds), steps, "step")
+    config.set_path("generation.attn_qk_int8", True)
+    gen8 = Generator(models, config)
+    profile_window("profile-int8", lambda: gen8.ddim_sample(x, (uncond, cond), conds), steps,
+                   "step")
+    yt_cfg = load_config(["--config", str(REPO / "configs" / "examples" / "tclight_navsim.yaml"),
+                          "-i", str(OUT / "vid30"), "generation.attn_qk_int8=true",
+                          "generation.n_timesteps=1", "post_opt.apply_opt=false"])
+    gen_yt = Generator(models, yt_cfg, data_parser=VideoDataParser(yt_cfg.data))
+    conds_yt = gen_yt.encode_imgs_batch(gen_yt.data_parser.load_video(
+        frame_ids=list(range(YT_FRAMES))))
+    embeds = tuple(reversed(gen_yt.encode_prompt_pair(PROMPT, gen_yt.negative_prompt)))
+    embeds_t = tuple(reversed(gen_yt.encode_prompt_pair(gen_yt.prompt_t,
+                                                        gen_yt.negative_prompt_t)))
+    x_yt = gen_yt.prepare_init_noise(YT_FRAMES, HEIGHT, WIDTH,
+                                     torch.Generator(device="cuda").manual_seed(0))
+    profile_window("profile-yt-int8", lambda: gen_yt.ddim_sample(x_yt, embeds, conds_yt,
+                                                                 embeds_t=embeds_t), 1, "step")
+    del gen8, gen_yt, conds_yt, x_yt, models
 
     rgbs, _, _, _, past, masks = gen.data_parser.load_data(list(range(FRAMES)), device="cuda")
     parser = gen.data_parser
@@ -667,6 +882,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(REPO))
+    os.chdir(REPO)  # the example configs name their base config from the root
     from tclight_torch.ops import kernels
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -689,6 +905,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     flash = check_flash(gen)
     match = check_match(gen)
+    int8 = {pv: check_int8(gen, pv) for pv in (False, True)}
     plain_err, dev_err = check_small_reference()
     # the CPU's bf16 run measures the error that bf16 weights and
     # activations give this stack; the card rounds its bf16 convolutions,
@@ -702,6 +919,9 @@ def main() -> int:
     warp = check_warp(gen)
     banded = check_banded(gen)
     turnover = check_turnover(gen)
+    launches.update(run_yt_int8())
+    int8_launches = run_int8_variants()
+    launches["flash_attention_int8pv"] = int8_launches["flash_attention_int8pv"]
     profile_main_path()
 
     print(json.dumps({"kernels": [
@@ -720,6 +940,15 @@ def main() -> int:
         kernel_entry("banded_gather_multi", "tclight_torch/csrc/banded_gather.cu",
                      "tclight_tpu/ops/banded_gather.py:465", turnover["launches"],
                      turnover["rows"], path="run_uvt on turnover-heavy ids"),
+        kernel_entry("flash_attention_int8", "tclight_torch/csrc/flash_attention_int8.cu",
+                     "tclight_tpu/ops/attention.py:180", launches["flash_attention_int8"],
+                     int8[False]["rows"],
+                     path=f"yt-int8: navsim settings, {YT_FRAMES} frames, alpha_t 0.4, "
+                          "attn_qk_int8"),
+        kernel_entry("flash_attention_int8pv", "tclight_torch/csrc/flash_attention_int8.cu",
+                     "tclight_tpu/ops/attention.py:227", launches["flash_attention_int8pv"],
+                     int8[True]["rows"],
+                     path=f"int8pv: main config, {FRAMES} frames, attn_qk_int8 + attn_pv_int8"),
     ]}), flush=True)
     print(f"nvidia-smi: {smi}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
 // Small PTX helpers shared by the port's kernels: cp.async copies, ldmatrix
-// fragment loads and the bf16 m16n8k16 tensor-core product (sm_80+).
+// fragment loads, the bf16 m16n8k16 and the int8 m16n8k32 tensor-core
+// products (sm_80+).
 //
 // Fragment layouts of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16x16, row major): a0 = A[g][2t..2t+1], a1 = A[g+8][2t..],
@@ -46,6 +47,19 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a * b (int8 inputs, exact int32 accumulation), m16n8k32. In bytes
+// its fragments have the bf16 m16n8k16 layout above: a0 = A[g][4t..4t+3],
+// a1 = A[g+8][4t..], a2 = A[g][16+4t..], a3 = A[g+8][16+4t..];
+// b0 = B[4t..4t+3][g], b1 = B[16+4t..][g]; C as the f32 C above.
+__device__ __forceinline__ void mma_s8(int32_t (&d)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 

@@ -63,7 +63,8 @@ class UNetConfig:
 
 class Attention(nn.Module):
     """Multi-head attention: plain for short KV (skv <= 512), the flash
-    kernel otherwise."""
+    kernel of `backend` otherwise (None, "int8" or "int8pv"; see
+    ops/attention.py)."""
 
     def __init__(self, dim: int, heads: int, dim_head: int,
                  context_dim: Optional[int] = None):
@@ -75,8 +76,8 @@ class Attention(nn.Module):
         self.to_v = nn.Linear(context_dim or dim, inner, bias=False)
         self.to_out_0 = nn.Linear(inner, inner)
 
-    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
+                backend: Optional[str] = None) -> torch.Tensor:
         ctx = x if context is None else context
         b, sq = x.shape[:2]
         skv = ctx.shape[1]
@@ -86,7 +87,7 @@ class Attention(nn.Module):
         if skv <= 512:
             out = dot_product_attention(q, k, v)
         else:
-            out = flash_attention(q, k, v)
+            out = flash_attention(q, k, v, backend=backend)
         return self.to_out_0(out.reshape(b, sq, self.heads * self.dim_head))
 
 
@@ -106,7 +107,7 @@ class BasicTransformerBlock(nn.Module):
     def forward(self, x, context, tome_spec: Optional[ToMeSpec],
                 merge_active: bool, randf: int, flip: bool,
                 bank: Optional[torch.Tensor], use_global: bool,
-                dup_after_attn1: bool = False):
+                dup_after_attn1: bool = False, attn_backend: Optional[str] = None):
         h = self.norm1(x)
         new_bank = bank
         spec = tome_spec
@@ -127,15 +128,15 @@ class BasicTransformerBlock(nn.Module):
                     flip, spec.align_batch)
                 g_rows = tome.global_unmerge_rows(mi_g, flip, l_len)
                 new_bank = tome.gather_rows(merged, g_rows)
-                attn_out = self.attn1(merged)
+                attn_out = self.attn1(merged, backend=attn_backend)
                 rows = tome.compose_rows(g_rows, rows)
             else:
                 if spec.merge_global:
                     new_bank = local_merged
-                attn_out = self.attn1(local_merged)
+                attn_out = self.attn1(local_merged, backend=attn_backend)
             attn_out = tome.split_frame(tome.gather_rows(attn_out, rows), f)
         else:
-            attn_out = self.attn1(h)
+            attn_out = self.attn1(h, backend=attn_backend)
         x = x + attn_out
         if dup_after_attn1:
             # CFG-prefix dedup: everything so far ran on the shared half;
@@ -145,7 +146,7 @@ class BasicTransformerBlock(nn.Module):
             x = torch.cat([x, x], dim=0)
             if new_bank is not None:
                 new_bank = torch.cat([new_bank, new_bank], dim=0)
-        x = x + self.attn2(self.norm2(x), context)
+        x = x + self.attn2(self.norm2(x), context, backend=attn_backend)
         x = x + self.ff(self.norm3(x))
         return x, new_bank
 
@@ -163,7 +164,8 @@ class Transformer2D(nn.Module):
         self.proj_out = nn.Conv2d(channels, channels, 1)
 
     def forward(self, x, context, tome_spec, merge_active, randf, flip, bank,
-                use_global, dup_after_attn1: bool = False):
+                use_global, dup_after_attn1: bool = False,
+                attn_backend: Optional[str] = None):
         b, c, hh, ww = x.shape
         residual = x
         z = self.proj_in(self.norm(x))
@@ -174,7 +176,7 @@ class Transformer2D(nn.Module):
             bank = bank[: bank.shape[0] // 2]
         z, new_bank = self.transformer_blocks_0(
             z, context, tome_spec, merge_active, randf, flip, bank, use_global,
-            dup_after_attn1)
+            dup_after_attn1, attn_backend)
         if dup_after_attn1:
             residual = torch.cat([residual, residual], dim=0)
         z = z.reshape(residual.shape[0], hh, ww, c).permute(0, 3, 1, 2)
@@ -185,7 +187,9 @@ class UNet2DCondition(nn.Module):
     """SD1.5-topology conditional UNet (cross-attention on every level but
     the last, plus mid), NHWC at the boundary, with ToMe plumbing.
 
-    forward(x, t, context, ...) -> (eps (B*F, H, W, C_out) f32, new_banks)."""
+    forward(x, t, context, ...) -> (eps (B*F, H, W, C_out) f32, new_banks).
+    `attn_backend` goes to every attention, as the JAX UNet threads its
+    field of that name."""
 
     def __init__(self, config: UNetConfig):
         super().__init__()
@@ -241,7 +245,7 @@ class UNet2DCondition(nn.Module):
                 tome_spec: Optional[ToMeSpec] = None, randf: int = 0,
                 flip: bool = False, banks: Optional[dict] = None,
                 use_global: bool = False, cfg_dedup: bool = False,
-                pnp_attn: bool = False, pnp_conv: bool = False,
+                attn_backend: Optional[str] = None, pnp_attn: bool = False, pnp_conv: bool = False,
                 down_residuals=None, mid_residual=None):
         if pnp_attn or pnp_conv:
             raise NotImplementedError("PnP injection is not ported")
@@ -275,7 +279,8 @@ class UNet2DCondition(nn.Module):
             active = self._merge_active(tome_spec, h.shape[-2], h.shape[-1],
                                         h0, w0)
             h, nb = getattr(self, key)(h, context, tome_spec, active, randf,
-                                       flip, banks.get(key), use_global, dup)
+                                       flip, banks.get(key), use_global, dup,
+                                       attn_backend)
             if nb is not None:
                 new_banks[key] = nb
             return h

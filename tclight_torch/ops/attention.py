@@ -9,6 +9,15 @@ Layout: (B, S, H, D) — batch, sequence, heads, head_dim. Inference only.
   (`csrc/flash_attention.cu`); on a CPU tensor, its plain version
   `flash_attention_plain`, the online-softmax loop over KV chunks of
   `_flash_attention_xla`.
+- `flash_attention(..., backend="int8" | "int8pv")`: the int8 variants.
+  A quantization pre-pass (plain torch ops, shared by both devices) makes
+  int8 Q with one scale per 1024-row block, int8 K (smoothed by its token
+  mean) with one scale per token, and for "int8pv" int8 V with one scale
+  per channel. On a CUDA tensor the kernels K6 (int8 QK^T, bf16 PV) and
+  K7 (int8 QK^T and PV, P quantized per (row, 1024-key block)) of
+  `csrc/flash_attention_int8.cu` run on it; on a CPU tensor
+  `flash_attention_int8_plain`, the dense emulation of
+  `_flash_attention_int8_xla`, one 1024-row block of queries at a time.
 
 K1 replaces the TPU kernel `_flash_kernel` of tclight_tpu/ops/attention.py.
 On the H100 it is bound by tensor-core operations: the level-0 UNet
@@ -16,7 +25,13 @@ self-attention (~35.6k tokens, 8 heads, head dim 40) is ~3.3 TFLOP on
 ~0.1 GB of q/k/v/o. Its design keeps the score tile, the softmax state and
 the output accumulator of each warp's 16 q rows in registers, runs both
 products on mma.sync bf16 tensor cores, pads the head dim only to 16, and
-double-buffers the k/v tiles with cp.async (details in the source).
+double-buffers the k/v tiles with cp.async (details in the source). K6 and
+K7 replace `_flash_kernel_qk_int8` and `_flash_kernel_int8_full` with the
+same layout and int8 mma.sync products (details in their source).
+
+The int8 products of the plain version are f32 matmuls of integer-valued
+tensors: exact, since |dot| <= 127^2 * 160 < 2^24, as long as TF32 is off
+for matmuls (the default).
 """
 
 from __future__ import annotations
@@ -25,11 +40,21 @@ import ctypes
 import math
 
 import torch
+import torch.nn.functional as F
 
 from tclight_torch.ops import kernels
 
 __all__ = ["dot_product_attention", "flash_attention", "flash_attention_plain",
-           "flash_attention_cuda"]
+           "flash_attention_cuda", "flash_attention_int8_plain",
+           "flash_attention_int8_cuda", "quantize_rows", "quantize_blocks",
+           "quantize_channels", "smooth_k", "BACKENDS"]
+
+BACKENDS = (None, "int8", "int8pv")
+QBLOCK = 1024  # rows of a Q scale block, and keys of a K7 P-scale block
+
+
+def _ceil_to(x: int, m: int) -> int:
+    return -(-x // m) * m
 
 
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -97,13 +122,213 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+# ------------------------------------------------------------ int8 variants
+
+
+def _div(x: torch.Tensor, d: float) -> torch.Tensor:
+    """x / d as a true division on every device: on the card a Python
+    scalar divisor becomes a multiply by its reciprocal, which rounds
+    otherwise than JAX's division."""
+    return x / torch.tensor(d, dtype=x.dtype, device=x.device)
+
+
+def _scale(amax: torch.Tensor) -> torch.Tensor:
+    return _div(torch.clamp(amax, min=1e-6), 127.0)
+
+
+def quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-row int8 quantization over the last axis (JAX
+    `_quantize_rows`): (int8 values, f32 scales with the last axis
+    dropped). round() is half to even, as jnp.round."""
+    xf = x.float()
+    s = _scale(xf.abs().amax(dim=-1, keepdim=True))
+    return torch.round(xf / s).to(torch.int8), s[..., 0]
+
+
+def quantize_blocks(x: torch.Tensor, block: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 quantization of (N, S, D), S a multiple of `block`,
+    with one scale per block of `block` rows (JAX `_quantize_blocks`):
+    (int8 values, (N, S / block) scales)."""
+    n, s, d = x.shape
+    xf = x.float().reshape(n, s // block, block, d)
+    sc = _scale(xf.abs().amax(dim=(2, 3), keepdim=True))
+    return torch.round(xf / sc).to(torch.int8).reshape(n, s, d), sc[:, :, 0, 0]
+
+
+def quantize_channels(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-channel int8 quantization of (N, S, D) over S (JAX
+    `_quantize_channels`): (int8 values, (N, D) scales)."""
+    xf = x.float()
+    s = _scale(xf.abs().amax(dim=1, keepdim=True))
+    return torch.round(xf / s).to(torch.int8), s[:, 0, :]
+
+
+def smooth_k(kt: torch.Tensor) -> torch.Tensor:
+    """K minus its token mean, per (batch * head), in K's dtype, as JAX
+    does it: the mean accumulates in f32 and is rounded to K's dtype, and
+    the difference is rounded to it too. The shift changes every logit of
+    a query row by the same constant, so the softmax is unchanged."""
+    km = kt.float().mean(dim=1, keepdim=True).to(kt.dtype)
+    return kt - km
+
+
+def _heads_first(x: torch.Tensor) -> torch.Tensor:
+    """(B, S, H, D) -> (B * H, S, D)."""
+    b, s, h, d = x.shape
+    return x.permute(0, 2, 1, 3).reshape(b * h, s, d)
+
+
+def _softmax(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.softmax: exp(x - max) / sum, over the last axis."""
+    e = torch.exp(x - x.amax(dim=-1, keepdim=True))
+    return e / e.sum(dim=-1, keepdim=True)
+
+
+def flash_attention_int8_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               scale: float, pv_int8: bool = False) -> torch.Tensor:
+    """The int8 variants' math as JAX's `_flash_attention_int8_xla` does
+    it, which is what the JAX package runs off the TPU for both backends:
+    smoothed K, per-token K scales and per-1024-row-block Q scales, exact
+    integer QK^T, a dense softmax; with `pv_int8`, P quantized per (row,
+    1024-key block) against the block's max and V per channel, both
+    dequantized before the product. The queries go one Q-scale block at a
+    time, so the dense logits of only one block are held."""
+    b, sq, h, d = q.shape
+    skv = k.shape[1]
+    qt, kt, vt = _heads_first(q), _heads_first(k), _heads_first(v)
+    bq = min(QBLOCK, _ceil_to(sq, 128))
+    sq_pad = _ceil_to(sq, bq)
+    q8, sqs = quantize_blocks(F.pad(qt, (0, 0, 0, sq_pad - sq)), bq)
+    k8, sks = quantize_rows(smooth_k(kt))
+    k8f = k8.float().transpose(1, 2)  # (BH, D, Skv), integer valued
+    if pv_int8:
+        bk = min(QBLOCK, _ceil_to(skv, 128))
+        skv_pad = _ceil_to(skv, bk)
+        v8, svs = quantize_channels(vt)
+        v_in = v8.float() * svs[:, None, :]
+    else:
+        v_in = vt.float()
+    outs = []
+    for i, r0 in enumerate(range(0, sq, bq)):
+        rows = min(bq, sq - r0)
+        dots = torch.matmul(q8[:, r0:r0 + rows].float(), k8f)  # exact
+        logits = dots * (scale * sqs[:, i, None, None]) * sks[:, None, :]
+        p = _softmax(logits)
+        del dots, logits
+        if pv_int8:
+            pb = F.pad(p, (0, skv_pad - skv)).reshape(-1, rows, skv_pad // bk, bk)
+            sp = torch.clamp(pb.amax(dim=-1, keepdim=True), min=1e-30)
+            # 127 / sp as one division, as JAX (a scalar numerator would be
+            # a reciprocal times 127)
+            p8 = torch.round(pb * (torch.full_like(sp, 127.0) / sp))
+            p = (p8 * _div(sp, 127.0)).reshape(-1, rows, skv_pad)[:, :, :skv]
+            del pb, p8
+        else:
+            p = p.to(vt.dtype).float()
+        outs.append(torch.matmul(p, v_in))
+        del p
+    out = torch.cat(outs, dim=1)
+    return out.reshape(b, h, sq, d).permute(0, 2, 1, 3).to(q.dtype)
+
+
+def int8_prepass(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pv_int8: bool):
+    """The kernels' operands, made with the plain quantizers above on the
+    card: q8 (BH, Sq_pad, DK) and k8 (BH, Skv_pad, DK) int8 with the head
+    dim zero-padded to DK, a multiple of the int8 MMA depth 32 (zero
+    columns change no dot product) and K's tokens to a multiple of the
+    64-key tile; sq (BH, n_qblocks) and sk (BH, Skv_pad) f32 scales. For
+    K7 also v8 (BH, DV, Skv_pad) int8, the channels padded to DV = ceil16(D)
+    and the keys transposed onto the last axis and permuted within each
+    16 (see `csrc/flash_attention_int8.cu`), and sv (BH, DV) f32."""
+    b, sq, h, d = q.shape
+    skv = k.shape[1]
+    dk, dv = _ceil_to(d, 32), _ceil_to(d, 16)
+    bq = min(QBLOCK, _ceil_to(sq, 128))
+    sq_pad, skv_pad = _ceil_to(sq, bq), _ceil_to(skv, 64)
+    q8, sqs = quantize_blocks(F.pad(_heads_first(q), (0, dk - d, 0, sq_pad - sq)), bq)
+    k8, sks = quantize_rows(F.pad(smooth_k(_heads_first(k)), (0, dk - d, 0, skv_pad - skv)))
+    # elementwise results keep their input's strides, and a (B, S, H, D)
+    # -> (B * H, S, D) view with B = 1 is not contiguous: the kernels need
+    # row-major operands
+    ops = {"q8": q8.contiguous(), "k8": k8.contiguous(), "sq": sqs.contiguous(),
+           "sk": sks.contiguous(), "bq": bq}
+    if pv_int8:
+        v8, svs = quantize_channels(_heads_first(v))
+        v8 = F.pad(v8, (0, dv - d, 0, skv_pad - skv))
+        # key order within each 16: logical 4t + 2a + c holds physical
+        # key 8a + 2t + c, so that the int32 score fragment of a thread
+        # (keys 2t, 2t+1 of each 8-key tile) packs straight into the int8
+        # A operand (keys 4t..4t+3 of each 16)
+        bh = v8.shape[0]
+        v8 = v8.reshape(bh, skv_pad // 16, 2, 4, 2, dv).permute(0, 5, 1, 3, 2, 4)
+        ops["v8t"] = v8.reshape(bh, dv, skv_pad).contiguous()
+        ops["sv"] = F.pad(svs, (0, dv - d)).contiguous()
+    return ops
+
+
+def flash_attention_int8_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              scale: float, pv_int8: bool = False) -> torch.Tensor:
+    """Launch K6 (`pv_int8` False) or K7 on bf16 CUDA tensors (B, S, H, D),
+    D % 8 == 0, D <= 160, after the quantization pre-pass."""
+    name = "flash_attention_int8pv" if pv_int8 else "flash_attention_int8"
+    for nm, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_cuda or t.dtype != torch.bfloat16:
+            raise ValueError(f"{name} kernel: {nm} must be a bf16 CUDA tensor, "
+                             f"got {t.dtype} on {t.device}")
+        if t.dim() != 4 or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} kernel: {nm} must be a contiguous, "
+                             "16-byte aligned (B, S, H, D) tensor")
+    b, sq, h, d = q.shape
+    skv = k.shape[1]
+    if k.shape != (b, skv, h, d) or v.shape != k.shape:
+        raise ValueError(f"{name} kernel: shapes q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)} disagree")
+    if d % 8 or d > 160:
+        raise ValueError(f"{name} kernel: head dim {d} must be a multiple of 8 "
+                         "and at most 160")
+    ops = int8_prepass(q, k, v, pv_int8)
+    out = torch.empty_like(q)
+    lib = kernels.library("flash_attention_int8")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    common = (b, h, sq, skv, d, ops["q8"].shape[1], ops["sq"].shape[1], ops["bq"],
+              float(scale), stream)
+    if pv_int8:
+        fn = lib.tclight_flash_attention_int8pv
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [
+            ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        rc = fn(ops["q8"].data_ptr(), ops["k8"].data_ptr(), ops["v8t"].data_ptr(),
+                ops["sq"].data_ptr(), ops["sk"].data_ptr(), ops["sv"].data_ptr(),
+                out.data_ptr(), *common)
+    else:
+        fn = lib.tclight_flash_attention_int8
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
+            ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        rc = fn(ops["q8"].data_ptr(), ops["k8"].data_ptr(), v.data_ptr(),
+                ops["sq"].data_ptr(), ops["sk"].data_ptr(), out.data_ptr(), *common)
+    kernels.check_launch(rc, name)
+    kernels.STATS[name].record((sq, skv, d))
+    return out
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    scale: float | None = None) -> torch.Tensor:
+                    scale: float | None = None, backend: str | None = None
+                    ) -> torch.Tensor:
     """Memory-efficient attention. q: (B, Sq, H, D); k/v: (B, Skv, H, D).
-    A CUDA tensor goes to the kernel (or the call raises); a CPU tensor to
-    the plain version."""
+    `backend`: None (bf16 products, K1), "int8" (int8 QK^T, K6) or
+    "int8pv" (int8 QK^T and PV, K7), the port's names for JAX's
+    "pallas", "pallas_int8" and "pallas_int8pv". A CUDA tensor goes to the
+    kernel (or the call raises); a CPU tensor to the plain version."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown attention backend {backend!r}; one of {BACKENDS}")
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
+    if backend is None:
+        if q.is_cuda:
+            return flash_attention_cuda(q, k, v, scale)
+        return flash_attention_plain(q, k, v, scale)
+    pv = backend == "int8pv"
     if q.is_cuda:
-        return flash_attention_cuda(q, k, v, scale)
-    return flash_attention_plain(q, k, v, scale)
+        return flash_attention_int8_cuda(q, k, v, scale, pv)
+    return flash_attention_int8_plain(q, k, v, scale, pv)

@@ -1,5 +1,5 @@
-"""The TC-Light relighting pipeline, xy-only sampling with the
-post-optimization (counterpart of tclight_tpu/pipeline/generator.py).
+"""The TC-Light relighting pipeline: xy sampling, the multi-axis yt pass and
+the post-optimization (counterpart of tclight_tpu/pipeline/generator.py).
 
 Stages: load the video, and with `post_opt.apply_opt` its flows, soft
 masks and pixel tracks (`load_data`); VAE-encode the frames as IC-Light
@@ -10,10 +10,19 @@ mp4s.
 
 Each step runs its chunk slots in order in a Python loop that carries the
 global token banks from slot to slot, as `_slot0_core` / `_group_core` do
-in JAX. Random choices come from host numpy generators seeded like the JAX
+in JAX. With `alpha_t > 0` each step also runs the yt pass: the width
+columns become the chunked frame axis of (time, height) images, over
+overlapping temporal windows, and its noise prediction is fused into the
+xy one (AdaIN, then a decayed weight). The TPU's dispatch split of many
+slots into groups (`max_fused_slots`) is left out; the slot order and the
+bank carry are kept. `generation.attn_qk_int8` (and `attn_pv_int8`) pick
+the int8 attention kernels for every self-attention of both passes.
+
+Random choices come from host numpy generators seeded like the JAX
 package's, so both packages draw the same chunk plans, dst frames and
-flips; the Gaussian noise comes from `torch.Generator`s, or from the
-caller (`init_noise`, `step_noises`).
+flips (each step's xy draws, then each yt window's); the Gaussian noise
+comes from `torch.Generator`s, or from the caller (`init_noise`,
+`step_noises`).
 
 The post-optimization follows the device: on the card the warps are the
 window sums at `flow_radius` (K3) and the UVT palette takes the banded
@@ -21,9 +30,8 @@ route where the ids allow it (K4/K5); on the CPU the warps are gather warps
 and the palette adjoint the dense route, as the JAX package does off the
 TPU. A failure in it raises.
 
-Not ported in this slice, and refused with NotImplementedError: the yt
-pass (`alpha_t > 0`), PnP and ControlNet (`control != none`), background
-conditioning, the int8 attention variants and the prompt upsampler (a
+Not ported, and refused with NotImplementedError: PnP and ControlNet
+(`control != none`), background conditioning and the prompt upsampler (a
 missing prompt).
 """
 
@@ -39,6 +47,7 @@ import torch
 
 from tclight_torch.config import ConfigDict, save_config
 from tclight_torch.models.unet import ToMeSpec
+from tclight_torch.ops.color import adaptive_instance_normalization
 from tclight_torch.pipeline import chunks as chunklib
 from tclight_torch.pipeline.iclight import ICLightModels
 from tclight_torch.pipeline.postopt import (PostOptConfig, flow_radius,
@@ -73,6 +82,12 @@ class Generator:
         self.negative_prompt = _cfg_get(gen, "negative_prompt", "")
         self.noise_mode = _cfg_get(gen, "noise_mode", "same")
         self.alpha_t = _cfg_get(gen, "alpha_t", 0.0)
+        self.final_factor_t = _cfg_get(gen, "final_factor_t", 0.01)
+        self.win_size_t = _cfg_get(gen, "win_size_t", 64)
+        # yt-pass chunk size (0 = auto: the xy chunk size, see _yt_chunk_size)
+        self.chunk_size_t = int(_cfg_get(gen, "chunk_size_t", 0))
+        self.prompt_t = _cfg_get(gen, "prompt_t", "best quality")
+        self.negative_prompt_t = _cfg_get(gen, "negative_prompt_t", "jittery")
         self.save_frame = _cfg_get(gen, "save_frame", True)
         self.prompts = dict(_cfg_get(gen, "prompt", {"default": None}))
         self.seed = int(config.get("seed", 12345))
@@ -94,10 +109,8 @@ class Generator:
             ms_ssim_levels=_cfg_get(post, "ms_ssim_levels", 5),
         )
         refused = {
-            "generation.alpha_t > 0 (the yt pass)": self.alpha_t > 0,
             f"generation.control: {control} (PnP / ControlNet)": control != "none",
             "generation.background_cond": bool(_cfg_get(gen, "background_cond", False)),
-            "generation.attn_qk_int8 (int8 attention)": bool(_cfg_get(gen, "attn_qk_int8", False)),
         }
         for what, hit in refused.items():
             if hit:
@@ -113,7 +126,13 @@ class Generator:
         )
         self.global_rand = _cfg_get(gen, "global_rand", 0.5)
         self.cfg_dedup = bool(_cfg_get(gen, "cfg_dedup", True))
-        self.models = models.with_tome(self.tome_spec)
+        # int8 QK / QK+PV attention (kernels K6 / K7); attn_pv_int8 counts
+        # only together with attn_qk_int8, as in JAX
+        qk_int8 = bool(_cfg_get(gen, "attn_qk_int8", False))
+        pv_int8 = bool(_cfg_get(gen, "attn_pv_int8", False)) and qk_int8
+        self.attn_backend = "int8pv" if pv_int8 else "int8" if qk_int8 else None
+        self.models = models.with_tome(self.tome_spec, attn_backend=self.attn_backend)
+        self._yt_models: tuple[int, ICLightModels] | None = None
         self.scheduler = dataclasses.replace(
             models.scheduler, num_inference_steps=self.n_timesteps)
         self.data_parser = data_parser
@@ -191,11 +210,11 @@ class Generator:
 
     # ------------------------------------------------------------ denoise
 
-    def _pred_chunk(self, x_c, cc_c, embeds, t, randf, flip, banks, use_global):
+    def _pred_chunk(self, models, x_c, cc_c, embeds, t, randf, flip, banks, use_global):
         """CFG batch [uncond frames | cond frames]. With `cfg_dedup` the
         UNet takes the single shared half and duplicates it where the pair
         first diverges (models/unet.py)."""
-        unet = self.models.unet
+        unet = models.unet
         dtype = unet.config.dtype
         cs = x_c.shape[0]
         uncond, cond = embeds
@@ -205,9 +224,10 @@ class Generator:
         else:
             inp = torch.cat([torch.cat([x_c, x_c]), torch.cat([cc_c, cc_c])],
                             dim=-1).to(dtype)
-        eps, banks = unet(inp, t, ctx, tome_spec=self.models.tome_spec,
+        eps, banks = unet(inp, t, ctx, tome_spec=models.tome_spec,
                           randf=randf, flip=flip, banks=banks,
-                          use_global=use_global, cfg_dedup=self.cfg_dedup)
+                          use_global=use_global, cfg_dedup=self.cfg_dedup,
+                          attn_backend=models.attn_backend)
         eps_u, eps_c = eps.chunk(2)
         return eps_u + self.guidance_scale * (eps_c - eps_u), banks
 
@@ -220,26 +240,106 @@ class Generator:
             pos = torch.as_tensor(sel, device=e.device)
             noises[torch.as_tensor(idx[sel], device=e.device)] = e[pos]
 
-    def _step_core(self, x, concat_conds, embeds, t, plan, randfs, flips):
-        """One xy denoising pass: the chunk slots in order, slot 0 starting
-        the global token banks and every later slot merging against them
-        and carrying them on. Empty slots run too: they update the banks."""
+    def _step_core(self, x, concat_conds, embeds, t, plan, randfs, flips, models=None):
+        """One denoising pass over a chunk plan of x's first axis (frames,
+        or the width columns of the yt pass): the chunk slots in order,
+        slot 0 starting the global token banks and every later slot
+        merging against them and carrying them on. Empty slots run too:
+        they update the banks."""
+        models = self.models if models is None else models
         noises = torch.zeros_like(x)
         banks = None
         for s in range(plan.n_slots):
             idx = torch.as_tensor(plan.indices[s], dtype=torch.long, device=x.device)
-            e, banks = self._pred_chunk(x[idx], concat_conds[idx], embeds, t,
+            e, banks = self._pred_chunk(models, x[idx], concat_conds[idx], embeds, t,
                                         int(randfs[s]), bool(flips[s]), banks,
                                         use_global=s > 0)
             self._scatter_noise(noises, e, plan.indices[s], plan.valid[s])
         return noises
 
+    # ------------------------------------------------------------ yt pass
+
+    def _yt_windows(self, n: int):
+        """Overlapping temporal windows (generate.py:246-258): (window
+        length, window starts, overlap of each window with the one
+        before)."""
+        win = min(self.win_size_t, n)
+        n_slices = math.ceil((n - 1) / (win - 1)) if win > 1 else 1
+        if n_slices > 1:
+            total_overlap = n_slices * win - n
+            overlap = total_overlap // (n_slices - 1)
+            last_overlap = overlap + total_overlap % (n_slices - 1)
+            overlap_list = [overlap] * (n_slices - 2) + [last_overlap]
+            cum = np.cumsum(overlap_list)
+            starts = [0] + [(i + 1) * win - cum[i] for i in range(n_slices - 1)]
+        else:
+            starts, overlap_list = [0], [0]
+        return win, starts, overlap_list
+
+    def _yt_chunk_size(self, w: int, win: int) -> int:
+        """Chunk size of the yt pass: `chunk_size_t`, or the xy chunk size
+        when it is 0, at most the number of width columns."""
+        if self.chunk_size_t > 0:
+            return min(self.chunk_size_t, w)
+        return min(self.chunk_size, w)
+
+    def _yt_bind(self, cs_t: int) -> ICLightModels:
+        """The models of the yt pass: the xy ones when cs_t is the xy chunk
+        size, else the same modules with a ToMeSpec of cs_t frames and the
+        same attention backend (kept for the next step)."""
+        if cs_t == self.chunk_size:
+            return self.models
+        if self._yt_models is None or self._yt_models[0] != cs_t:
+            spec_t = dataclasses.replace(self.tome_spec, n_frames=cs_t)
+            self._yt_models = (cs_t, self.models.with_tome(
+                spec_t, attn_backend=self.attn_backend))
+        return self._yt_models[1]
+
+    def _temporal_noises(self, x, concat_conds, embeds_t, t, rng):
+        """yt-plane noise prediction (generate.py:241-278): the width
+        columns become the chunked frame axis of (time, height) images;
+        windows slide over time. Each window draws its chunk plan, randfs
+        and flips from `rng` after the step's xy draws. A window's
+        prediction overwrites its overlap with the window before, which
+        is then scaled by sqrt(0.5)."""
+        n, h, w, c = x.shape
+        win, starts, overlaps = self._yt_windows(n)
+        cs_t = self._yt_chunk_size(w, win)
+        models = self._yt_bind(cs_t)
+        noises_t = torch.zeros_like(x)
+        for widx, sl in enumerate(starts):
+            plan = chunklib.make_chunk_plan(w, cs_t, rng, self.chunk_ord,
+                                            self.tome_spec.merge_global)
+            randfs = rng.integers(0, 4, size=plan.n_slots)
+            flips = rng.random(plan.n_slots) <= self.global_rand
+            # (win, H, W, C) -> (W, win, H, C)
+            xt = x[sl: sl + win].permute(2, 0, 1, 3).contiguous()
+            cct = concat_conds[sl: sl + win].permute(2, 0, 1, 3).contiguous()
+            pred = self._step_core(xt, cct, embeds_t, t, plan, randfs, flips, models)
+            noises_t[sl: sl + win] = pred.permute(1, 2, 0, 3)  # back to (win, H, W, C)
+            if sl > 0:
+                ov = overlaps[widx - 1]
+                noises_t[sl: sl + ov] *= math.sqrt(0.5)
+        return noises_t
+
+    @staticmethod
+    def _fuse_yt(noises, noises_t, alpha: float):
+        """AdaIN of the yt prediction onto the xy one's statistics, then
+        sqrt(alpha) * yt + sqrt(1 - alpha) * xy, with alpha in f32."""
+        noises_t = adaptive_instance_normalization(noises_t, noises)
+        a = torch.tensor(alpha, dtype=torch.float32, device=noises.device)
+        return torch.sqrt(a) * noises_t + torch.sqrt(1.0 - a) * noises
+
     @torch.inference_mode()
-    def ddim_sample(self, x, embeds, concat_conds, seed=None, step_noises=None,
-                    generator: torch.Generator | None = None):
-        """The sampling loop (xy only). The SDE noise of step i is
-        `step_noises[i]` when given, else drawn from `generator` (a
-        generator seeded apart from the init noise by default)."""
+    def ddim_sample(self, x, embeds, concat_conds, embeds_t=None, seed=None,
+                    step_noises=None, generator: torch.Generator | None = None):
+        """The sampling loop. `embeds` is the (uncond, cond) pair of the
+        prompt; `embeds_t` that of `prompt_t`, which the yt pass needs
+        (alpha_t > 0). The SDE noise of step i is `step_noises[i]` when
+        given, else drawn from `generator` (a generator seeded apart from
+        the init noise by default): one draw per step in either pass."""
+        if self.alpha_t > 0 and embeds_t is None:
+            raise ValueError("alpha_t > 0: the yt pass needs embeds_t")
         seed = self.seed if seed is None else seed
         n = x.shape[0]
         sched = self.scheduler
@@ -258,6 +358,11 @@ class Generator:
             flips = plan_rng.random(plan.n_slots) <= self.global_rand
             noises = self._step_core(x, concat_conds, embeds, float(t), plan,
                                      randfs, flips)
+            if self.alpha_t > 0:
+                alpha = self.alpha_t * self.final_factor_t ** min(i / len(timesteps), 1.0)
+                noises_t = self._temporal_noises(x, concat_conds, embeds_t, float(t),
+                                                 plan_rng)
+                noises = self._fuse_yt(noises, noises_t, alpha)
             if step_noises is not None:
                 noise = step_noises[i]
                 if not torch.is_tensor(noise):
@@ -324,8 +429,10 @@ class Generator:
                     "no prompt given: the prompt upsampler is not ported yet")
             log.info("prompt [%s]: %s", edit_name, edit_prompt)
             cond, uncond = self.encode_prompt_pair(edit_prompt, self.negative_prompt)
+            cond_t, uncond_t = self.encode_prompt_pair(self.prompt_t, self.negative_prompt_t)
             t_s = time.perf_counter()
             clean_latent = self.ddim_sample(init_noise, (uncond, cond), concat_conds,
+                                            embeds_t=(uncond_t, cond_t),
                                             step_noises=step_noises)
             self.stage_times["sampling"] = time.perf_counter() - t_s
             if not torch.isfinite(clean_latent).all():
@@ -333,7 +440,8 @@ class Generator:
             self.stage_times["step_times"] = list(self._last_step_times)
             t_s = time.perf_counter()
             clean_frames = self.decode_latents_batch(clean_latent)
-            self._sync()
+            if not torch.isfinite(clean_frames).all():
+                raise FloatingPointError("decoding produced non-finite frames")
             self.stage_times["decode"] = time.perf_counter() - t_s
             losses_exposure = losses_uvt = np.zeros(0)
             if optimize:

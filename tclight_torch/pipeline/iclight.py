@@ -52,6 +52,7 @@ class ICLightModels:
     tokenizer: Any
     scheduler: DPMSolverMultistepScheduler
     tome_spec: ToMeSpec | None = None
+    attn_backend: str | None = None  # None, "int8" or "int8pv" (ops/attention.py)
 
     @property
     def latent_scale(self) -> float:
@@ -61,9 +62,11 @@ class ICLightModels:
     def device(self) -> torch.device:
         return next(self.unet.parameters()).device
 
-    def with_tome(self, tome_spec: ToMeSpec | None) -> "ICLightModels":
-        """The same modules, run with `tome_spec`."""
-        return dataclasses.replace(self, tome_spec=tome_spec)
+    def with_tome(self, tome_spec: ToMeSpec | None,
+                  attn_backend: str | None = None) -> "ICLightModels":
+        """The same modules, run with `tome_spec` and the attention
+        `attn_backend`."""
+        return dataclasses.replace(self, tome_spec=tome_spec, attn_backend=attn_backend)
 
 
 @torch.no_grad()

@@ -1,0 +1,206 @@
+"""The port's int8 attention (tclight_torch/ops/attention.py, backends "int8"
+and "int8pv") against the JAX package's "pallas_int8" / "pallas_int8pv",
+which off the TPU run `_flash_attention_int8_xla`: the quantizers bit for
+bit, the plain int8 attention, the pre-pass that lays out the operands of
+the kernels K6 / K7, and the tiny UNet with int8 attention. Inputs are made
+with numpy from a seed; every tolerance is stated at its test."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tclight_tpu.models import unet as junet
+from tclight_tpu.ops import attention as jattn
+from tclight_torch.models import bridge
+from tclight_torch.models import unet as tunet
+from tclight_torch.ops import attention as tattn
+from tclight_torch.pipeline.iclight import init_like_flax
+
+torch.set_num_threads(2)
+
+
+def _pair(x: np.ndarray, dtype: str):
+    """The same values as a JAX array and a torch tensor of `dtype`."""
+    if dtype == "bf16":
+        j = jnp.asarray(x).astype(jnp.bfloat16)
+        return j, torch.from_numpy(np.array(j.astype(jnp.float32))).bfloat16()
+    return jnp.asarray(x), torch.from_numpy(x)
+
+
+def _qkv(seed, b, sq, skv, h, d):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(s).astype(np.float32)
+            for s in ((b, sq, h, d), (b, skv, h, d), (b, skv, h, d))]
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_quantizers_are_bit_equal(dtype):
+    """Rows, 1024-row blocks (three, the last ragged before padding) and
+    channels: the same int8 values and the same f32 scales."""
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((3, 2100, 40)).astype(np.float32) * rng.uniform(0.1, 3, (3, 1, 40))
+    x[:, 2100 - 37:] *= 0.01  # a block whose amax is far below the others'
+    jx, tx = _pair(x, dtype)
+    for jfn, tfn in ((jattn._quantize_rows, tattn.quantize_rows),
+                     (jattn._quantize_channels, tattn.quantize_channels)):
+        jq, js = jfn(jx)
+        tq, ts = tfn(tx)
+        assert tq.dtype == torch.int8
+        np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+        np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    jpad = jnp.pad(jx, ((0, 0), (0, 3072 - 2100), (0, 0)))
+    tpad = torch.nn.functional.pad(tx, (0, 0, 0, 3072 - 2100))
+    jq, js = jattn._quantize_blocks(jpad, 1024)
+    tq, ts = tattn.quantize_blocks(tpad, 1024)
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    assert ts.shape == (3, 3)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_k_smoothing_matches(dtype):
+    """K minus its token mean, then per-token quantization, over 1100
+    tokens. In bf16 (the full-width stack) the smoothed K and its int8
+    values are bit-equal: both packages accumulate the mean in f32 and
+    round it to bf16, then round the difference to bf16. In f32 the mean
+    is a sum of 1100 terms that the packages add in another order, so the
+    smoothed K agrees within an ulp (2.4e-7 for these values), and the int8
+    values of these inputs are still equal."""
+    rng = np.random.default_rng(1)
+    k = rng.standard_normal((2, 1100, 2, 40)).astype(np.float32) + 0.7
+    jk, tk = _pair(k, dtype)
+    jkt = jk.transpose(0, 2, 1, 3).reshape(4, 1100, 40)
+    j_s = jkt - jnp.mean(jkt, axis=1, keepdims=True)
+    t_s = tattn.smooth_k(tattn._heads_first(tk))
+    assert t_s.dtype == tk.dtype
+    j_np = np.asarray(j_s.astype(jnp.float32))
+    if dtype == "bf16":
+        np.testing.assert_array_equal(t_s.float().numpy(), j_np)
+    else:
+        np.testing.assert_allclose(t_s.numpy(), j_np, rtol=0, atol=2.4e-7)
+    jq, js = jattn._quantize_rows(j_s)
+    tq, ts = tattn.quantize_rows(t_s)
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+
+
+@pytest.mark.parametrize("b,sq,skv,h,d", [
+    (1, 1100, 1300, 2, 40),   # both lengths past one 1024 block, ragged
+    (2, 300, 700, 2, 16),     # one block each, B*H = 4
+    (1, 2100, 1030, 1, 24),   # three Q-scale blocks, a 6-key last P block
+])
+@pytest.mark.parametrize("pv_int8", [False, True])
+def test_int8_plain_matches_jax_f32(b, sq, skv, h, d, pv_int8):
+    """f32 inputs. "int8": the same int8 operands and exact dots, so only
+    the f32 softmax and p.v sums differ in order (atol 2e-6 of outputs of
+    order 0.3). "int8pv": a p8 value sits at a rounding tie when
+    127 * p / sp is within f32 noise of k + 0.5; the two softmaxes round
+    p differently there, and one such p8 moves the output by 1/127 of that
+    block's p max times v: held at 2e-3 of the largest output (the worst
+    seen is 4e-4 relative)."""
+    q, k, v = _qkv(0, b, sq, skv, h, d)
+    backend = "int8pv" if pv_int8 else "int8"
+    ref = np.asarray(jattn.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                           backend="pallas_" + backend))
+    out = tattn.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                torch.from_numpy(v), backend=backend).numpy()
+    tol = 2e-3 * np.abs(ref).max() if pv_int8 else 2e-6
+    np.testing.assert_allclose(out, ref, rtol=0, atol=tol)
+    # and the quantization error against the fp attention is of the
+    # order the JAX package records (~1e-2 relative for QK, more for PV)
+    fp = tattn.flash_attention(*(torch.from_numpy(a) for a in (q, k, v))).numpy()
+    assert np.abs(out - fp).max() <= 0.1 * np.abs(fp).max()
+
+
+@pytest.mark.parametrize("pv_int8", [False, True])
+def test_int8_plain_matches_jax_bf16(pv_int8):
+    """bf16 inputs, as on the full-width stack: the output is bf16, so the
+    two packages may round a value to neighbouring bf16 numbers: within
+    one bf16 ulp (2^-8 relative) of the largest output."""
+    q, k, v = _qkv(2, 1, 1100, 1300, 2, 40)
+    backend = "int8pv" if pv_int8 else "int8"
+    jq, tq = _pair(q, "bf16")
+    jk, tk = _pair(k, "bf16")
+    jv, tv = _pair(v, "bf16")
+    ref = np.asarray(jattn.flash_attention(jq, jk, jv, backend="pallas_" + backend)
+                     .astype(jnp.float32))
+    out = tattn.flash_attention(tq, tk, tv, backend=backend)
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_allclose(out.float().numpy(), ref, rtol=0,
+                               atol=2.0 ** -8 * np.abs(ref).max())
+
+
+def test_int8_prepass_lays_out_the_kernel_operands():
+    """The operands of K6 / K7: contiguous (a B = 1 head-major view is not),
+    head dim padded with zeros to the int8 MMA depth, keys to the 64-key
+    tile, the Q scale per 1024-row block, and v8t transposed with each 16
+    keys in the order the kernel's A fragments need: logical key
+    4t + 2a + c holds physical key 8a + 2t + c."""
+    q, k, v = (torch.from_numpy(a).bfloat16() for a in _qkv(3, 1, 1030, 200, 2, 80))
+    ops = tattn.int8_prepass(q, k, v, pv_int8=True)
+    assert all(t.is_contiguous() for t in ops.values() if torch.is_tensor(t))
+    assert ops["q8"].shape == (2, 2048, 96) and ops["q8"].dtype == torch.int8
+    assert ops["k8"].shape == (2, 256, 96) and ops["sk"].shape == (2, 256)
+    assert ops["sq"].shape == (2, 2) and ops["bq"] == 1024
+    assert ops["v8t"].shape == (2, 80, 256) and ops["sv"].shape == (2, 80)
+    assert (ops["q8"][:, :, 80:] == 0).all() and (ops["k8"][:, 200:] == 0).all()
+    q8, sqs = tattn.quantize_blocks(torch.nn.functional.pad(
+        tattn._heads_first(q), (0, 0, 0, 2048 - 1030)), 1024)
+    assert torch.equal(ops["q8"][:, :, :80], q8) and torch.equal(ops["sq"], sqs)
+    v8, sv = tattn.quantize_channels(tattn._heads_first(v))
+    assert torch.equal(ops["sv"], sv)
+    logical = torch.arange(256)
+    t_, a_, c_ = (logical % 16) // 4, (logical % 4) // 2, logical % 2
+    physical = logical // 16 * 16 + 8 * a_ + 2 * t_ + c_
+    v8_pad = torch.nn.functional.pad(v8, (0, 0, 0, 256 - 200))
+    assert torch.equal(ops["v8t"], v8_pad[:, physical].transpose(1, 2))
+
+
+def test_backend_dispatch():
+    q, k, v = (torch.from_numpy(a) for a in _qkv(4, 1, 40, 600, 1, 8))
+    with pytest.raises(ValueError, match="backend"):
+        tattn.flash_attention(q, k, v, backend="pallas_int8")
+    with pytest.raises(ValueError, match="bf16 CUDA tensor"):
+        tattn.flash_attention_int8_cuda(q.bfloat16(), k.bfloat16(), v.bfloat16(), 1.0)
+    np.testing.assert_array_equal(
+        tattn.flash_attention(q, k, v, backend="int8pv").numpy(),
+        tattn.flash_attention_int8_plain(q, k, v, 8 ** -0.5, pv_int8=True).numpy())
+
+
+@pytest.fixture(scope="module")
+def tiny_unet():
+    model = tunet.UNet2DCondition(tunet.UNetConfig.tiny(8))
+    init_like_flax(model, torch.Generator().manual_seed(0))
+    return bridge.module_to_flax(model), model.eval()
+
+
+@pytest.mark.parametrize("backend", ["int8", "int8pv"])
+def test_tiny_unet_with_int8_attention_matches_jax(tiny_unet, backend, monkeypatch):
+    """The tiny UNet at a 32x32 latent: the level-0 self-attention has 1024
+    keys (> 512), so it goes to the int8 attention in both packages; the
+    call count shows the port reached it. Held at 1e-3 of the largest
+    output (the worst seen is 3.6e-4; the fp backend agrees to 1.6e-6):
+    the two packages' f32 activations differ by ulps, and where an
+    activation sits at a rounding tie of its quantization grid the int8
+    value differs by one step, 1/127 of its row's or block's scale."""
+    params, model = tiny_unet
+    calls = []
+    plain = tattn.flash_attention_int8_plain
+
+    def counted(*a, **k):
+        calls.append(a[0].shape)
+        return plain(*a, **k)
+
+    monkeypatch.setattr(tattn, "flash_attention_int8_plain", counted)
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((2, 32, 32, 8)).astype(np.float32)
+    ctx = rng.standard_normal((2, 77, 32)).astype(np.float32)
+    unet_j = junet.UNet2DCondition(junet.UNetConfig.tiny(8), attn_backend="pallas_" + backend)
+    ref, _ = jax.jit(unet_j.apply)(params, jnp.asarray(x), jnp.asarray(500.0), jnp.asarray(ctx))
+    with torch.no_grad():
+        out, _ = model(torch.from_numpy(x), 500.0, torch.from_numpy(ctx), attn_backend=backend)
+    ref = np.asarray(ref)
+    # level 0 has one attention block on the way down and two on the way up
+    assert len(calls) == 3 and all(s[1] == 1024 for s in calls)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-3 * np.abs(ref).max())

@@ -14,7 +14,7 @@ the card run them with
 (`--noconftest`: the suite's conftest imports JAX, which the card's
 machine does not need). Tolerances: K1's output is bf16 (2^-8 relative)
 and its p.v product takes p in bf16, so it is held to 2e-2 of the largest
-output; K2 sums exact bf16 products in f32 in another order than the
+output, and so are the int8 kernels K6 and K7 (see their test); K2 sums exact bf16 products in f32 in another order than the
 plain version, so its maxima agree to 1e-4 and an index may differ only
 where the best two scores are that close. K3 sums the same f32 taps in
 another order (and with fused multiply-adds), within 1e-5 of values of
@@ -61,6 +61,50 @@ def test_flash_kernel_matches_plain(cuda, b, sq, skv, h, d):
     ref = attention.flash_attention_plain(q.float(), k.float(), v.float(), scale)
     err = (out.float() - ref).abs().max().item()
     assert err <= 2e-2 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("pv_int8", [False, True])
+@pytest.mark.parametrize("b,sq,skv,h,d", [
+    (1, 200, 300, 2, 40),     # D padded 40 -> 64 (q.k^T) and 48 (p.v), ragged
+    (2, 1100, 1300, 2, 40),   # sq and skv past one 1024 block, B*H = 4
+    (1, 1030, 2100, 3, 80),   # two Q-scale blocks, a third ragged P block
+    (1, 700, 1024, 2, 160),   # the largest head dim, exactly one P block
+    (2, 300, 1025, 1, 80),    # one key past a whole P block
+    (1, 129, 600, 2, 8),      # the smallest head dim, one row past a tile
+])
+def test_int8_flash_kernels_match_plain(cuda, pv_int8, b, sq, skv, h, d):
+    """K6 (pv_int8 False) and K7 against the plain version on the same
+    bf16 inputs: the same int8 operands (one pre-pass) and exact int32
+    dots. K6 differs by exp2 rounding and p in bf16 in the p.v product, as
+    K1 (2e-2 of the largest output); K7 by p8 values that a rounding tie
+    moves by one step of 1/127 of their block's max, which the same
+    bound covers."""
+    q = torch.randn(b, sq, h, d, device="cuda", generator=cuda).bfloat16()
+    k = torch.randn(b, skv, h, d, device="cuda", generator=cuda).bfloat16()
+    v = torch.randn(b, skv, h, d, device="cuda", generator=cuda).bfloat16()
+    scale = d ** -0.5
+    name = "flash_attention_int8pv" if pv_int8 else "flash_attention_int8"
+    before = kernels.STATS[name].launches
+    out = attention.flash_attention(q, k, v, scale=scale,
+                                    backend="int8pv" if pv_int8 else "int8")
+    torch.cuda.synchronize()
+    assert kernels.STATS[name].launches == before + 1
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    ref = attention.flash_attention_int8_plain(q, k, v, scale, pv_int8).float()
+    err = (out.float() - ref).abs().max().item()
+    assert err <= 2e-2 * ref.abs().max().item(), err
+    fp = attention.flash_attention_plain(q.float(), k.float(), v.float(), scale)
+    # the quantization itself stays within a few percent of the fp attention
+    assert (ref - fp).abs().max().item() <= 0.1 * fp.abs().max().item()
+
+
+def test_int8_flash_kernels_refuse_what_they_do_not_take(cuda):
+    q = torch.zeros(1, 8, 1, 12, device="cuda", dtype=torch.bfloat16)
+    for backend in ("int8", "int8pv"):
+        with pytest.raises(ValueError, match="head dim"):
+            attention.flash_attention(q, q, q, backend=backend)
+        with pytest.raises(ValueError, match="bf16"):
+            attention.flash_attention(q.float(), q.float(), q.float(), backend=backend)
 
 
 def test_flash_kernel_refuses_what_it_does_not_take(cuda):

@@ -5,8 +5,9 @@ tests/test_golden_regression.py, with the post-optimization off and on),
 and the JAX package's init and SDE noise injected into the port. Clean
 latents and decoded frames agree within 1e-3 (f32 summation order through
 two sampling steps of UNet + ToMe + VAE); with the post-optimization the
-tolerance and its reason are stated at the test. Also drives the port's
-CLI on the CPU and checks its mp4.
+tolerance and its reason are stated at the test, as for the yt pass
+(alpha_t > 0) and the int8 attention. Also drives the port's CLI on the
+CPU and checks its mp4.
 
 The parity runs set both merge ratios to 0: every ToMe stage still runs
 (matching, the bank carry from slot to slot, the unmerge row maps), but no
@@ -129,6 +130,70 @@ def test_generator_matches_jax(tmp_path):
     out_dir = tmp_path / "out_t" / "lmr_0.0_gmr_0.0_alpha_t_0.0_opt_golden"
     for name in ("output.mp4", "output_gt.mp4", "config.yaml"):
         assert (out_dir / name).is_file(), name
+
+
+@pytest.mark.parametrize("extra", [
+    {},                                   # the yt pass binds the xy models
+    {"chunk_size": 2, "chunk_size_t": 4},  # ... or its own ToMeSpec of 4 columns
+])
+def test_generator_with_yt_pass_matches_jax(tmp_path, extra):
+    """The multi-axis pass (alpha_t > 0): every step also runs the yt pass
+    over two overlapping 4-frame windows of the 6 frames (starts 0 and 2),
+    the 16 latent columns chunked 4 at a time, and fuses it into the xy
+    prediction with AdaIN and the decayed weight. The chunk plans, randfs
+    and flips of both passes come from one host generator in the JAX
+    package's order, so the pair agrees within 1e-3, as the xy pair (the
+    worst seen is 9e-5 of latents of order 76)."""
+    cfg = _config(tmp_path, _video(tmp_path))
+    cfg["generation"].update(alpha_t=0.3, win_size_t=4, **extra)
+    lat_t, lat_j, out_t, out_j, gen, _ = _run_pair(tmp_path, cfg)
+    np.testing.assert_allclose(lat_t, lat_j, atol=1e-3)
+    np.testing.assert_allclose(out_t, out_j, atol=1e-3)
+    assert gen._yt_windows(N_FRAMES) == (4, [0, 2], [2])
+    models_t = gen._yt_bind(gen._yt_chunk_size(SIZE // 2, 4))
+    assert (models_t is gen.models) == (not extra)
+    assert models_t.tome_spec.n_frames == 4
+
+
+def _count_int8_calls(monkeypatch) -> list:
+    """Record the arguments of every call of the plain int8 attention,
+    which the port's CPU path reaches for backend "int8" / "int8pv"."""
+    from tclight_torch.ops import attention as tattn
+
+    calls, plain = [], tattn.flash_attention_int8_plain
+
+    def counted(*a):
+        calls.append(a)
+        return plain(*a)
+
+    monkeypatch.setattr(tattn, "flash_attention_int8_plain", counted)
+    return calls
+
+
+@pytest.mark.parametrize("extra", [
+    {"alpha_t": 0.3, "win_size_t": 4, "attn_qk_int8": True},
+    {"attn_qk_int8": True, "attn_pv_int8": True},
+])
+def test_generator_with_int8_attention_matches_jax(tmp_path, extra, monkeypatch):
+    """The int8 attention in the Generator (with the yt pass, and QK+PV on
+    the xy path): the 4-frame slots' self-attention has 1024 + bank keys,
+    so it takes the int8 backend in both packages (the call count shows the
+    port's). Held at 1e-3 of the largest latent and 1e-3 in the frames
+    (the worst seen: 3.8e-2 of latents of order 67, i.e. 5.7e-4 of it, and
+    6.3e-4 in the frames). Against the fp pair's 9e-5 this is the
+    quantization grid: the packages' f32 activations differ by ulps, an
+    activation at a rounding tie of its int8 grid lands one step (1/127 of
+    its scale) apart, and two sampling steps carry that on."""
+    calls = _count_int8_calls(monkeypatch)
+    cfg = _config(tmp_path, _video(tmp_path))
+    cfg["generation"].update(extra)
+    lat_t, lat_j, out_t, out_j, gen, jgen = _run_pair(tmp_path, cfg)
+    pv = bool(extra.get("attn_pv_int8"))
+    assert gen.attn_backend == ("int8pv" if pv else "int8")
+    assert jgen.attn_backend == "pallas_" + gen.attn_backend
+    assert calls and {c[4] for c in calls} == {pv}
+    np.testing.assert_allclose(lat_t, lat_j, rtol=0, atol=1e-3 * np.abs(lat_j).max())
+    np.testing.assert_allclose(out_t, out_j, rtol=0, atol=1e-3)
 
 
 def _postopt_config(tmp_path, vid_dir) -> dict:
@@ -355,15 +420,53 @@ def test_cli_runs_tiny_with_postopt_on_cpu(tmp_path, monkeypatch):
         assert hist.shape == (2 * 2,) and np.isfinite(hist).all()
 
 
+def test_cli_runs_navsim_settings_with_int8_on_cpu(tmp_path, monkeypatch):
+    """The CLI on configs/examples/tclight_navsim.yaml (the yt pass at
+    alpha_t 0.4, 30 frames), with attn_qk_int8, on the tiny stack at 32x32:
+    an mp4 of all 30 frames, and the int8 attention reached (counted)."""
+    import cv2
+
+    from tclight_torch.run import main
+
+    calls = _count_int8_calls(monkeypatch)
+    monkeypatch.chdir(Path(__file__).resolve().parent.parent)
+    monkeypatch.setenv("TCLIGHT_TINY", "1")
+    rng = np.random.default_rng(0)
+    base = rng.uniform(0.2, 0.8, (SIZE, SIZE, 3)).astype(np.float32)
+    save_frames(np.stack([np.roll(base, t, axis=1) for t in range(30)]), tmp_path / "vid")
+    args = ["--config", "configs/examples/tclight_navsim.yaml", "-i", str(tmp_path / "vid"),
+            "post_opt.apply_opt=false", "generation.attn_qk_int8=true",
+            f"generation.n_timesteps={STEPS}", f"data.height={SIZE}", f"data.width={SIZE}",
+            f"work_dir={tmp_path / 'wd'}", "generation.save_frame=false"]
+    assert main(args, device="cpu") == 0
+    mp4s = sorted((tmp_path / "wd").rglob("output.mp4"))
+    assert len(mp4s) == 1 and "alpha_t_0.4" in str(mp4s[0])
+    cap = cv2.VideoCapture(str(mp4s[0]))
+    n = 0
+    while cap.read()[0]:
+        n += 1
+    cap.release()
+    assert n == 30
+    assert calls
+
+
 def test_unported_options_raise(tmp_path):
     vid_dir = _video(tmp_path)
     models = build_tiny_iclight(device="cpu")
-    for key, value in (("alpha_t", 0.4), ("control", "pnp"), ("background_cond", True),
-                       ("attn_qk_int8", True)):
+    for key, value in (("control", "pnp"), ("background_cond", True)):
         cfg = _config(tmp_path, vid_dir)
         cfg["generation"][key] = value
         with pytest.raises(NotImplementedError):
             Generator(models, ConfigDict(cfg), device="cpu")
+    # the yt pass and the int8 attention are ported: they no longer refuse;
+    # attn_pv_int8 counts only together with attn_qk_int8
+    for flags, backend in (({"alpha_t": 0.4}, None), ({"attn_qk_int8": True}, "int8"),
+                           ({"attn_qk_int8": True, "attn_pv_int8": True}, "int8pv"),
+                           ({"attn_pv_int8": True}, None)):
+        cfg = _config(tmp_path, vid_dir)
+        cfg["generation"].update(flags)
+        gen = Generator(models, ConfigDict(cfg), device="cpu")
+        assert gen.attn_backend == gen.models.attn_backend == backend
     # the post-optimization is ported: apply_opt no longer refuses
     cfg = _config(tmp_path, vid_dir)
     cfg["post_opt"]["apply_opt"] = True
