@@ -7,7 +7,9 @@ Phases, one line each:
      the plain f32 references;
   2. build: the port's CUDA kernels from tclight_torch/csrc with nvcc;
   3. K1 flash attention against its plain version at the UNet's
-     self-attention shapes of a 960x720 run (levels 0, 1 and 2);
+     self-attention shapes of a 960x720 run (levels 0, 1 and 2, and the
+     30-frame yt pass's levels 0 and 1), beside SDPA, the byte and
+     tensor-core bound and the exponentials' bound;
   4. K2 ToMe matcher against its plain version at the level-0 merge shapes;
   5. K6 and K7, the int8 flash attentions (int8 q.k^T; K7 also int8 p.v),
      against their plain version on the same inputs at the xy shapes of
@@ -69,6 +71,9 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+# the special-function units' exp2 rate of the H100 SXM, as the
+# FlashAttention-3 paper quotes it: a floor for the softmax's exponentials
+PEAK_EXP2 = 3.9e12
 
 WIDTH, HEIGHT, FRAMES, STEPS, CHUNK = 960, 720, 8, 4, 4
 YT_FRAMES = 30  # configs/examples/tclight_navsim.yaml: frame_range [0, 30, 1]
@@ -146,7 +151,7 @@ def check_flash(gen: torch.Generator) -> dict:
                                              flash_attention_plain)
 
     rows = []
-    for level, b, s, d in attention_shapes():
+    for level, b, s, d in attention_shapes() + attention_shapes(YT_FRAMES, HEIGHT // 8, "yt-"):
         q, k, v = (torch.randn(b, s, HEADS, d, device="cuda", generator=gen,
                                dtype=torch.bfloat16) for _ in range(3))
         scale = d ** -0.5
@@ -164,9 +169,12 @@ def check_flash(gen: torch.Generator) -> dict:
         l_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale), reps)
         flops = 4.0 * b * HEADS * s * s * d
         b_ms, by = bound_ms(4 * q.numel() * 2, flops)
+        # one exponential per score: the softmax's floor on the special-
+        # function units, beside the tensor-core and byte bound
+        exp_ms = b * HEADS * s * s / PEAK_EXP2 * 1e3
         row = dict(shape=f"{level} B={b} S={s} H={HEADS} D={d}", max_abs_err=err,
                    tol=tol, ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
-                   bound_ms=b_ms, bound_by=by)
+                   bound_ms=b_ms, bound_by=by, exp_bound_ms=exp_ms)
         phase("K1", ok=ok, **row)
         if not ok:
             raise SystemExit(f"K1 disagrees with its plain version at {row['shape']}")
@@ -436,6 +444,11 @@ def run_main_path() -> dict:
     flash, match = stats["flash_attention"], stats["online_argmax_scores"]
     warp, band = stats["window_warp"], stats["banded_gather"]
     flash_dims = sorted(flash[1])
+    # K4's launches by direction: the render's plans and the adjoint's
+    # have their own windows (the last item of the shape key)
+    wf, wb = postopt._banded_windows(HEIGHT * WIDTH, postopt._UVT_TABLE_CACHE["slot"][0][4])
+    directions = {name: sum(n for key, n in band[1].items() if key[-1] == w)
+                  for name, w in (("render", wf), ("adjoint", wb))}
     merges = {"global" if s == d else "local" for s, d in match[1]}
     warp_on = warp_l1(out_dir / "frames")
 
@@ -449,6 +462,7 @@ def run_main_path() -> dict:
     ok = (n == FRAMES and shape == (HEIGHT, WIDTH, 3) and flash[0] > 0
           and {40, 80, 160} <= set(flash_dims) and match[0] > 0
           and merges == {"global", "local"} and warp[0] > 0 and band[0] > 0
+          and wf != wb and directions["render"] > 0 and directions["adjoint"] > 0
           and finite and route == "banded" and warp_on < warp_off)
     steady = lambda xs: float(np.mean(xs[1:])) if len(xs) > 1 else float("nan")
     phase("main", ok=ok, frames=n, frame_shape=shape, wall_s=wall,
@@ -463,7 +477,8 @@ def run_main_path() -> dict:
           flash_launches=flash[0], flash_head_dims=flash_dims,
           match_launches=match[0], match_merges=sorted(merges),
           warp_launches=warp[0], warp_shapes=sorted(warp[1].items()),
-          banded_launches=band[0], banded_multi_launches=stats["banded_gather_multi"][0],
+          banded_launches=band[0], banded_directions=directions,
+          banded_multi_launches=stats["banded_gather_multi"][0],
           uvt_route=route, exposure_loss=[float(losses["exposure"][0]),
                                           float(losses["exposure"][-1])],
           uvt_loss=[float(losses["unique_tensor"][0]), float(losses["unique_tensor"][-1])],
@@ -471,7 +486,9 @@ def run_main_path() -> dict:
     if not ok:
         raise SystemExit("main path check failed")
     return {"flash_attention": flash[0], "online_argmax_scores": match[0],
-            "window_warp": warp[0], "banded_gather": band[0]}
+            "window_warp": warp[0], "banded_gather": band[0],
+            "banded_gather:render": directions["render"],
+            "banded_gather:adjoint": directions["adjoint"]}
 
 
 def read_frames(frames_dir: Path) -> np.ndarray:
@@ -685,10 +702,14 @@ def _banded_rows(tag: str, gen, tables, hw: int, p_pad: int, batch: np.ndarray) 
         else:
             lib_idx = starts[:, None].long() + offs.long()
         l_ms = cuda_ms(lambda: table[lib_idx], 10)
+        # the output written once, the plan read once, and each table row
+        # that a live entry selects read once
+        rows_read = torch.unique(lib_idx[offs >= 0]).numel()
         b_ms, by = bound_ms(4 * out.numel() + offs.numel() * offs.element_size()
-                            + 4 * starts.numel() + 4 * table.numel(), 0.0)
+                            + starts.numel() * 4 + rows_read * table.shape[1] * 4, 0.0)
         row = dict(shape=f"{label} B={b} hw={hw} p_pad={p_pad} NB={offs.shape[0]} "
                    f"window={window} K={k} offs={str(offs.dtype)[6:]}",
+                   live_entries=int((offs >= 0).sum().item()), rows_read=rows_read,
                    max_abs_err=err, tol=0.0, ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
                    bound_ms=b_ms, bound_by=by)
         phase(tag, ok=ok, **row)
@@ -762,7 +783,7 @@ def check_turnover(gen: torch.Generator) -> dict:
 
 
 KERNEL_GROUPS = (("K6/K7 flash_attention_int8", ("flash_int8_kernel",)),
-                 ("K1 flash_attention", ("flash_fwd_kernel",)),
+                 ("K1 flash_attention", ("flash_fwd_wgmma_kernel",)),
                  ("K2 match_argmax", ("match_argmax_kernel",)),
                  ("K3 window_warp", ("window_warp_kernel",)),
                  ("K5 banded_gather_multi", ("banded_gather_multi_kernel",)),
@@ -869,12 +890,15 @@ def profile_main_path() -> None:
 
 def kernel_entry(name, source, replaces, launches, rows, path="main") -> dict:
     head = rows[0]
-    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches, "launches_path": path,
-            "max_abs_err": max(r["max_abs_err"] for r in rows),
-            "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
-            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
-            "shape": head["shape"], "per_shape": rows}
+    entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+             "launches": launches, "launches_path": path,
+             "max_abs_err": max(r["max_abs_err"] for r in rows),
+             "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+             "shape": head["shape"], "per_shape": rows}
+    if "exp_bound_ms" in head:
+        entry["exp_bound_ms"] = head["exp_bound_ms"]
+    return entry
 
 
 def main() -> int:
@@ -935,8 +959,11 @@ def main() -> int:
                      "tclight_tpu/ops/warp_kernel.py:108", launches["window_warp"],
                      warp["rows"]),
         kernel_entry("banded_gather", "tclight_torch/csrc/banded_gather.cu",
-                     "tclight_tpu/ops/banded_gather.py:434", launches["banded_gather"],
-                     banded["rows"]),
+                     "tclight_tpu/ops/banded_gather.py:434", launches["banded_gather:render"],
+                     banded["rows"][:1], path="main (the UVT render)"),
+        kernel_entry("banded_gather:adjoint", "tclight_torch/csrc/banded_gather.cu",
+                     "tclight_tpu/ops/banded_gather.py:434", launches["banded_gather:adjoint"],
+                     banded["rows"][1:], path="main (the UVT adjoint)"),
         kernel_entry("banded_gather_multi", "tclight_torch/csrc/banded_gather.cu",
                      "tclight_tpu/ops/banded_gather.py:465", turnover["launches"],
                      turnover["rows"], path="run_uvt on turnover-heavy ids"),

@@ -4,51 +4,91 @@
 // (pallas_call at :418, reached through `_flash_attention_pallas` and
 // `flash_attention`). Same function: softmax(scale * q k^T) v per (batch,
 // head), online softmax in log2 space with f32 running max / sum /
-// accumulator, out = acc / max(l, 1e-30).
+// accumulator, the ragged kv tail masked to -inf before the row max,
+// out = acc / max(l, 1e-30).
 //
-// What bounds it on the H100: tensor-core operations. At the level-0 UNet
-// self-attention (S ~ 35.6k merged + bank tokens, 8 heads, head dim 40)
-// the work is 4*B*H*S^2*D ~ 3.3 TFLOP against ~0.1 GB of q/k/v/o, far
-// above the card's ~295 FLOP/byte balance point. Second to it are the k/v
-// tiles every q tile streams through shared memory.
+// What bounds it on the H100: at the level-0 UNet self-attention (S ~ 35.6k
+// merged + bank tokens, 8 heads, head dim 40) the products are 4*B*H*S^2*D
+// ~ 3.3 TFLOP (3.3 ms at the bf16 peak) on ~0.1 GB of q/k/v/o, and the
+// softmax takes B*H*S^2 ~ 2.0e10 exponentials, ~5.2 ms on the special-
+// function units (~3.9e12 ex2/s), with ~4 more FMA-pipe instructions a
+// score. At D = 40 the softmax, not the tensor cores, sets the floor, so
+// the design keeps the tensor cores and the softmax's pipes busy at once.
 //
-// Design (the FlashAttention-2 layout): one block of 8 warps per (128-row
-// q tile, batch*head); a loop over 64-row kv tiles inside the block takes
-// the place of the TPU's sequential kv grid axis. Each warp owns 16 q rows
-// and keeps in registers their q fragments, their 16x64 score tile, the
-// running max and sum, and the 16xD output accumulator. Both products run
-// on the tensor cores (mma.sync m16n8k16, bf16 in, f32 accumulation), with
-// fragments loaded by ldmatrix; the probabilities go from the score
-// registers straight into the A operand of the p.v product. The head dim
-// is padded only to the MMA depth of 16 (40 -> 48), not to the TPU's 128
-// lanes; the padding is zero-filled by the loads. k/v tiles are double
-// buffered with cp.async, so the next tile's copy overlaps this tile's
-// products. The ragged kv tail is masked to -inf before the row max (no
-// zero logits join the max). q/k/v are read in place from the (B, S, H, D)
-// layout, so no transposed copies are made. Not yet used: wgmma, TMA.
+// Design (the FlashAttention-3 shape):
+// - One block of three warpgroups per (q tile, batch * head). Warpgroup 0
+//   is the producer: one thread issues the TMA loads of the q tile (once)
+//   and of the k and v tiles into a ring of NST stages, with full / empty
+//   mbarriers (one empty arrive per consumer warp). It gives up registers
+//   (setmaxnreg 24) to the two consumer warpgroups (240 each).
+// - Each consumer warpgroup owns MB blocks of 64 q rows: two up to DP = 96
+//   (q tiles of 256 rows, k/v tiles of 64 keys, 4 stages), one above (128
+//   rows, 128 keys, 3 stages up to DP = 128, else 2). S = q k^T is a chain
+//   of wgmma.m64nBKk16 per row block with both operands in shared memory;
+//   the softmax runs on the S registers; p is packed to bf16 in registers
+//   as the A operand of O += p v (wgmma.m64nDPk16, V MN-major from shared
+//   memory). Two row blocks halve the k/v tiles streamed per q row and
+//   interleave two independent wgmma chains.
+// - Overlap. Within a warpgroup, tile j's p.v and tile j + 1's q.k^T are
+//   issued together, and the softmax of tile j + 1 runs while that p.v is
+//   in flight. Across the two warpgroups, a ping-pong on two named
+//   barriers makes them take turns to issue their products, so that one's
+//   softmax runs while the other's products do. No wgmma is issued on a
+//   path ptxas cannot prove warp-uniform: it would serialise them all
+//   (warning C7520).
+// - Softmax. For scale > 0 the row max is taken on the raw scores and the
+//   scale folds into the exponent's argument, one FMA a score; the kv
+//   tail is masked to -inf in a pass of its own, in the last tile only.
+// - Layout. wgmma reads the non-swizzled operand layout (see hopper.cuh),
+//   which takes any multiple of 8 head dims: D = 40 rows are 80 bytes, no
+//   swizzle width, so no swizzled layout fits them without a padded copy.
+//   q is read in place from (B, S, H, D) through a 4-d tensor map
+//   (D, H, S, B), one box of 8 dims x the tile's rows per 16-byte chunk,
+//   once a block. k and v are streamed for every q tile, so the wrapper
+//   makes chunk-major copies of them, (B * H, D / 8, S, 8): a whole tile is
+//   then one TMA box of contiguous runs, laid out [chunk][token][8] as
+//   wgmma reads it. Read in place, the same tile took a 16-byte box per
+//   chunk: 16-byte pieces of 80-byte rows 640 bytes apart, each fetching a
+//   32-byte sector, and those loads alone set the kernel's time at level
+//   0. The copies cost one read and one write of k and v (~0.18 GB at
+//   level 0). Chunks past D / 8 (the q.k^T depth is DP = ceil16(D)),
+//   tokens past S and q rows past Sq lie outside the tensor maps, and TMA
+//   fills them with zeros: no padded copy, nothing of the next head read.
 //
-// Shared memory per block is the q tile plus two k and two v tiles, rows
-// padded by 8 elements: (128 + 4 * 64) * (DP + 8) * 2 bytes, 129,024 at the
-// largest head dim (D = 160, level 2) and 43,008 at D = 40, against the
-// 232,448 a block may use. m, l and the accumulator stay in registers:
-// 4 * DP / 8 + 4 floats a thread.
+// Shared memory per block: (q rows + 2 * NST * kv rows) * DP * 2 bytes,
+// 204,800 at D = 160 and 73,728 at D = 40.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "mma_common.cuh"
+#include "hopper.cuh"
 
-using namespace tclight;
+using namespace tclight::hopper;
 
 namespace {
 
-constexpr int BQ = 128;
-constexpr int BK = 64;
-constexpr int NWARPS = 8;
-constexpr int NTHREADS = NWARPS * 32;
+constexpr int NTHREADS = 384;
 constexpr int MAX_D = 160;
+
+// 64-row blocks of q per consumer warpgroup: two up to DP = 96, where their
+// registers fit (two score tiles, two accumulators), one above. Two halve
+// the k/v tiles streamed per q row and give each warpgroup two independent
+// chains of wgmma to interleave.
+__host__ __device__ constexpr int row_blocks(int dp) { return dp <= 96 ? 2 : 1; }
+__host__ __device__ constexpr int q_rows(int dp) { return 128 * row_blocks(dp); }
+__host__ __device__ constexpr int kv_rows(int dp) { return row_blocks(dp) == 2 ? 64 : 128; }
+__host__ __device__ constexpr int n_stages(int dp) {
+  return row_blocks(dp) == 2 ? 4 : (dp <= 128 ? 3 : 2);
+}
+
+__host__ __device__ constexpr size_t smem_bytes(int dp) {
+  return (size_t)(q_rows(dp) + 2 * n_stages(dp) * kv_rows(dp)) * dp * 2 +
+         8 * (1 + 2 * n_stages(dp)) + 128;
+}
 
 __device__ __forceinline__ float fast_exp2(float x) {
   float y;
@@ -56,190 +96,360 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
-__host__ __device__ constexpr size_t smem_bytes(int dp) {
-  return (size_t)(BQ + 4 * BK) * (dp + 8) * 2;  // q tile + double-buffered k, v
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 template <int DP>
-__global__ void __launch_bounds__(NTHREADS)
-flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
-                 const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v,
-                 __nv_bfloat16* __restrict__ o, int H, int Sq, int Skv, int D,
-                 float scale_log2) {
-  constexpr int LD = DP + 8;       // smem row, +16 bytes against bank conflicts
-  constexpr int KSTEPS = DP / 16;  // depth steps of q.k^T
-  constexpr int NT_O = DP / 8;     // 8-column tiles of the output
-  constexpr int NT_S = BK / 8;     // 8-column tiles of a score tile
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sK = sQ + BQ * LD;      // 2 buffers of BK x LD
-  __nv_bfloat16* sV = sK + 2 * BK * LD;  // 2 buffers of BK x LD
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       __nv_bfloat16* __restrict__ o, int H, int Sq, int Skv, int D,
+                       float scale_log2) {
+  constexpr int MB = row_blocks(DP);
+  constexpr int BQ = q_rows(DP);
+  constexpr int BK = kv_rows(DP);
+  constexpr int CH = DP / 8;  // 16-byte head-dim chunks of a row
+  constexpr int NST = n_stages(DP);
+  constexpr int TILE = BK * DP;  // elements of one k or v tile
+  extern __shared__ unsigned char smem_raw[];
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~uintptr_t(127));
+  __nv_bfloat16* sK = sQ + BQ * DP;       // NST tiles
+  __nv_bfloat16* sV = sK + NST * TILE;    // NST tiles
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(sV + NST * TILE);
+  uint64_t* full = qbar + 1;
+  uint64_t* empty = full + NST;
 
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;
-  const int t = lane & 3;
   const int q0 = blockIdx.x * BQ;
   const int b = blockIdx.y / H;
   const int h = blockIdx.y % H;
-  const long row_stride = (long)H * D;  // elements between consecutive tokens
-  const __nv_bfloat16* qb = q + ((long)b * Sq * H + h) * D;
-  const __nv_bfloat16* kb = k + ((long)b * Skv * H + h) * D;
-  const __nv_bfloat16* vb = v + ((long)b * Skv * H + h) * D;
-  __nv_bfloat16* ob = o + ((long)b * Sq * H + h) * D;
+  const int n_tiles = (Skv + BK - 1) / BK;
+  // warp-uniform as far as the compiler can see: wgmma on a path it
+  // cannot prove uniform is serialised
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
 
-  load_tile_async<BQ, NTHREADS>(sQ, LD, qb, row_stride, q0, Sq, D, DP);
-  load_tile_async<BK, NTHREADS>(sK, LD, kb, row_stride, 0, Skv, D, DP);
-  load_tile_async<BK, NTHREADS>(sV, LD, vb, row_stride, 0, Skv, D, DP);
-  cp_async_commit();
-  cp_async_wait_all();
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < NST; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2 * 4);  // one arrive per consumer warp
+    }
+    mbar_fence_init();
+  }
   __syncthreads();
 
-  const int r0 = warp * 16;
-  uint32_t qf[KSTEPS][4];
-#pragma unroll
-  for (int kk = 0; kk < KSTEPS; ++kk)
-    ldmatrix_x4(qf[kk], smem_u32(sQ + (r0 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8));
-
-  float acc[NT_O][4];
-#pragma unroll
-  for (int n = 0; n < NT_O; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m_run[2] = {-INFINITY, -INFINITY};
-  float l_run[2] = {0.f, 0.f};  // this thread's share of the row sums
-
-  const int n_tiles = (Skv + BK - 1) / BK;
-  for (int j = 0; j < n_tiles; ++j) {
-    const int buf = j & 1;
-    if (j + 1 < n_tiles) {
-      load_tile_async<BK, NTHREADS>(sK + (buf ^ 1) * BK * LD, LD, kb, row_stride,
-                                    (j + 1) * BK, Skv, D, DP);
-      load_tile_async<BK, NTHREADS>(sV + (buf ^ 1) * BK * LD, LD, vb, row_stride,
-                                    (j + 1) * BK, Skv, D, DP);
-    }
-    cp_async_commit();
-    const __nv_bfloat16* tK = sK + buf * BK * LD;
-    const __nv_bfloat16* tV = sV + buf * BK * LD;
-
-    // s = q k^T for the warp's 16 rows x 64 keys
-    float s[NT_S][4];
-#pragma unroll
-    for (int n = 0; n < NT_S; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KSTEPS; ++kk) {
-#pragma unroll
-      for (int np = 0; np < NT_S / 2; ++np) {
-        uint32_t bf[4];
-        ldmatrix_x4(bf, smem_u32(tK + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD +
-                                 kk * 16 + ((lane >> 3) & 1) * 8));
-        mma_bf16(s[2 * np], qf[kk], bf[0], bf[1]);
-        mma_bf16(s[2 * np + 1], qf[kk], bf[2], bf[3]);
+  if (wg == 0) {
+    // ---------------------------------------------------------- producer
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(qbar, BQ * DP * 2);
+      for (int c = 0; c < CH; ++c) tma_load_4d(sQ + c * BQ * 8, &tq, qbar, c * 8, h, q0, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int st = j % NST;
+        if (j >= NST) mbar_wait(&empty[st], ((j / NST) - 1) & 1);
+        mbar_expect_tx(&full[st], 2 * TILE * 2);
+        tma_load_4d(sK + st * TILE, &tk, &full[st], 0, j * BK, 0, blockIdx.y);
+        tma_load_4d(sV + st * TILE, &tv, &full[st], 0, j * BK, 0, blockIdx.y);
       }
     }
+  } else {
+    // --------------------------------------------------------- consumers
+    setmaxnreg_inc<240>();
+    const int cw = wg - 1;  // which MB * 64 q rows
+    const int warp = (threadIdx.x / 32) % 4;
+    const int lane = threadIdx.x % 32;
+    const int g = lane >> 2;
+    const int t = lane & 3;
 
-    // online softmax; this thread holds rows g (c0, c1) and g + 8 (c2, c3)
-    const int kv0 = j * BK;
-    const bool ragged = kv0 + BK > Skv;
-    float tmax[2] = {-INFINITY, -INFINITY};
+    float acc[MB][DP / 2];
+    float s[MB][BK / 2];
+    uint32_t pa[MB][BK / 16][4];  // p of the tile whose p.v is next or in flight
+    float m_run[MB][2], l_run[MB][2];  // l: this thread's share of the row sums
 #pragma unroll
-    for (int n = 0; n < NT_S; ++n) {
+    for (int mb = 0; mb < MB; ++mb) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[n][e] * scale_log2;
-        if (ragged && kv0 + n * 8 + 2 * t + (e & 1) >= Skv) x = -INFINITY;
-        s[n][e] = x;
-        tmax[e >> 1] = fmaxf(tmax[e >> 1], x);
+      for (int i = 0; i < DP / 2; ++i) acc[mb][i] = 0.f;
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) s[mb][i] = 0.f;
+      m_run[mb][0] = m_run[mb][1] = -INFINITY;
+      l_run[mb][0] = l_run[mb][1] = 0.f;
+    }
+    auto fence_all = [&]() {
+#pragma unroll
+      for (int mb = 0; mb < MB; ++mb) {
+        fence_regs(s[mb]);
+        fence_regs(acc[mb]);
       }
-    }
-    float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 1));
-      tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 2));
-      const float m_new = fmaxf(m_run[r], tmax[r]);  // finite: a tile has a valid key
-      alpha[r] = fast_exp2(m_run[r] - m_new);
-      m_run[r] = m_new;
-    }
-    float rsum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int n = 0; n < NT_S; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[n][e] = fast_exp2(s[n][e] - m_run[e >> 1]);
-        rsum[e >> 1] += s[n][e];
-      }
-    }
-    l_run[0] = l_run[0] * alpha[0] + rsum[0];
-    l_run[1] = l_run[1] * alpha[1] + rsum[1];
-#pragma unroll
-    for (int n = 0; n < NT_O; ++n) {
-      acc[n][0] *= alpha[0];
-      acc[n][1] *= alpha[0];
-      acc[n][2] *= alpha[1];
-      acc[n][3] *= alpha[1];
-    }
+    };
 
-    // acc += p v, p taken from the score registers as bf16 A fragments
+    // S = q k^T of tile j into s: per row block, 64 rows x BK keys in DP /
+    // 16 steps of depth 16, both operands K-major in shared memory; the row
+    // blocks' independent chains interleave
+    auto issue_qk = [&](int j) {
+      const __nv_bfloat16* tK = sK + (j % NST) * TILE;
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      for (int kk = 0; kk < DP / 16; ++kk)
 #pragma unroll
-      for (int np = 0; np < NT_O / 2; ++np) {
-        uint32_t bf[4];
-        ldmatrix_x4_trans(bf, smem_u32(tV + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
-                                       np * 16 + (lane >> 4) * 8));
-        mma_bf16(acc[2 * np], pa, bf[0], bf[1]);
-        mma_bf16(acc[2 * np + 1], pa, bf[2], bf[3]);
+        for (int mb = 0; mb < MB; ++mb)
+          WgmmaSS<BK>::run(s[mb],
+                           wgmma_desc(sQ + (cw * MB + mb) * 64 * 8 + kk * 2 * BQ * 8, BQ * 16,
+                                      128),
+                           wgmma_desc(tK + kk * 2 * BK * 8, BK * 16, 128), kk > 0 ? 1 : 0);
+      wgmma_commit();
+    };
+    // O += p v of tile j: v MN-major, next 8 keys 128 bytes on, next 8
+    // dims BK * 16
+    auto issue_pv = [&](int j) {
+      const __nv_bfloat16* tV = sV + (j % NST) * TILE;
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+        for (int mb = 0; mb < MB; ++mb)
+          WgmmaRS<DP>::run(acc[mb], pa[mb][kk], wgmma_desc(tV + kk * 16 * 8, 128, BK * 16), 1);
+      wgmma_commit();
+    };
+    // online softmax of tile j in s: the exponentials in place, the row
+    // maxima and sums updated, each row's rescale of the accumulator in
+    // alpha. This thread holds rows g (s[4n], s[4n+1]) and g + 8 (s[4n+2],
+    // s[4n+3]) of its warp's 16 of each row block, keys 8n + 2t, 8n + 2t + 1.
+    // Keys past Skv (only in the last tile) are masked to -inf before the
+    // row max. For scale > 0 the max is taken on the raw scores and the
+    // scale folds into the exponent's argument, one FMA a score:
+    // exp2(s * c - m * c) with m = max(s); the maxima are kept scaled.
+    const bool fold = scale_log2 > 0.f;
+    auto softmax = [&](int j, float (&alpha)[MB][2]) {
+      const int kv0 = j * BK;
+      if (kv0 + BK > Skv) {
+#pragma unroll
+        for (int mb = 0; mb < MB; ++mb)
+#pragma unroll
+          for (int i = 0; i < BK / 2; ++i)
+            if (kv0 + (i >> 2) * 8 + 2 * t + (i & 1) >= Skv) s[mb][i] = -INFINITY;
       }
-    }
-    cp_async_wait_all();
-    __syncthreads();  // the next tile has landed; this tile's buffer is free
-  }
+#pragma unroll
+      for (int mb = 0; mb < MB; ++mb) {
+        float tmax[2] = {-INFINITY, -INFINITY};
+        if (fold) {
+#pragma unroll
+          for (int i = 0; i < BK / 2; ++i)
+            tmax[(i >> 1) & 1] = fmaxf(tmax[(i >> 1) & 1], s[mb][i]);
+        } else {
+#pragma unroll
+          for (int i = 0; i < BK / 2; ++i) {
+            s[mb][i] *= scale_log2;
+            tmax[(i >> 1) & 1] = fmaxf(tmax[(i >> 1) & 1], s[mb][i]);
+          }
+        }
+        float neg_m[2];  // -(the new running max), in the exponent's units
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 1));
+          tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 2));
+          if (fold) tmax[r] *= scale_log2;
+          const float m_new = fmaxf(m_run[mb][r], tmax[r]);  // finite: a tile has a valid key
+          alpha[mb][r] = fast_exp2(m_run[mb][r] - m_new);
+          m_run[mb][r] = m_new;
+          neg_m[r] = -m_new;
+        }
+        const float c = fold ? scale_log2 : 1.f;
+        float rsum[2] = {0.f, 0.f};
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i) {
+          s[mb][i] = fast_exp2(fmaf(s[mb][i], c, neg_m[(i >> 1) & 1]));
+          rsum[(i >> 1) & 1] += s[mb][i];
+        }
+        l_run[mb][0] = l_run[mb][0] * alpha[mb][0] + rsum[0];
+        l_run[mb][1] = l_run[mb][1] * alpha[mb][1] + rsum[1];
+      }
+    };
+    // p as bf16 A fragments: keys 16kk..16kk+15 are blocks 2kk, 2kk + 1
+    auto pack_p = [&]() {
+#pragma unroll
+      for (int mb = 0; mb < MB; ++mb)
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) {
+          pa[mb][kk][0] = pack_bf16(s[mb][8 * kk + 0], s[mb][8 * kk + 1]);
+          pa[mb][kk][1] = pack_bf16(s[mb][8 * kk + 2], s[mb][8 * kk + 3]);
+          pa[mb][kk][2] = pack_bf16(s[mb][8 * kk + 4], s[mb][8 * kk + 5]);
+          pa[mb][kk][3] = pack_bf16(s[mb][8 * kk + 6], s[mb][8 * kk + 7]);
+        }
+    };
 
-  float inv[2];
+    // The two consumer warpgroups take turns to issue their products
+    // (named barriers 1 and 2, 256 threads: one's sync meets the other's
+    // arrive), so that one's softmax runs while the other's products do.
+    // The second warpgroup lets the first go first, and leaves out its
+    // last arrive, which no sync would meet.
+    const int my_turn = 1 + cw, other_turn = 2 - cw;
+    if (cw == 1) named_arrive(other_turn, 256);
+    auto take_turn = [&]() { named_sync(my_turn, 256); };
+    auto pass_turn = [&](bool last) {
+      if (cw == 0 || !last) named_arrive(other_turn, 256);
+    };
+
+    mbar_wait(qbar, 0);
+    mbar_wait(&full[0], 0);
+    take_turn();
+    fence_all();
+    wgmma_fence();
+    issue_qk(0);
+    pass_turn(false);
+    wgmma_wait<0>();
+    fence_all();
+    {
+      float alpha[MB][2];
+      softmax(0, alpha);  // alpha is 0 and acc is 0: nothing to rescale
+      pack_p();
+    }
+    // Tile j's p.v and tile j + 1's q.k^T are issued together; the softmax
+    // of tile j + 1 runs while p.v of tile j is in flight (p of tile j + 1
+    // is packed only after that p.v has read pa: the wait<0> below). No
+    // wgmma is issued under a condition: ptxas serialises wgmma on a
+    // divergent path.
+    for (int j = 0; j + 1 < n_tiles; ++j) {
+      mbar_wait(&full[(j + 1) % NST], ((j + 1) / NST) & 1);
+      take_turn();
+      fence_all();
+      wgmma_fence();
+      issue_qk(j + 1);
+      issue_pv(j);
+      pass_turn(false);
+      wgmma_wait<1>();  // q.k^T of tile j + 1 (the older group) is done
+      fence_all();
+      float alpha[MB][2];
+      softmax(j + 1, alpha);
+      wgmma_wait<0>();  // p.v of tile j is done: acc and pa are free
+      fence_all();
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float l = l_run[r];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    inv[r] = 1.f / fmaxf(l, 1e-30f);
-  }
+      for (int mb = 0; mb < MB; ++mb)
 #pragma unroll
-  for (int n = 0; n < NT_O; ++n) {
-    const int col = n * 8 + 2 * t;
-    if (col >= D) continue;  // d % 8 == 0: a tile is wholly in or out
+        for (int i = 0; i < DP / 2; ++i) acc[mb][i] *= alpha[mb][(i >> 1) & 1];
+      pack_p();
+      // this warp is done with stage j: one arrive for its 32 threads
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[j % NST]);
+    }
+    take_turn();
+    fence_all();
+    wgmma_fence();
+    issue_pv(n_tiles - 1);
+    pass_turn(true);
+    wgmma_wait<0>();
+    fence_all();
+
+    const long row_stride = (long)H * D;
+    __nv_bfloat16* ob = o + ((long)b * Sq * H + h) * D;
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = q0 + r0 + g + 8 * r;
-      if (row < Sq)
-        *reinterpret_cast<__nv_bfloat162*>(ob + (long)row * row_stride + col) =
-            __floats2bfloat162_rn(acc[n][2 * r] * inv[r], acc[n][2 * r + 1] * inv[r]);
+    for (int mb = 0; mb < MB; ++mb) {
+      float inv[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float l = l_run[mb][r];
+        l += __shfl_xor_sync(0xffffffffu, l, 1);
+        l += __shfl_xor_sync(0xffffffffu, l, 2);
+        inv[r] = 1.f / fmaxf(l, 1e-30f);
+      }
+#pragma unroll
+      for (int n = 0; n < DP / 8; ++n) {
+        const int col = n * 8 + 2 * t;
+        if (col >= D) continue;  // d % 8 == 0: an 8-column block is wholly in or out
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = q0 + (cw * MB + mb) * 64 + warp * 16 + g + 8 * r;
+          if (row < Sq)
+            *reinterpret_cast<__nv_bfloat162*>(ob + (long)row * row_stride + col) =
+                __floats2bfloat162_rn(acc[mb][4 * n + 2 * r] * inv[r],
+                                      acc[mb][4 * n + 2 * r + 1] * inv[r]);
+        }
+      }
     }
   }
 }
 
+// ------------------------------------------------------------------- host
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the process already runs on
+// (dlopen: no link against libcuda, no runtime-API version dependence)
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (!lib) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    if (lib) fn = reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled"));
+  }
+  return fn;
+}
+
+CUresult encode(CUtensorMap* map, const void* base, const cuuint64_t (&dims)[4],
+                const cuuint64_t (&strides)[3], const cuuint32_t (&box)[4]) {
+  EncodeTiled fn = encode_tiled();
+  if (!fn) return CUDA_ERROR_NOT_FOUND;
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
+            box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// q (B, S, H, D) as it lies, as 4-d (D, H, S, B): boxes of 8 dims x BQ
+// tokens of one head, one per 16-byte chunk of the q tile (loaded once a
+// block); everything outside reads as zeros
+bool make_q_map(CUtensorMap* map, const void* q, int B, int S, int H, int D, int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,
+                                 (cuuint64_t)S * H * D * 2};
+  const cuuint32_t box[4] = {8, 1, (cuuint32_t)rows, 1};
+  return encode(map, q, dims, strides, box) == CUDA_SUCCESS;
+}
+
+// k or v as the wrapper's chunk-major copy (B * H, D / 8, S, 8), as 4-d
+// (8, S, D / 8, B * H): one box of 8 x BK tokens x DP / 8 chunks is a whole
+// tile, laid out [chunk][token][8]; chunks past D / 8 and tokens past S
+// read as zeros
+bool make_kv_map(CUtensorMap* map, const void* kv, int BH, int S, int D, int DP, int rows) {
+  const cuuint64_t dims[4] = {8, (cuuint64_t)S, (cuuint64_t)(D / 8), (cuuint64_t)BH};
+  const cuuint64_t strides[3] = {16, (cuuint64_t)S * 16, (cuuint64_t)S * 16 * (D / 8)};
+  const cuuint32_t box[4] = {8, (cuuint32_t)rows, (cuuint32_t)(DP / 8), 1};
+  return encode(map, kv, dims, strides, box) == CUDA_SUCCESS;
+}
+
 template <int DP>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
-           int Sq, int Skv, int D, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int Sq,
+           int Skv, int D, float scale, cudaStream_t stream) {
   const size_t bytes = smem_bytes(DP);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Sq + BQ - 1) / BQ, B * H);
-  flash_fwd_kernel<DP><<<grid, NTHREADS, bytes, stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-      (__nv_bfloat16*)o, H, Sq, Skv, D, scale * 1.4426950408889634f);
+  static bool attr_set = false;  // once per kernel instance, not per launch
+  if (!attr_set) {
+    cudaError_t err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<DP>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+    attr_set = true;
+  }
+  CUtensorMap tq, tk, tv;
+  if (!make_q_map(&tq, q, B, Sq, H, D, q_rows(DP)) ||
+      !make_kv_map(&tk, k, B * H, Skv, D, DP, kv_rows(DP)) ||
+      !make_kv_map(&tv, v, B * H, Skv, D, DP, kv_rows(DP)))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((Sq + q_rows(DP) - 1) / q_rows(DP), B * H);
+  flash_fwd_wgmma_kernel<DP><<<grid, NTHREADS, bytes, stream>>>(
+      tq, tk, tv, (__nv_bfloat16*)o, H, Sq, Skv, D, scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q: (B, Sq, H, D), k/v: (B, Skv, H, D), o: (B, Sq, H, D); all bf16,
-// contiguous, 16-byte aligned; D % 8 == 0, D <= 160. Returns
-// cudaGetLastError() after the launch.
+// q: (B, Sq, H, D); k, v: the chunk-major copies (B * H, D / 8, Skv, 8);
+// o: (B, Sq, H, D); all bf16, contiguous, 16-byte aligned; D % 8 == 0,
+// D <= 160. Returns
+// cudaGetLastError() after the launch (cudaErrorInvalidValue when the
+// arguments or the tensor maps are refused).
 extern "C" int tclight_flash_attention_bf16(const void* q, const void* k,
                                             const void* v, void* o, int B,
                                             int H, int Sq, int Skv, int D,

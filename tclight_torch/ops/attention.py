@@ -20,14 +20,16 @@ Layout: (B, S, H, D) — batch, sequence, heads, head_dim. Inference only.
   `_flash_attention_int8_xla`, one 1024-row block of queries at a time.
 
 K1 replaces the TPU kernel `_flash_kernel` of tclight_tpu/ops/attention.py.
-On the H100 it is bound by tensor-core operations: the level-0 UNet
-self-attention (~35.6k tokens, 8 heads, head dim 40) is ~3.3 TFLOP on
-~0.1 GB of q/k/v/o. Its design keeps the score tile, the softmax state and
-the output accumulator of each warp's 16 q rows in registers, runs both
-products on mma.sync bf16 tensor cores, pads the head dim only to 16, and
-double-buffers the k/v tiles with cp.async (details in the source). K6 and
-K7 replace `_flash_kernel_qk_int8` and `_flash_kernel_int8_full` with the
-same layout and int8 mma.sync products (details in their source).
+On the H100 the level-0 UNet self-attention (~35.6k tokens, 8 heads, head
+dim 40) is ~3.3 TFLOP of products and ~2e10 exponentials on ~0.1 GB of
+q/k/v/o: the tensor cores and, at head dim 40, the special-function units
+bound it. Its design is warp-specialised: a producer warp feeds a ring of
+k/v tiles by TMA (q read in place, k and v from chunk-major copies the
+wrapper makes; `flash_geometry` gives the tensor maps), two consumer
+warpgroups run both products on wgmma and the softmax in registers, and
+overlap one's softmax with the other's products (details in the source). K6 and K7
+replace `_flash_kernel_qk_int8` and `_flash_kernel_int8_full` with an
+mma.sync layout and int8 products (details in their source).
 
 The int8 products of the plain version are f32 matmuls of integer-valued
 tensors: exact, since |dot| <= 127^2 * 160 < 2^24, as long as TF32 is off
@@ -45,7 +47,7 @@ import torch.nn.functional as F
 from tclight_torch.ops import kernels
 
 __all__ = ["dot_product_attention", "flash_attention", "flash_attention_plain",
-           "flash_attention_cuda", "flash_attention_int8_plain",
+           "flash_attention_cuda", "flash_geometry", "flash_attention_int8_plain",
            "flash_attention_int8_cuda", "quantize_rows", "quantize_blocks",
            "quantize_channels", "smooth_k", "BACKENDS"]
 
@@ -92,6 +94,40 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.permute(0, 2, 1, 3).to(q.dtype)
 
 
+SMEM_PER_BLOCK = 232_448  # dynamic shared memory a block may use on the H100
+# tclight_flash_attention_bf16(q, k, v, o, B, H, Sq, Skv, D, scale, stream)
+K1_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+
+
+def flash_geometry(b: int, sq: int, skv: int, h: int, d: int) -> dict:
+    """K1's launch geometry, as `csrc/flash_attention.cu` lays it out:
+    the q.k^T depth `dp` (d padded to 16 by TMA's zero fill, no padded
+    copy) and its 16-byte chunks; the 64-row q blocks per consumer
+    warpgroup (two up to dp 96, where their registers fit), the q rows per
+    block and the keys per k/v tile that follow, the ring depth, the
+    dynamic shared memory, the grid, the bytes each mbarrier expects, and
+    the 4-d tensor maps (dims innermost first, strides of dims 1-3 in
+    bytes, box): q's over (B, S, H, D) as it lies, k's and v's over the
+    wrapper's chunk-major copies (B * H, D / 8, S, 8)."""
+    dp = _ceil_to(d, 16)
+    mb = 2 if dp <= 96 else 1
+    bq, bk = 128 * mb, 64 if mb == 2 else 128
+    stages = 4 if mb == 2 else (3 if dp <= 128 else 2)
+    row = 2 * d  # bytes of one head's row
+    # q in place, (D, H, S, B): one box per 16-byte chunk of the q tile
+    qmap = {"dims": (d, h, sq, b), "strides": (row, h * row, sq * h * row),
+            "box": (8, 1, bq, 1)}
+    # k, v as the chunk-major copies (B * H, D / 8, S, 8), as (8, S, D / 8,
+    # B * H): one box per tile
+    kvmap = {"dims": (8, skv, d // 8, b * h), "strides": (16, skv * 16, skv * 16 * (d // 8)),
+             "box": (8, bk, dp // 8, 1)}
+    return {"dp": dp, "chunks": dp // 8, "zero_chunks": (dp - d) // 8, "row_blocks": mb,
+            "q_rows": bq, "kv_rows": bk, "stages": stages,
+            "smem": (bq + 2 * stages * bk) * dp * 2 + 8 * (1 + 2 * stages) + 128,
+            "grid": (-(-sq // bq), b * h), "tx_q": bq * dp * 2, "tx_kv": 2 * bk * dp * 2,
+            "kv_tiles": -(-skv // bk), "maps": {"q": qmap, "k": kvmap, "v": dict(kvmap)}}
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          scale: float) -> torch.Tensor:
     """Launch K1 on bf16 CUDA tensors (B, S, H, D), D % 8 == 0, D <= 160."""
@@ -110,12 +146,17 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if d % 8 or d > 160:
         raise ValueError(f"flash_attention kernel: head dim {d} must be a "
                          "multiple of 8 and at most 160")
+    if flash_geometry(b, sq, skv, h, d)["grid"][1] > 65535:
+        raise ValueError(f"flash_attention kernel: batch * heads = {b * h} is over "
+                         "the grid's 65535")
+    # k and v chunk-major, (B * H, D / 8, Skv, 8): one TMA box is a whole
+    # k or v tile, in the layout wgmma reads (see the kernel's source)
+    kc, vc = (t.view(b, skv, h, d // 8, 8).permute(0, 2, 3, 1, 4).contiguous()
+              for t in (k, v))
     out = torch.empty_like(q)
-    fn = kernels.library("flash_attention").tclight_flash_attention_bf16
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
-        ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, sq,
+    fn = kernels.function("flash_attention", "tclight_flash_attention_bf16", K1_ARGTYPES,
+                          ctypes.c_int)
+    rc = fn(q.data_ptr(), kc.data_ptr(), vc.data_ptr(), out.data_ptr(), b, h, sq,
             skv, d, float(scale), torch.cuda.current_stream(q.device).cuda_stream)
     kernels.check_launch(rc, "flash_attention")
     kernels.STATS["flash_attention"].record(d)
@@ -288,23 +329,19 @@ def flash_attention_int8_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "and at most 160")
     ops = int8_prepass(q, k, v, pv_int8)
     out = torch.empty_like(q)
-    lib = kernels.library("flash_attention_int8")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     common = (b, h, sq, skv, d, ops["q8"].shape[1], ops["sq"].shape[1], ops["bq"],
               float(scale), stream)
+    tail = [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
     if pv_int8:
-        fn = lib.tclight_flash_attention_int8pv
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [
-            ctypes.c_float, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+        fn = kernels.function("flash_attention_int8", "tclight_flash_attention_int8pv",
+                              [ctypes.c_void_p] * 7 + tail, ctypes.c_int)
         rc = fn(ops["q8"].data_ptr(), ops["k8"].data_ptr(), ops["v8t"].data_ptr(),
                 ops["sq"].data_ptr(), ops["sk"].data_ptr(), ops["sv"].data_ptr(),
                 out.data_ptr(), *common)
     else:
-        fn = lib.tclight_flash_attention_int8
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
-            ctypes.c_float, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+        fn = kernels.function("flash_attention_int8", "tclight_flash_attention_int8",
+                              [ctypes.c_void_p] * 6 + tail, ctypes.c_int)
         rc = fn(ops["q8"].data_ptr(), ops["k8"].data_ptr(), v.data_ptr(),
                 ops["sq"].data_ptr(), ops["sk"].data_ptr(), out.data_ptr(), *common)
     kernels.check_launch(rc, name)

@@ -26,9 +26,9 @@ base b * frame_tiles(L) * 128, as the TPU addresses it.
 
 K4 and K5 replace the TPU kernels `_kernel` and `_kernel_multi`. On the
 H100 both are bound by bytes: every output row is written once and every
-table row read about once. The design (one thread block per plan block,
-staging only the span of each window that the block selects into shared
-memory) is described in the source.
+selected table row read once. K4 gathers each selected row straight from
+the table, with no staging; K5 stages each window's selected span
+(details in the source).
 """
 
 from __future__ import annotations
@@ -444,22 +444,20 @@ def _check(table, starts, offs, nwin):
             raise ValueError(f"banded gather: {name} must be contiguous on {table.device}")
 
 
+_HEAD = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+         ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+_ENTRIES = {"tclight_banded_gather": _HEAD + [ctypes.c_void_p],
+            "tclight_banded_gather_multi": _HEAD + [ctypes.c_int, ctypes.c_void_p]}
+
+
 def _launch(entry, stat, table, starts, offs, window, nwin):
     nb, bl = offs.shape
     c = table.shape[1]
     out = torch.empty((nb, bl, c), dtype=torch.float32, device=table.device)
-    lib = kernels.library("banded_gather")
-    fn = getattr(lib, entry)
-    head = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int]
-    fn.argtypes = head + ([ctypes.c_int] if nwin else []) + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    args = [table.data_ptr(), table.shape[0], c, starts.data_ptr(), offs.data_ptr(),
-            offs.element_size(), out.data_ptr(), nb, bl, int(window)]
-    if nwin:
-        args.append(nwin)
-    rc = fn(*args, torch.cuda.current_stream(table.device).cuda_stream)
+    fn = kernels.function("banded_gather", entry, _ENTRIES[entry], ctypes.c_int)
+    rc = fn(table.data_ptr(), table.shape[0], c, starts.data_ptr(), offs.data_ptr(),
+            offs.element_size(), out.data_ptr(), nb, bl, int(window),
+            *((nwin,) if nwin else ()), torch.cuda.current_stream(table.device).cuda_stream)
     kernels.check_launch(rc, stat)
     kernels.STATS[stat].record((nb, bl, c, int(window)) + ((nwin,) if nwin else ()))
     return out
@@ -468,12 +466,10 @@ def _launch(entry, stat, table, starts, offs, window, nwin):
 def banded_gather_cuda(table: torch.Tensor, starts: torch.Tensor,
                        offs: torch.Tensor, window: int) -> torch.Tensor:
     """Launch K4: table (P, C<=4) f32 with a 16-byte-aligned base, starts
-    (NB,) int32, offs (NB, BL) int16/int32 -> (NB, BL, C) f32. Offsets
-    below the window come from the staged window, larger ones straight
-    from the table."""
+    (NB,) int32, offs (NB, BL) int16/int32 -> (NB, BL, C) f32. Each
+    selected row is read straight from the table."""
     _check(table, starts, offs, None)
-    return _launch("tclight_banded_gather", "banded_gather", table, starts, offs,
-                   window, 0)
+    return _launch("tclight_banded_gather", "banded_gather", table, starts, offs, window, 0)
 
 
 def banded_gather_multi_cuda(table: torch.Tensor, starts: torch.Tensor,
@@ -481,8 +477,8 @@ def banded_gather_multi_cuda(table: torch.Tensor, starts: torch.Tensor,
     """Launch K5: starts (NB, K) int32, offs (NB, BL); an offset of K *
     window or more gives a zero row."""
     _check(table, starts, offs, starts.shape[1] if starts.dim() == 2 else -1)
-    return _launch("tclight_banded_gather_multi", "banded_gather_multi", table,
-                   starts, offs, window, starts.shape[1])
+    return _launch("tclight_banded_gather_multi", "banded_gather_multi", table, starts,
+                   offs, window, starts.shape[1])
 
 
 def banded_gather(table: torch.Tensor, starts: torch.Tensor, offs: torch.Tensor,

@@ -22,7 +22,7 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["STATS", "KernelStats", "build_all", "library", "nvcc_path",
+__all__ = ["STATS", "KernelStats", "build_all", "library", "function", "nvcc_path",
            "reset_stats", "check_launch"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -59,6 +59,7 @@ STATS = {name: KernelStats() for name in (
     "online_argmax_scores", "window_warp", "banded_gather", "banded_gather_multi")}
 
 _libs: dict[str, ctypes.CDLL] = {}
+_functions: dict[tuple[str, str], object] = {}
 
 
 def reset_stats() -> None:
@@ -123,6 +124,17 @@ def library(name: str) -> ctypes.CDLL:
         build_all()
         _libs[name] = ctypes.CDLL(str(_lib_path(name)))
     return _libs[name]
+
+
+def function(name: str, entry: str, argtypes, restype):
+    """C entry point `entry` of kernel library `name`, its argument and
+    result types set once, on first use, not on every launch."""
+    key = (name, entry)
+    if key not in _functions:
+        fn = getattr(library(name), entry)
+        fn.argtypes, fn.restype = list(argtypes), restype
+        _functions[key] = fn
+    return _functions[key]
 
 
 def check_launch(rc: int, what: str) -> None:

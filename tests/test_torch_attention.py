@@ -5,6 +5,7 @@ against `dot_product_attention`. f32 inputs made with numpy from a seed;
 tolerances as in tests/test_ops_attention.py (f32 summation order)."""
 
 import functools
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -78,3 +79,91 @@ def test_cuda_wrapper_rejects_cpu_tensors():
     q, k, v = (torch.from_numpy(a) for a in _qkv(5, 1, 8, 8, 1, 8))
     with pytest.raises(ValueError, match="bf16 CUDA tensor"):
         tattn.flash_attention_cuda(q.bfloat16(), k.bfloat16(), v.bfloat16(), 1.0)
+
+
+@pytest.mark.parametrize("d", [8, 16, 24, 40, 64, 80, 96, 128, 144, 160])
+def test_flash_geometry_tensor_maps(d):
+    """K1's TMA geometry: q read in place from (B, S, H, D) in boxes of one
+    16-byte core-matrix row of head dims by a block's q rows; k and v from
+    the chunk-major copies, one box a tile; strides TMA takes (multiples of
+    16, rising); the q.k^T depth padded to 16 by chunks that lie past the
+    maps' chunk extent (zero-filled, never the next head); a ring that fits
+    the block's shared memory; two q row blocks per warpgroup up to dp 96."""
+    b, sq, skv, h = 2, 35640, 1031, 8
+    g = tattn.flash_geometry(b, sq, skv, h, d)
+    assert g["dp"] % 16 == 0 and d <= g["dp"] < d + 16
+    assert g["chunks"] * 8 == g["dp"]
+    assert g["zero_chunks"] * 8 == g["dp"] - d
+    assert g["row_blocks"] == (2 if g["dp"] <= 96 else 1)
+    assert g["q_rows"] == 2 * 64 * g["row_blocks"]  # two consumer warpgroups
+    assert g["kv_rows"] in (64, 128)
+    q, k = g["maps"]["q"], g["maps"]["k"]
+    assert q["dims"] == (d, h, sq, b) and q["box"] == (8, 1, g["q_rows"], 1)
+    assert q["strides"][0] == 2 * d  # the next head starts past dim 0
+    assert k == g["maps"]["v"]
+    assert k["dims"] == (8, skv, d // 8, b * h)
+    assert k["box"] == (8, g["kv_rows"], g["chunks"], 1)
+    for m in (q, k):
+        assert m["box"][0] * 2 == 16
+        assert max(m["box"]) <= 256
+        assert all(st % 16 == 0 for st in m["strides"])
+        assert list(m["strides"]) == sorted(m["strides"])
+    assert g["tx_q"] == g["chunks"] * 16 * g["q_rows"]
+    assert g["tx_kv"] == 2 * g["chunks"] * 16 * g["kv_rows"]
+    assert g["stages"] >= 2 and g["smem"] <= tattn.SMEM_PER_BLOCK
+    assert g["grid"] == (-(-sq // g["q_rows"]), b * h)
+    assert g["kv_tiles"] == -(-skv // g["kv_rows"])
+
+
+def test_flash_kv_copies_are_chunk_major():
+    """The wrapper's k/v copy: element (b, s, h, 8c + e) of (B, S, H, D) at
+    (b * H + h, c, s, e), the order the kernel's k/v tensor map reads."""
+    b, s, h, d = 2, 5, 3, 24
+    k = torch.arange(b * s * h * d).reshape(b, s, h, d)
+    kc = k.view(b, s, h, d // 8, 8).permute(0, 2, 3, 1, 4).contiguous()
+    flat = kc.reshape(b * h, d // 8, s, 8)
+    for bi, si, hi, di in ((0, 0, 0, 0), (1, 4, 2, 23), (0, 3, 1, 9), (1, 2, 0, 16)):
+        assert flat[bi * h + hi, di // 8, si, di % 8] == k[bi, si, hi, di]
+    src = (Path(tattn.__file__).resolve().parent.parent / "csrc" / "flash_attention.cu").read_text()
+    wrapper = Path(tattn.__file__).read_text()
+    assert "t.view(b, skv, h, d // 8, 8).permute(0, 2, 3, 1, 4).contiguous()" in wrapper
+    assert "const cuuint64_t dims[4] = {8, (cuuint64_t)S, (cuuint64_t)(D / 8), (cuuint64_t)BH};" in src
+
+
+def test_flash_geometry_matches_the_kernel_source():
+    """The rules `flash_geometry` mirrors, read from the CUDA source."""
+    src = (Path(tattn.__file__).resolve().parent.parent / "csrc" / "flash_attention.cu").read_text()
+    for rule in ("row_blocks(int dp) { return dp <= 96 ? 2 : 1; }",
+                 "q_rows(int dp) { return 128 * row_blocks(dp); }",
+                 "kv_rows(int dp) { return row_blocks(dp) == 2 ? 64 : 128; }",
+                 "return row_blocks(dp) == 2 ? 4 : (dp <= 128 ? 3 : 2);",
+                 "(size_t)(q_rows(dp) + 2 * n_stages(dp) * kv_rows(dp)) * dp * 2 +\n"
+                 "         8 * (1 + 2 * n_stages(dp)) + 128;",
+                 "const cuuint32_t box[4] = {8, 1, (cuuint32_t)rows, 1};",
+                 "const cuuint32_t box[4] = {8, (cuuint32_t)rows, (cuuint32_t)(DP / 8), 1};"):
+        assert rule in src, rule
+    for d, stages in ((16, 4), (96, 4), (112, 3), (128, 3), (144, 2)):
+        assert tattn.flash_geometry(1, 1, 1, 1, d)["stages"] == stages
+
+
+def test_k1_argtypes_match_the_c_entry_point():
+    """ctypes passes what `argtypes` says: one type per C parameter."""
+    import re
+
+    text = (Path(tattn.__file__).resolve().parent.parent / "csrc"
+            / "flash_attention.cu").read_text()
+    m = re.search(r'extern "C" int tclight_flash_attention_bf16\(([^)]*)\)', text)
+    assert m and len(m.group(1).split(",")) == len(tattn.K1_ARGTYPES)
+
+
+def test_ablation_variants_apply_to_the_kernel_source():
+    """`python -m tclight_torch.ablate_flash` builds each variant of K1 by
+    text substitution: every replaced text is still in the source, and each
+    variant differs from the kernel (the base variant excepted)."""
+    from tclight_torch import ablate_flash
+
+    texts = ablate_flash.variant_sources()
+    assert set(texts) == set(ablate_flash.VARIANTS)
+    for name, text in texts.items():
+        assert (text == texts["base"]) == (name == "base"), name
+        assert "flash_fwd_wgmma_kernel" in text

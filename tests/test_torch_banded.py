@@ -6,6 +6,9 @@ and give the same one-step feature gradient as JAX's routes (within 1e-6:
 gathers are exact, the sums over a batch and the overflow segment-sums
 run in another order)."""
 
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -128,6 +131,21 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         bg.banded_gather_cuda(t, torch.zeros(1, dtype=torch.int32),
                               torch.zeros(1, 512, dtype=torch.int16), 2048)
+
+
+def _c_params(source: str, entry: str) -> int:
+    """The number of parameters of C entry point `entry` in a kernel source."""
+    text = (Path(bg.__file__).resolve().parent.parent / "csrc" / source).read_text()
+    m = re.search(r'extern "C" int ' + entry + r"\(([^)]*)\)", text)
+    assert m, entry
+    return len(m.group(1).split(","))
+
+
+@pytest.mark.parametrize("entry", ["tclight_banded_gather", "tclight_banded_gather_multi"])
+def test_k4_k5_argtypes_match_the_c_entry_points(entry):
+    """ctypes passes what `argtypes` says: one type per C parameter, or an
+    argument is cut or shifted without an error."""
+    assert len(bg._ENTRIES[entry]) == _c_params("banded_gather.cu", entry)
 
 
 def _uvt_case():

@@ -5,9 +5,10 @@ a tile, channel counts on every shared-memory path of the matcher, exact
 ties; for the window warp (K3) frames that end inside a tile, flows that
 leave the frame and tap ranges wider than one staged chunk; for the banded
 gathers (K4, K5) masked entries, int16 and int32 offsets, windows that run
-past the table's end and K = 2, 3 windows. Every test here needs a CUDA
-device and skips without one; on
-the card run them with
+past the table's end and K = 2, 3 windows; K4 on render-like and
+adjoint-like plans at every channel count and at windows 1024-8192. Every
+test here needs a CUDA device and skips without one; on the card run them
+with
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py -q
 
@@ -61,6 +62,57 @@ def test_flash_kernel_matches_plain(cuda, b, sq, skv, h, d):
     ref = attention.flash_attention_plain(q.float(), k.float(), v.float(), scale)
     err = (out.float() - ref).abs().max().item()
     assert err <= 2e-2 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("d", [8, 40, 64, 80, 128, 160])
+@pytest.mark.parametrize("sq,skv", [
+    (1, 1),        # one query, one key
+    (63, 129),     # one key past a whole 128-key tile
+    (65, 63),      # fewer keys than one tile; one q row past a warpgroup's 64
+    (129, 1031),   # one q row past a 128-row block; an odd kv length over 1000
+    (1031, 65),
+])
+def test_flash_kernel_ragged_lengths_and_head_dims(cuda, d, sq, skv):
+    """Every head dim the UNet and the tests use, with lengths that end on
+    each side of the kernel's 64-row, 128-row and 128-key boundaries."""
+    q = torch.randn(1, sq, 2, d, device="cuda", generator=cuda).bfloat16()
+    k = torch.randn(1, skv, 2, d, device="cuda", generator=cuda).bfloat16()
+    v = torch.randn(1, skv, 2, d, device="cuda", generator=cuda).bfloat16()
+    scale = d ** -0.5
+    out = attention.flash_attention(q, k, v, scale=scale)
+    torch.cuda.synchronize()
+    ref = attention.flash_attention_plain(q.float(), k.float(), v.float(), scale)
+    err = (out.float() - ref).abs().max().item()
+    assert err <= 2e-2 * ref.abs().max().item(), err
+
+
+def test_flash_kernel_many_heads(cuda):
+    """B * H over 1000: the grid's second axis."""
+    b, h, sq, skv, d = 3, 350, 70, 200, 40
+    q, k, v = (torch.randn(b, s, h, d, device="cuda", generator=cuda).bfloat16()
+               for s in (sq, skv, skv))
+    out = attention.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    ref = attention.flash_attention_plain(q.float(), k.float(), v.float(), d ** -0.5)
+    assert (out.float() - ref).abs().max().item() <= 2e-2 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("d,skv", [(40, 130), (80, 1031), (160, 65)])
+def test_flash_kernel_masks_the_kv_tail_before_the_max(cuda, d, skv):
+    """Logits of large magnitude, all far below zero, with a ragged kv
+    tail: a zero-filled key that joined the row max as a zero logit would
+    drive every exponential to 0 and the output to 0."""
+    sq, h = 100, 2
+    q = (8 + torch.rand(1, sq, h, d, device="cuda", generator=cuda)).bfloat16()
+    k = -(8 + torch.rand(1, skv, h, d, device="cuda", generator=cuda)).bfloat16()
+    v = torch.randn(1, skv, h, d, device="cuda", generator=cuda).bfloat16()
+    scale = d ** -0.5
+    out = attention.flash_attention(q, k, v, scale=scale)
+    torch.cuda.synchronize()
+    ref = attention.flash_attention_plain(q.float(), k.float(), v.float(), scale)
+    assert ref.abs().max().item() > 0.1
+    err = (out.float() - ref).abs().max().item()
+    assert err <= 2e-2 * ref.abs().max().item(), err
 
 
 @pytest.mark.parametrize("pv_int8", [False, True])
@@ -211,6 +263,49 @@ def test_banded_gather_kernel_matches_plain(cuda, offs_dtype, c):
     torch.cuda.synchronize()
     assert kernels.STATS["banded_gather"].launches == before + 1
     assert torch.equal(out, banded_gather.banded_gather_plain(table, st_t, offs_t))
+
+
+def _band_plan(rng, window, bl=512, nb=40):
+    """A synthetic single-window plan of the density `banded_geometry`
+    gives each window: render-like (several table rows per output, nearly
+    every entry live) above 2048, adjoint-like (most entries masked, the
+    live ones sparse) at 2048 and below. Some live entries lie past the
+    window, block 2 is wholly masked, and the table ends at the last row
+    any entry selects."""
+    dens = {1024: 0.5, 2048: 0.14, 4096: 4.0, 8192: 6.95}[window]
+    p_live = 0.97 if dens > 2 else 0.15
+    step = max(1, int(bl * dens))
+    span = min(window, step + 128)
+    starts = np.arange(nb, dtype=np.int64) * step
+    offs = np.sort(rng.integers(0, span, (nb, bl)), axis=1)
+    offs = np.where(rng.random((nb, bl)) < p_live, offs, -1)
+    past = rng.random((nb, bl)) < 0.02
+    offs = np.where(past, window + rng.integers(0, 500, (nb, bl)), offs)
+    offs[2] = -1
+    n_rows = int((starts[:, None] + offs)[offs >= 0].max()) + 1
+    return starts.astype(np.int32), offs, n_rows
+
+
+@pytest.mark.parametrize("window", [1024, 2048, 4096, 8192])
+@pytest.mark.parametrize("c", [1, 2, 3, 4])
+@pytest.mark.parametrize("offs_dtype", [torch.int16, torch.int32])
+def test_banded_gather_kernel_matches_plain_on_synthetic_plans(cuda, window, c, offs_dtype):
+    """K4 on render-like and adjoint-like plans at windows 1024-8192, every
+    channel count, both offset types; spans that reach the table's end,
+    masked blocks and offsets past the window. Exact."""
+    rng = np.random.default_rng(window + c)
+    starts, offs, n_rows = _band_plan(rng, window)
+    table = torch.randn(n_rows, c, device="cuda", generator=cuda)
+    st_t = torch.from_numpy(starts).cuda()
+    offs_t = torch.from_numpy(offs).to(offs_dtype).cuda()
+    stats = kernels.STATS["banded_gather"]
+    before = stats.launches
+    out = banded_gather.banded_gather(table, st_t, offs_t, window)
+    torch.cuda.synchronize()
+    assert stats.launches == before + 1
+    assert stats.shapes[(40, 512, c, window)] >= 1
+    assert torch.equal(out, banded_gather.banded_gather_plain(table, st_t, offs_t))
+    assert (out[2] == 0).all()
 
 
 @pytest.mark.parametrize("k", [2, 3])
