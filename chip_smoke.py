@@ -10,12 +10,14 @@ Phases, one line each:
      self-attention shapes of a 960x720 run (levels 0, 1 and 2, and the
      30-frame yt pass's levels 0 and 1), beside SDPA, the byte and
      tensor-core bound and the exponentials' bound;
-  4. K2 ToMe matcher against its plain version at the level-0 merge shapes;
+  4. K2 ToMe matcher against its plain version at the level-0 and level-1
+     merge shapes (C = 320 and 640), beside bmm + max;
   5. K6 and K7, the int8 flash attentions (int8 q.k^T; K7 also int8 p.v),
      against their plain version on the same inputs at the xy shapes of
      phase 3 and at the yt pass's level-0 and level-1 shapes of a 30-frame
      960x720 run, beside K1 and SDPA at the same shapes and the
-     quantization error against the fp attention;
+     quantization error against the fp attention; K6's pre-pass kernels
+     against the plain pre-pass at the same shapes;
   6. reference: the tiny stack end to end on a small input, post-
      optimization included (3 + 3 epochs), on the card in bf16 against the
      CPU in f32 (`check_small_reference`);
@@ -35,7 +37,8 @@ Phases, one line each:
  10. yt-int8: `tclight_torch.run.main` on configs/examples/tclight_navsim.yaml's
      settings (alpha_t 0.4, 30 frames at 960x720, of the synthetic video)
      with generation.attn_qk_int8=true, 4 steps, post-optimization off:
-     a 30-frame mp4, K6 launched at xy and at yt shapes, K1 never, K2 yes;
+     a 30-frame mp4, K6 (and its pre-pass kernels, once per K6 launch)
+     launched at xy and at yt shapes, K1 never, K2 yes;
  11. int8 / int8pv: the 8-frame main config with the post-optimization
      off and attn_qk_int8 (then attn_pv_int8 too): K6 (then K7) launched,
      K1 never, and the frames against the fp run's (max abs difference,
@@ -187,18 +190,22 @@ def check_flash(gen: torch.Generator) -> dict:
 def check_int8(gen: torch.Generator, pv_int8: bool) -> dict:
     """K6 (pv_int8 False) or K7 against the plain int8 version on the same
     bf16 inputs, at the xy shapes and the 30-frame yt pass's shapes. `ms`
-    is the wrapper's (the quantization pre-pass, plain torch ops, and the
-    kernel), `prepass_ms` the pre-pass alone. Beside them K1 and SDPA at
-    the same shape (the library has no call for the quantized function),
-    and the quantization error of the plain version against the fp
-    attention."""
+    is the wrapper's (the quantization pre-pass and the kernel),
+    `prepass_ms` the pre-pass alone: for K6 its two pre-pass kernels, with
+    the plain torch pre-pass's time beside it (`prepass_plain_ms`); for K7
+    the plain torch pre-pass it runs on. Beside them K1 and SDPA at the
+    same shape (the library has no call for the quantized function), and
+    the quantization error of the plain version against the fp attention.
+    For K6 also the rows of its pre-pass kernels against the plain
+    pre-pass, in K6's operand layout (`prepass_rows`)."""
     from tclight_torch.ops.attention import (flash_attention_cuda,
                                              flash_attention_int8_cuda,
                                              flash_attention_int8_plain,
-                                             flash_attention_plain, int8_prepass)
+                                             flash_attention_plain, int8_prepass,
+                                             qk_int8_operands, qk_int8_operands_plain)
 
     tag = "K7" if pv_int8 else "K6"
-    rows = []
+    rows, prepass_rows = [], []
     shapes = attention_shapes() + attention_shapes(YT_FRAMES, HEIGHT // 8, "yt-")
     for level, b, s, d in shapes:
         q, k, v = (torch.randn(b, s, HEADS, d, device="cuda", generator=gen,
@@ -219,7 +226,11 @@ def check_int8(gen: torch.Generator, pv_int8: bool) -> dict:
         ok = math.isfinite(err) and err <= tol
         reps = 3 if s > 20000 else 10
         k_ms = cuda_ms(lambda: flash_attention_int8_cuda(q, k, v, scale, pv_int8), reps)
-        pre_ms = cuda_ms(lambda: int8_prepass(q, k, v, pv_int8), reps)
+        plain_pre_ms = cuda_ms(lambda: int8_prepass(q, k, v, pv_int8), reps)
+        pre_ms = (plain_pre_ms if pv_int8 else cuda_ms(lambda: qk_int8_operands(q, k, v), reps))
+        if not pv_int8:
+            prepass_rows.append(check_prepass(level, q, k, v, qk_int8_operands,
+                                              qk_int8_operands_plain, pre_ms))
         k1_ms = cuda_ms(lambda: flash_attention_cuda(q, k, v, scale), reps)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale), reps)
@@ -237,31 +248,65 @@ def check_int8(gen: torch.Generator, pv_int8: bool) -> dict:
                    quant_rel_err_plain_vs_fp=quant_err, rel_err_kernel_vs_fp=kernel_fp_err,
                    ms=k_ms, prepass_ms=pre_ms, plain_ms=p_ms, library_ms=None,
                    k1_ms=k1_ms, sdpa_ms=sdpa_ms, bound_ms=b_ms, bound_by=by)
+        if not pv_int8:
+            row["prepass_plain_ms"] = plain_pre_ms
         phase(tag, ok=ok, **row)
         if not ok:
             raise SystemExit(f"{tag} disagrees with its plain version at {row['shape']}")
         rows.append(row)
         del q, k, v, out, ref, fp, qt, kt, vt
         torch.cuda.empty_cache()
-    return {"rows": rows}
+    return {"rows": rows, "prepass_rows": prepass_rows}
+
+
+def check_prepass(level: str, q, k, v, kernel, plain, k_ms: float) -> dict:
+    """K6's pre-pass kernels against the plain pre-pass in K6's layout: q8,
+    the Q scales and the v copy bit-equal; k8 within 1 and the K scales
+    within a bf16 step, where K's token mean (an f32 sum in another order)
+    rounds to another bf16 value (`max_abs_err` is k8's largest difference,
+    `k8_differ` the share of k8 values that differ). Bound: q, k and v read
+    once, the operands written once."""
+    ops = kernel(q, k, v)
+    torch.cuda.synchronize()
+    ref, p_ms = timed_once(lambda: plain(q, k, v))
+    exact = all(torch.equal(ops[n], ref[n]) for n in ("q8", "sq", "v"))
+    dk8 = (ops["k8"].int() - ref["k8"].int()).abs()
+    sk_ok = bool(((ops["sk"] - ref["sk"]).abs() <= ref["sk"] * 2.0 ** -7).all())
+    err, share = float(dk8.max().item()), float((dk8 > 0).float().mean().item())
+    ok = exact and err <= 1 and share <= 0.01 and sk_ok
+    n_bytes = 2 * 3 * q.numel() + sum(ops[n].numel() * ops[n].element_size()
+                                      for n in ("q8", "k8", "v", "sq", "sk"))
+    b_ms, by = bound_ms(n_bytes, 0.0)
+    b, s, h, d = q.shape
+    row = dict(shape=f"{level} B={b} S={s} H={h} D={d}", max_abs_err=err, tol=1.0,
+               k8_differ=share, exact_q8_sq_v=exact, ms=k_ms, plain_ms=p_ms, library_ms=None,
+               bound_ms=b_ms, bound_by=by)
+    phase("K6-prepass", ok=ok, **row)
+    if not ok:
+        raise SystemExit(f"K6's pre-pass disagrees with the plain pre-pass at {row['shape']}")
+    return row
 
 
 def match_shapes() -> list[tuple[str, int, int, int, int]]:
-    """(merge, B, S, D, C) at level 0: the local merge of a 4-frame chunk
-    (3 src frames against 1 dst frame), the global merge against the bank,
-    and the (2, 23760, 24576, 320) shape the TPU notes were tuned at."""
-    tnum = (HEIGHT // 8) * (WIDTH // 8)
+    """(merge, B, S, D, C) at levels 0 and 1 (C = 320 and 640): the global
+    merge against the bank and the local merge of a 4-frame chunk (3 src
+    frames against 1 dst frame); and the (2, 23760, 24576, 320) shape the
+    TPU notes were tuned at."""
     from tclight_torch.ops.tome import plan_local_levels
 
-    last = plan_local_levels(CHUNK, tnum, LOCAL_RATIO)[-1]
-    local = last.unm_pre + (last.n_src - last.r) + last.n_dst_frames * tnum
-    return [("global", 2, local, local, 320),
-            ("local", 2, last.n_src, last.n_dst, 320),
-            ("tpu-notes", 2, 23760, 24576, 320)]
+    out = []
+    tnum = (HEIGHT // 8) * (WIDTH // 8)
+    for level, c in ((0, 320), (1, 640)):
+        last = plan_local_levels(CHUNK, tnum, LOCAL_RATIO)[-1]
+        local = last.unm_pre + (last.n_src - last.r) + last.n_dst_frames * tnum
+        out += [(f"global L{level}", 2, local, local, c),
+                (f"local L{level}", 2, last.n_src, last.n_dst, c)]
+        tnum = ((HEIGHT // 8 - 2) // 2 + 1) * ((WIDTH // 8 - 2) // 2 + 1)
+    return out + [("tpu-notes", 2, 23760, 24576, 320)]
 
 
 def check_match(gen: torch.Generator) -> dict:
-    from tclight_torch.ops.match_kernel import (online_argmax_scores_cuda,
+    from tclight_torch.ops.match_kernel import (match_plan, online_argmax_scores_cuda,
                                                 online_argmax_scores_plain)
 
     rows = []
@@ -294,9 +339,11 @@ def check_match(gen: torch.Generator) -> dict:
         l_ms = cuda_ms(library, reps)
         flops = 2.0 * b * s * d * c
         b_ms, by = bound_ms(2 * (a.numel() + bt.numel()) + 8 * s, flops)
+        plan = match_plan(b, s, d, c, torch.cuda.get_device_properties(0).multi_processor_count)
         row = dict(shape=f"{name} B={b} S={s} D={d} C={c}", max_abs_err=err, tol=tol,
                    idx_mismatch=mismatch, near_ties=near_ties, ms=k_ms,
-                   plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=by)
+                   plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=by,
+                   src_rows=plan["src_rows"], chunks=plan["chunks"], units=plan["units"])
         phase("K2", ok=ok, **row)
         if not ok:
             raise SystemExit(f"K2 disagrees with its plain version at {row['shape']}")
@@ -449,7 +496,7 @@ def run_main_path() -> dict:
     wf, wb = postopt._banded_windows(HEIGHT * WIDTH, postopt._UVT_TABLE_CACHE["slot"][0][4])
     directions = {name: sum(n for key, n in band[1].items() if key[-1] == w)
                   for name, w in (("render", wf), ("adjoint", wb))}
-    merges = {"global" if s == d else "local" for s, d in match[1]}
+    merges = {"global" if s == d else "local" for s, d, _ in match[1]}
     warp_on = warp_l1(out_dir / "frames")
 
     # the same path with the post-optimization off, for the warp L1
@@ -476,6 +523,7 @@ def run_main_path() -> dict:
           output_save_s=st["output_save"], peak_mem_gb=peak,
           flash_launches=flash[0], flash_head_dims=flash_dims,
           match_launches=match[0], match_merges=sorted(merges),
+          match_shapes=sorted(match[1].items()),
           warp_launches=warp[0], warp_shapes=sorted(warp[1].items()),
           banded_launches=band[0], banded_directions=directions,
           banded_multi_launches=stats["banded_gather_multi"][0],
@@ -531,12 +579,13 @@ def run_yt_int8() -> dict:
     cfg = yaml.safe_load((mp4s[0].parent / "config.yaml").read_text())
     frames = read_frames(mp4s[0].parent / "frames")
     k6, k7 = stats["flash_attention_int8"], stats["flash_attention_int8pv"]
+    pre = stats["flash_attention_int8_prepass"]
     sq_seen = {key[0] for key in k6[1]}
     xy_l0 = set(merged_tokens((HEIGHT // 8) * (WIDTH // 8)))
     yt_l0 = set(merged_tokens(YT_FRAMES * (HEIGHT // 8)))
     ok = (n == YT_FRAMES and shape == (HEIGHT, WIDTH, 3) and cfg["generation"]["alpha_t"] > 0
           and k6[0] > 0 and bool(sq_seen & xy_l0) and bool(sq_seen & yt_l0)
-          and stats["flash_attention"][0] == 0 and k7[0] == 0
+          and stats["flash_attention"][0] == 0 and k7[0] == 0 and pre[0] == k6[0]
           and stats["online_argmax_scores"][0] > 0
           and frames.shape == (YT_FRAMES, HEIGHT, WIDTH, 3) and float(frames.std()) > 0)
     st = cfg["stage_times"]
@@ -544,11 +593,13 @@ def run_yt_int8() -> dict:
           wall_s=wall, sampling_s=st["sampling"], step_s=st["step_times"],
           encode_s=st["encode"], decode_s=st["decode"], k6_launches=k6[0],
           k6_xy_l0=sorted(sq_seen & xy_l0), k6_yt_l0=sorted(sq_seen & yt_l0),
-          k6_shapes=sorted(k6[1].items()), k1_launches=stats["flash_attention"][0],
-          k2_launches=stats["online_argmax_scores"][0])
+          k6_shapes=sorted(k6[1].items()), k6_prepass_launches=pre[0],
+          k1_launches=stats["flash_attention"][0],
+          k2_launches=stats["online_argmax_scores"][0],
+          k2_shapes=sorted(stats["online_argmax_scores"][1].items()))
     if not ok:
         raise SystemExit("yt-int8 run check failed")
-    return {"flash_attention_int8": k6[0]}
+    return {"flash_attention_int8": k6[0], "flash_attention_int8_prepass": pre[0]}
 
 
 def run_int8_variants() -> dict:
@@ -782,9 +833,9 @@ def check_turnover(gen: torch.Generator) -> dict:
     return {"rows": rows, "launches": launches}
 
 
-KERNEL_GROUPS = (("K6/K7 flash_attention_int8", ("flash_int8_kernel",)),
+KERNEL_GROUPS = (("K6/K7 flash_attention_int8 (K6's pre-pass included)", ("flash_int8",)),
                  ("K1 flash_attention", ("flash_fwd_wgmma_kernel",)),
-                 ("K2 match_argmax", ("match_argmax_kernel",)),
+                 ("K2 match_argmax", ("match_argmax",)),
                  ("K3 window_warp", ("window_warp_kernel",)),
                  ("K5 banded_gather_multi", ("banded_gather_multi_kernel",)),
                  ("K4 banded_gather", ("banded_gather_kernel",)),
@@ -967,11 +1018,16 @@ def main() -> int:
         kernel_entry("banded_gather_multi", "tclight_torch/csrc/banded_gather.cu",
                      "tclight_tpu/ops/banded_gather.py:465", turnover["launches"],
                      turnover["rows"], path="run_uvt on turnover-heavy ids"),
-        kernel_entry("flash_attention_int8", "tclight_torch/csrc/flash_attention_int8.cu",
+        kernel_entry("flash_attention_int8", "tclight_torch/csrc/flash_attention_qk_int8.cu",
                      "tclight_tpu/ops/attention.py:180", launches["flash_attention_int8"],
                      int8[False]["rows"],
                      path=f"yt-int8: navsim settings, {YT_FRAMES} frames, alpha_t 0.4, "
                           "attn_qk_int8"),
+        kernel_entry("flash_attention_int8:prepass",
+                     "tclight_torch/csrc/flash_attention_qk_int8.cu",
+                     "tclight_tpu/ops/attention.py:180", launches["flash_attention_int8_prepass"],
+                     int8[False]["prepass_rows"],
+                     path="yt-int8 (K6's quantization pre-pass, two kernels a launch)"),
         kernel_entry("flash_attention_int8pv", "tclight_torch/csrc/flash_attention_int8.cu",
                      "tclight_tpu/ops/attention.py:227", launches["flash_attention_int8pv"],
                      int8[True]["rows"],

@@ -61,7 +61,6 @@
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <dlfcn.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -371,33 +370,6 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
 // ------------------------------------------------------------------- host
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver the process already runs on
-// (dlopen: no link against libcuda, no runtime-API version dependence)
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
-    if (!lib) lib = dlopen("libcuda.so.1", RTLD_NOW);
-    if (lib) fn = reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled"));
-  }
-  return fn;
-}
-
-CUresult encode(CUtensorMap* map, const void* base, const cuuint64_t (&dims)[4],
-                const cuuint64_t (&strides)[3], const cuuint32_t (&box)[4]) {
-  EncodeTiled fn = encode_tiled();
-  if (!fn) return CUDA_ERROR_NOT_FOUND;
-  const cuuint32_t estr[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
-            box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-}
-
 // q (B, S, H, D) as it lies, as 4-d (D, H, S, B): boxes of 8 dims x BQ
 // tokens of one head, one per 16-byte chunk of the q tile (loaded once a
 // block); everything outside reads as zeros
@@ -406,7 +378,7 @@ bool make_q_map(CUtensorMap* map, const void* q, int B, int S, int H, int D, int
   const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,
                                  (cuuint64_t)S * H * D * 2};
   const cuuint32_t box[4] = {8, 1, (cuuint32_t)rows, 1};
-  return encode(map, q, dims, strides, box) == CUDA_SUCCESS;
+  return tensor_map_4d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, q, dims, strides, box);
 }
 
 // k or v as the wrapper's chunk-major copy (B * H, D / 8, S, 8), as 4-d
@@ -417,7 +389,7 @@ bool make_kv_map(CUtensorMap* map, const void* kv, int BH, int S, int D, int DP,
   const cuuint64_t dims[4] = {8, (cuuint64_t)S, (cuuint64_t)(D / 8), (cuuint64_t)BH};
   const cuuint64_t strides[3] = {16, (cuuint64_t)S * 16, (cuuint64_t)S * 16 * (D / 8)};
   const cuuint32_t box[4] = {8, (cuuint32_t)rows, (cuuint32_t)(DP / 8), 1};
-  return encode(map, kv, dims, strides, box) == CUDA_SUCCESS;
+  return tensor_map_4d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, kv, dims, strides, box);
 }
 
 template <int DP>

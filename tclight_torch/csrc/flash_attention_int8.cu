@@ -1,47 +1,43 @@
-// K6 and K7: inference flash attention with int8 products, for Hopper
-// (sm_90a). Two entry points of one kernel template.
+// K7: inference flash attention with int8 q.k^T and p.v products, for
+// Hopper (sm_90a).
 //
-// K6 replaces the TPU kernel tclight_tpu/ops/attention.py
-// `_flash_kernel_qk_int8` (pallas_call at :470, backend "pallas_int8"):
-// the logits come from an int8 q.k^T with exact int32 accumulation,
+// Replaces the TPU kernel tclight_tpu/ops/attention.py
+// `_flash_kernel_int8_full` (pallas_call at :459, backend
+// "pallas_int8pv"): the logits come from an int8 q.k^T with exact int32
+// accumulation,
 //   s = scale * log2(e) * sq[q block] * sk[j] * <q8_i, k8_j>,
-// and the p.v product stays bf16 with f32 accumulation, as in K1.
-// K7 replaces `_flash_kernel_int8_full` (pallas_call at :459, backend
-// "pallas_int8pv"): K6 with the p.v product in int8 too. V is int8 with
-// one scale per channel, P is quantized per (row, 1024-key block) against
-// the block's own max,
+// V is int8 with one scale per channel, P is quantized per (row, 1024-key
+// block) against the block's own max,
 //   p8 = round(127 * exp2(s - blockmax)),
 // and dequantized with sp / 127, sp = exp2(blockmax - m); the softmax sum l
-// accumulates the exact f32 p. Both match the plain version
+// accumulates the exact f32 p. It matches the plain version
 // `flash_attention_int8_plain` (the dense emulation JAX runs off the TPU)
-// up to exp2 rounding, p in bf16 (K6) and p8 values that a rounding tie
-// may move by one (K7).
+// up to exp2 rounding and p8 values that a rounding tie may move by one.
+// (K6, the int8 q.k^T with a bf16 p.v, has its own design and pre-pass in
+// csrc/flash_attention_qk_int8.cu.)
 //
 // The operands come from the quantization pre-pass (`int8_prepass` in
 // tclight_torch/ops/attention.py, plain torch ops): q8 (BH, Sq_pad, DK)
 // and k8 (BH, Skv_pad, DK) int8, the head dim zero-padded to DK, a
 // multiple of the int8 MMA depth 32 (40 -> 64, 80 -> 96, 160); the Q scale
 // sq per (batch * head, 1024-row block) and the K scale sk per token
-// (Skv_pad = ceil64(Skv), the padded keys zero). K6 reads v as bf16 in
-// place from (B, Skv, H, D); K7 reads v8t (BH, DV, Skv_pad) int8, V
-// transposed with its keys on the contiguous axis (ldmatrix.trans does
-// not transpose 8-bit data) and the channels padded to DV = ceil16(D).
+// (Skv_pad = ceil64(Skv), the padded keys zero); v8t (BH, DV, Skv_pad)
+// int8, V transposed with its keys on the contiguous axis (ldmatrix.trans
+// does not transpose 8-bit data) and the channels padded to DV =
+// ceil16(D); sv (BH, DV) f32.
 //
 // What bounds it on the H100: tensor-core operations. At the level-0 UNet
 // self-attention (S ~ 35.6k tokens, 8 heads, head dim 40) each product is
 // 2*B*H*S^2*D ~ 1.6 T operations on ~0.1 GB of operands: at the int8 peak
-// (1,979 TOPS) and the bf16 peak (989 TFLOP/s), K6 needs >= 2.5 ms and K7
-// >= 1.6 ms.
+// (1,979 TOPS) both need >= 1.6 ms.
 //
-// Design: K1's layout (csrc/flash_attention.cu). One block of 8 warps per
-// (128-row q tile, batch * head); a loop over 64-key tiles, double buffered
-// with cp.async; each warp keeps its 16 rows' q fragments, score tile,
-// softmax state and output accumulator in registers. q.k^T runs on
-// mma.sync m16n8k32 s8 -> s32; in bytes its fragments have the bf16 k16
-// layout, so q8 and k8 load with the same non-transposed ldmatrix as K1's
-// q and k. The 1024-row Q scale block holds whole 128-row tiles, so a
-// block reads one sq. K6's p.v is K1's: the s32 score fragment has the f32
-// C layout, so p packs into the bf16 A operand unchanged.
+// Design: PR 1's K1 layout. One block of 8 warps per (128-row q tile,
+// batch * head); a loop over 64-key tiles, double buffered with cp.async;
+// each warp keeps its 16 rows' q fragments, score tile, softmax state and
+// output accumulator in registers. q.k^T runs on mma.sync m16n8k32 s8 ->
+// s32; in bytes its fragments have the bf16 k16 layout, so q8 and k8 load
+// with the same non-transposed ldmatrix as bf16 q and k. The 1024-row Q
+// scale block holds whole 128-row tiles, so a block reads one sq.
 //
 // K7 needs the row max of a whole 1024-key block before it can quantize
 // that block's first tile. It takes two passes over each block's 16
@@ -55,10 +51,9 @@
 // are exact int32 and are dequantized into the f32 accumulator tile by
 // tile, one 16-channel pair at a time (8 int32 registers live).
 //
-// Shared memory per block: the q8 tile, two k8 tiles and two v tiles, rows
-// padded by 16 bytes against bank conflicts: at D = 160, 88,064 bytes for
-// K6 and 70,656 for K7, against the 232,448 a block may use. Not yet used:
-// wgmma, TMA.
+// Shared memory per block: the q8 tile, two k8 tiles and two v8t tiles,
+// rows padded by 16 bytes against bank conflicts: 70,656 bytes at D = 160,
+// against the 232,448 a block may use. Not yet used: wgmma, TMA.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -103,16 +98,15 @@ __device__ __forceinline__ void load_s8_tile(int8_t* dst, int ld, const int8_t* 
   }
 }
 
-template <int DK, int DV, bool PV8>
+template <int DK, int DV>
 __host__ __device__ constexpr size_t smem_bytes() {
-  return (size_t)(BQ + 2 * BK) * (DK + 16) +
-         (PV8 ? (size_t)2 * DV * (BK + 16) : (size_t)2 * BK * (DV + 8) * 2);
+  return (size_t)(BQ + 2 * BK) * (DK + 16) + (size_t)2 * DV * (BK + 16);
 }
 
-template <int DK, int DV, bool PV8>
+template <int DK, int DV>
 __global__ void __launch_bounds__(NTHREADS)
 flash_int8_kernel(const int8_t* __restrict__ q8, const int8_t* __restrict__ k8,
-                  const void* __restrict__ vptr, const float* __restrict__ sq,
+                  const int8_t* __restrict__ v8t, const float* __restrict__ sq,
                   const float* __restrict__ sk, const float* __restrict__ sv,
                   __nv_bfloat16* __restrict__ o, int H, int Sq, int Skv, int D,
                   int Sq_pad, int n_qb, int bq, float scale_log2) {
@@ -120,8 +114,8 @@ flash_int8_kernel(const int8_t* __restrict__ q8, const int8_t* __restrict__ k8,
   constexpr int KSTEPS = DK / 32;               // depth steps of q.k^T
   constexpr int NT_O = DV / 8;                  // 8-column tiles of the output
   constexpr int NT_S = BK / 8;                  // 8-key tiles of a score tile
-  constexpr int LDV = PV8 ? BK + 16 : DV + 8;   // v smem row: bytes (K7), bf16 (K6)
-  constexpr int VTILE = PV8 ? DV * LDV : BK * LDV * 2;  // bytes per v buffer
+  constexpr int LDV = BK + 16;                  // bytes per v8t smem row
+  constexpr int VTILE = DV * LDV;               // bytes per v buffer
   extern __shared__ __align__(128) unsigned char smem[];
   int8_t* sQ = reinterpret_cast<int8_t*>(smem);
   int8_t* sK = sQ + BQ * LDQ;                   // 2 buffers of BK x LDQ
@@ -140,22 +134,16 @@ flash_int8_kernel(const int8_t* __restrict__ q8, const int8_t* __restrict__ k8,
   const int8_t* kb = k8 + (long)bh * Skv_pad * DK;
   const float* skb = sk + (long)bh * Skv_pad;
   const float qscale = scale_log2 * sq[(long)bh * n_qb + q0 / bq];
-  const long row_stride = (long)H * D;  // bf16 elements between tokens of v / o
-  const __nv_bfloat16* vb = reinterpret_cast<const __nv_bfloat16*>(vptr) +
-                            ((long)b * Skv * H + h) * D;
-  const int8_t* v8b = reinterpret_cast<const int8_t*>(vptr) + (long)bh * DV * Skv_pad;
+  const long row_stride = (long)H * D;  // bf16 elements between tokens of o
+  const int8_t* v8b = v8t + (long)bh * DV * Skv_pad;
   __nv_bfloat16* ob = o + ((long)b * Sq * H + h) * D;
 
   auto load_k = [&](int j, int buf) {
     load_s8_tile<BK, DK>(sK + buf * BK * LDQ, LDQ, kb + (long)j * BK * DK, DK);
   };
   auto load_v = [&](int j, int buf) {
-    if constexpr (PV8)
-      load_s8_tile<DV, BK>(reinterpret_cast<int8_t*>(sV + buf * VTILE), LDV,
-                           v8b + (long)j * BK, Skv_pad);
-    else
-      load_tile_async<BK, NTHREADS>(reinterpret_cast<__nv_bfloat16*>(sV + buf * VTILE),
-                                    LDV, vb, row_stride, j * BK, Skv, D, DV);
+    load_s8_tile<DV, BK>(reinterpret_cast<int8_t*>(sV + buf * VTILE), LDV,
+                         v8b + (long)j * BK, Skv_pad);
   };
 
   load_s8_tile<BQ, DK>(sQ, LDQ, q8 + ((long)bh * Sq_pad + q0) * DK, DK);
@@ -207,172 +195,104 @@ flash_int8_kernel(const int8_t* __restrict__ q8, const int8_t* __restrict__ k8,
   float m_run[2] = {-INFINITY, -INFINITY};
   float l_run[2] = {0.f, 0.f};  // this thread's share of the row sums
 
-  if constexpr (!PV8) {
-    // K6: K1's loop with int8 logits
-    load_k(0, 0);
-    load_v(0, 0);
+  // K7: per 1024-key block, a max pass then a quantize + p8.v8 pass
+  const int n_blocks = (n_tiles + TPB - 1) / TPB;
+  for (int blk = 0; blk < n_blocks; ++blk) {
+    const int j0 = blk * TPB;
+    const int j1 = min(j0 + TPB, n_tiles);
+    float bmax[2] = {-INFINITY, -INFINITY};
+    __syncthreads();  // every warp is done with the buffers of the last pass
+    load_k(j0, 0);
     cp_async_commit();
-    cp_async_wait_all();
+    for (int j = j0; j < j1; ++j) {
+      const int buf = (j - j0) & 1;
+      cp_async_wait_all();
+      __syncthreads();  // tile j landed; buffer buf ^ 1 is free
+      if (j + 1 < j1) load_k(j + 1, buf ^ 1);
+      cp_async_commit();
+      float s[NT_S][4];
+      scores(j, buf, s);
+#pragma unroll
+      for (int n = 0; n < NT_S; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) bmax[e >> 1] = fmaxf(bmax[e >> 1], s[n][e]);
+    }
+    float sp[2], pdeq[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      bmax[r] = fmaxf(bmax[r], __shfl_xor_sync(0xffffffffu, bmax[r], 1));
+      bmax[r] = fmaxf(bmax[r], __shfl_xor_sync(0xffffffffu, bmax[r], 2));
+      const float m_new = fmaxf(m_run[r], bmax[r]);  // finite: a block has a valid key
+      const float alpha = fast_exp2(m_run[r] - m_new);
+      m_run[r] = m_new;
+      sp[r] = fast_exp2(bmax[r] - m_new);
+      pdeq[r] = sp[r] / 127.f;
+      l_run[r] *= alpha;
+#pragma unroll
+      for (int n = 0; n < NT_O; ++n) {
+        acc[n][2 * r] *= alpha;
+        acc[n][2 * r + 1] *= alpha;
+      }
+    }
+
+    float lb[2] = {0.f, 0.f};  // sums of p / sp over the block
     __syncthreads();
-    for (int j = 0; j < n_tiles; ++j) {
-      const int buf = j & 1;
-      if (j + 1 < n_tiles) {
+    load_k(j0, 0);
+    load_v(j0, 0);
+    cp_async_commit();
+    for (int j = j0; j < j1; ++j) {
+      const int buf = (j - j0) & 1;
+      cp_async_wait_all();
+      __syncthreads();
+      if (j + 1 < j1) {
         load_k(j + 1, buf ^ 1);
         load_v(j + 1, buf ^ 1);
       }
       cp_async_commit();
       float s[NT_S][4];
       scores(j, buf, s);
-      float tmax[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-      for (int n = 0; n < NT_S; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) tmax[e >> 1] = fmaxf(tmax[e >> 1], s[n][e]);
-      float alpha[2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 1));
-        tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 2));
-        const float m_new = fmaxf(m_run[r], tmax[r]);  // finite: a tile has a valid key
-        alpha[r] = fast_exp2(m_run[r] - m_new);
-        m_run[r] = m_new;
-      }
-      float rsum[2] = {0.f, 0.f};
+      int p8[NT_S][4];
 #pragma unroll
       for (int n = 0; n < NT_S; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          s[n][e] = fast_exp2(s[n][e] - m_run[e >> 1]);
-          rsum[e >> 1] += s[n][e];
+          const float pr = fast_exp2(s[n][e] - bmax[e >> 1]);  // p / sp, <= 1
+          lb[e >> 1] += pr;
+          p8[n][e] = __float2int_rn(127.f * pr);
         }
-      l_run[0] = l_run[0] * alpha[0] + rsum[0];
-      l_run[1] = l_run[1] * alpha[1] + rsum[1];
+      // A operands of the two 32-key depth steps: keys {2t, 2t+1} of the
+      // 8-key tiles 4kk, 4kk + 1 (and 4kk + 2, 4kk + 3), which the
+      // pre-pass's key permutation of v8t lines up with V's rows
+      uint32_t pa[BK / 32][4];
 #pragma unroll
-      for (int n = 0; n < NT_O; ++n) {
-        acc[n][0] *= alpha[0];
-        acc[n][1] *= alpha[0];
-        acc[n][2] *= alpha[1];
-        acc[n][3] *= alpha[1];
+      for (int kk = 0; kk < BK / 32; ++kk) {
+        const int n0 = 4 * kk;
+        pa[kk][0] = pack_s8(p8[n0][0], p8[n0][1], p8[n0 + 1][0], p8[n0 + 1][1]);
+        pa[kk][1] = pack_s8(p8[n0][2], p8[n0][3], p8[n0 + 1][2], p8[n0 + 1][3]);
+        pa[kk][2] = pack_s8(p8[n0 + 2][0], p8[n0 + 2][1], p8[n0 + 3][0], p8[n0 + 3][1]);
+        pa[kk][3] = pack_s8(p8[n0 + 2][2], p8[n0 + 2][3], p8[n0 + 3][2], p8[n0 + 3][3]);
       }
-      const __nv_bfloat16* tV = reinterpret_cast<const __nv_bfloat16*>(sV + buf * VTILE);
+      const int8_t* tV = reinterpret_cast<const int8_t*>(sV + buf * VTILE);
 #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                                pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                                pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                                pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-        for (int np = 0; np < NT_O / 2; ++np) {
-          uint32_t bf[4];
-          ldmatrix_x4_trans(bf, smem_u32(tV + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDV +
-                                         np * 16 + (lane >> 4) * 8));
-          mma_bf16(acc[2 * np], pa, bf[0], bf[1]);
-          mma_bf16(acc[2 * np + 1], pa, bf[2], bf[3]);
-        }
-      }
-      cp_async_wait_all();
-      __syncthreads();  // the next tile has landed; this tile's buffer is free
-    }
-  } else {
-    // K7: per 1024-key block, a max pass then a quantize + p8.v8 pass
-    const int n_blocks = (n_tiles + TPB - 1) / TPB;
-    for (int blk = 0; blk < n_blocks; ++blk) {
-      const int j0 = blk * TPB;
-      const int j1 = min(j0 + TPB, n_tiles);
-      float bmax[2] = {-INFINITY, -INFINITY};
-      __syncthreads();  // every warp is done with the buffers of the last pass
-      load_k(j0, 0);
-      cp_async_commit();
-      for (int j = j0; j < j1; ++j) {
-        const int buf = (j - j0) & 1;
-        cp_async_wait_all();
-        __syncthreads();  // tile j landed; buffer buf ^ 1 is free
-        if (j + 1 < j1) load_k(j + 1, buf ^ 1);
-        cp_async_commit();
-        float s[NT_S][4];
-        scores(j, buf, s);
-#pragma unroll
-        for (int n = 0; n < NT_S; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) bmax[e >> 1] = fmaxf(bmax[e >> 1], s[n][e]);
-      }
-      float sp[2], pdeq[2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        bmax[r] = fmaxf(bmax[r], __shfl_xor_sync(0xffffffffu, bmax[r], 1));
-        bmax[r] = fmaxf(bmax[r], __shfl_xor_sync(0xffffffffu, bmax[r], 2));
-        const float m_new = fmaxf(m_run[r], bmax[r]);  // finite: a block has a valid key
-        const float alpha = fast_exp2(m_run[r] - m_new);
-        m_run[r] = m_new;
-        sp[r] = fast_exp2(bmax[r] - m_new);
-        pdeq[r] = sp[r] / 127.f;
-        l_run[r] *= alpha;
-#pragma unroll
-        for (int n = 0; n < NT_O; ++n) {
-          acc[n][2 * r] *= alpha;
-          acc[n][2 * r + 1] *= alpha;
-        }
-      }
-
-      float lb[2] = {0.f, 0.f};  // sums of p / sp over the block
-      __syncthreads();
-      load_k(j0, 0);
-      load_v(j0, 0);
-      cp_async_commit();
-      for (int j = j0; j < j1; ++j) {
-        const int buf = (j - j0) & 1;
-        cp_async_wait_all();
-        __syncthreads();
-        if (j + 1 < j1) {
-          load_k(j + 1, buf ^ 1);
-          load_v(j + 1, buf ^ 1);
-        }
-        cp_async_commit();
-        float s[NT_S][4];
-        scores(j, buf, s);
-        int p8[NT_S][4];
-#pragma unroll
-        for (int n = 0; n < NT_S; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float pr = fast_exp2(s[n][e] - bmax[e >> 1]);  // p / sp, <= 1
-            lb[e >> 1] += pr;
-            p8[n][e] = __float2int_rn(127.f * pr);
-          }
-        // A operands of the two 32-key depth steps: keys {2t, 2t+1} of the
-        // 8-key tiles 4kk, 4kk + 1 (and 4kk + 2, 4kk + 3), which the
-        // pre-pass's key permutation of v8t lines up with V's rows
-        uint32_t pa[BK / 32][4];
+      for (int np = 0; np < NT_O / 2; ++np) {
+        int32_t d[2][4] = {{0, 0, 0, 0}, {0, 0, 0, 0}};
 #pragma unroll
         for (int kk = 0; kk < BK / 32; ++kk) {
-          const int n0 = 4 * kk;
-          pa[kk][0] = pack_s8(p8[n0][0], p8[n0][1], p8[n0 + 1][0], p8[n0 + 1][1]);
-          pa[kk][1] = pack_s8(p8[n0][2], p8[n0][3], p8[n0 + 1][2], p8[n0 + 1][3]);
-          pa[kk][2] = pack_s8(p8[n0 + 2][0], p8[n0 + 2][1], p8[n0 + 3][0], p8[n0 + 3][1]);
-          pa[kk][3] = pack_s8(p8[n0 + 2][2], p8[n0 + 2][3], p8[n0 + 3][2], p8[n0 + 3][3]);
+          uint32_t bf[4];
+          ldmatrix_x4(bf, smem_u32(tV + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * LDV +
+                                   kk * 32 + ((lane >> 3) & 1) * 16));
+          mma_s8(d[0], pa[kk], bf[0], bf[1]);
+          mma_s8(d[1], pa[kk], bf[2], bf[3]);
         }
-        const int8_t* tV = reinterpret_cast<const int8_t*>(sV + buf * VTILE);
 #pragma unroll
-        for (int np = 0; np < NT_O / 2; ++np) {
-          int32_t d[2][4] = {{0, 0, 0, 0}, {0, 0, 0, 0}};
+        for (int i = 0; i < 2; ++i)
 #pragma unroll
-          for (int kk = 0; kk < BK / 32; ++kk) {
-            uint32_t bf[4];
-            ldmatrix_x4(bf, smem_u32(tV + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * LDV +
-                                     kk * 32 + ((lane >> 3) & 1) * 16));
-            mma_s8(d[0], pa[kk], bf[0], bf[1]);
-            mma_s8(d[1], pa[kk], bf[2], bf[3]);
-          }
-#pragma unroll
-          for (int i = 0; i < 2; ++i)
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-              acc[2 * np + i][e] += (float)d[i][e] * pdeq[e >> 1];
-        }
+          for (int e = 0; e < 4; ++e)
+            acc[2 * np + i][e] += (float)d[i][e] * pdeq[e >> 1];
       }
-      l_run[0] += sp[0] * lb[0];
-      l_run[1] += sp[1] * lb[1];
     }
+    l_run[0] += sp[0] * lb[0];
+    l_run[1] += sp[1] * lb[1];
   }
 
   float inv[2];
@@ -387,8 +307,7 @@ flash_int8_kernel(const int8_t* __restrict__ q8, const int8_t* __restrict__ k8,
   for (int n = 0; n < NT_O; ++n) {
     const int col = n * 8 + 2 * t;
     if (col >= D) continue;  // d % 8 == 0: a tile is wholly in or out
-    float2 cs = make_float2(1.f, 1.f);
-    if constexpr (PV8) cs = *reinterpret_cast<const float2*>(sv + (long)bh * DV + col);
+    const float2 cs = *reinterpret_cast<const float2*>(sv + (long)bh * DV + col);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = q0 + r0 + g + 8 * r;
@@ -400,24 +319,22 @@ flash_int8_kernel(const int8_t* __restrict__ q8, const int8_t* __restrict__ k8,
   }
 }
 
-template <int DK, int DV, bool PV8>
+template <int DK, int DV>
 int launch(const void* q8, const void* k8, const void* v, const void* sq, const void* sk,
            const void* sv, void* o, int B, int H, int Sq, int Skv, int D, int Sq_pad,
            int n_qb, int bq, float scale, cudaStream_t stream) {
-  const size_t bytes = smem_bytes<DK, DV, PV8>();
+  const size_t bytes = smem_bytes<DK, DV>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_int8_kernel<DK, DV, PV8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
+      flash_int8_kernel<DK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((Sq + BQ - 1) / BQ, B * H);
-  flash_int8_kernel<DK, DV, PV8><<<grid, NTHREADS, bytes, stream>>>(
-      (const int8_t*)q8, (const int8_t*)k8, v, (const float*)sq, (const float*)sk,
+  flash_int8_kernel<DK, DV><<<grid, NTHREADS, bytes, stream>>>(
+      (const int8_t*)q8, (const int8_t*)k8, (const int8_t*)v, (const float*)sq, (const float*)sk,
       (const float*)sv, (__nv_bfloat16*)o, H, Sq, Skv, D, Sq_pad, n_qb, bq,
       scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
 
-template <bool PV8>
 int dispatch(const void* q8, const void* k8, const void* v, const void* sq,
              const void* sk, const void* sv, void* o, int B, int H, int Sq, int Skv,
              int D, int Sq_pad, int n_qb, int bq, float scale, void* stream) {
@@ -428,7 +345,7 @@ int dispatch(const void* q8, const void* k8, const void* v, const void* sq,
   cudaStream_t s = (cudaStream_t)stream;
 #define TCLIGHT_INT8_CASE(DK_, DV_)                                                   \
   if ((D + 31) / 32 * 32 == DK_ && (D + 15) / 16 * 16 == DV_)                         \
-    return launch<DK_, DV_, PV8>(q8, k8, v, sq, sk, sv, o, B, H, Sq, Skv, D, Sq_pad,  \
+    return launch<DK_, DV_>(q8, k8, v, sq, sk, sv, o, B, H, Sq, Skv, D, Sq_pad,       \
                                  n_qb, bq, scale, s);
   TCLIGHT_INT8_CASE(32, 16)
   TCLIGHT_INT8_CASE(32, 32)
@@ -446,27 +363,18 @@ int dispatch(const void* q8, const void* k8, const void* v, const void* sq,
 
 }  // namespace
 
-// K6. q8 (B*H, Sq_pad, DK), k8 (B*H, ceil64(Skv), DK) int8; v (B, Skv, H, D)
-// bf16; sq (B*H, n_qb) and sk (B*H, ceil64(Skv)) f32; o (B, Sq, H, D) bf16.
-// DK = ceil32(D), D % 8 == 0, D <= 160; Sq_pad = n_qb * bq, bq % 128 == 0.
-// All contiguous and 16-byte aligned. Returns cudaGetLastError() after the
-// launch.
-extern "C" int tclight_flash_attention_int8(const void* q8, const void* k8, const void* v,
-                                            const void* sq, const void* sk, void* o, int B,
-                                            int H, int Sq, int Skv, int D, int Sq_pad,
-                                            int n_qb, int bq, float scale, void* stream) {
-  return dispatch<false>(q8, k8, v, sq, sk, nullptr, o, B, H, Sq, Skv, D, Sq_pad, n_qb, bq,
-                         scale, stream);
-}
-
-// K7. As K6, with v8t (B*H, DV, ceil64(Skv)) int8, DV = ceil16(D), its keys
-// permuted within each 16 (see the head of this file), and sv (B*H, DV) f32.
+// K7. q8 (B*H, Sq_pad, DK), k8 (B*H, ceil64(Skv), DK) int8; v8t (B*H, DV,
+// ceil64(Skv)) int8, DV = ceil16(D), its keys permuted within each 16 (see
+// the head of this file); sq (B*H, n_qb), sk (B*H, ceil64(Skv)) and sv
+// (B*H, DV) f32; o (B, Sq, H, D) bf16. DK = ceil32(D), D % 8 == 0, D <=
+// 160; Sq_pad = n_qb * bq, bq % 128 == 0. All contiguous and 16-byte
+// aligned. Returns cudaGetLastError() after the launch.
 extern "C" int tclight_flash_attention_int8pv(const void* q8, const void* k8,
                                               const void* v8t, const void* sq,
                                               const void* sk, const void* sv, void* o,
                                               int B, int H, int Sq, int Skv, int D,
                                               int Sq_pad, int n_qb, int bq, float scale,
                                               void* stream) {
-  return dispatch<true>(q8, k8, v8t, sq, sk, sv, o, B, H, Sq, Skv, D, Sq_pad, n_qb, bq,
-                        scale, stream);
+  return dispatch(q8, k8, v8t, sq, sk, sv, o, B, H, Sq, Skv, D, Sq_pad, n_qb, bq, scale,
+                  stream);
 }

@@ -10,14 +10,16 @@ Layout: (B, S, H, D) — batch, sequence, heads, head_dim. Inference only.
   `flash_attention_plain`, the online-softmax loop over KV chunks of
   `_flash_attention_xla`.
 - `flash_attention(..., backend="int8" | "int8pv")`: the int8 variants.
-  A quantization pre-pass (plain torch ops, shared by both devices) makes
-  int8 Q with one scale per 1024-row block, int8 K (smoothed by its token
-  mean) with one scale per token, and for "int8pv" int8 V with one scale
-  per channel. On a CUDA tensor the kernels K6 (int8 QK^T, bf16 PV) and
-  K7 (int8 QK^T and PV, P quantized per (row, 1024-key block)) of
-  `csrc/flash_attention_int8.cu` run on it; on a CPU tensor
-  `flash_attention_int8_plain`, the dense emulation of
-  `_flash_attention_int8_xla`, one 1024-row block of queries at a time.
+  A quantization pre-pass makes int8 Q with one scale per 1024-row block,
+  int8 K (smoothed by its token mean) with one scale per token, and for
+  "int8pv" int8 V with one scale per channel. On a CUDA tensor the kernel
+  K6 (int8 QK^T, bf16 PV; `csrc/flash_attention_qk_int8.cu`) runs on the
+  operands of its own pre-pass kernels (`qk_int8_operands`), and K7 (int8
+  QK^T and PV, P quantized per (row, 1024-key block);
+  `csrc/flash_attention_int8.cu`) on those of the plain torch pre-pass
+  `int8_prepass`; on a CPU tensor `flash_attention_int8_plain`, the dense
+  emulation of `_flash_attention_int8_xla`, one 1024-row block of queries
+  at a time.
 
 K1 replaces the TPU kernel `_flash_kernel` of tclight_tpu/ops/attention.py.
 On the H100 the level-0 UNet self-attention (~35.6k tokens, 8 heads, head
@@ -27,9 +29,11 @@ bound it. Its design is warp-specialised: a producer warp feeds a ring of
 k/v tiles by TMA (q read in place, k and v from chunk-major copies the
 wrapper makes; `flash_geometry` gives the tensor maps), two consumer
 warpgroups run both products on wgmma and the softmax in registers, and
-overlap one's softmax with the other's products (details in the source). K6 and K7
-replace `_flash_kernel_qk_int8` and `_flash_kernel_int8_full` with an
-mma.sync layout and int8 products (details in their source).
+overlap one's softmax with the other's products (details in the source). K6
+replaces `_flash_kernel_qk_int8` in K1's design, with q.k^T on int8 wgmma
+and operands that its pre-pass kernels write in the layout its TMA boxes
+read (`qk_int8_geometry`); K7 replaces `_flash_kernel_int8_full` with an
+mma.sync layout and int8 products (details in their sources).
 
 The int8 products of the plain version are f32 matmuls of integer-valued
 tensors: exact, since |dot| <= 127^2 * 160 < 2^24, as long as TF32 is off
@@ -49,7 +53,9 @@ from tclight_torch.ops import kernels
 __all__ = ["dot_product_attention", "flash_attention", "flash_attention_plain",
            "flash_attention_cuda", "flash_geometry", "flash_attention_int8_plain",
            "flash_attention_int8_cuda", "quantize_rows", "quantize_blocks",
-           "quantize_channels", "smooth_k", "BACKENDS"]
+           "quantize_channels", "smooth_k", "int8_prepass", "qk_int8_geometry",
+           "qk_int8_operands", "qk_int8_operands_plain", "chunk_major", "from_chunk_major",
+           "BACKENDS"]
 
 BACKENDS = (None, "int8", "int8pv")
 QBLOCK = 1024  # rows of a Q scale block, and keys of a K7 P-scale block
@@ -273,11 +279,13 @@ def flash_attention_int8_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 
 
 def int8_prepass(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pv_int8: bool):
-    """The kernels' operands, made with the plain quantizers above on the
-    card: q8 (BH, Sq_pad, DK) and k8 (BH, Skv_pad, DK) int8 with the head
-    dim zero-padded to DK, a multiple of the int8 MMA depth 32 (zero
-    columns change no dot product) and K's tokens to a multiple of the
-    64-key tile; sq (BH, n_qblocks) and sk (BH, Skv_pad) f32 scales. For
+    """K7's operands on the card, and the plain version of K6's pre-pass
+    kernels (`qk_int8_operands_plain` lays them out as K6 reads them),
+    made with the plain quantizers above: q8 (BH, Sq_pad, DK) and k8
+    (BH, Skv_pad, DK) int8 with the head dim zero-padded to DK, a multiple
+    of the int8 MMA depth 32 (zero columns change no dot product) and K's
+    tokens to a multiple of the 64-key tile; sq (BH, n_qblocks) and sk
+    (BH, Skv_pad) f32 scales. For
     K7 also v8 (BH, DV, Skv_pad) int8, the channels padded to DV = ceil16(D)
     and the keys transposed onto the last axis and permuted within each
     16 (see `csrc/flash_attention_int8.cu`), and sv (BH, DV) f32."""
@@ -307,11 +315,65 @@ def int8_prepass(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pv_int8: boo
     return ops
 
 
-def flash_attention_int8_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                              scale: float, pv_int8: bool = False) -> torch.Tensor:
-    """Launch K6 (`pv_int8` False) or K7 on bf16 CUDA tensors (B, S, H, D),
-    D % 8 == 0, D <= 160, after the quantization pre-pass."""
-    name = "flash_attention_int8pv" if pv_int8 else "flash_attention_int8"
+def chunk_major(x: torch.Tensor, width: int) -> torch.Tensor:
+    """(N, S, C) -> (N, C / width, S, width): the rows' `width`-element
+    chunks, chunk by chunk, the layout the kernels' TMA boxes read."""
+    n, s, c = x.shape
+    return x.reshape(n, s, c // width, width).transpose(1, 2).contiguous()
+
+
+def from_chunk_major(x: torch.Tensor) -> torch.Tensor:
+    """Inverse of `chunk_major`: (N, C / w, S, w) -> (N, S, C)."""
+    n, nc, s, w = x.shape
+    return x.transpose(1, 2).reshape(n, s, nc * w)
+
+
+def qk_int8_geometry(b: int, sq: int, skv: int, h: int, d: int) -> dict:
+    """The layout of K6's operands, as its pre-pass writes them and its TMA
+    boxes read them (`csrc/flash_attention_qk_int8.cu`): the q.k^T depth
+    `dk` (d padded to the int8 wgmma's 32 with zero columns) and the p.v
+    width `dp` (padded to 16 by TMA's zero fill); the Q-scale block `bq`
+    and its count; the K scales padded to 128 keys (zeros); the pre-pass's
+    slices of 256 queries and 256 keys, and its f32 scratch (per batch *
+    head: each q slice's amax, each k slice's channel sums, the token mean
+    and a counter); each operand's shape; the q rows, keys and stages of
+    K1's design, which K6 keeps."""
+    dk, dp = _ceil_to(d, 32), _ceil_to(d, 16)
+    bq = min(QBLOCK, _ceil_to(sq, 128))
+    bh = b * h
+    mb = 2 if dp <= 96 else 1
+    n_qs, n_ks = -(-sq // 256), -(-skv // 256)
+    return {"dk": dk, "dp": dp, "bq": bq, "n_qb": -(-sq // bq), "skv_pad": _ceil_to(skv, 128),
+            "q_slices": n_qs, "k_slices": n_ks, "row_blocks": mb, "q_rows": 128 * mb,
+            "kv_rows": 64 if mb == 2 else 128, "stages": 4 if mb == 2 else (3 if dp <= 128 else 2),
+            "shapes": {"q8": (bh, dk // 16, sq, 16), "k8": (bh, dk // 16, skv, 16),
+                       "v": (bh, d // 8, skv, 8), "sq": (bh, -(-sq // bq)),
+                       "sk": (bh, _ceil_to(skv, 128)), "scratch": (bh, n_qs + n_ks * d + d + 1)}}
+
+
+def qk_int8_operands_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> dict:
+    """K6's operands from the plain pre-pass `int8_prepass`, in the layout
+    of `qk_int8_geometry` (the plain version of the pre-pass kernels):
+    q8 and k8 chunk-major in 16-byte chunks, only the real rows; v
+    chunk-major in 8-element chunks; the K scales of the padded keys 0."""
+    b, sq, h, d = q.shape
+    skv = k.shape[1]
+    g = qk_int8_geometry(b, sq, skv, h, d)
+    ops = int8_prepass(q, k, v, pv_int8=False)
+    return {"q8": chunk_major(ops["q8"][:, :sq], 16), "k8": chunk_major(ops["k8"][:, :skv], 16),
+            "v": chunk_major(_heads_first(v), 8), "sq": ops["sq"],
+            "sk": F.pad(ops["sk"][:, :skv], (0, g["skv_pad"] - skv)), "bq": g["bq"]}
+
+
+# tclight_qk_int8_prepass(q, k, v, q8, k8, vc, sq, sk, scratch, B, H, Sq, Skv,
+# D, bq, stream)
+PREPASS_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+# tclight_flash_attention_qk_int8(q8, k8, vc, sq, sk, o, B, H, Sq, Skv, D,
+# bq, scale, stream)
+K6_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+
+
+def _check_int8_inputs(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     for nm, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda or t.dtype != torch.bfloat16:
             raise ValueError(f"{name} kernel: {nm} must be a bf16 CUDA tensor, "
@@ -327,23 +389,64 @@ def flash_attention_int8_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if d % 8 or d > 160:
         raise ValueError(f"{name} kernel: head dim {d} must be a multiple of 8 "
                          "and at most 160")
-    ops = int8_prepass(q, k, v, pv_int8)
+    if b * h > 65535:
+        raise ValueError(f"{name} kernel: batch * heads = {b * h} is over the grid's 65535")
+
+
+def qk_int8_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> dict:
+    """K6's operands (`qk_int8_geometry`): on CUDA tensors from the
+    hand-written pre-pass kernels, on CPU tensors from the plain version
+    `qk_int8_operands_plain`."""
+    if not q.is_cuda:
+        return qk_int8_operands_plain(q, k, v)
+    _check_int8_inputs("flash_attention_int8", q, k, v)
+    b, sq, h, d = q.shape
+    skv = k.shape[1]
+    g = qk_int8_geometry(b, sq, skv, h, d)
+    sh = g["shapes"]
+    ops = {name: torch.empty(sh[name], dtype=dt, device=q.device) for name, dt in (
+        ("q8", torch.int8), ("k8", torch.int8), ("v", torch.bfloat16), ("sq", torch.float32),
+        ("sk", torch.float32), ("scratch", torch.float32))}
+    fn = kernels.function("flash_attention_qk_int8", "tclight_qk_int8_prepass",
+                          PREPASS_ARGTYPES, ctypes.c_int)
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), ops["q8"].data_ptr(),
+            ops["k8"].data_ptr(), ops["v"].data_ptr(), ops["sq"].data_ptr(),
+            ops["sk"].data_ptr(), ops["scratch"].data_ptr(), b, h, sq, skv, d, g["bq"],
+            torch.cuda.current_stream(q.device).cuda_stream)
+    kernels.check_launch(rc, "flash_attention_int8 pre-pass")
+    kernels.STATS["flash_attention_int8_prepass"].record((sq, skv, d))
+    del ops["scratch"]
+    ops["bq"] = g["bq"]
+    return ops
+
+
+def flash_attention_int8_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              scale: float, pv_int8: bool = False) -> torch.Tensor:
+    """Launch K6 (`pv_int8` False: after its pre-pass kernels) or K7 (after
+    the plain pre-pass) on bf16 CUDA tensors (B, S, H, D), D % 8 == 0,
+    D <= 160."""
+    name = "flash_attention_int8pv" if pv_int8 else "flash_attention_int8"
+    _check_int8_inputs(name, q, k, v)
+    b, sq, h, d = q.shape
+    skv = k.shape[1]
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    common = (b, h, sq, skv, d, ops["q8"].shape[1], ops["sq"].shape[1], ops["bq"],
-              float(scale), stream)
-    tail = [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
     if pv_int8:
+        ops = int8_prepass(q, k, v, pv_int8)
         fn = kernels.function("flash_attention_int8", "tclight_flash_attention_int8pv",
-                              [ctypes.c_void_p] * 7 + tail, ctypes.c_int)
+                              [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+                              + [ctypes.c_float, ctypes.c_void_p], ctypes.c_int)
         rc = fn(ops["q8"].data_ptr(), ops["k8"].data_ptr(), ops["v8t"].data_ptr(),
                 ops["sq"].data_ptr(), ops["sk"].data_ptr(), ops["sv"].data_ptr(),
-                out.data_ptr(), *common)
+                out.data_ptr(), b, h, sq, skv, d, ops["q8"].shape[1], ops["sq"].shape[1],
+                ops["bq"], float(scale), stream)
     else:
-        fn = kernels.function("flash_attention_int8", "tclight_flash_attention_int8",
-                              [ctypes.c_void_p] * 6 + tail, ctypes.c_int)
-        rc = fn(ops["q8"].data_ptr(), ops["k8"].data_ptr(), v.data_ptr(),
-                ops["sq"].data_ptr(), ops["sk"].data_ptr(), out.data_ptr(), *common)
+        ops = qk_int8_operands(q, k, v)
+        fn = kernels.function("flash_attention_qk_int8", "tclight_flash_attention_qk_int8",
+                              K6_ARGTYPES, ctypes.c_int)
+        rc = fn(ops["q8"].data_ptr(), ops["k8"].data_ptr(), ops["v"].data_ptr(),
+                ops["sq"].data_ptr(), ops["sk"].data_ptr(), out.data_ptr(), b, h, sq, skv, d,
+                ops["bq"], float(scale), stream)
     kernels.check_launch(rc, name)
     kernels.STATS[name].record((sq, skv, d))
     return out

@@ -30,6 +30,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tclight_torch"
 SOURCES = {
     "flash_attention": "flash_attention.cu",
     "flash_attention_int8": "flash_attention_int8.cu",
+    "flash_attention_qk_int8": "flash_attention_qk_int8.cu",
     "match_argmax": "match_argmax.cu",
     "window_warp": "window_warp.cu",
     "banded_gather": "banded_gather.cu",
@@ -55,8 +56,8 @@ class KernelStats:
 
 
 STATS = {name: KernelStats() for name in (
-    "flash_attention", "flash_attention_int8", "flash_attention_int8pv",
-    "online_argmax_scores", "window_warp", "banded_gather", "banded_gather_multi")}
+    "flash_attention", "flash_attention_int8", "flash_attention_int8_prepass",
+    "flash_attention_int8pv", "online_argmax_scores", "window_warp", "banded_gather", "banded_gather_multi")}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _functions: dict[tuple[str, str], object] = {}

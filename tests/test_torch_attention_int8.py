@@ -204,3 +204,104 @@ def test_tiny_unet_with_int8_attention_matches_jax(tiny_unet, backend, monkeypat
     # level 0 has one attention block on the way down and two on the way up
     assert len(calls) == 3 and all(s[1] == 1024 for s in calls)
     np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-3 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("b,sq,skv,h,d", [
+    (1, 1030, 200, 2, 40),    # two Q-scale blocks, D padded 40 -> 64
+    (2, 300, 1100, 1, 80),    # one Q block of 384 rows, a ragged last k slice
+    (1, 129, 65, 2, 8),       # the smallest head dim
+    (1, 64, 130, 1, 160),     # the largest
+])
+def test_qk_int8_operands_match_jax_quantizers(b, sq, skv, h, d):
+    """K6's operands in the layout its pre-pass kernels write
+    (`qk_int8_operands`, the plain version on the CPU), read back into
+    (B * H, S, D): q8 and the Q scales equal JAX's `_quantize_blocks` of the
+    zero-padded queries, k8 and the K scales JAX's `_quantize_rows` of K
+    minus its token mean (bf16 inputs: bit-equal, see
+    `test_k_smoothing_matches`), v the heads-first v; the head dim's
+    padding and the padded keys' scales are zeros."""
+    q, k, v = _qkv(5, b, sq, skv, h, d)
+    jq, tq = _pair(q, "bf16")
+    jk, tk = _pair(k, "bf16")
+    _, tv = _pair(v, "bf16")
+    g = tattn.qk_int8_geometry(b, sq, skv, h, d)
+    ops = tattn.qk_int8_operands(tq, tk, tv)
+    for name in ("q8", "k8", "v", "sq", "sk"):
+        assert tuple(ops[name].shape) == g["shapes"][name], name
+        assert ops[name].is_contiguous()
+    assert ops["q8"].dtype == ops["k8"].dtype == torch.int8 and ops["bq"] == g["bq"]
+    q8 = tattn.from_chunk_major(ops["q8"])
+    k8 = tattn.from_chunk_major(ops["k8"])
+    assert (q8[:, :, d:] == 0).all() and (k8[:, :, d:] == 0).all()
+    bq, sq_pad = g["bq"], g["n_qb"] * g["bq"]
+    jqt = jq.transpose(0, 2, 1, 3).reshape(b * h, sq, d)
+    jq8, jsq = jattn._quantize_blocks(jnp.pad(jqt, ((0, 0), (0, sq_pad - sq), (0, 0))), bq)
+    np.testing.assert_array_equal(q8[:, :, :d].numpy(), np.asarray(jq8)[:, :sq])
+    np.testing.assert_array_equal(ops["sq"].numpy(), np.asarray(jsq))
+    jkt = jk.transpose(0, 2, 1, 3).reshape(b * h, skv, d)
+    jk8, jsk = jattn._quantize_rows(jkt - jnp.mean(jkt, axis=1, keepdims=True))
+    np.testing.assert_array_equal(k8[:, :, :d].numpy(), np.asarray(jk8))
+    np.testing.assert_array_equal(ops["sk"][:, :skv].numpy(), np.asarray(jsk))
+    assert (ops["sk"][:, skv:] == 0).all()
+    assert torch.equal(tattn.from_chunk_major(ops["v"]), tattn._heads_first(tv))
+
+
+@pytest.mark.parametrize("d", [8, 16, 24, 40, 64, 80, 96, 128, 144, 160])
+def test_qk_int8_geometry_matches_the_kernel_source(d):
+    """K6 keeps K1's tiles (q rows, keys, stages) for the p.v width dp; its
+    q.k^T depth dk is d padded to 32; its shared memory fits a block; the
+    rules are those of `csrc/flash_attention_qk_int8.cu`."""
+    from pathlib import Path
+
+    g = tattn.qk_int8_geometry(2, 35640, 35640, 8, d)
+    k1 = tattn.flash_geometry(2, 35640, 35640, 8, d)
+    assert g["dk"] % 32 == 0 and d <= g["dk"] < d + 32 and g["dp"] == k1["dp"]
+    for key in ("row_blocks", "q_rows", "kv_rows", "stages"):
+        assert g[key] == k1[key], key
+    smem = (g["q_rows"] * g["dk"] + g["stages"] * g["kv_rows"] * (g["dk"] + 2 * g["dp"] + 4)
+            + 8 * (1 + 2 * g["stages"]) + 128)
+    assert smem <= tattn.SMEM_PER_BLOCK
+    assert g["bq"] == 1024 and g["n_qb"] == 35 and g["skv_pad"] % 128 == 0
+    assert g["q_rows"] <= g["bq"] and g["bq"] % g["q_rows"] == 0  # a q tile reads one sq
+    src = (Path(tattn.__file__).resolve().parent.parent / "csrc"
+           / "flash_attention_qk_int8.cu").read_text()
+    for rule in ("row_blocks(int dp) { return dp <= 96 ? 2 : 1; }",
+                 "return (size_t)q_rows(dp) * dk + (size_t)n_stages(dp) * kv_rows(dp) * "
+                 "(dk + 2 * dp + 4) +",
+                 "constexpr int SLICE = 256;",
+                 "constexpr int CH8 = (D + 31) / 32 * 2;",
+                 "const cuuint32_t box[4] = {16, (cuuint32_t)rows, (cuuint32_t)(DK / 16), 1};"):
+        assert rule in src, rule
+
+
+def test_chunk_major_round_trip():
+    x = torch.arange(2 * 5 * 48).reshape(2, 5, 48)
+    c = tattn.chunk_major(x, 16)
+    assert c.shape == (2, 3, 5, 16) and c[1, 2, 4, 3] == x[1, 4, 2 * 16 + 3]
+    assert torch.equal(tattn.from_chunk_major(c), x)
+
+
+def test_k6_argtypes_match_the_c_entry_points():
+    """ctypes passes what `argtypes` says: one type per C parameter."""
+    import re
+    from pathlib import Path
+
+    text = (Path(tattn.__file__).resolve().parent.parent / "csrc"
+            / "flash_attention_qk_int8.cu").read_text()
+    for entry, types in (("tclight_qk_int8_prepass", tattn.PREPASS_ARGTYPES),
+                         ("tclight_flash_attention_qk_int8", tattn.K6_ARGTYPES)):
+        m = re.search(rf'extern "C" int {entry}\(([^)]*)\)', text)
+        assert m and len(m.group(1).split(",")) == len(types), entry
+
+
+def test_k6_ablation_variants_apply_to_the_kernel_source():
+    """`python -m tclight_torch.ablate_qk_int8` builds each variant of K6 by
+    text substitution: every replaced text is still in the source, and each
+    variant differs from the kernel (the base variant excepted)."""
+    from tclight_torch import ablate_qk_int8
+
+    texts = ablate_qk_int8.variant_sources()
+    assert set(texts) == set(ablate_qk_int8.VARIANTS)
+    for name, text in texts.items():
+        assert (text == texts["base"]) == (name == "base"), name
+        assert "flash_int8_wgmma_kernel" in text

@@ -15,9 +15,12 @@ with
 (`--noconftest`: the suite's conftest imports JAX, which the card's
 machine does not need). Tolerances: K1's output is bf16 (2^-8 relative)
 and its p.v product takes p in bf16, so it is held to 2e-2 of the largest
-output, and so are the int8 kernels K6 and K7 (see their test); K2 sums exact bf16 products in f32 in another order than the
-plain version, so its maxima agree to 1e-4 and an index may differ only
-where the best two scores are that close. K3 sums the same f32 taps in
+output, and so are the int8 kernels K6 and K7 (see their test); K6's
+pre-pass kernels agree with the plain pre-pass bit for bit but where K's
+token mean rounds otherwise (see their test); K2 sums exact bf16 products
+in f32 in another order than the plain version, so its maxima agree to
+1e-4 and an index may differ only where the best two scores are that
+close, and exact ties go to the first b-major index under every split. K3 sums the same f32 taps in
 another order (and with fused multiply-adds), within 1e-5 of values of
 order 1 per unit of window taps; K4 and K5 copy rows and agree exactly."""
 
@@ -123,6 +126,10 @@ def test_flash_kernel_masks_the_kv_tail_before_the_max(cuda, d, skv):
     (1, 700, 1024, 2, 160),   # the largest head dim, exactly one P block
     (2, 300, 1025, 1, 80),    # one key past a whole P block
     (1, 129, 600, 2, 8),      # the smallest head dim, one row past a tile
+    (1, 2500, 700, 2, 40),    # three Q-scale blocks, the last ragged
+    (2, 100, 37, 1, 80),      # fewer keys than one tile
+    (1, 257, 129, 2, 160),    # one row past a 128-row tile, one key past a tile
+    (1, 1, 1, 1, 40),         # one query, one key
 ])
 def test_int8_flash_kernels_match_plain(cuda, pv_int8, b, sq, skv, h, d):
     """K6 (pv_int8 False) and K7 against the plain version on the same
@@ -150,6 +157,72 @@ def test_int8_flash_kernels_match_plain(cuda, pv_int8, b, sq, skv, h, d):
     assert (ref - fp).abs().max().item() <= 0.1 * fp.abs().max().item()
 
 
+@pytest.mark.parametrize("d,skv", [(40, 130), (80, 1031), (160, 65)])
+def test_int8_flash_kernel_masks_the_kv_tail_before_the_max(cuda, d, skv):
+    """K6 with logits of large magnitude, all far below zero, and a ragged
+    kv tail: a zero-filled key that joined the row max would drive every
+    exponential to 0."""
+    sq, h = 100, 2
+    q = (8 + torch.rand(1, sq, h, d, device="cuda", generator=cuda)).bfloat16()
+    k = -(8 + torch.rand(1, skv, h, d, device="cuda", generator=cuda)).bfloat16()
+    k[:, ::3] *= 1.5  # the token mean differs from every key
+    v = torch.randn(1, skv, h, d, device="cuda", generator=cuda).bfloat16()
+    scale = d ** -0.5
+    out = attention.flash_attention(q, k, v, scale=scale, backend="int8")
+    torch.cuda.synchronize()
+    ref = attention.flash_attention_int8_plain(q, k, v, scale).float()
+    assert ref.abs().max().item() > 0.1
+    assert (out.float() - ref).abs().max().item() <= 2e-2 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("b,sq,skv,h,d", [
+    (1, 2500, 1030, 2, 40),   # three Q-scale blocks; two splits of the k sums
+    (2, 300, 513, 1, 80),     # one Q block of 384 rows
+    (1, 129, 65, 3, 160),
+    (1, 64, 3000, 2, 8),
+])
+def test_int8_prepass_kernels_match_plain(cuda, b, sq, skv, h, d):
+    """K6's pre-pass kernels against the plain pre-pass on the same bf16
+    inputs, in K6's layout. q8, the Q scales and the v copy are bit-equal.
+    k8 and the K scales depend on K's token mean, an f32 sum over the keys
+    that the kernel adds in another order than torch: where the f32 means
+    differ by an ulp, their bf16 rounding can differ, which moves k - mean
+    by one bf16 step in that channel, so a k8 value by at most 1 and a K
+    scale by at most a bf16 step (2^-8 relative); such entries are rare
+    (held at 1% of k8)."""
+    q, k, v = (torch.randn(b, s, h, d, device="cuda", generator=cuda).bfloat16()
+               for s in (sq, skv, skv))
+    before = kernels.STATS["flash_attention_int8_prepass"].launches
+    ops = attention.qk_int8_operands(q, k, v)
+    torch.cuda.synchronize()
+    assert kernels.STATS["flash_attention_int8_prepass"].launches == before + 1
+    ref = attention.qk_int8_operands_plain(q, k, v)
+    g = attention.qk_int8_geometry(b, sq, skv, h, d)
+    for name in ("q8", "k8", "v", "sq", "sk"):
+        assert tuple(ops[name].shape) == g["shapes"][name] == tuple(ref[name].shape), name
+        assert ops[name].dtype == ref[name].dtype, name
+    assert torch.equal(ops["q8"], ref["q8"]) and torch.equal(ops["sq"], ref["sq"])
+    assert torch.equal(ops["v"], ref["v"])
+    dk8 = (ops["k8"].int() - ref["k8"].int()).abs()
+    assert dk8.max().item() <= 1 and (dk8 > 0).float().mean().item() <= 0.01
+    assert ((ops["sk"] - ref["sk"]).abs() <= ref["sk"] * 2.0 ** -7).all()
+    assert (ops["sk"][:, skv:] == 0).all()
+
+
+def test_int8_prepass_kernels_exact_on_exact_means(cuda):
+    """With a power-of-two key count and keys on a 1/8 grid, every order of
+    the f32 sums is exact, and so is the mean: k8 and the K scales are
+    bit-equal too."""
+    b, sq, skv, h, d = 1, 700, 2048, 2, 40
+    q = torch.randn(b, sq, h, d, device="cuda", generator=cuda).bfloat16()
+    k = (torch.randint(-32, 33, (b, skv, h, d), device="cuda", generator=cuda) / 8).bfloat16()
+    v = torch.randn(b, skv, h, d, device="cuda", generator=cuda).bfloat16()
+    ops = attention.qk_int8_operands(q, k, v)
+    ref = attention.qk_int8_operands_plain(q, k, v)
+    for name in ("q8", "k8", "v", "sq", "sk"):
+        assert torch.equal(ops[name], ref[name]), name
+
+
 def test_int8_flash_kernels_refuse_what_they_do_not_take(cuda):
     q = torch.zeros(1, 8, 1, 12, device="cuda", dtype=torch.bfloat16)
     for backend in ("int8", "int8pv"):
@@ -173,13 +246,14 @@ def _unit(gen, *shape):
 
 @pytest.mark.parametrize("b,s,d,c", [
     (2, 300, 500, 64),
-    (2, 1000, 777, 320),      # 8 warps, double buffered
-    (1, 130, 257, 40),        # C padded 40 -> 48
-    (3, 100, 70, 32),
-    (2, 129, 200, 448),       # the widest 8-warp channel count
-    (2, 300, 64, 456),        # 4 warps, double buffered
-    (2, 200, 300, 640),       # 4 warps, single buffered (level 1)
-    (2, 65, 129, 768),
+    (2, 1000, 777, 320),      # 256-row src tiles, 5 stages of depth (level 0)
+    (1, 130, 257, 40),        # C padded 40 -> 64 by TMA's zero fill
+    (3, 100, 70, 32),         # B = 3, D smaller than one dst tile
+    (2, 129, 200, 448),       # 128-row src tiles, 7 stages of depth
+    (2, 300, 64, 456),        # 128-row src tiles, a ragged last stage
+    (2, 200, 300, 640),       # level 1's channels, 4 stages in the ring
+    (2, 65, 129, 768),        # the widest, 2 stages in the ring
+    (2, 3000, 5000, 320),     # the plan splits the dst tiles into chunks
     (1, 1, 1, 8),
 ])
 def test_match_kernel_matches_plain(cuda, b, s, d, c):
@@ -196,6 +270,59 @@ def test_match_kernel_matches_plain(cuda, b, s, d, c):
     second = scores.scatter(1, best.indices[:, None], -float("inf")).amax(dim=-1)
     clear = best.values - second > 1e-4
     assert ((i != ir) & clear).sum().item() == 0
+
+
+@pytest.mark.parametrize("c", [40, 320, 456, 640, 768])
+@pytest.mark.parametrize("b,s,d,n_chunks,grid", [
+    (1, 300, 1000, 3, 5),     # B = 1, 3 chunks, blocks walk several units
+    (3, 257, 700, 6, 132),    # B = 3, one chunk per tile, ragged S and D
+    (2, 513, 129, 2, 1),      # one block walks every unit
+])
+def test_match_kernel_every_split(cuda, c, b, s, d, n_chunks, grid):
+    """K2 with the split forced: any chunk count and grid give the plain
+    version's maxima and (up to near ties) indices, at every channel count
+    of both src tile sizes."""
+    a, bt = _unit(cuda, b, s, c), _unit(cuda, b, d, c)
+    m, i = match_kernel._launch(a, bt, n_chunks, grid)
+    torch.cuda.synchronize()
+    mr, ir = match_kernel.online_argmax_scores_plain(a, bt)
+    assert (m - mr).abs().max().item() <= 1e-4
+    scores = torch.einsum("bsc,bdc->sbd", a.float(), bt.float()).reshape(s, b * d)
+    best = scores.max(dim=-1)
+    second = scores.scatter(1, best.indices[:, None], -float("inf")).amax(dim=-1)
+    clear = best.values - second > 1e-4
+    assert ((i != ir) & clear).sum().item() == 0
+
+
+@pytest.mark.parametrize("n_chunks,grid", [(1, 132), (4, 132), (4, 2), (9, 1)])
+def test_match_kernel_ties_across_chunks_and_batches(cuda, n_chunks, grid):
+    """Equal maxima in different dst chunks and different batches, and
+    equal maxima of +0.0 and -0.0: the b-major first index wins whatever
+    unit found it first. Exact scores: every product is 0 or +-1."""
+    b, s, d, c = 3, 40, 1100, 64
+    a = torch.zeros(b, s, c, device="cuda", dtype=torch.bfloat16)
+    a[:, :, 0] = 1.0
+    bt = torch.full((b, d, c), 0.0, device="cuda", dtype=torch.bfloat16)
+    bt[:, :, 0] = -1.0
+    bt[2, 30, 0] = 1.0     # ties of the max 1.0 in batch 2 (chunk 0),
+    bt[1, 900, 0] = 1.0    # batch 1 (a late chunk)
+    bt[1, 1050, 0] = 1.0   # and a later tile of batch 1 (a later chunk when a
+    #                        chunk is one tile): batch 1, d 900 wins
+    m, i = match_kernel._launch(a, bt, n_chunks, grid)
+    torch.cuda.synchronize()
+    assert (m == 1.0).all() and (i == 1 * d + 900).all()
+    # maxima of zero made of +0.0 and -0.0 products (which sign each sum
+    # takes is the hardware's): the dense argmax treats them as equal, so
+    # the first zero in b-major order wins
+    a[:, :, 1] = -1.0
+    bt[:, :, 0] = -1.0
+    bt[1, 5, 0] = 0.0       # 1 * 0 + -1 * 0
+    bt[0, 700, 0] = -0.0    # 1 * -0 + -1 * 0
+    bt[0, 200, 0] = -0.0
+    bt[0, 200, 1] = -0.0    # 1 * -0 + -1 * -0
+    m, i = match_kernel._launch(a, bt, n_chunks, grid)
+    torch.cuda.synchronize()
+    assert (m == 0.0).all() and (i == 200).all()
 
 
 def test_match_kernel_ties_pick_first_b_major(cuda):
