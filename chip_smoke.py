@@ -16,8 +16,9 @@ Phases, one line each:
      against their plain version on the same inputs at the xy shapes of
      phase 3 and at the yt pass's level-0 and level-1 shapes of a 30-frame
      960x720 run, beside K1 and SDPA at the same shapes and the
-     quantization error against the fp attention; K6's pre-pass kernels
-     against the plain pre-pass at the same shapes;
+     quantization error against the fp attention; K6's pre-pass kernels,
+     and K7's pre-pass kernels and max pass, against their plain versions
+     at the same shapes;
   6. reference: the tiny stack end to end on a small input, post-
      optimization included (3 + 3 epochs), on the card in bf16 against the
      CPU in f32 (`check_small_reference`);
@@ -30,7 +31,8 @@ Phases, one line each:
      with the post-optimization off;
   8. K3 window warp (forward and adjoint) against its plain version at the
      post-opt batch (16, 720, 960, 3), with the main video's flows and with
-     random flows; K4 banded gather against its plain version on the main
+     random flows, and on a (2, 160, 192, 3) batch with random flows of up
+     to 100 px (a window staged in many chunks); K4 banded gather against its plain version on the main
      path's UVT plans, both directions;
   9. K5: the K-window gather against its plain version on synthetic
      turnover-heavy track ids, and its own path: `run_uvt` on those ids;
@@ -40,8 +42,8 @@ Phases, one line each:
      a 30-frame mp4, K6 (and its pre-pass kernels, once per K6 launch)
      launched at xy and at yt shapes, K1 never, K2 yes;
  11. int8 / int8pv: the 8-frame main config with the post-optimization
-     off and attn_qk_int8 (then attn_pv_int8 too): K6 (then K7) launched,
-     K1 never, and the frames against the fp run's (max abs difference,
+     off and attn_qk_int8 (then attn_pv_int8 too): K6 (then K7, with its
+     pre-pass and max pass once a launch) launched, K1 never, and the frames against the fp run's (max abs difference,
      PSNR);
  12. traced runs of 2 sampling steps (fp, then int8 q.k^T), of one step
      of the yt-int8 config and of 2 + 2 post-opt epochs give the device
@@ -190,22 +192,27 @@ def check_flash(gen: torch.Generator) -> dict:
 def check_int8(gen: torch.Generator, pv_int8: bool) -> dict:
     """K6 (pv_int8 False) or K7 against the plain int8 version on the same
     bf16 inputs, at the xy shapes and the 30-frame yt pass's shapes. `ms`
-    is the wrapper's (the quantization pre-pass and the kernel),
-    `prepass_ms` the pre-pass alone: for K6 its two pre-pass kernels, with
-    the plain torch pre-pass's time beside it (`prepass_plain_ms`); for K7
-    the plain torch pre-pass it runs on. Beside them K1 and SDPA at the
-    same shape (the library has no call for the quantized function), and
-    the quantization error of the plain version against the fp attention.
-    For K6 also the rows of its pre-pass kernels against the plain
-    pre-pass, in K6's operand layout (`prepass_rows`)."""
+    is the wrapper's (the quantization pre-pass and the kernel; for K7 its
+    max pass too), `prepass_ms` the pre-pass kernels alone, with the plain
+    pre-pass's time beside it (`prepass_plain_ms`); for K7 also
+    `maxpass_ms`, its max pass alone, beside its plain version's
+    (`maxpass_plain_ms`). Beside them K1 and SDPA at the same shape (the
+    library has no call for the quantized function), and the quantization
+    error of the plain version against the fp attention. Also the rows of
+    the pre-pass kernels against the plain pre-pass, in the kernel's
+    operand layout (`prepass_rows`), and for K7 those of the max pass
+    against its plain version (`maxpass_rows`)."""
     from tclight_torch.ops.attention import (flash_attention_cuda,
                                              flash_attention_int8_cuda,
                                              flash_attention_int8_plain,
-                                             flash_attention_plain, int8_prepass,
+                                             flash_attention_plain, int8_block_rowmax,
+                                             int8pv_operands, int8pv_operands_plain,
                                              qk_int8_operands, qk_int8_operands_plain)
 
     tag = "K7" if pv_int8 else "K6"
-    rows, prepass_rows = [], []
+    operands, operands_plain = ((int8pv_operands, int8pv_operands_plain) if pv_int8
+                                else (qk_int8_operands, qk_int8_operands_plain))
+    rows, prepass_rows, maxpass_rows = [], [], []
     shapes = attention_shapes() + attention_shapes(YT_FRAMES, HEIGHT // 8, "yt-")
     for level, b, s, d in shapes:
         q, k, v = (torch.randn(b, s, HEADS, d, device="cuda", generator=gen,
@@ -226,11 +233,15 @@ def check_int8(gen: torch.Generator, pv_int8: bool) -> dict:
         ok = math.isfinite(err) and err <= tol
         reps = 3 if s > 20000 else 10
         k_ms = cuda_ms(lambda: flash_attention_int8_cuda(q, k, v, scale, pv_int8), reps)
-        plain_pre_ms = cuda_ms(lambda: int8_prepass(q, k, v, pv_int8), reps)
-        pre_ms = (plain_pre_ms if pv_int8 else cuda_ms(lambda: qk_int8_operands(q, k, v), reps))
-        if not pv_int8:
-            prepass_rows.append(check_prepass(level, q, k, v, qk_int8_operands,
-                                              qk_int8_operands_plain, pre_ms))
+        plain_pre_ms = cuda_ms(lambda: operands_plain(q, k, v), reps)
+        pre_ms = cuda_ms(lambda: operands(q, k, v), reps)
+        prepass_rows.append(check_prepass(tag, level, q, k, v, operands, operands_plain,
+                                          pre_ms))
+        extra = {}
+        if pv_int8:
+            maxpass_rows.append(check_maxpass(level, q, k, v, scale, reps))
+            extra = {"maxpass_ms": maxpass_rows[-1]["ms"],
+                     "maxpass_plain_ms": maxpass_rows[-1]["plain_ms"]}
         k1_ms = cuda_ms(lambda: flash_attention_cuda(q, k, v, scale), reps)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale), reps)
@@ -246,44 +257,75 @@ def check_int8(gen: torch.Generator, pv_int8: bool) -> dict:
         b_ms, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
         row = dict(shape=f"{level} B={b} S={s} H={HEADS} D={d}", max_abs_err=err, tol=tol,
                    quant_rel_err_plain_vs_fp=quant_err, rel_err_kernel_vs_fp=kernel_fp_err,
-                   ms=k_ms, prepass_ms=pre_ms, plain_ms=p_ms, library_ms=None,
-                   k1_ms=k1_ms, sdpa_ms=sdpa_ms, bound_ms=b_ms, bound_by=by)
-        if not pv_int8:
-            row["prepass_plain_ms"] = plain_pre_ms
+                   ms=k_ms, prepass_ms=pre_ms, prepass_plain_ms=plain_pre_ms, **extra,
+                   plain_ms=p_ms, library_ms=None, k1_ms=k1_ms, sdpa_ms=sdpa_ms, bound_ms=b_ms,
+                   bound_by=by)
         phase(tag, ok=ok, **row)
         if not ok:
             raise SystemExit(f"{tag} disagrees with its plain version at {row['shape']}")
         rows.append(row)
         del q, k, v, out, ref, fp, qt, kt, vt
         torch.cuda.empty_cache()
-    return {"rows": rows, "prepass_rows": prepass_rows}
+    return {"rows": rows, "prepass_rows": prepass_rows, "maxpass_rows": maxpass_rows}
 
 
-def check_prepass(level: str, q, k, v, kernel, plain, k_ms: float) -> dict:
-    """K6's pre-pass kernels against the plain pre-pass in K6's layout: q8,
-    the Q scales and the v copy bit-equal; k8 within 1 and the K scales
-    within a bf16 step, where K's token mean (an f32 sum in another order)
-    rounds to another bf16 value (`max_abs_err` is k8's largest difference,
-    `k8_differ` the share of k8 values that differ). Bound: q, k and v read
-    once, the operands written once."""
+def check_prepass(tag: str, level: str, q, k, v, kernel, plain, k_ms: float) -> dict:
+    """K6's (or K7's) pre-pass kernels against the plain pre-pass in the
+    kernel's layout: q8, the Q scales and the v copy (K7: v8, the V scales
+    and q8's bf16 copy) bit-equal; k8 within 1 and the K scales within a bf16 step,
+    where K's token mean (an f32 sum in another order) rounds to another
+    bf16 value (`max_abs_err` is k8's largest difference, `k8_differ` the
+    share of k8 values that differ). Bound: q, k and v read once, the
+    operands written once."""
     ops = kernel(q, k, v)
     torch.cuda.synchronize()
     ref, p_ms = timed_once(lambda: plain(q, k, v))
-    exact = all(torch.equal(ops[n], ref[n]) for n in ("q8", "sq", "v"))
+    exact_names = ("q8", "sq", "v8", "sv", "qb") if tag == "K7" else ("q8", "sq", "v")
+    exact = all(torch.equal(ops[n], ref[n]) for n in exact_names)
     dk8 = (ops["k8"].int() - ref["k8"].int()).abs()
     sk_ok = bool(((ops["sk"] - ref["sk"]).abs() <= ref["sk"] * 2.0 ** -7).all())
     err, share = float(dk8.max().item()), float((dk8 > 0).float().mean().item())
     ok = exact and err <= 1 and share <= 0.01 and sk_ok
     n_bytes = 2 * 3 * q.numel() + sum(ops[n].numel() * ops[n].element_size()
-                                      for n in ("q8", "k8", "v", "sq", "sk"))
+                                      for n in ("k8", "sk") + exact_names
+                                      + (("kb",) if tag == "K7" else ()))
     b_ms, by = bound_ms(n_bytes, 0.0)
     b, s, h, d = q.shape
     row = dict(shape=f"{level} B={b} S={s} H={h} D={d}", max_abs_err=err, tol=1.0,
-               k8_differ=share, exact_q8_sq_v=exact, ms=k_ms, plain_ms=p_ms, library_ms=None,
-               bound_ms=b_ms, bound_by=by)
-    phase("K6-prepass", ok=ok, **row)
+               k8_differ=share, exact=f"{'/'.join(exact_names)} {exact}", ms=k_ms,
+               plain_ms=p_ms, library_ms=None, bound_ms=b_ms, bound_by=by)
+    phase(f"{tag}-prepass", ok=ok, **row)
     if not ok:
-        raise SystemExit(f"K6's pre-pass disagrees with the plain pre-pass at {row['shape']}")
+        raise SystemExit(f"{tag}'s pre-pass disagrees with the plain pre-pass at {row['shape']}")
+    return row
+
+
+def check_maxpass(level: str, q, k, v, scale: float, reps: int) -> dict:
+    """K7's max pass against its plain version on the same operands (the
+    pre-pass kernels'): exact dots times the same two f32 scales, so equal
+    but for f32 rounding (held at 1e-6 relative). Bound: the larger of the
+    bf16 q and k copies and the K scales read once and the block maxes
+    written once, and q.k^T at the bf16 peak (the kernel's product)."""
+    from tclight_torch.ops.attention import int8_block_rowmax, int8_block_rowmax_plain, int8pv_operands
+
+    b, s, h, d = q.shape
+    ops = int8pv_operands(q, k, v)
+    bm = int8_block_rowmax(ops, b, h, s, s, d, scale)
+    torch.cuda.synchronize()
+    ref, p_ms = timed_once(lambda: int8_block_rowmax_plain(ops, s, s, scale))
+    err = float(((bm - ref).abs() / ref.abs().clamp(min=1e-30)).max().item())
+    ok = bool(torch.isfinite(bm).all()) and err <= 1e-6
+    k_ms = cuda_ms(lambda: int8_block_rowmax(ops, b, h, s, s, d, scale), reps)
+    n_bytes = sum(ops[n].numel() * ops[n].element_size() for n in ("qb", "kb", "sk")) \
+        + bm.numel() * 4
+    b_ms, by = bound_ms(n_bytes, 2.0 * b * h * s * s * d)
+    row = dict(shape=f"{level} B={b} S={s} H={h} D={d}", max_abs_err=err, tol=1e-6,
+               err_is="relative", n_kb=bm.shape[-1], ms=k_ms, plain_ms=p_ms, library_ms=None,
+               bound_ms=b_ms, bound_by=by)
+    phase("K7-maxpass", ok=ok, **row)
+    if not ok:
+        raise SystemExit(f"K7's max pass disagrees with its plain version at {row['shape']}")
+    del ops, bm, ref
     return row
 
 
@@ -635,11 +677,16 @@ def run_int8_variants() -> dict:
         psnr = 10 * math.log10(1.0 / max(float((diff ** 2).mean()), 1e-12))
         others = [k for k in ("flash_attention", "flash_attention_int8", "flash_attention_int8pv")
                   if k != name]
+        # K7 runs its pre-pass kernels and its max pass once a launch
+        parts = ([f"{name}_prepass", f"{name}_maxpass"] if tag == "int8pv"
+                 else [f"{name}_prepass"])
         ok = (n == FRAMES and stats[name] > 0 and all(stats[k] == 0 for k in others)
+              and all(stats[k] == stats[name] for k in parts)
               and frames.shape == fp_frames.shape and float(frames.std()) > 0)
         steady = float(np.mean(st["step_times"][1:]))
         phase(tag, ok=ok, frames=n, wall_s=wall, step_s=st["step_times"],
               step_steady_s=steady, launches=stats[name],
+              part_launches={k: stats[k] for k in parts},
               other_flash_launches={k: stats[k] for k in others},
               frames_max_abs_diff_vs_fp=float(diff.max()),
               frames_mean_abs_diff_vs_fp=float(diff.mean()), psnr_vs_fp_db=psnr,
@@ -647,6 +694,7 @@ def run_int8_variants() -> dict:
         if not ok:
             raise SystemExit(f"{tag} run check failed")
         launches[name] = stats[name]
+        launches.update({k: stats[k] for k in parts})
     return launches
 
 
@@ -667,14 +715,19 @@ def check_warp(gen: torch.Generator) -> dict:
         raise SystemExit("the main video's flows exceed the window-warp cap")
     shape = (POST_BATCH, HEIGHT, WIDTH)
     x = torch.rand(*shape, 3, device="cuda", generator=gen)
-    cases = (("farneback", torch.from_numpy(past[post_batch()]).cuda(), radius),
-             ("random", (torch.rand(*shape, 2, device="cuda", generator=gen) * 2 - 1) * 24, 24))
+    wide = (2, 160, 192)
+    x_wide = torch.rand(*wide, 3, device="cuda", generator=gen)
+    cases = (("farneback", x, torch.from_numpy(past[post_batch()]).cuda(), radius),
+             ("random", x, (torch.rand(*shape, 2, device="cuda", generator=gen) * 2 - 1) * 24, 24),
+             ("wide", x_wide, (torch.rand(*wide, 2, device="cuda", generator=gen) * 2 - 1) * 100,
+              100))
     rows = []
-    for label, f, r in cases:
+    for label, x, f, r in cases:
+        n, height, width, _ = x.shape
         xt = x.permute(0, 3, 1, 2).contiguous().requires_grad_(True)
-        grid = torch.stack([2 * (torch.arange(WIDTH, device="cuda") + f[..., 0]) / (WIDTH - 1) - 1,
-                            2 * (torch.arange(HEIGHT, device="cuda")[:, None] + f[..., 1])
-                            / (HEIGHT - 1) - 1], dim=-1)
+        grid = torch.stack([2 * (torch.arange(width, device="cuda") + f[..., 0]) / (width - 1) - 1,
+                            2 * (torch.arange(height, device="cuda")[:, None] + f[..., 1])
+                            / (height - 1) - 1], dim=-1)
         lib_out = F.grid_sample(xt, grid, mode="bicubic", padding_mode="zeros",
                                 align_corners=True)
         g = torch.randn_like(lib_out)
@@ -700,7 +753,7 @@ def check_warp(gen: torch.Generator) -> dict:
             b_ms, by = bound_ms(4 * (x.numel() + f.numel() + out.numel()),
                                 n_px * 16 * (2 * 3 + 2 * 10), PEAK_F32_FLOPS)
             row = dict(shape=f"{'adjoint' if adjoint else 'forward'} {label} "
-                       f"N={POST_BATCH} {HEIGHT}x{WIDTH}x3 radius={r}",
+                       f"N={n} {height}x{width}x3 radius={r}",
                        max_abs_err=err, tol=tol, ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
                        bound_ms=b_ms, bound_by=by)
             phase("K3", ok=ok, **row)
@@ -833,10 +886,11 @@ def check_turnover(gen: torch.Generator) -> dict:
     return {"rows": rows, "launches": launches}
 
 
-KERNEL_GROUPS = (("K6/K7 flash_attention_int8 (K6's pre-pass included)", ("flash_int8",)),
+KERNEL_GROUPS = (("K6/K7 flash_attention_int8 (pre-passes and max pass included)",
+                  ("flash_int8",)),
                  ("K1 flash_attention", ("flash_fwd_wgmma_kernel",)),
                  ("K2 match_argmax", ("match_argmax",)),
-                 ("K3 window_warp", ("window_warp_kernel",)),
+                 ("K3 window_warp", ("window_warp_fwd_kernel", "window_warp_adj_kernel")),
                  ("K5 banded_gather_multi", ("banded_gather_multi_kernel",)),
                  ("K4 banded_gather", ("banded_gather_kernel",)),
                  ("convolution", ("conv", "fprop", "winograd", "dgrad", "wgrad")),
@@ -996,7 +1050,9 @@ def main() -> int:
     turnover = check_turnover(gen)
     launches.update(run_yt_int8())
     int8_launches = run_int8_variants()
-    launches["flash_attention_int8pv"] = int8_launches["flash_attention_int8pv"]
+    for name in ("flash_attention_int8pv", "flash_attention_int8pv_prepass",
+                 "flash_attention_int8pv_maxpass"):
+        launches[name] = int8_launches[name]
     profile_main_path()
 
     print(json.dumps({"kernels": [
@@ -1032,6 +1088,15 @@ def main() -> int:
                      "tclight_tpu/ops/attention.py:227", launches["flash_attention_int8pv"],
                      int8[True]["rows"],
                      path=f"int8pv: main config, {FRAMES} frames, attn_qk_int8 + attn_pv_int8"),
+        kernel_entry("flash_attention_int8pv:prepass",
+                     "tclight_torch/csrc/flash_attention_qk_int8.cu",
+                     "tclight_tpu/ops/attention.py:227",
+                     launches["flash_attention_int8pv_prepass"], int8[True]["prepass_rows"],
+                     path="int8pv (K7's quantization pre-pass, two kernels a launch)"),
+        kernel_entry("flash_attention_int8pv:maxpass", "tclight_torch/csrc/flash_attention_int8.cu",
+                     "tclight_tpu/ops/attention.py:227",
+                     launches["flash_attention_int8pv_maxpass"], int8[True]["maxpass_rows"],
+                     path="int8pv (K7's max pass: each (row, P block)'s logit max)"),
     ]}), flush=True)
     print(f"nvidia-smi: {smi}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -35,6 +35,24 @@
 // the padded keys' scales 0. It reads q twice and k twice (the second
 // reads mostly from L2) and v once, and writes ~0.16 GB at level 0.
 //
+// The same two kernels with PV = true are the pre-pass of K7
+// (csrc/flash_attention_int8.cu, int8 p.v; entry tclight_int8pv_prepass;
+// plain version `int8pv_operands_plain`): the stats kernel's k slices
+// also take V's channel amax over their keys, and the last slice to finish
+// makes sv = max(amax, 1e-6) / 127 per (batch * head, channel); the quant
+// kernel's k slices write, instead of the v copy, v8 = round_half_even(v /
+// sv) in the B layout of K7's s8 wgmma: (BH, ceil16(Skv) / 16, D, 16), 16
+// keys of one channel per 16 bytes (8-bit wgmma takes K-major operands
+// only), so a (keys x channels) tile is one TMA box. Within each 16 keys
+// the order is permuted: byte 4t + 2a + c holds key 8a + 2t + c, so that
+// the s32 score fragment of a thread (keys 2t, 2t + 1 of each 8) packs as
+// it lies into the s8 A fragment (bytes 4t..4t+3 of each 16). Keys past
+// Skv are zeros. A k slice stages its 16 chunks in shared memory and
+// stores them as one contiguous span. It also writes q8's and k8's values
+// as bf16 (exact), chunk-major in 8-value chunks with the head dim padded to
+// ceil16(D), for K7's max pass: a bf16 product with f32 sums gives the
+// exact dot already converted (|dot| < 2^22).
+//
 // Design of the main kernel: K1's (csrc/flash_attention.cu), the
 // FlashAttention-3 shape. One block of three warpgroups per (q tile,
 // batch * head). Warpgroup 0 is the producer: one thread loads the q8
@@ -155,17 +173,38 @@ __device__ __forceinline__ uint4 quantize_chunk(int c16, F&& value, float s) {
   return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
+// the 8 quantized values of bf16 chunk c8: head dims 8 c8 .. 8 c8 + 7 of
+// f / s rounded half to even, exact in bf16 (|x| <= 127), zero past the
+// row's CH * 8 dims
+template <int CH, class F>
+__device__ __forceinline__ uint4 quantize_chunk_bf16(int c8, F&& value, float s) {
+  uint32_t w[4] = {0u, 0u, 0u, 0u};
+  if (c8 < CH) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const __nv_bfloat162 b2 = __floats2bfloat162_rn(rintf(value(c8, 2 * e) / s),
+                                                      rintf(value(c8, 2 * e + 1) / s));
+      w[e] = *reinterpret_cast<const uint32_t*>(&b2);
+    }
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
 // Blocks of 256 rows, per batch * head: first the q slices, then the k
 // slices. A q slice writes the amax of its rows to qmax. A k slice writes
 // the f32 sums of its keys' channels to part; the last k slice of a
 // batch * head to finish (a counter in `count`, zeroed before the launch)
 // adds the slices' sums in a fixed order and writes the token mean, f32
 // divided by Skv and rounded to bf16, to kmean.
-template <int CH>
+// With PV, a k slice also writes the amax of V's channels over its keys to
+// vpart, and the last slice writes sv.
+template <int CH, bool PV>
 __global__ void __launch_bounds__(PRE_THREADS)
 flash_int8_prepass_stats_kernel(const __nv_bfloat16* __restrict__ q,
-                                const __nv_bfloat16* __restrict__ k, float* __restrict__ qmax,
-                                float* __restrict__ part, float* __restrict__ kmean,
+                                const __nv_bfloat16* __restrict__ k,
+                                const __nv_bfloat16* __restrict__ v, float* __restrict__ qmax,
+                                float* __restrict__ part, float* __restrict__ vpart,
+                                float* __restrict__ kmean, float* __restrict__ sv,
                                 unsigned* __restrict__ count, int H, int Sq, int Skv, int n_qs,
                                 int n_ks) {
   constexpr int D = CH * 8;
@@ -197,13 +236,19 @@ flash_int8_prepass_stats_kernel(const __nv_bfloat16* __restrict__ q,
     constexpr int LANES = PRE_THREADS / CH;
     const int rl = threadIdx.x / CH, cl = threadIdx.x % CH;
     float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    float vmax[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
     if (rl < LANES) {
       for (int r = ks * SLICE + rl; r < min(ks * SLICE + SLICE, Skv); r += LANES) {
         float f[8];
-        unpack8(*reinterpret_cast<const uint4*>(k + (((long)b * Skv + r) * H + h) * D + cl * 8),
-                f);
+        const long at = (((long)b * Skv + r) * H + h) * D + cl * 8;
+        unpack8(*reinterpret_cast<const uint4*>(k + at), f);
 #pragma unroll
         for (int e = 0; e < 8; ++e) acc[e] += f[e];
+        if constexpr (PV) {
+          unpack8(*reinterpret_cast<const uint4*>(v + at), f);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) vmax[e] = fmaxf(vmax[e], fabsf(f[e]));
+        }
       }
 #pragma unroll
       for (int e = 0; e < 8; ++e) red[rl * D + cl * 8 + e] = acc[e];
@@ -213,6 +258,19 @@ flash_int8_prepass_stats_kernel(const __nv_bfloat16* __restrict__ q,
       float s = 0.f;
       for (int l = 0; l < LANES; ++l) s += red[l * D + c];
       part[((long)bh * n_ks + ks) * D + c] = s;
+    }
+    if constexpr (PV) {
+      __syncthreads();  // red is free
+      if (rl < LANES) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) red[rl * D + cl * 8 + e] = vmax[e];
+      }
+      __syncthreads();
+      for (int c = threadIdx.x; c < D; c += PRE_THREADS) {
+        float m = 0.f;
+        for (int l = 0; l < LANES; ++l) m = fmaxf(m, red[l * D + c]);
+        vpart[((long)bh * n_ks + ks) * D + c] = m;
+      }
     }
   }
   __threadfence();
@@ -234,6 +292,12 @@ flash_int8_prepass_stats_kernel(const __nv_bfloat16* __restrict__ q,
     float s = 0.f;
     for (int j = 0; j < L; ++j) s += red[j * D + threadIdx.x];
     kmean[bh * D + threadIdx.x] = __bfloat162float(__float2bfloat16_rn(s / (float)Skv));
+    if constexpr (PV) {
+      float m = 0.f;
+      for (int p = 0; p < n_ks; ++p)
+        m = fmaxf(m, __ldcg(vpart + ((long)bh * n_ks + p) * D + threadIdx.x));
+      sv[bh * D + threadIdx.x] = fmaxf(m, 1e-6f) / 127.f;
+    }
   }
 }
 
@@ -241,20 +305,27 @@ flash_int8_prepass_stats_kernel(const __nv_bfloat16* __restrict__ q,
 // slice quantizes its rows with its Q-scale block's scale (from the
 // slices' amax) and writes that scale once; a k slice smooths its keys by
 // the token mean (rounded to bf16), quantizes each key with its own scale
-// and copies v chunk-major.
-template <int CH>
+// and copies v chunk-major (PV: writes v8, staged in shared memory).
+template <int CH, bool PV>
 __global__ void __launch_bounds__(PRE_THREADS)
 flash_int8_prepass_quant_kernel(const __nv_bfloat16* __restrict__ q,
                                 const __nv_bfloat16* __restrict__ k,
                                 const __nv_bfloat16* __restrict__ v,
                                 const float* __restrict__ qmax, const float* __restrict__ kmean,
-                                int8_t* __restrict__ q8, int8_t* __restrict__ k8,
-                                __nv_bfloat16* __restrict__ vc, float* __restrict__ sq,
+                                const float* __restrict__ sv, int8_t* __restrict__ q8,
+                                int8_t* __restrict__ k8, __nv_bfloat16* __restrict__ vc,
+                                int8_t* __restrict__ v8, __nv_bfloat16* __restrict__ q_bf,
+                                __nv_bfloat16* __restrict__ k_bf, float* __restrict__ sq,
                                 float* __restrict__ sk, int H, int Sq, int Skv, int bq, int n_qb,
                                 int n_qs, int n_ks, int skv_pad) {
   constexpr int D = CH * 8;
   constexpr int CH8 = (D + 31) / 32 * 2;  // 16-byte chunks of an int8 row (DK / 16)
+  constexpr int CHB = (D + 15) / 16 * 2;  // PV: 8-value chunks of a bf16 row (ceil16(D) / 8)
   __shared__ float km[D];
+  // PV: V's channel scales, and the slice's v8, 16 chunks of (D channels
+  // x 16 keys)
+  __shared__ float svs[PV ? D : 1];
+  __shared__ __align__(16) int8_t v8s[PV ? SLICE * D : 16];
   const int bh = blockIdx.x / (n_qs + n_ks), sl = blockIdx.x % (n_qs + n_ks);
   const int b = bh / H, h = bh % H;
   if (sl < n_qs) {
@@ -277,11 +348,46 @@ flash_int8_prepass_quant_kernel(const __nv_bfloat16* __restrict__ q,
     for (int c16 = 0; c16 < CH8; ++c16)
       *reinterpret_cast<uint4*>(q8 + (((long)bh * CH8 + c16) * Sq + r) * 16) =
           quantize_chunk<CH>(c16, value, s);
+    if constexpr (PV) {
+#pragma unroll
+      for (int c8 = 0; c8 < CHB; ++c8)
+        *reinterpret_cast<uint4*>(q_bf + (((long)bh * CHB + c8) * Sq + r) * 8) =
+            quantize_chunk_bf16<CH>(c8, value, s);
+    }
     return;
   }
   const int r = (sl - n_qs) * SLICE + threadIdx.x;
-  for (int c = threadIdx.x; c < D; c += PRE_THREADS) km[c] = kmean[bh * D + c];
+  for (int c = threadIdx.x; c < D; c += PRE_THREADS) {
+    km[c] = kmean[bh * D + c];
+    if constexpr (PV) svs[c] = sv[bh * D + c];
+  }
   __syncthreads();
+  if constexpr (PV) {
+    // byte 4t + 2a + c of a 16-key chunk holds key 8a + 2t + c
+    const int kp = threadIdx.x % 16;
+    int8_t* dst = v8s + (threadIdx.x / 16) * D * 16 + 4 * ((kp % 8) / 2) + 2 * (kp / 8) + kp % 2;
+    if (r < Skv) {
+      uint4 u[CH];
+      load_row<CH>(v + (((long)b * Skv + r) * H + h) * D, u);
+#pragma unroll
+      for (int c = 0; c < CH; ++c) {
+        float f[8];
+        unpack8(u[c], f);
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          dst[(c * 8 + e) * 16] = (int8_t)__float2int_rn(f[e] / svs[c * 8 + e]);
+      }
+    } else {
+      for (int c = 0; c < D; ++c) dst[c * 16] = 0;
+    }
+    __syncthreads();
+    // the slice's whole chunks below ceil16(Skv) are one contiguous span
+    const int n_vc = (Skv + 15) / 16, c0 = (sl - n_qs) * (SLICE / 16);
+    const int n_chunks = min(SLICE / 16, n_vc - c0);
+    uint4* out = reinterpret_cast<uint4*>(v8 + ((long)bh * n_vc + c0) * D * 16);
+    for (int i = threadIdx.x; i < n_chunks * D; i += PRE_THREADS)
+      out[i] = reinterpret_cast<const uint4*>(v8s)[i];
+  }
   if (r >= Skv) {
     if (r < skv_pad) sk[(long)bh * skv_pad + r] = 0.f;
     return;
@@ -310,11 +416,18 @@ flash_int8_prepass_quant_kernel(const __nv_bfloat16* __restrict__ q,
   for (int c16 = 0; c16 < CH8; ++c16)
     *reinterpret_cast<uint4*>(k8 + (((long)bh * CH8 + c16) * Skv + r) * 16) =
         quantize_chunk<CH>(c16, value, s);
-  uint4 u[CH];
-  load_row<CH>(v + (((long)b * Skv + r) * H + h) * D, u);
+  if constexpr (PV) {
 #pragma unroll
-  for (int c = 0; c < CH; ++c)
-    *reinterpret_cast<uint4*>(vc + (((long)bh * CH + c) * Skv + r) * 8) = u[c];
+    for (int c8 = 0; c8 < CHB; ++c8)
+      *reinterpret_cast<uint4*>(k_bf + (((long)bh * CHB + c8) * Skv + r) * 8) =
+          quantize_chunk_bf16<CH>(c8, value, s);
+  } else {
+    uint4 u[CH];
+    load_row<CH>(v + (((long)b * Skv + r) * H + h) * D, u);
+#pragma unroll
+    for (int c = 0; c < CH; ++c)
+      *reinterpret_cast<uint4*>(vc + (((long)bh * CH + c) * Skv + r) * 8) = u[c];
+  }
 }
 
 // ---------------------------------------------------------- main kernel
@@ -644,26 +757,30 @@ bool bad_shape(int B, int H, int Sq, int Skv, int D, int bq) {
 }
 
 
-template <int CH>
+// scratch: qmax (BH * n_qs), part (BH * n_ks * D), with PV vpart (BH *
+// n_ks * D), kmean (BH * D), count (BH)
+template <int CH, bool PV>
 int launch_prepass(const void* q, const void* k, const void* v, void* q8, void* k8, void* vc,
-                   void* sq, void* sk, void* scratch, int B, int H, int Sq, int Skv, int bq,
-                   cudaStream_t s) {
+                   void* v8, void* qb, void* kb, void* sq, void* sk, void* sv, void* scratch,
+                   int B, int H, int Sq, int Skv, int bq, cudaStream_t s) {
   const int BH = B * H, D = CH * 8;
   const int n_qs = (Sq + SLICE - 1) / SLICE, n_ks = (Skv + SLICE - 1) / SLICE;
   float* qmax = (float*)scratch;
   float* part = qmax + (long)BH * n_qs;
-  float* kmean = part + (long)BH * n_ks * D;
+  float* vpart = part + (long)BH * n_ks * D;
+  float* kmean = vpart + (PV ? (long)BH * n_ks * D : 0);
   unsigned* count = (unsigned*)(kmean + (long)BH * D);
   cudaError_t err = cudaMemsetAsync(count, 0, (size_t)BH * 4, s);
   if (err != cudaSuccess) return (int)err;
-  flash_int8_prepass_stats_kernel<CH><<<BH * (n_qs + n_ks), PRE_THREADS, 0, s>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, qmax, part, kmean, count, H, Sq, Skv,
-      n_qs, n_ks);
+  flash_int8_prepass_stats_kernel<CH, PV><<<BH * (n_qs + n_ks), PRE_THREADS, 0, s>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v, qmax, part,
+      vpart, kmean, (float*)sv, count, H, Sq, Skv, n_qs, n_ks);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  flash_int8_prepass_quant_kernel<CH><<<BH * (n_qs + n_ks), PRE_THREADS, 0, s>>>(
+  flash_int8_prepass_quant_kernel<CH, PV><<<BH * (n_qs + n_ks), PRE_THREADS, 0, s>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v, qmax, kmean,
-      (int8_t*)q8, (int8_t*)k8, (__nv_bfloat16*)vc, (float*)sq, (float*)sk, H, Sq, Skv, bq,
+      (const float*)sv, (int8_t*)q8, (int8_t*)k8, (__nv_bfloat16*)vc, (int8_t*)v8,
+      (__nv_bfloat16*)qb, (__nv_bfloat16*)kb, (float*)sq, (float*)sk, H, Sq, Skv, bq,
       (Sq + bq - 1) / bq, n_qs, n_ks, (Skv + 127) / 128 * 128);
   return (int)cudaGetLastError();
 }
@@ -684,8 +801,37 @@ extern "C" int tclight_qk_int8_prepass(const void* q, const void* k, const void*
   if (bad_shape(B, H, Sq, Skv, D, bq)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (D / 8) {
-#define TCLIGHT_PREPASS_CASE(CH_) \
-  case CH_: return launch_prepass<CH_>(q, k, v, q8, k8, vc, sq, sk, scratch, B, H, Sq, Skv, bq, s);
+#define TCLIGHT_PREPASS_CASE(CH_)                                                             \
+  case CH_:                                                                                  \
+    return launch_prepass<CH_, false>(q, k, v, q8, k8, vc, nullptr, nullptr, nullptr, sq, sk, \
+                                      nullptr, scratch, B, H, Sq, Skv, bq, s);
+    TCLIGHT_PREPASS_CASE(1) TCLIGHT_PREPASS_CASE(2) TCLIGHT_PREPASS_CASE(3)
+    TCLIGHT_PREPASS_CASE(4) TCLIGHT_PREPASS_CASE(5) TCLIGHT_PREPASS_CASE(6)
+    TCLIGHT_PREPASS_CASE(7) TCLIGHT_PREPASS_CASE(8) TCLIGHT_PREPASS_CASE(9)
+    TCLIGHT_PREPASS_CASE(10) TCLIGHT_PREPASS_CASE(11) TCLIGHT_PREPASS_CASE(12)
+    TCLIGHT_PREPASS_CASE(13) TCLIGHT_PREPASS_CASE(14) TCLIGHT_PREPASS_CASE(15)
+    TCLIGHT_PREPASS_CASE(16) TCLIGHT_PREPASS_CASE(17) TCLIGHT_PREPASS_CASE(18)
+    TCLIGHT_PREPASS_CASE(19) TCLIGHT_PREPASS_CASE(20)
+#undef TCLIGHT_PREPASS_CASE
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// K7's pre-pass: as above, but v8 (B*H, ceil16(Skv) / 16, D, 16) int8 in
+// the place of vc, sv (B*H, D) f32, and q8's and k8's values also in bf16
+// for the max pass, qb (B*H, DB / 8, Sq, 8) and kb (B*H, DB / 8, Skv, 8),
+// DB = ceil16(D); scratch: B*H * (n_qs + 2 * n_ks * D + D + 1) f32.
+extern "C" int tclight_int8pv_prepass(const void* q, const void* k, const void* v, void* q8,
+                                      void* k8, void* v8, void* qb, void* kb, void* sq,
+                                      void* sk, void* sv, void* scratch, int B, int H, int Sq,
+                                      int Skv, int D, int bq, void* stream) {
+  if (bad_shape(B, H, Sq, Skv, D, bq)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (D / 8) {
+#define TCLIGHT_PREPASS_CASE(CH_)                                                             \
+  case CH_:                                                                                  \
+    return launch_prepass<CH_, true>(q, k, v, q8, k8, nullptr, v8, qb, kb, sq, sk, sv, scratch, \
+                                     B, H, Sq, Skv, bq, s);
     TCLIGHT_PREPASS_CASE(1) TCLIGHT_PREPASS_CASE(2) TCLIGHT_PREPASS_CASE(3)
     TCLIGHT_PREPASS_CASE(4) TCLIGHT_PREPASS_CASE(5) TCLIGHT_PREPASS_CASE(6)
     TCLIGHT_PREPASS_CASE(7) TCLIGHT_PREPASS_CASE(8) TCLIGHT_PREPASS_CASE(9)

@@ -6,29 +6,43 @@
 //   forward  out[p] = sum_d k(dy - fy[p]) k(dx - fx[p]) x[p + d]
 //   adjoint  adj[q] = sum_d k(dy + fy[q+d]) k(dx + fx[q+d]) g[q + d]
 //
-// over |dy|, |dx| <= rh = radius + kernel radius, zero outside the frame.
-// x and g are NHWC f32 with C <= 4 channels; flows NHW2 f32 as [dx, dy].
+// over |dy|, |dx| <= rh = radius + kernel radius RK (Keys cubic, a =
+// -0.75: RK = 2; bilinear: RK = 1), zero outside the frame. x and g are
+// NHWC f32 with C <= 4 channels; flows NHW2 f32 as [dx, dy]. Taps beyond
+// the radius are dropped, as in the TPU kernel.
 //
-// What bounds it on the H100: with a smooth flow a pixel needs a handful
-// of taps and the kernel moves x, the flows and the output once (bytes);
-// with a wide flow range per tile the adjoint walks a large window and the
-// f32 tap arithmetic dominates (operations).
+// What bounds it on the H100: with a smooth flow (the post-optimization's)
+// a pixel has 2RK x 2RK taps of weight, and the kernel must move x (or g),
+// the flows and the output once: bytes. With a wide flow range per tile
+// the tap arithmetic grows (operations).
 //
-// Design. The TPU kernel walks one bounded window sum for both directions,
-// because Mosaic cannot gather per pixel. Here:
-//  - the forward reads only the 4x4 (bilinear 2x2) taps around p + f[p],
-//    the only ones where k is nonzero, clipped to the window; neighbouring
-//    threads read neighbouring pixels, so the taps come through L1/L2;
-//  - the adjoint owns a 32x32 output tile per block. It first reduces the
-//    flow's min/max over the tile's whole halo window (tile +- rh): a tap
-//    d reads the flow at q + d, which lies anywhere in that halo, so the
-//    bounds must cover it and not only the centre tile. The taps with a
-//    nonzero weight then satisfy floor(min(-f)) - rk + 1 <= d <= floor(max(-f)) + rk.
-//    The kernel walks that bounded window in 8x8-tap chunks: for each chunk
-//    it stages the cotangent and the flow of the (32+7)^2 source pixels in
-//    shared memory (zeros outside the frame), then every thread sums the
-//    chunk's taps for its four pixels in f32 registers.
-// Taps beyond the radius are dropped, as in the TPU kernel.
+// Design. One block of 256 threads per 32 x 64 output tile; a thread owns
+// column t % 64 of rows t / 64 + 4i, i < 8, so a warp covers 32
+// neighbouring pixels of one row.
+//  - Forward, a direct gather: a pixel reads its flow as one float2,
+//    computes its 2RK + 2RK separable weights once (a tap outside the frame
+//    or the radius gets weight 0 and a clamped address) and sums its 4RK^2
+//    taps' C channels without a branch, reading x through L1: a warp's taps
+//    are 32 neighbouring pixels of the same few rows, so the tile's source
+//    window crosses device memory about once. A window staged in shared
+//    memory first (the TPU kernel's design: the tile's flow range, then the
+//    bounded window copied in coalesced rows, in chunks beyond a budget)
+//    measured slower on the H100 (`python -m tclight_torch.ablate_warp`).
+//  - Adjoint, as the scatter it is. First the flow range over the tile's
+//    halo window (tile +- rh, clipped to the frame), as the TPU kernel
+//    bounds its taps (warp_kernel.py:129-141): a tap d reads the flow at
+//    q + d, so the taps with a nonzero weight lie in floor(-max f) - RK + 1
+//    .. floor(-min f) + RK, clipped to [-rh, rh], and the sources that can
+//    reach the tile in the tile moved by that range. Each such source s in
+//    the frame (read once, coalesced by rows) computes its 2RK + 2RK
+//    weights once from its own flow and adds w * g[s] into the 2RK x 2RK
+//    outputs q = s - d of the tile that its taps d reach (|d| <= rh), by
+//    shared-memory atomic adds into the tile's f32 accumulators (C x 32 x
+//    64). That is 4RK^2 adds a source however wide the flow range, where a
+//    gather walks the whole bounded window per output (53 x 53 taps at r =
+//    24). The adds land in no fixed order: the f32 sums of a few dozen
+//    terms differ from the plain version's by rounding only.
+//  - The outputs go out per thread, a warp's 32 pixels one contiguous span.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -36,155 +50,188 @@
 
 namespace {
 
-constexpr int TILE = 32;                 // output tile side, pixels
-constexpr int THREADS = 256;             // thread t owns column t % 32 of rows t / 32 + 8k
-constexpr int ROW_STEP = THREADS / TILE; // 8
-constexpr int PIX = TILE / ROW_STEP;     // 4 pixels per thread
-constexpr int CHUNK = 8;                 // adjoint taps per staged chunk, each axis
-constexpr int REG = TILE + CHUNK - 1;    // 39: staged source region side
+constexpr int TH = 32, TW = 64;          // output tile, rows x columns
+constexpr int THREADS = 256;
+constexpr int ROWS_PER_STEP = THREADS / TW;  // 4
+constexpr int PIX = TH / ROWS_PER_STEP;      // 8 pixels a thread
 constexpr int MAXC = 4;
 
-__device__ __forceinline__ float kweight(float s, int mode) {
+// the weight of tap i of 2RK at signed distance s, |s| in the region that
+// tap always lies in: Keys cubic (a = -0.75) near for the inner two taps,
+// far for the outer two (both are 0 at |s| = 1 and far is 0 at 2, as
+// `window_warp_plain`'s kernel), or bilinear
+template <int RK>
+__device__ __forceinline__ float tap_weight(int i, float s) {
   s = fabsf(s);
-  if (mode == 1) return fmaxf(0.f, 1.f - s);  // bilinear
-  const float a = -0.75f;                     // Keys cubic, torch's bicubic
-  const float near = ((a + 2.f) * s - (a + 3.f)) * s * s + 1.f;
-  const float far = (((s - 5.f) * s + 8.f) * s - 4.f) * a;
-  return s <= 1.f ? near : (s < 2.f ? far : 0.f);
+  if constexpr (RK == 1) return fmaxf(0.f, 1.f - s);
+  const float a = -0.75f;
+  if (i == 1 || i == 2) return ((a + 2.f) * s - (a + 3.f)) * s * s + 1.f;
+  return (((s - 5.f) * s + 8.f) * s - 4.f) * a;
 }
 
-__device__ __forceinline__ float warp_min(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+// min / max of four values over the block (red: 4 x 8 floats)
+__device__ __forceinline__ void block_range(float (&v)[4], float* red) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    v[0] = fminf(v[0], __shfl_xor_sync(0xffffffffu, v[0], o));
+    v[1] = fmaxf(v[1], __shfl_xor_sync(0xffffffffu, v[1], o));
+    v[2] = fminf(v[2], __shfl_xor_sync(0xffffffffu, v[2], o));
+    v[3] = fmaxf(v[3], __shfl_xor_sync(0xffffffffu, v[3], o));
+  }
+  const int lane = threadIdx.x % 32, wid = threadIdx.x / 32;
+  if (lane == 0)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) red[i * 8 + wid] = v[i];
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float r = red[i * 8];
+    for (int w = 1; w < THREADS / 32; ++w)
+      r = (i & 1) ? fmaxf(r, red[i * 8 + w]) : fminf(r, red[i * 8 + w]);
+    v[i] = r;
+  }
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-template <bool ADJ>
+template <int C, int RK>
 __global__ void __launch_bounds__(THREADS)
-window_warp_kernel(const float* __restrict__ x, const float* __restrict__ flows,
-                   float* __restrict__ out, int h, int w, int c, int rh, int mode) {
+window_warp_fwd_kernel(const float* __restrict__ x, const float* __restrict__ flows,
+                       float* __restrict__ out, int h, int w, int rh) {
+  constexpr int NW = 2 * RK;  // taps an axis
   const int n = blockIdx.z;
-  const int x0 = blockIdx.x * TILE, y0 = blockIdx.y * TILE;
-  const int tx = threadIdx.x % TILE, ty = threadIdx.x / TILE;
-  const int rk = mode == 1 ? 1 : 2;
+  const int x0 = blockIdx.x * TW, y0 = blockIdx.y * TH;
+  const int tx = threadIdx.x % TW, ty = threadIdx.x / TW;
   const size_t plane = (size_t)h * w;
-  const float* xn = x + (size_t)n * plane * c;
-  const float* fn = flows + (size_t)n * plane * 2;
-  float* on = out + (size_t)n * plane * c;
+  const float* xn = x + (size_t)n * plane * C;
+  const float2* fn = reinterpret_cast<const float2*>(flows) + (size_t)n * plane;
+  float* on = out + (size_t)n * plane * C;
+#pragma unroll 2
+  for (int i = 0; i < PIX; ++i) {
+    const int py = y0 + ty + ROWS_PER_STEP * i, px = x0 + tx;
+    if (py >= h || px >= w) continue;
+    const float2 f = fn[(size_t)py * w + px];
+    // taps d = b + a: a tap outside the frame or the radius gets weight 0
+    // and a clamped address
+    const int by = (int)floorf(f.y) - RK + 1, bx = (int)floorf(f.x) - RK + 1;
+    float wy[NW], wx[NW];
+    int ry[NW], rx[NW];
+#pragma unroll
+    for (int a = 0; a < NW; ++a) {
+      const int sy = py + by + a, sx = px + bx + a;
+      const bool oky = sy >= 0 && sy < h && by + a >= -rh && by + a <= rh;
+      const bool okx = sx >= 0 && sx < w && bx + a >= -rh && bx + a <= rh;
+      wy[a] = oky ? tap_weight<RK>(a, (float)(by + a) - f.y) : 0.f;
+      wx[a] = okx ? tap_weight<RK>(a, (float)(bx + a) - f.x) : 0.f;
+      ry[a] = min(max(sy, 0), h - 1) * w;
+      rx[a] = min(max(sx, 0), w - 1);
+    }
+    float acc[C];
+#pragma unroll
+    for (int ch = 0; ch < C; ++ch) acc[ch] = 0.f;
+#pragma unroll
+    for (int a = 0; a < NW; ++a)
+#pragma unroll
+      for (int b = 0; b < NW; ++b) {
+        const float wgt = wy[a] * wx[b];
+        const float* src = xn + (size_t)(ry[a] + rx[b]) * C;
+#pragma unroll
+        for (int ch = 0; ch < C; ++ch) acc[ch] = fmaf(wgt, __ldg(src + ch), acc[ch]);
+      }
+    float* o = on + ((size_t)py * w + px) * C;
+#pragma unroll
+    for (int ch = 0; ch < C; ++ch) o[ch] = acc[ch];
+  }
+}
 
-  if constexpr (!ADJ) {
+template <int C, int RK>
+__global__ void __launch_bounds__(THREADS)
+window_warp_adj_kernel(const float* __restrict__ g, const float* __restrict__ flows,
+                       float* __restrict__ out, int h, int w, int rh) {
+  constexpr int NW = 2 * RK;
+  __shared__ float so[C][TH][TW];  // the tile's accumulators
+  __shared__ float red[32];
+  const int n = blockIdx.z;
+  const int x0 = blockIdx.x * TW, y0 = blockIdx.y * TH;
+  const int tx = threadIdx.x % TW, ty = threadIdx.x / TW;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const size_t plane = (size_t)h * w;
+  const float* gn = g + (size_t)n * plane * C;
+  const float2* fn = reinterpret_cast<const float2*>(flows) + (size_t)n * plane;
+  float* on = out + (size_t)n * plane * C;
+  for (int i = threadIdx.x; i < C * TH * TW; i += THREADS) (&so[0][0][0])[i] = 0.f;
+
+  // 1. the flow range over the halo window, clipped to the frame (a
+  //    source outside the frame holds a zero cotangent and adds nothing)
+  float rng[4] = {INFINITY, -INFINITY, INFINITY, -INFINITY};
+  {
+    const int hy0 = max(y0 - rh, 0), hy1 = min(y0 + TH - 1 + rh, h - 1);
+    const int hx0 = max(x0 - rh, 0), hx1 = min(x0 + TW - 1 + rh, w - 1);
+    for (int r = hy0 + warp; r <= hy1; r += THREADS / 32)
+      for (int cx = hx0 + lane; cx <= hx1; cx += 32) {
+        const float2 f = fn[(size_t)r * w + cx];
+        rng[0] = fminf(rng[0], f.x); rng[1] = fmaxf(rng[1], f.x);
+        rng[2] = fminf(rng[2], f.y); rng[3] = fmaxf(rng[3], f.y);
+      }
+  }
+  block_range(rng, red);  // its __syncthreads also orders the zeroing
+  const int lo_y = max((int)floorf(-rng[3]) - RK + 1, -rh), hi_y = min((int)floorf(-rng[2]) + RK, rh);
+  const int lo_x = max((int)floorf(-rng[1]) - RK + 1, -rh), hi_x = min((int)floorf(-rng[0]) + RK, rh);
+
+  // 3. every source of the window, in the frame, scatters into the tile
+  const int sy0 = max(y0 + lo_y, 0), sy1 = min(y0 + TH - 1 + hi_y, h - 1);
+  const int sx0 = max(x0 + lo_x, 0), sx1 = min(x0 + TW - 1 + hi_x, w - 1);
+  for (int sy = sy0 + warp; sy <= sy1; sy += THREADS / 32) {
+    for (int sx = sx0 + lane; sx <= sx1; sx += 32) {
+      const size_t s = (size_t)sy * w + sx;
+      const float2 f = fn[s];
+      float gv[C];
 #pragma unroll
-    for (int k = 0; k < PIX; ++k) {
-      const int py = y0 + ty + ROW_STEP * k, px = x0 + tx;
-      if (py >= h || px >= w) continue;
-      const size_t p = (size_t)py * w + px;
-      const float fx = fn[2 * p], fy = fn[2 * p + 1];
-      const int by = (int)floorf(fy), bx = (int)floorf(fx);
-      const int dy_lo = max(by - rk + 1, -rh), dy_hi = min(by + rk, rh);
-      const int dx_lo = max(bx - rk + 1, -rh), dx_hi = min(bx + rk, rh);
-      float acc[MAXC] = {0.f, 0.f, 0.f, 0.f};
-      for (int dy = dy_lo; dy <= dy_hi; ++dy) {
-        const int sy = py + dy;
-        if (sy < 0 || sy >= h) continue;
-        const float wy = kweight((float)dy - fy, mode);
-        for (int dx = dx_lo; dx <= dx_hi; ++dx) {
-          const int sx = px + dx;
-          if (sx < 0 || sx >= w) continue;
-          const float wgt = wy * kweight((float)dx - fx, mode);
-          const float* src = xn + ((size_t)sy * w + sx) * c;
+      for (int ch = 0; ch < C; ++ch) gv[ch] = gn[s * C + ch];
+      // taps d = b + i reach q = s - d with weight k(d + f)
+      const int by = (int)floorf(-f.y) - RK + 1, bx = (int)floorf(-f.x) - RK + 1;
+      float wy[NW], wx[NW];
+      int qy[NW], qx[NW];
 #pragma unroll
-          for (int ch = 0; ch < MAXC; ++ch)
-            if (ch < c) acc[ch] += wgt * __ldg(src + ch);
-        }
+      for (int a = 0; a < NW; ++a) {
+        qy[a] = sy - (by + a) - y0;
+        qx[a] = sx - (bx + a) - x0;
+        const bool oky = qy[a] >= 0 && qy[a] < TH && by + a >= -rh && by + a <= rh;
+        const bool okx = qx[a] >= 0 && qx[a] < TW && bx + a >= -rh && bx + a <= rh;
+        wy[a] = oky ? tap_weight<RK>(a, (float)(by + a) + f.y) : 0.f;
+        wx[a] = okx ? tap_weight<RK>(a, (float)(bx + a) + f.x) : 0.f;
       }
 #pragma unroll
-      for (int ch = 0; ch < MAXC; ++ch)
-        if (ch < c) on[p * c + ch] = acc[ch];
-    }
-  } else {
-    __shared__ float sg[MAXC][REG][REG + 1];
-    __shared__ float sf[2][REG][REG + 1];
-    __shared__ float red[4][THREADS / 32];
-
-    // 1. flow range over the halo window, clipped to the frame (a tap
-    //    outside the frame reads a zero cotangent and adds nothing)
-    const int wy0 = max(y0 - rh, 0), wy1 = min(y0 + TILE - 1 + rh, h - 1);
-    const int wx0 = max(x0 - rh, 0), wx1 = min(x0 + TILE - 1 + rh, w - 1);
-    const int ww = wx1 - wx0 + 1, wcount = ww * (wy1 - wy0 + 1);
-    float mnx = INFINITY, mxx = -INFINITY, mny = INFINITY, mxy = -INFINITY;
-    for (int i = threadIdx.x; i < wcount; i += THREADS) {
-      const size_t p = (size_t)(wy0 + i / ww) * w + (wx0 + i % ww);
-      const float fx = __ldg(fn + 2 * p), fy = __ldg(fn + 2 * p + 1);
-      mnx = fminf(mnx, fx); mxx = fmaxf(mxx, fx);
-      mny = fminf(mny, fy); mxy = fmaxf(mxy, fy);
-    }
-    mnx = warp_min(mnx); mxx = warp_max(mxx); mny = warp_min(mny); mxy = warp_max(mxy);
-    const int lane = threadIdx.x % 32, wid = threadIdx.x / 32;
-    if (lane == 0) { red[0][wid] = mnx; red[1][wid] = mxx; red[2][wid] = mny; red[3][wid] = mxy; }
-    __syncthreads();
-    mnx = red[0][0]; mxx = red[1][0]; mny = red[2][0]; mxy = red[3][0];
-    for (int i = 1; i < THREADS / 32; ++i) {
-      mnx = fminf(mnx, red[0][i]); mxx = fmaxf(mxx, red[1][i]);
-      mny = fminf(mny, red[2][i]); mxy = fmaxf(mxy, red[3][i]);
-    }
-    // weights are nonzero for |d - s| < rk with s = -f
-    const int lo_y = max((int)floorf(-mxy) - rk + 1, -rh), hi_y = min((int)floorf(-mny) + rk, rh);
-    const int lo_x = max((int)floorf(-mxx) - rk + 1, -rh), hi_x = min((int)floorf(-mnx) + rk, rh);
-
-    float acc[PIX][MAXC];
+      for (int a = 0; a < NW; ++a) {
+        if (wy[a] == 0.f) continue;
 #pragma unroll
-    for (int k = 0; k < PIX; ++k)
+        for (int b = 0; b < NW; ++b) {
+          if (wx[b] == 0.f) continue;
+          const float wgt = wy[a] * wx[b];
 #pragma unroll
-      for (int ch = 0; ch < MAXC; ++ch) acc[k][ch] = 0.f;
-
-    // 2. the bounded window in staged chunks of CHUNK x CHUNK taps
-    for (int cy = lo_y; cy <= hi_y; cy += CHUNK) {
-      for (int cx = lo_x; cx <= hi_x; cx += CHUNK) {
-        __syncthreads();  // the previous chunk's readers are done
-        for (int i = threadIdx.x; i < REG * REG; i += THREADS) {
-          const int r = i / REG, col = i % REG;
-          const int sy = y0 + cy + r, sx = x0 + cx + col;
-          const bool in = sy >= 0 && sy < h && sx >= 0 && sx < w;
-          const size_t p = in ? (size_t)sy * w + sx : 0;
-#pragma unroll
-          for (int ch = 0; ch < MAXC; ++ch)
-            if (ch < c) sg[ch][r][col] = in ? __ldg(xn + p * c + ch) : 0.f;
-          sf[0][r][col] = in ? __ldg(fn + 2 * p) : 0.f;
-          sf[1][r][col] = in ? __ldg(fn + 2 * p + 1) : 0.f;
-        }
-        __syncthreads();
-        const int ey = min(cy + CHUNK - 1, hi_y), ex = min(cx + CHUNK - 1, hi_x);
-#pragma unroll
-        for (int k = 0; k < PIX; ++k) {
-          const int ly = ty + ROW_STEP * k;
-          for (int dy = cy; dy <= ey; ++dy) {
-            const int r = ly + dy - cy;
-            for (int dx = cx; dx <= ex; ++dx) {
-              const int col = tx + dx - cx;
-              const float wgt = kweight((float)dy + sf[1][r][col], mode) *
-                                kweight((float)dx + sf[0][r][col], mode);
-#pragma unroll
-              for (int ch = 0; ch < MAXC; ++ch)
-                if (ch < c) acc[k][ch] += wgt * sg[ch][r][col];
-            }
-          }
+          for (int ch = 0; ch < C; ++ch) atomicAdd(&so[ch][qy[a]][qx[b]], wgt * gv[ch]);
         }
       }
-    }
-#pragma unroll
-    for (int k = 0; k < PIX; ++k) {
-      const int py = y0 + ty + ROW_STEP * k, px = x0 + tx;
-      if (py >= h || px >= w) continue;
-      const size_t p = (size_t)py * w + px;
-#pragma unroll
-      for (int ch = 0; ch < MAXC; ++ch)
-        if (ch < c) on[p * c + ch] = acc[k][ch];
     }
   }
+  __syncthreads();
+  // 4. the outputs: a warp's 32 pixels are one contiguous span
+#pragma unroll
+  for (int i = 0; i < PIX; ++i) {
+    const int ly = ty + ROWS_PER_STEP * i, py = y0 + ly, px = x0 + tx;
+    if (py >= h || px >= w) continue;
+    float* o = on + ((size_t)py * w + px) * C;
+#pragma unroll
+    for (int ch = 0; ch < C; ++ch) o[ch] = so[ch][ly][tx];
+  }
+}
+
+template <int C, int RK>
+void launch(const float* x, const float* flows, float* out, int n, int h, int w, int rh,
+            bool adjoint, cudaStream_t s) {
+  const dim3 grid((w + TW - 1) / TW, (h + TH - 1) / TH, n);
+  if (adjoint)
+    window_warp_adj_kernel<C, RK><<<grid, THREADS, 0, s>>>(x, flows, out, h, w, rh);
+  else
+    window_warp_fwd_kernel<C, RK><<<grid, THREADS, 0, s>>>(x, flows, out, h, w, rh);
 }
 
 }  // namespace
@@ -194,15 +241,23 @@ window_warp_kernel(const float* __restrict__ x, const float* __restrict__ flows,
 extern "C" int tclight_window_warp_f32(const float* x, const float* flows, float* out,
                                        int n, int h, int w, int c, int radius, int mode,
                                        int adjoint, void* stream) {
-  if (c < 1 || c > MAXC || (mode != 0 && mode != 1) || radius < 0 || n > 65535)
+  if (c < 1 || c > MAXC || (mode != 0 && mode != 1) || radius < 0 || n > 65535 ||
+      radius > 20000)
     return (int)cudaErrorInvalidValue;
   if (n == 0 || h == 0 || w == 0) return 0;
-  const int rh = radius + (mode == 1 ? 1 : 2);
-  const dim3 grid((w + TILE - 1) / TILE, (h + TILE - 1) / TILE, n);
+  const int rk = mode == 1 ? 1 : 2;
+  const int rh = radius + rk;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (adjoint)
-    window_warp_kernel<true><<<grid, THREADS, 0, s>>>(x, flows, out, h, w, c, rh, mode);
-  else
-    window_warp_kernel<false><<<grid, THREADS, 0, s>>>(x, flows, out, h, w, c, rh, mode);
+#define TCLIGHT_WARP_CASE(C_)                                                      \
+  case C_:                                                                         \
+    if (rk == 2)                                                                   \
+      launch<C_, 2>(x, flows, out, n, h, w, rh, adjoint != 0, s);                  \
+    else                                                                           \
+      launch<C_, 1>(x, flows, out, n, h, w, rh, adjoint != 0, s);                  \
+    break;
+  switch (c) {
+    TCLIGHT_WARP_CASE(1) TCLIGHT_WARP_CASE(2) TCLIGHT_WARP_CASE(3) TCLIGHT_WARP_CASE(4)
+  }
+#undef TCLIGHT_WARP_CASE
   return (int)cudaGetLastError();
 }

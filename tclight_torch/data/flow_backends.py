@@ -2,8 +2,8 @@
 tclight_tpu/data/flow_backends.py).
 
 Only the weight-free OpenCV Farneback backend is ported. The RAFT and
-MemFlow networks need checkpoints that the repository does not hold; they
-raise NotImplementedError (ROADMAP A9).
+MemFlow networks are not (ROADMAP A9): their flows are read from the data
+parser's flow cache, and computing them raises NotImplementedError.
 
 Flows are (N, H, W, 2) as [dx, dy].
 """
@@ -33,8 +33,9 @@ def compute_flow_pairs(frames: np.ndarray, direction: str = "future",
     is zero)."""
     if backend in ("raft", "memflow"):
         raise NotImplementedError(
-            f"flow backend {backend!r} is not ported yet (ROADMAP A9: its "
-            "checkpoint is not in the repository); use data.flow_model=farneback")
+            f"flow backend {backend!r} is not ported yet (ROADMAP A9): its flows "
+            "must be in the flow cache next to the video; or use "
+            "data.flow_model=farneback")
     if backend != "farneback":
         raise ValueError(f"unknown flow backend {backend}")
     n, h, w, _ = frames.shape

@@ -16,10 +16,11 @@ Layout: (B, S, H, D) — batch, sequence, heads, head_dim. Inference only.
   K6 (int8 QK^T, bf16 PV; `csrc/flash_attention_qk_int8.cu`) runs on the
   operands of its own pre-pass kernels (`qk_int8_operands`), and K7 (int8
   QK^T and PV, P quantized per (row, 1024-key block);
-  `csrc/flash_attention_int8.cu`) on those of the plain torch pre-pass
-  `int8_prepass`; on a CPU tensor `flash_attention_int8_plain`, the dense
-  emulation of `_flash_attention_int8_xla`, one 1024-row block of queries
-  at a time.
+  `csrc/flash_attention_int8.cu`) on those of the same pre-pass kernels'
+  PV variant (`int8pv_operands`) and of its max pass (`int8_block_rowmax`,
+  each (row, P block)'s logit max); on a CPU tensor
+  `flash_attention_int8_plain`, the dense emulation of
+  `_flash_attention_int8_xla`, one 1024-row block of queries at a time.
 
 K1 replaces the TPU kernel `_flash_kernel` of tclight_tpu/ops/attention.py.
 On the H100 the level-0 UNet self-attention (~35.6k tokens, 8 heads, head
@@ -32,8 +33,9 @@ warpgroups run both products on wgmma and the softmax in registers, and
 overlap one's softmax with the other's products (details in the source). K6
 replaces `_flash_kernel_qk_int8` in K1's design, with q.k^T on int8 wgmma
 and operands that its pre-pass kernels write in the layout its TMA boxes
-read (`qk_int8_geometry`); K7 replaces `_flash_kernel_int8_full` with an
-mma.sync layout and int8 products (details in their sources).
+read (`qk_int8_geometry`); K7 replaces `_flash_kernel_int8_full` in the
+same design, p.v on int8 wgmma too, after a max pass in that design that
+writes the P blocks' maxes (`int8pv_geometry`; details in their sources).
 
 The int8 products of the plain version are f32 matmuls of integer-valued
 tensors: exact, since |dot| <= 127^2 * 160 < 2^24, as long as TF32 is off
@@ -55,7 +57,8 @@ __all__ = ["dot_product_attention", "flash_attention", "flash_attention_plain",
            "flash_attention_int8_cuda", "quantize_rows", "quantize_blocks",
            "quantize_channels", "smooth_k", "int8_prepass", "qk_int8_geometry",
            "qk_int8_operands", "qk_int8_operands_plain", "chunk_major", "from_chunk_major",
-           "BACKENDS"]
+           "int8pv_geometry", "int8pv_operands", "int8pv_operands_plain", "v8_chunks",
+           "int8_block_rowmax", "int8_block_rowmax_plain", "BACKENDS"]
 
 BACKENDS = (None, "int8", "int8pv")
 QBLOCK = 1024  # rows of a Q scale block, and keys of a K7 P-scale block
@@ -279,19 +282,18 @@ def flash_attention_int8_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 
 
 def int8_prepass(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pv_int8: bool):
-    """K7's operands on the card, and the plain version of K6's pre-pass
-    kernels (`qk_int8_operands_plain` lays them out as K6 reads them),
-    made with the plain quantizers above: q8 (BH, Sq_pad, DK) and k8
-    (BH, Skv_pad, DK) int8 with the head dim zero-padded to DK, a multiple
-    of the int8 MMA depth 32 (zero columns change no dot product) and K's
-    tokens to a multiple of the 64-key tile; sq (BH, n_qblocks) and sk
-    (BH, Skv_pad) f32 scales. For
-    K7 also v8 (BH, DV, Skv_pad) int8, the channels padded to DV = ceil16(D)
-    and the keys transposed onto the last axis and permuted within each
-    16 (see `csrc/flash_attention_int8.cu`), and sv (BH, DV) f32."""
+    """The plain version of the pre-pass kernels of K6 and K7, made with
+    the plain quantizers above, in a plain layout that
+    `qk_int8_operands_plain` and `int8pv_operands_plain` lay out as the
+    kernels read them: q8 (BH, Sq_pad, DK) and k8 (BH, Skv_pad, DK) int8
+    with the head dim zero-padded to DK, a multiple of the int8 MMA depth
+    32 (zero columns change no dot product) and K's tokens to a multiple
+    of 64; sq (BH, n_qblocks) and sk (BH, Skv_pad) f32 scales. With
+    `pv_int8` also v8 (BH, Skv, D) int8 and sv (BH, D) f32, V quantized
+    per channel."""
     b, sq, h, d = q.shape
     skv = k.shape[1]
-    dk, dv = _ceil_to(d, 32), _ceil_to(d, 16)
+    dk = _ceil_to(d, 32)
     bq = min(QBLOCK, _ceil_to(sq, 128))
     sq_pad, skv_pad = _ceil_to(sq, bq), _ceil_to(skv, 64)
     q8, sqs = quantize_blocks(F.pad(_heads_first(q), (0, dk - d, 0, sq_pad - sq)), bq)
@@ -303,15 +305,7 @@ def int8_prepass(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pv_int8: boo
            "sk": sks.contiguous(), "bq": bq}
     if pv_int8:
         v8, svs = quantize_channels(_heads_first(v))
-        v8 = F.pad(v8, (0, dv - d, 0, skv_pad - skv))
-        # key order within each 16: logical 4t + 2a + c holds physical
-        # key 8a + 2t + c, so that the int32 score fragment of a thread
-        # (keys 2t, 2t+1 of each 8-key tile) packs straight into the int8
-        # A operand (keys 4t..4t+3 of each 16)
-        bh = v8.shape[0]
-        v8 = v8.reshape(bh, skv_pad // 16, 2, 4, 2, dv).permute(0, 5, 1, 3, 2, 4)
-        ops["v8t"] = v8.reshape(bh, dv, skv_pad).contiguous()
-        ops["sv"] = F.pad(svs, (0, dv - d)).contiguous()
+        ops["v8"], ops["sv"] = v8.contiguous(), svs.contiguous()
     return ops
 
 
@@ -365,12 +359,109 @@ def qk_int8_operands_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) ->
             "sk": F.pad(ops["sk"][:, :skv], (0, g["skv_pad"] - skv)), "bq": g["bq"]}
 
 
+def v8_chunks(v8: torch.Tensor) -> torch.Tensor:
+    """K7's v8 layout from a plain (BH, Skv, D) int8: (BH, ceil16(Skv) /
+    16, D, 16), the 16 keys of each channel contiguous (8-bit wgmma reads
+    its B operand K-major only), keys past Skv zero, and within each 16
+    keys byte 4t + 2a + c holding key 8a + 2t + c: a thread's int32 score
+    fragment (keys 2t, 2t + 1 of each 8) then packs as it lies into the s8
+    A fragment (bytes 4t..4t+3 of each 16)."""
+    bh, skv, d = v8.shape
+    n_vc = -(-skv // 16)
+    x = F.pad(v8, (0, 0, 0, 16 * n_vc - skv)).reshape(bh, n_vc, 2, 4, 2, d)
+    # (bh, chunk, a, t, c, d) -> (bh, chunk, d, t, a, c)
+    return x.permute(0, 1, 5, 3, 2, 4).reshape(bh, n_vc, d, 16).contiguous()
+
+
+def int8pv_geometry(b: int, sq: int, skv: int, h: int, d: int) -> dict:
+    """The layout of K7's operands and tiles, as its pre-pass, max pass and
+    attention (`csrc/flash_attention_int8.cu`) lay them out: K6's q8, k8,
+    sq and sk; v8 (`v8_chunks`) and sv; qb and kb, q8's and k8's values in
+    bf16 for the max pass, chunk-major in 8-value chunks with the head dim
+    padded to dp = ceil16(D); the P block `pb` (min(1024,
+    ceil128(Skv)) keys) and its count; the block maxes (BH, Sq, n_kb); the
+    q rows per block (two 64-row blocks per consumer warpgroup up to DP =
+    ceil16(D) = 48, one above), the keys per tile (64, 128 for 48 < DP <=
+    96), its 4 stages and the tiles per P block; the pre-pass's f32
+    scratch; the dynamic shared memory of the attention and the max
+    pass."""
+    g6 = qk_int8_geometry(b, sq, skv, h, d)
+    dk, dp, bh = g6["dk"], g6["dp"], b * h
+    mb = 2 if dp <= 48 else 1
+    bk = 64 if (mb == 2 or dp > 96) else 128
+    pb = min(QBLOCK, _ceil_to(skv, 128))
+    n_kb = -(-skv // pb)
+    bars = 8 * (1 + 2 * 4) + 128
+    shapes = {n: g6["shapes"][n] for n in ("q8", "k8", "sq", "sk")}
+    shapes.update(v8=(bh, -(-skv // 16), d, 16), sv=(bh, d), qb=(bh, dp // 8, sq, 8),
+                  kb=(bh, dp // 8, skv, 8), blockmax=(bh, sq, n_kb),
+                  scratch=(bh * (g6["q_slices"] + 2 * g6["k_slices"] * d + d + 1),))
+    return {"dk": dk, "dp": dp, "bq": g6["bq"], "n_qb": g6["n_qb"], "pb": pb, "n_kb": n_kb,
+            "row_blocks": mb, "q_rows": 128 * mb, "kv_rows": bk, "stages": 4,
+            "tiles_per_block": pb // bk, "skv_pad": g6["skv_pad"],
+            "smem": 128 * mb * dk + 4 * bk * (dk + dp + 4) + bars,
+            "smem_maxpass": 128 * mb * 2 * dp + 4 * bk * (2 * dp + 4) + bars, "shapes": shapes}
+
+
+def int8pv_operands_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> dict:
+    """K7's operands from the plain pre-pass `int8_prepass`, in the layout
+    of `int8pv_geometry` (the plain version of the PV pre-pass kernels):
+    K6's q8, k8, sq and sk, v8 by `v8_chunks`, sv, and q8's and k8's values
+    in bf16 (qb, kb)."""
+    ops = int8_prepass(q, k, v, pv_int8=True)
+    b, sq, h, d = q.shape
+    skv = k.shape[1]
+    g = int8pv_geometry(b, sq, skv, h, d)
+    q8, k8 = ops["q8"][:, :sq], ops["k8"][:, :skv]
+    return {"q8": chunk_major(q8, 16), "k8": chunk_major(k8, 16),
+            "sq": ops["sq"], "sk": F.pad(ops["sk"][:, :skv], (0, g["skv_pad"] - skv)),
+            "v8": v8_chunks(ops["v8"]), "sv": ops["sv"],
+            "qb": chunk_major(q8[..., :g["dp"]].bfloat16(), 8),
+            "kb": chunk_major(k8[..., :g["dp"]].bfloat16(), 8), "bq": g["bq"]}
+
+
+def int8_block_rowmax_plain(ops: dict, sq: int, skv: int, scale: float) -> torch.Tensor:
+    """The plain version of K7's max pass: from the operands of
+    `int8pv_operands`, (BH, Sq, n_kb) f32, each (query, P block)'s max of
+    the logits in log2 units, w = (f32(q8 . k8) * sk) * c with c = scale *
+    log2(e) * sq of the query's Q-scale block, the keys past Skv left out.
+    For c > 0 the max is taken before the multiply by c (the same value:
+    rounding is monotone), as the kernel does. One Q-scale block of
+    queries at a time."""
+    q8, k8 = from_chunk_major(ops["q8"]).float(), from_chunk_major(ops["k8"]).float()
+    bq = ops["bq"]
+    pb = min(QBLOCK, _ceil_to(skv, 128))
+    n_kb = -(-skv // pb)
+    sk = ops["sk"][:, :skv]
+    out = []
+    for i, r0 in enumerate(range(0, sq, bq)):
+        u = torch.matmul(q8[:, r0:r0 + bq], k8.transpose(1, 2)) * sk[:, None, :]  # exact dots
+        c = (torch.tensor(scale, dtype=torch.float32) * 1.4426950408889634).to(u.device) \
+            * ops["sq"][:, i, None, None]
+        fold = bool((c > 0).all())
+        if not fold:
+            u = u * c
+        u = F.pad(u, (0, n_kb * pb - skv), value=-math.inf)
+        m = u.reshape(u.shape[0], u.shape[1], n_kb, pb).amax(dim=-1)
+        out.append(m * c if fold else m)
+    return torch.cat(out, dim=1)
+
+
 # tclight_qk_int8_prepass(q, k, v, q8, k8, vc, sq, sk, scratch, B, H, Sq, Skv,
 # D, bq, stream)
 PREPASS_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 # tclight_flash_attention_qk_int8(q8, k8, vc, sq, sk, o, B, H, Sq, Skv, D,
 # bq, scale, stream)
 K6_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+# tclight_int8pv_prepass(q, k, v, q8, k8, v8, qb, kb, sq, sk, sv, scratch, B,
+# H, Sq, Skv, D, bq, stream)
+PV_PREPASS_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+# tclight_int8pv_blockmax(qb, kb, sq, sk, blockmax, B, H, Sq, Skv, D, bq,
+# scale, stream)
+MAXPASS_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+# tclight_flash_attention_int8pv(q8, k8, v8, sq, sk, sv, blockmax, o, B, H,
+# Sq, Skv, D, bq, scale, stream)
+K7_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
 
 
 def _check_int8_inputs(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -420,11 +511,57 @@ def qk_int8_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> dict:
     return ops
 
 
+def int8pv_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> dict:
+    """K7's operands (`int8pv_geometry`): on CUDA tensors from the PV
+    variant of the pre-pass kernels, on CPU tensors from the plain version
+    `int8pv_operands_plain`."""
+    if not q.is_cuda:
+        return int8pv_operands_plain(q, k, v)
+    _check_int8_inputs("flash_attention_int8pv", q, k, v)
+    b, sq, h, d = q.shape
+    skv = k.shape[1]
+    g = int8pv_geometry(b, sq, skv, h, d)
+    sh = g["shapes"]
+    ops = {name: torch.empty(sh[name], dtype=dt, device=q.device) for name, dt in (
+        ("q8", torch.int8), ("k8", torch.int8), ("v8", torch.int8), ("qb", torch.bfloat16),
+        ("kb", torch.bfloat16), ("sq", torch.float32), ("sk", torch.float32),
+        ("sv", torch.float32), ("scratch", torch.float32))}
+    fn = kernels.function("flash_attention_qk_int8", "tclight_int8pv_prepass",
+                          PV_PREPASS_ARGTYPES, ctypes.c_int)
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            *(ops[n].data_ptr() for n in ("q8", "k8", "v8", "qb", "kb", "sq", "sk", "sv",
+                                          "scratch")),
+            b, h, sq, skv, d, g["bq"], torch.cuda.current_stream(q.device).cuda_stream)
+    kernels.check_launch(rc, "flash_attention_int8pv pre-pass")
+    kernels.STATS["flash_attention_int8pv_prepass"].record((sq, skv, d))
+    del ops["scratch"]
+    ops["bq"] = g["bq"]
+    return ops
+
+
+def int8_block_rowmax(ops: dict, b: int, h: int, sq: int, skv: int, d: int,
+                      scale: float) -> torch.Tensor:
+    """K7's max pass on the operands of `int8pv_operands`: on CUDA tensors
+    the kernel, on CPU tensors `int8_block_rowmax_plain`."""
+    if not ops["q8"].is_cuda:
+        return int8_block_rowmax_plain(ops, sq, skv, scale)
+    g = int8pv_geometry(b, sq, skv, h, d)
+    bm = torch.empty(g["shapes"]["blockmax"], dtype=torch.float32, device=ops["q8"].device)
+    fn = kernels.function("flash_attention_int8", "tclight_int8pv_blockmax", MAXPASS_ARGTYPES,
+                          ctypes.c_int)
+    rc = fn(ops["qb"].data_ptr(), ops["kb"].data_ptr(), ops["sq"].data_ptr(),
+            ops["sk"].data_ptr(), bm.data_ptr(), b, h, sq, skv, d, ops["bq"], float(scale),
+            torch.cuda.current_stream(bm.device).cuda_stream)
+    kernels.check_launch(rc, "flash_attention_int8pv max pass")
+    kernels.STATS["flash_attention_int8pv_maxpass"].record((sq, skv, d))
+    return bm
+
+
 def flash_attention_int8_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               scale: float, pv_int8: bool = False) -> torch.Tensor:
     """Launch K6 (`pv_int8` False: after its pre-pass kernels) or K7 (after
-    the plain pre-pass) on bf16 CUDA tensors (B, S, H, D), D % 8 == 0,
-    D <= 160."""
+    the PV pre-pass kernels and the max pass) on bf16 CUDA tensors (B, S,
+    H, D), D % 8 == 0, D <= 160."""
     name = "flash_attention_int8pv" if pv_int8 else "flash_attention_int8"
     _check_int8_inputs(name, q, k, v)
     b, sq, h, d = q.shape
@@ -432,14 +569,13 @@ def flash_attention_int8_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     if pv_int8:
-        ops = int8_prepass(q, k, v, pv_int8)
+        ops = int8pv_operands(q, k, v)
+        bm = int8_block_rowmax(ops, b, h, sq, skv, d, scale)
         fn = kernels.function("flash_attention_int8", "tclight_flash_attention_int8pv",
-                              [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
-                              + [ctypes.c_float, ctypes.c_void_p], ctypes.c_int)
-        rc = fn(ops["q8"].data_ptr(), ops["k8"].data_ptr(), ops["v8t"].data_ptr(),
-                ops["sq"].data_ptr(), ops["sk"].data_ptr(), ops["sv"].data_ptr(),
-                out.data_ptr(), b, h, sq, skv, d, ops["q8"].shape[1], ops["sq"].shape[1],
-                ops["bq"], float(scale), stream)
+                              K7_ARGTYPES, ctypes.c_int)
+        rc = fn(*(ops[n].data_ptr() for n in ("q8", "k8", "v8", "sq", "sk", "sv")),
+                bm.data_ptr(), out.data_ptr(), b, h, sq, skv, d, ops["bq"], float(scale),
+                stream)
     else:
         ops = qk_int8_operands(q, k, v)
         fn = kernels.function("flash_attention_qk_int8", "tclight_flash_attention_qk_int8",

@@ -18,11 +18,14 @@ CPU tensor it takes `window_warp_plain` (`window_warp_xla`).
 K3 replaces the TPU kernel `_warp_kernel` of tclight_tpu/ops/warp_kernel.py.
 On the H100 it is bound by bytes when the flow is smooth (a few taps per
 pixel: x, flows and out cross device memory once) and by f32 operations
-when the tile's flow range is wide (the adjoint then walks the whole
-window). Its design: the forward reads only the 4x4 taps around p + f,
-where k is nonzero; the adjoint bounds its taps per 32x32 tile by the flow
-range of the tile's whole halo and stages the cotangent and the flow of
-8x8-tap chunks of that window in shared memory (details in the source).
+when the tile's flow range is wide. Its design, a block per 32 x 64 output
+tile: the forward is a direct gather of each pixel's 4x4 (bilinear 2x2)
+taps with separable weights, read through L1 (a window staged in shared
+memory first measured slower: `python -m tclight_torch.ablate_warp`); the
+adjoint bounds its sources by the flow range of the tile's halo
+(`tile_tap_bounds` is that step in plain torch) and scatters each source's
+4x4 taps into the tile's accumulators in shared memory (details in the
+source).
 
 `warp_flow_window` is the autograd wrapper: its image gradient is the
 adjoint window sum (exact: the warp is linear in the image) and its flow
@@ -40,7 +43,7 @@ import torch.nn.functional as F
 from tclight_torch.ops import kernels
 
 __all__ = ["window_warp", "window_warp_plain", "window_warp_cuda",
-           "warp_flow_window", "kernel_radius"]
+           "warp_flow_window", "kernel_radius", "tile_tap_bounds", "TILE"]
 
 _MODES = {"bicubic": 0, "bilinear": 1}
 
@@ -79,6 +82,44 @@ def window_warp_plain(x: torch.Tensor, flows: torch.Tensor, radius: int,
             else:
                 wgt = _kernel_fn(dy - fy_c, mode) * _kernel_fn(dx - fx_c, mode)
             out = out + wgt[..., None] * xs
+    return out
+
+
+TILE = (32, 64)  # K3's output tile, rows x columns
+
+
+def tile_tap_bounds(flows: torch.Tensor, radius: int, mode: str = "bicubic",
+                    adjoint: bool = False) -> torch.Tensor:
+    """The TPU kernel's tap bounds per output tile of `TILE` pixels, in
+    plain torch: the taps (lo_y, hi_y, lo_x, hi_x) that can carry weight,
+    as an int tensor (N, tiles_y, tiles_x, 4). The forward's taps of a
+    pixel are floor(f) - rk + 1 .. floor(f) + rk, so the tile's flow range
+    bounds them (the staged forward of `tclight_torch.ablate_warp` stages
+    that window); the adjoint's tap d reads the flow at q + d, so its range
+    is taken over the halo (the tile +- radius + rk, clipped to the frame)
+    and the taps are floor(-max f) - rk + 1 .. floor(-min f) + rk (K3's
+    adjoint scatters from the sources of that window). Both are clipped to
+    +- (radius + rk). lo > hi: no tap."""
+    n, h, w, _ = flows.shape
+    rk = kernel_radius(mode)
+    rh = int(radius) + rk
+    th, tw = TILE
+    out = torch.zeros(n, -(-h // th), -(-w // tw), 4, dtype=torch.int64)
+    for by in range(out.shape[1]):
+        for bx in range(out.shape[2]):
+            y0, x0 = by * th, bx * tw
+            if adjoint:
+                f = flows[:, max(y0 - rh, 0):y0 + th + rh, max(x0 - rh, 0):x0 + tw + rh]
+            else:
+                f = flows[:, y0:y0 + th, x0:x0 + tw]
+            f = f.reshape(n, -1, 2)
+            lo, hi = f.amin(dim=1), f.amax(dim=1)  # (N, 2) as [x, y]
+            if adjoint:
+                lo, hi = -hi, -lo
+            lo = torch.floor(lo).long() - rk + 1
+            hi = torch.floor(hi).long() + rk
+            out[:, by, bx] = torch.stack([lo[:, 1].clamp(min=-rh), hi[:, 1].clamp(max=rh),
+                                          lo[:, 0].clamp(min=-rh), hi[:, 0].clamp(max=rh)], -1)
     return out
 
 

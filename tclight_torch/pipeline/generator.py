@@ -30,9 +30,10 @@ route where the ids allow it (K4/K5); on the CPU the warps are gather warps
 and the palette adjoint the dense route, as the JAX package does off the
 TPU. A failure in it raises.
 
+A missing prompt takes JAX's generic fallback prompt, with a warning.
 Not ported, and refused with NotImplementedError: PnP and ControlNet
 (`control != none`), background conditioning and the prompt upsampler (a
-missing prompt).
+missing prompt with an existing `prompt_upsampler_ckpt`).
 """
 
 from __future__ import annotations
@@ -57,6 +58,10 @@ from tclight_torch.utils.logging import CostTracker, get_logger
 from tclight_torch.utils.video_io import save_frames, save_video
 
 log = get_logger()
+
+
+# JAX's prompt when none is given and no upsampler checkpoint exists
+DEFAULT_PROMPT = "high quality, detailed, realistic lighting"
 
 
 def _cfg_get(cfg, key, default=None):
@@ -425,8 +430,8 @@ class Generator:
         results = {}
         for edit_name, edit_prompt in self.prompts.items():
             if edit_prompt is None:
-                raise NotImplementedError(
-                    "no prompt given: the prompt upsampler is not ported yet")
+                edit_prompt = self._handle_missing_prompt()
+                self.prompts[edit_name] = edit_prompt
             log.info("prompt [%s]: %s", edit_name, edit_prompt)
             cond, uncond = self.encode_prompt_pair(edit_prompt, self.negative_prompt)
             cond_t, uncond_t = self.encode_prompt_pair(self.prompt_t, self.negative_prompt_t)
@@ -464,9 +469,10 @@ class Generator:
             cost = tracker.finish(n, h, w)
             self._save_run_config(out_dir, cost, edit_name, edit_prompt)
             self.last_postopt_losses = {"exposure": losses_exposure, "uvt": losses_uvt}
-            if optimize:  # the loss curves, as arrays (JAX plots them)
+            if optimize:  # the loss curves, as arrays and as plots
                 np.save(out_dir / "loss_exposure.npy", losses_exposure)
                 np.save(out_dir / "loss_unique_tensor.npy", losses_uvt)
+                self._save_loss_curves(out_dir, losses_exposure, losses_uvt)
             results[edit_name] = clean_frames
             log.info("done [%s]: %.1fs total, %.2fs/frame", edit_name,
                      cost["total_time"], cost["sec_per_frame"])
@@ -504,6 +510,41 @@ class Generator:
             if not np.isfinite(hist).all():
                 raise FloatingPointError(f"the {name} loss history is not finite")
         return frames.detach(), losses_exposure, losses_uvt
+
+    def _handle_missing_prompt(self) -> str:
+        """A missing prompt, as JAX's `_handle_missing_prompt`: with an
+        existing upsampler checkpoint JAX upsamples a prompt from the frames
+        (Pixtral), which the port has not yet (ROADMAP A13); without one it
+        warns and uses a generic prompt."""
+        ckpt = _cfg_get(self.config.get("generation", {}), "prompt_upsampler_ckpt")
+        if ckpt and Path(str(ckpt)).exists():
+            raise NotImplementedError(
+                "prompt upsampling from prompt_upsampler_ckpt is not ported yet "
+                "(ROADMAP A13); give generation.prompt")
+        log.warning("no prompt given and no upsampler checkpoint; using default")
+        return DEFAULT_PROMPT
+
+    @staticmethod
+    def _save_loss_curves(out_dir: Path, losses_exposure, losses_uvt) -> None:
+        """loss_exposure.png and loss_unique_tensor.png, as JAX draws them;
+        best-effort: a failure is logged, not raised."""
+        try:
+            import matplotlib
+
+            matplotlib.use("Agg")
+            import matplotlib.pyplot as plt
+
+            for name, arr in (("loss_exposure", losses_exposure),
+                              ("loss_unique_tensor", losses_uvt)):
+                if arr.size:
+                    fig = plt.figure()
+                    plt.plot(arr)
+                    plt.xlabel("iter")
+                    plt.ylabel("loss")
+                    fig.savefig(out_dir / f"{name}.png", dpi=80)
+                    plt.close(fig)
+        except Exception as e:  # loss curves are best-effort
+            log.warning("loss curve saving failed: %s", e)
 
     def _save_run_config(self, out_dir: Path, cost, edit_name, edit_prompt):
         cfg = ConfigDict(self.config.copy() if isinstance(self.config, ConfigDict)

@@ -6,9 +6,12 @@ Usage:
 
 Runs on the CUDA device; `main(argv, device="cpu")` runs the plain CPU
 path (the tests do). With `post_opt.apply_opt` (the default) the relit
-frames go through the exposure alignment and the UVT refinement, on
-Farneback flows (`data.flow_model=farneback`): the RAFT and MemFlow
-backends need checkpoints and are not ported, and raise. Weights: with
+frames go through the exposure alignment and the UVT refinement, on the
+flows of `data.flow_model`: Farneback flows are computed; RAFT and MemFlow
+flows are read from the flow cache next to the video
+(`<stem>_{future,past}_flow_<backend>/NNNNN.npy`, as the JAX package writes
+it), and a frame that misses the cache raises, since those networks are
+not ported (ROADMAP A9). Weights: with
 `--full-width-random`, the SD1.5 IC-Light stack on random weights; with
 TCLIGHT_TINY=1, the tiny random stack. Loading checkpoints from
 `model_dir` is not ported yet.
@@ -45,11 +48,6 @@ def main(argv=None, device: str = "cuda") -> int:
         raise NotImplementedError("only sd_version: iclight is ported")
     if str(config.get_path("data.scene_type", "video")).lower() != "video":
         raise NotImplementedError("only data.scene_type: video is ported")
-    flow_model = str(config.get_path("data.flow_model", "farneback"))
-    if config.get_path("post_opt.apply_opt", True) and flow_model != "farneback":
-        raise NotImplementedError(
-            f"data.flow_model: {flow_model} is not ported yet (ROADMAP A9: its "
-            "checkpoint is not in the repository); pass data.flow_model=farneback")
     steps = config.get_path("generation.n_timesteps", 25) or 25
     model_dir = config.get("model_dir")
     if model_dir and Path(str(model_dir)).exists():

@@ -132,29 +132,46 @@ def test_int8_plain_matches_jax_bf16(pv_int8):
 
 
 def test_int8_prepass_lays_out_the_kernel_operands():
-    """The operands of K6 / K7: contiguous (a B = 1 head-major view is not),
-    head dim padded with zeros to the int8 MMA depth, keys to the 64-key
-    tile, the Q scale per 1024-row block, and v8t transposed with each 16
-    keys in the order the kernel's A fragments need: logical key
-    4t + 2a + c holds physical key 8a + 2t + c."""
+    """The plain pre-pass of K6 / K7: contiguous (a B = 1 head-major view is
+    not), head dim padded with zeros to the int8 MMA depth, keys to 64, the
+    Q scale per 1024-row block; with pv_int8 V quantized per channel, (BH,
+    Skv, D), which `int8pv_operands_plain` lays out for K7 (see
+    `test_int8pv_operands_match_jax_quantizers`)."""
     q, k, v = (torch.from_numpy(a).bfloat16() for a in _qkv(3, 1, 1030, 200, 2, 80))
     ops = tattn.int8_prepass(q, k, v, pv_int8=True)
     assert all(t.is_contiguous() for t in ops.values() if torch.is_tensor(t))
     assert ops["q8"].shape == (2, 2048, 96) and ops["q8"].dtype == torch.int8
     assert ops["k8"].shape == (2, 256, 96) and ops["sk"].shape == (2, 256)
     assert ops["sq"].shape == (2, 2) and ops["bq"] == 1024
-    assert ops["v8t"].shape == (2, 80, 256) and ops["sv"].shape == (2, 80)
+    assert ops["v8"].shape == (2, 200, 80) and ops["sv"].shape == (2, 80)
     assert (ops["q8"][:, :, 80:] == 0).all() and (ops["k8"][:, 200:] == 0).all()
     q8, sqs = tattn.quantize_blocks(torch.nn.functional.pad(
         tattn._heads_first(q), (0, 0, 0, 2048 - 1030)), 1024)
     assert torch.equal(ops["q8"][:, :, :80], q8) and torch.equal(ops["sq"], sqs)
     v8, sv = tattn.quantize_channels(tattn._heads_first(v))
-    assert torch.equal(ops["sv"], sv)
-    logical = torch.arange(256)
-    t_, a_, c_ = (logical % 16) // 4, (logical % 4) // 2, logical % 2
-    physical = logical // 16 * 16 + 8 * a_ + 2 * t_ + c_
-    v8_pad = torch.nn.functional.pad(v8, (0, 0, 0, 256 - 200))
-    assert torch.equal(ops["v8t"], v8_pad[:, physical].transpose(1, 2))
+    assert torch.equal(ops["v8"], v8) and torch.equal(ops["sv"], sv)
+
+
+def _from_v8_chunks(v8c: torch.Tensor, skv: int) -> torch.Tensor:
+    """Inverse of `v8_chunks`: byte 4t + 2a + c of a chunk is key 8a + 2t + c."""
+    bh, n_vc, d, _ = v8c.shape
+    x = v8c.reshape(bh, n_vc, d, 4, 2, 2).permute(0, 1, 4, 3, 5, 2)  # (bh, chunk, a, t, c, d)
+    return x.reshape(bh, n_vc * 16, d)[:, :skv], x.reshape(bh, n_vc * 16, d)[:, skv:]
+
+
+def test_v8_chunks_key_order():
+    """Each 16 keys of a channel: byte 4t + 2a + c holds key 8a + 2t + c, the
+    order in which a thread's int32 score fragment (keys 2t, 2t + 1 of each
+    8) packs into the s8 A fragment (bytes 4t..4t+3 of each 16)."""
+    keys = torch.arange(40, dtype=torch.int8)[None, :, None].repeat(1, 1, 3)
+    c = tattn.v8_chunks(keys)
+    assert c.shape == (1, 3, 3, 16)
+    for t in range(4):
+        for a in range(2):
+            for cc in range(2):
+                assert c[0, 1, 2, 4 * t + 2 * a + cc] == 16 + 8 * a + 2 * t + cc
+    back, pad = _from_v8_chunks(c, 40)
+    assert torch.equal(back, keys) and (pad == 0).all()
 
 
 def test_backend_dispatch():
@@ -274,6 +291,170 @@ def test_qk_int8_geometry_matches_the_kernel_source(d):
         assert rule in src, rule
 
 
+@pytest.mark.parametrize("b,sq,skv,h,d", [
+    (1, 1030, 200, 2, 40),    # two Q-scale blocks, 200 keys: a ragged 16-key chunk
+    (2, 300, 1100, 1, 80),    # a ragged last k slice and P block
+    (1, 129, 65, 2, 8),       # the smallest head dim
+    (1, 64, 130, 1, 160),     # the largest
+])
+def test_int8pv_operands_match_jax_quantizers(b, sq, skv, h, d):
+    """K7's operands in the layout its pre-pass kernels write
+    (`int8pv_operands`, the plain version on the CPU), read back: q8, k8
+    and their scales as for K6 (`test_qk_int8_operands_match_jax_quantizers`),
+    v8 and sv equal to JAX's `_quantize_channels` of the heads-first V
+    (bf16 inputs: bit-equal), the keys past Skv zero."""
+    q, k, v = _qkv(6, b, sq, skv, h, d)
+    jq, tq = _pair(q, "bf16")
+    jk, tk = _pair(k, "bf16")
+    jv, tv = _pair(v, "bf16")
+    g = tattn.int8pv_geometry(b, sq, skv, h, d)
+    ops = tattn.int8pv_operands(tq, tk, tv)
+    for name in ("q8", "k8", "v8", "qb", "kb", "sq", "sk", "sv"):
+        assert tuple(ops[name].shape) == g["shapes"][name], name
+        assert ops[name].is_contiguous()
+    assert ops["v8"].dtype == torch.int8 and ops["bq"] == g["bq"]
+    # the max pass's bf16 copies hold q8's and k8's values exactly, the head
+    # dim padded to 16 with zeros
+    dp = g["dp"]
+    assert ops["qb"].dtype == ops["kb"].dtype == torch.bfloat16
+    for bf, i8 in (("qb", "q8"), ("kb", "k8")):
+        vals = tattn.from_chunk_major(ops[bf])
+        assert torch.equal(vals.float(), tattn.from_chunk_major(ops[i8])[..., :dp].float())
+    bq, sq_pad = g["bq"], g["n_qb"] * g["bq"]
+    jqt = jq.transpose(0, 2, 1, 3).reshape(b * h, sq, d)
+    jq8, jsq = jattn._quantize_blocks(jnp.pad(jqt, ((0, 0), (0, sq_pad - sq), (0, 0))), bq)
+    np.testing.assert_array_equal(tattn.from_chunk_major(ops["q8"])[:, :, :d].numpy(),
+                                  np.asarray(jq8)[:, :sq])
+    np.testing.assert_array_equal(ops["sq"].numpy(), np.asarray(jsq))
+    jkt = jk.transpose(0, 2, 1, 3).reshape(b * h, skv, d)
+    jk8, jsk = jattn._quantize_rows(jkt - jnp.mean(jkt, axis=1, keepdims=True))
+    np.testing.assert_array_equal(tattn.from_chunk_major(ops["k8"])[:, :, :d].numpy(),
+                                  np.asarray(jk8))
+    np.testing.assert_array_equal(ops["sk"][:, :skv].numpy(), np.asarray(jsk))
+    jv8, jsv = jattn._quantize_channels(jv.transpose(0, 2, 1, 3).reshape(b * h, skv, d))
+    v8, pad = _from_v8_chunks(ops["v8"], skv)
+    np.testing.assert_array_equal(v8.numpy(), np.asarray(jv8))
+    np.testing.assert_array_equal(ops["sv"].numpy(), np.asarray(jsv))
+    assert (pad == 0).all()
+
+
+@pytest.mark.parametrize("b,sq,skv,h,d", [
+    (1, 1100, 1300, 2, 40),   # two P blocks, the second ragged (276 keys)
+    (2, 300, 700, 1, 80),     # one P block of 768 keys, 68 of them padding
+    (1, 2100, 1030, 1, 24),   # three Q-scale blocks, a 6-key last P block
+])
+def test_int8_block_rowmax_plain_matches_jax(b, sq, skv, h, d):
+    """K7's max pass, plain: each (query, P block)'s logit max, against the
+    block maxes of the logits that `_flash_attention_int8_xla` forms from
+    JAX's quantized operands (times log2(e): the kernel works in log2
+    units), the padded keys left out. The two multiply the same exact dots
+    by the same scales in another order: within 4 f32 ulps."""
+    q, k, v = _qkv(7, b, sq, skv, h, d)
+    jq, tq = _pair(q, "bf16")
+    jk, tk = _pair(k, "bf16")
+    _, tv = _pair(v, "bf16")
+    scale = d ** -0.5
+    ops = tattn.int8pv_operands(tq, tk, tv)
+    bm = tattn.int8_block_rowmax(ops, b, h, sq, skv, d, scale)
+    g = tattn.int8pv_geometry(b, sq, skv, h, d)
+    assert tuple(bm.shape) == g["shapes"]["blockmax"]
+    bh, bq, pb = b * h, g["bq"], g["pb"]
+    jqt = jq.transpose(0, 2, 1, 3).reshape(bh, sq, d)
+    jkt = jk.transpose(0, 2, 1, 3).reshape(bh, skv, d)
+    q8, sqs = jattn._quantize_blocks(jnp.pad(jqt, ((0, 0), (0, g["n_qb"] * bq - sq), (0, 0))), bq)
+    k8, sks = jattn._quantize_rows(jkt - jnp.mean(jkt, axis=1, keepdims=True))
+    dots = jax.lax.dot_general(q8, k8, (((2,), (2,)), ((0,), (0,))),
+                               preferred_element_type=jnp.int32)
+    logits = (dots.astype(jnp.float32)[:, :sq] * (scale * jnp.repeat(sqs, bq, axis=1)[:, :sq, None])
+              * sks[:, None, :])
+    logits = jnp.pad(logits, ((0, 0), (0, 0), (0, g["n_kb"] * pb - skv)),
+                     constant_values=-jnp.inf)
+    ref = np.asarray(logits.reshape(bh, sq, g["n_kb"], pb).max(axis=-1)) * np.log2(np.e)
+    np.testing.assert_allclose(bm.numpy(), ref, rtol=4 * 2.0 ** -23, atol=0)
+
+
+def _k7_order(q, k, v, scale):
+    """K7's arithmetic in its own order, on the CPU: the operands of
+    `int8pv_operands`, the block maxes of the max pass, the row max m from
+    them, p = exp2(w - bm), p8 = round(127 p), each P block's exact
+    p8 . v8 dequantized with sp / 127 (sp = exp2(bm - m)), l the sum of
+    sp * p, out = acc * sv / l."""
+    b, sq, h, d = q.shape
+    skv = k.shape[1]
+    ops = tattn.int8pv_operands(q, k, v)
+    bm = tattn.int8_block_rowmax(ops, b, h, sq, skv, d, scale)
+    g = tattn.int8pv_geometry(b, sq, skv, h, d)
+    q8, k8 = tattn.from_chunk_major(ops["q8"]).double(), tattn.from_chunk_major(ops["k8"]).double()
+    v8 = _from_v8_chunks(ops["v8"], skv)[0].double()
+    c = scale * np.log2(np.e) * ops["sq"].double().repeat_interleave(g["bq"], 1)[:, :sq, None]
+    w = torch.matmul(q8, k8.transpose(1, 2)) * ops["sk"][:, None, :skv].double() * c
+    m = bm.double().amax(dim=-1, keepdim=True)
+    acc = torch.zeros(b * h, sq, d, dtype=torch.float64)
+    l = torch.zeros(b * h, sq, 1, dtype=torch.float64)
+    for kb in range(g["n_kb"]):
+        sl = slice(kb * g["pb"], min(skv, (kb + 1) * g["pb"]))
+        p = torch.exp2(w[:, :, sl] - bm[:, :, kb, None].double())
+        sp = torch.exp2(bm[:, :, kb, None].double() - m)
+        acc += sp / 127 * torch.matmul(torch.round(127 * p), v8[:, sl])
+        l += sp * p.sum(dim=-1, keepdim=True)
+    out = acc * ops["sv"].double()[:, None, :] / l
+    return out.reshape(b, h, sq, d).permute(0, 2, 1, 3).float()
+
+
+@pytest.mark.parametrize("b,sq,skv,h,d", [
+    (1, 300, 1300, 2, 40),    # a ragged second P block
+    (1, 200, 700, 1, 80),     # one P block with padding
+    (2, 130, 1030, 1, 24),    # a 6-key last P block
+])
+def test_k7_order_matches_the_plain_int8pv(b, sq, skv, h, d):
+    """The kernel's order (max pass first, alpha 1 throughout, P quantized
+    against each block's own max, l of the exact p) gives the dense plain
+    version's output: p8 is a ratio to its block's max, so only f32
+    rounding differs, and a p8 at a rounding tie may move by one step:
+    held to 2e-3 of the largest output, as the plain pair with JAX."""
+    q, k, v = (torch.from_numpy(a).bfloat16() for a in _qkv(8, b, sq, skv, h, d))
+    scale = d ** -0.5
+    ref = tattn.flash_attention_int8_plain(q, k, v, scale, pv_int8=True).float()
+    out = _k7_order(q, k, v, scale)
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), rtol=0,
+                               atol=2e-3 * ref.abs().max().item() + 2.0 ** -8 * ref.abs().max().item())
+
+
+@pytest.mark.parametrize("d", [8, 16, 24, 40, 64, 80, 96, 128, 144, 160])
+def test_int8pv_geometry_matches_the_kernel_source(d):
+    """K7's tiles: two 64-row blocks per consumer warpgroup up to DP = 48,
+    one above, with 128-key tiles up to DP = 96; 4 stages; a P block a
+    whole number of tiles; the shared memory of both kernels fits a block;
+    the rules are those of `csrc/flash_attention_int8.cu` and its pre-pass
+    of `csrc/flash_attention_qk_int8.cu`."""
+    from pathlib import Path
+
+    g = tattn.int8pv_geometry(2, 35640, 35640, 8, d)
+    assert g["dk"] == tattn.qk_int8_geometry(2, 35640, 35640, 8, d)["dk"]
+    assert g["row_blocks"] == (2 if g["dp"] <= 48 else 1)
+    assert g["pb"] == 1024 and g["n_kb"] == 35 and g["pb"] % g["kv_rows"] == 0
+    assert g["tiles_per_block"] * g["kv_rows"] == g["pb"]
+    assert max(g["smem"], g["smem_maxpass"]) <= tattn.SMEM_PER_BLOCK
+    assert g["q_rows"] <= g["bq"] and g["bq"] % g["q_rows"] == 0
+    # registers a consumer thread keeps live: scores, int32 p.v sums, the
+    # f32 accumulator and p8's A fragments
+    mb, bk, dp = g["row_blocks"], g["kv_rows"], g["dp"]
+    assert mb * (bk // 2 + dp + bk // 8) <= 200
+    assert tattn.int8pv_geometry(1, 100, 300, 1, d)["pb"] == 384
+    csrc = Path(tattn.__file__).resolve().parent.parent / "csrc"
+    src = (csrc / "flash_attention_int8.cu").read_text()
+    for rule in ("row_blocks(int dp) { return dp <= 48 ? 2 : 1; }",
+                 "return row_blocks(dp) == 2 ? 64 : (dp <= 96 ? 128 : 64);",
+                 "constexpr int NST = 4;", "constexpr int PBLOCK = 1024;",
+                 "return (size_t)q_rows(dp) * dk + (size_t)NST * kv_rows(dp) * (dk + dp + 4) +",
+                 "return (size_t)q_rows(dp) * dp * 2 + (size_t)NST * kv_rows(dp) * (dp * 2 + 4) +",
+                 "const cuuint64_t dims[4] = {16, (cuuint64_t)D, (cuuint64_t)n_vc, (cuuint64_t)BH};"):
+        assert rule in src, rule
+    pre = (csrc / "flash_attention_qk_int8.cu").read_text()
+    assert ("int8_t* dst = v8s + (threadIdx.x / 16) * D * 16 + 4 * ((kp % 8) / 2) + 2 * (kp / 8) "
+            "+ kp % 2;") in pre
+
+
 def test_chunk_major_round_trip():
     x = torch.arange(2 * 5 * 48).reshape(2, 5, 48)
     c = tattn.chunk_major(x, 16)
@@ -288,8 +469,13 @@ def test_k6_argtypes_match_the_c_entry_points():
 
     text = (Path(tattn.__file__).resolve().parent.parent / "csrc"
             / "flash_attention_qk_int8.cu").read_text()
+    text += (Path(tattn.__file__).resolve().parent.parent / "csrc"
+             / "flash_attention_int8.cu").read_text()
     for entry, types in (("tclight_qk_int8_prepass", tattn.PREPASS_ARGTYPES),
-                         ("tclight_flash_attention_qk_int8", tattn.K6_ARGTYPES)):
+                         ("tclight_flash_attention_qk_int8", tattn.K6_ARGTYPES),
+                         ("tclight_int8pv_prepass", tattn.PV_PREPASS_ARGTYPES),
+                         ("tclight_int8pv_blockmax", tattn.MAXPASS_ARGTYPES),
+                         ("tclight_flash_attention_int8pv", tattn.K7_ARGTYPES)):
         m = re.search(rf'extern "C" int {entry}\(([^)]*)\)', text)
         assert m and len(m.group(1).split(",")) == len(types), entry
 
@@ -305,3 +491,16 @@ def test_k6_ablation_variants_apply_to_the_kernel_source():
     for name, text in texts.items():
         assert (text == texts["base"]) == (name == "base"), name
         assert "flash_int8_wgmma_kernel" in text
+
+
+def test_k7_ablation_variants_apply_to_the_kernel_source():
+    """`python -m tclight_torch.ablate_int8pv` builds each variant of K7's
+    kernels by text substitution: every replaced text is still in the
+    source, and each variant differs from the kernels (base excepted)."""
+    from tclight_torch import ablate_int8pv
+
+    texts = ablate_int8pv.variant_sources()
+    assert set(texts) == set(ablate_int8pv.VARIANTS)
+    for name, text in texts.items():
+        assert (text == texts["base"]) == (name == "base"), name
+        assert "flash_int8pv_wgmma_kernel" in text and "flash_int8_blockmax_kernel" in text

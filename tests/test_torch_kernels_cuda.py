@@ -3,8 +3,8 @@ card, at small and ragged shapes: head dims that need padding to the MMA
 depth, kv and q lengths that end inside a tile, dst counts that end inside
 a tile, channel counts on every shared-memory path of the matcher, exact
 ties; for the window warp (K3) frames that end inside a tile, flows that
-leave the frame and tap ranges wider than one staged chunk; for the banded
-gathers (K4, K5) masked entries, int16 and int32 offsets, windows that run
+leave the frame, flow ranges up to 100 px, every channel count and both
+kernels; for the banded gathers (K4, K5) masked entries, int16 and int32 offsets, windows that run
 past the table's end and K = 2, 3 windows; K4 on render-like and
 adjoint-like plans at every channel count and at windows 1024-8192. Every
 test here needs a CUDA device and skips without one; on the card run them
@@ -17,12 +17,15 @@ machine does not need). Tolerances: K1's output is bf16 (2^-8 relative)
 and its p.v product takes p in bf16, so it is held to 2e-2 of the largest
 output, and so are the int8 kernels K6 and K7 (see their test); K6's
 pre-pass kernels agree with the plain pre-pass bit for bit but where K's
-token mean rounds otherwise (see their test); K2 sums exact bf16 products
+token mean rounds otherwise (see their test), and so do K7's pre-pass
+kernels, whose V operands are bit-equal; K7's max pass agrees with its
+plain version bit for bit (exact dots, the same two multiplies); K2 sums exact bf16 products
 in f32 in another order than the plain version, so its maxima agree to
 1e-4 and an index may differ only where the best two scores are that
 close, and exact ties go to the first b-major index under every split. K3 sums the same f32 taps in
-another order (and with fused multiply-adds), within 1e-5 of values of
-order 1 per unit of window taps; K4 and K5 copy rows and agree exactly."""
+another order (and with fused multiply-adds; its adjoint's atomic adds in
+no fixed order), within 1e-5 of values of order 1 per unit of window
+taps; K4 and K5 copy rows and agree exactly."""
 
 import numpy as np
 import pytest
@@ -157,20 +160,92 @@ def test_int8_flash_kernels_match_plain(cuda, pv_int8, b, sq, skv, h, d):
     assert (ref - fp).abs().max().item() <= 0.1 * fp.abs().max().item()
 
 
+@pytest.mark.parametrize("d", [40, 80, 160])
+@pytest.mark.parametrize("sq,skv", [
+    (300, 100),     # one P block of 128 keys, 28 of them padding
+    (257, 1000),    # Skv < 1024: one P block of 1024 keys, 24 padding
+    (130, 2500),    # three P blocks, the last of 452 keys
+    (1100, 3073),   # two Q-scale blocks; a last P block of one key
+])
+def test_k7_p_blocks_and_tiles(cuda, d, sq, skv):
+    """K7 at the head dims of the three UNet levels (two row blocks and
+    64-key tiles at D = 40, one row block with 128-key tiles at D = 80 and
+    64-key tiles at D = 160) with P blocks that end inside a tile, a last
+    P block shorter than one tile, and Skv below one P block: against the
+    plain version, as `test_int8_flash_kernels_match_plain`. The kernel
+    also launched its pre-pass and its max pass once each."""
+    q, k, v = (torch.randn(1, s, 2, d, device="cuda", generator=cuda).bfloat16()
+               for s in (sq, skv, skv))
+    names = ("flash_attention_int8pv", "flash_attention_int8pv_prepass",
+             "flash_attention_int8pv_maxpass")
+    before = [kernels.STATS[n].launches for n in names]
+    out = attention.flash_attention(q, k, v, backend="int8pv")
+    torch.cuda.synchronize()
+    assert [kernels.STATS[n].launches - b for n, b in zip(names, before)] == [1, 1, 1]
+    ref = attention.flash_attention_int8_plain(q, k, v, d ** -0.5, True).float()
+    assert (out.float() - ref).abs().max().item() <= 2e-2 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("b,sq,skv,h,d", [
+    (1, 2500, 1030, 2, 40),   # three Q-scale blocks; two P blocks, a 6-key last
+    (2, 300, 513, 1, 80),
+    (1, 129, 65, 3, 160),
+    (1, 64, 3000, 2, 8),
+])
+def test_int8pv_prepass_kernels_and_max_pass_match_plain(cuda, b, sq, skv, h, d):
+    """K7's pre-pass kernels (the PV variant of K6's) against the plain
+    pre-pass in K7's layout: q8, the Q scales, v8 (keys permuted within
+    each 16, padding zero) and the V scales bit-equal; k8 and the K scales
+    as for K6 (`test_int8_prepass_kernels_match_plain`). Then the max pass
+    on the kernels' operands against its plain version on the same
+    operands: exact dots (bf16 products of int8 values, f32 sums below 2^22)
+    and the same two f32 multiplies, so bit-equal but for the order of the
+    multiplies (held at 1e-6 relative)."""
+    q, k, v = (torch.randn(b, s, h, d, device="cuda", generator=cuda).bfloat16()
+               for s in (sq, skv, skv))
+    before = kernels.STATS["flash_attention_int8pv_prepass"].launches
+    ops = attention.int8pv_operands(q, k, v)
+    torch.cuda.synchronize()
+    assert kernels.STATS["flash_attention_int8pv_prepass"].launches == before + 1
+    ref = attention.int8pv_operands_plain(q, k, v)
+    g = attention.int8pv_geometry(b, sq, skv, h, d)
+    for name in ("q8", "k8", "v8", "qb", "kb", "sq", "sk", "sv"):
+        assert tuple(ops[name].shape) == g["shapes"][name] == tuple(ref[name].shape), name
+        assert ops[name].dtype == ref[name].dtype, name
+    for name in ("q8", "sq", "v8", "sv", "qb"):
+        assert torch.equal(ops[name], ref[name]), name
+    dk8 = (ops["k8"].int() - ref["k8"].int()).abs()
+    assert dk8.max().item() <= 1 and (dk8 > 0).float().mean().item() <= 0.01
+    # kb holds the kernel's own k8 values
+    assert torch.equal(attention.from_chunk_major(ops["kb"]).float(),
+                       attention.from_chunk_major(ops["k8"])[..., :g["dp"]].float())
+    assert ((ops["sk"] - ref["sk"]).abs() <= ref["sk"] * 2.0 ** -7).all()
+    scale = d ** -0.5
+    before = kernels.STATS["flash_attention_int8pv_maxpass"].launches
+    bm = attention.int8_block_rowmax(ops, b, h, sq, skv, d, scale)
+    torch.cuda.synchronize()
+    assert kernels.STATS["flash_attention_int8pv_maxpass"].launches == before + 1
+    bm_ref = attention.int8_block_rowmax_plain(ops, sq, skv, scale)
+    assert bm.shape == bm_ref.shape == g["shapes"]["blockmax"]
+    assert torch.isfinite(bm).all()
+    assert ((bm - bm_ref).abs() <= 1e-6 * bm_ref.abs()).all()
+
+
+@pytest.mark.parametrize("pv_int8", [False, True])
 @pytest.mark.parametrize("d,skv", [(40, 130), (80, 1031), (160, 65)])
-def test_int8_flash_kernel_masks_the_kv_tail_before_the_max(cuda, d, skv):
-    """K6 with logits of large magnitude, all far below zero, and a ragged
-    kv tail: a zero-filled key that joined the row max would drive every
-    exponential to 0."""
+def test_int8_flash_kernel_masks_the_kv_tail_before_the_max(cuda, pv_int8, d, skv):
+    """K6 and K7 with logits of large magnitude, all far below zero, and a
+    ragged kv tail: a zero-filled key that joined the row max (or K7's
+    block max) would drive every exponential to 0."""
     sq, h = 100, 2
     q = (8 + torch.rand(1, sq, h, d, device="cuda", generator=cuda)).bfloat16()
     k = -(8 + torch.rand(1, skv, h, d, device="cuda", generator=cuda)).bfloat16()
     k[:, ::3] *= 1.5  # the token mean differs from every key
     v = torch.randn(1, skv, h, d, device="cuda", generator=cuda).bfloat16()
     scale = d ** -0.5
-    out = attention.flash_attention(q, k, v, scale=scale, backend="int8")
+    out = attention.flash_attention(q, k, v, scale=scale, backend="int8pv" if pv_int8 else "int8")
     torch.cuda.synchronize()
-    ref = attention.flash_attention_int8_plain(q, k, v, scale).float()
+    ref = attention.flash_attention_int8_plain(q, k, v, scale, pv_int8).float()
     assert ref.abs().max().item() > 0.1
     assert (out.float() - ref).abs().max().item() <= 2e-2 * ref.abs().max().item()
 
@@ -339,10 +414,12 @@ def test_match_kernel_ties_pick_first_b_major(cuda):
 
 @pytest.mark.parametrize("n,h,w,c,radius,fmax,mode", [
     (2, 37, 70, 3, 4, 3.5, "bicubic"),     # tiles ragged in both axes
-    (1, 64, 96, 3, 24, 24.0, "bicubic"),   # tap range wider than a chunk
+    (1, 64, 96, 3, 24, 24.0, "bicubic"),   # the adjoint's sources span the whole halo
     (3, 33, 40, 2, 8, 12.0, "bicubic"),    # flows beyond the radius: taps dropped
     (1, 50, 45, 1, 4, 4.0, "bilinear"),
     (2, 32, 32, 4, 0, 0.4, "bicubic"),     # radius 0
+    (2, 160, 192, 3, 100, 100.0, "bicubic"),  # the widest range: sources beyond the frame
+    (1, 100, 130, 4, 12, 14.0, "bilinear"),
 ])
 @pytest.mark.parametrize("adjoint", [False, True])
 def test_window_warp_kernel_matches_plain(cuda, n, h, w, c, radius, fmax, mode, adjoint):
@@ -355,6 +432,36 @@ def test_window_warp_kernel_matches_plain(cuda, n, h, w, c, radius, fmax, mode, 
     ref = warp_kernel.window_warp_plain(x, f, radius, mode, adjoint)
     assert out.shape == ref.shape
     assert (out - ref).abs().max().item() <= 1e-5 * (2 * radius + 5)
+
+
+@pytest.mark.parametrize("c", [1, 2, 3, 4])
+@pytest.mark.parametrize("mode", ["bicubic", "bilinear"])
+@pytest.mark.parametrize("adjoint", [False, True])
+def test_window_warp_kernel_channels_and_frame_edges(cuda, c, mode, adjoint):
+    """K3 at every channel count and both kernels, on a frame whose last
+    tiles are 1 row and 3 columns wide, with a smooth flow (as the post-
+    optimization's) that carries the edge pixels' taps out of the frame."""
+    n, h, w, radius = 2, 65, 131, 8
+    x = torch.rand(n, h, w, c, device="cuda", generator=cuda)
+    yy, xx = torch.meshgrid(torch.arange(h, device="cuda"), torch.arange(w, device="cuda"),
+                            indexing="ij")
+    f = torch.stack([6 * torch.sin(xx / 17.0) + 1.5, 5 * torch.cos(yy / 13.0 + xx / 40.0)], -1)
+    f = f.expand(n, h, w, 2).contiguous()
+    out = warp_kernel.window_warp(x, f, radius, mode, adjoint)
+    torch.cuda.synchronize()
+    ref = warp_kernel.window_warp_plain(x, f, radius, mode, adjoint)
+    assert (out - ref).abs().max().item() <= 1e-5 * (2 * radius + 5)
+
+
+def test_window_warp_kernel_refuses_what_it_does_not_take(cuda):
+    x = torch.rand(1, 8, 8, 5, device="cuda", generator=cuda)
+    f = torch.zeros(1, 8, 8, 2, device="cuda")
+    with pytest.raises(ValueError, match="channels"):
+        warp_kernel.window_warp_cuda(x, f, 4)
+    with pytest.raises(ValueError, match="f32"):
+        warp_kernel.window_warp_cuda(x[..., :3].contiguous().double(), f, 4)
+    with pytest.raises(ValueError, match="mode"):
+        warp_kernel.window_warp_cuda(x[..., :3].contiguous(), f, 4, mode="nearest")
 
 
 def test_window_warp_autograd_runs_the_adjoint_kernel(cuda):

@@ -15,6 +15,7 @@ token is dropped. The golden ratios are held by
 `test_golden_ratios_agree_with_the_jax_matcher` (ROADMAP C1)."""
 
 from pathlib import Path
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -392,8 +393,9 @@ def test_cli_runs_tiny_on_cpu(tmp_path, monkeypatch):
 
 def test_cli_runs_tiny_with_postopt_on_cpu(tmp_path, monkeypatch):
     """The CLI with the post-optimization on (Farneback flows, 2 + 2 epochs):
-    an mp4 of every frame, finite loss histories beside it, and the RAFT
-    default refused."""
+    an mp4 of every frame, finite loss histories beside it as arrays and
+    as the two PNG plots JAX draws (ROADMAP C4), and the RAFT default
+    refused while its flow cache is empty."""
     import cv2
 
     from tclight_torch.run import main
@@ -415,9 +417,49 @@ def test_cli_runs_tiny_with_postopt_on_cpu(tmp_path, monkeypatch):
         n += 1
     cap.release()
     assert n == N_FRAMES
-    for name in ("loss_exposure.npy", "loss_unique_tensor.npy"):
-        hist = np.load(mp4s[0].parent / name)
+    for name in ("loss_exposure", "loss_unique_tensor"):
+        hist = np.load(mp4s[0].parent / f"{name}.npy")
         assert hist.shape == (2 * 2,) and np.isfinite(hist).all()
+        png = mp4s[0].parent / f"{name}.png"
+        assert png.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
+
+
+def test_cli_runs_cached_raft_flows_with_postopt_on_cpu(tmp_path, monkeypatch):
+    """ROADMAP C3: the default config's `flow_model: raft` with the flows
+    in the cache next to the video (`vid_{future,past}_flow_raft/*.npy`,
+    as the JAX package reads them) runs the post-optimization on them; the
+    CLI no longer refuses a flow model before it reads the cache. The
+    cached flows are the video's own roll (2 px a frame) in both
+    directions, as the JAX data layer's convention has them."""
+    import yaml
+
+    from tclight_torch.run import main
+
+    monkeypatch.chdir(Path(__file__).resolve().parent.parent)
+    monkeypatch.setenv("TCLIGHT_TINY", "1")
+    vid_dir = _video(tmp_path)
+    for direction, dx in (("future", 2.0), ("past", -2.0)):
+        cache = tmp_path / f"vid_{direction}_flow_raft"
+        cache.mkdir()
+        for i in range(N_FRAMES):
+            flow = np.zeros((SIZE, SIZE, 2), np.float32)
+            edge = (direction == "future" and i == N_FRAMES - 1) or (direction == "past"
+                                                                      and i == 0)
+            flow[..., 0] = 0.0 if edge else dx
+            np.save(cache / f"{i:05d}.npy", flow)
+    args = [a for a in _cli_args(tmp_path, vid_dir) if a != "post_opt.apply_opt=false"]
+    args += ["post_opt.epochs_exposure=2", "post_opt.epochs=2", "post_opt.batch_size=4",
+             "post_opt.ms_ssim_levels=2"]
+    assert main(args, device="cpu") == 0
+    out_dir = next((tmp_path / "wd").rglob("output.mp4")).parent
+    cfg = yaml.safe_load((out_dir / "config.yaml").read_text())
+    assert cfg["data"]["flow_model"] == "raft" and cfg["post_opt"]["apply_opt"]
+    for name in ("loss_exposure", "loss_unique_tensor"):
+        hist = np.load(out_dir / f"{name}.npy")
+        assert hist.shape == (2 * 2,) and np.isfinite(hist).all()
+    # the cache was read, not recomputed: no other flow files appeared
+    assert sorted(p.name for p in tmp_path.iterdir() if "flow" in p.name) == [
+        "vid_future_flow_raft", "vid_past_flow_raft"]
 
 
 def test_cli_runs_navsim_settings_with_int8_on_cpu(tmp_path, monkeypatch):
@@ -471,9 +513,41 @@ def test_unported_options_raise(tmp_path):
     cfg = _config(tmp_path, vid_dir)
     cfg["post_opt"]["apply_opt"] = True
     assert Generator(models, ConfigDict(cfg), device="cpu").apply_opt
+    # a missing prompt runs on JAX's fallback (test_missing_prompt_...);
+    # with an upsampler checkpoint on disk it needs the unported upsampler
+    ckpt = tmp_path / "upsampler.ckpt"
+    ckpt.write_bytes(b"")
     cfg = _config(tmp_path, vid_dir)
-    cfg["generation"]["prompt"] = {"default": None}
+    cfg["generation"].update(prompt={"default": None}, prompt_upsampler_ckpt=str(ckpt))
     gen = Generator(models, ConfigDict(cfg), data_parser=VideoDataParser(cfg["data"]),
                     device="cpu")
-    with pytest.raises(NotImplementedError, match="prompt"):
+    with pytest.raises(NotImplementedError, match="A13"):
         gen(None, str(tmp_path / "out"), list(range(N_FRAMES)))
+
+
+def test_missing_prompt_takes_the_default(tmp_path):
+    """ROADMAP C2: with `prompt: null` and no upsampler checkpoint (the
+    default config's), the run takes JAX's fallback prompt: the same
+    frames, bit for bit, as that prompt given explicitly, and the saved
+    config.yaml records it."""
+    import yaml
+
+    from tclight_torch.pipeline.generator import DEFAULT_PROMPT
+    from tclight_tpu.pipeline.generator import Generator as JGen
+
+    # JAX's own fallback, called on a config without a checkpoint
+    jax_cfg = SimpleNamespace(config={"generation": {"prompt_upsampler_ckpt": None}})
+    assert JGen._handle_missing_prompt(jax_cfg, None, None) == DEFAULT_PROMPT
+    vid_dir = _video(tmp_path)
+    models = build_tiny_iclight(device="cpu")
+    outs = []
+    for name, prompt in (("none", None), ("explicit", DEFAULT_PROMPT)):
+        cfg = _config(tmp_path, vid_dir)
+        cfg["generation"].update(prompt={"default": prompt}, prompt_upsampler_ckpt=None)
+        gen = Generator(models, ConfigDict(cfg), data_parser=VideoDataParser(cfg["data"]),
+                        device="cpu")
+        outs.append(gen(None, str(tmp_path / name), list(range(N_FRAMES)))["default"])
+        assert gen.prompts["default"] == DEFAULT_PROMPT
+        saved = yaml.safe_load(next((tmp_path / name).rglob("config.yaml")).read_text())
+        assert saved["generation"]["prompt"] == {"default": DEFAULT_PROMPT}
+    np.testing.assert_array_equal(outs[0], outs[1])

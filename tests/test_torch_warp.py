@@ -96,6 +96,79 @@ def test_grid_sample_matches_jax(mode):
     np.testing.assert_array_equal(grid, np.asarray(jresample.identity_grid(4, 6)))
 
 
+def _bounded_window_sum(x, f, radius, mode, adjoint):
+    """The plain window sum with each tap d kept only at the pixels whose
+    tile's `tile_tap_bounds` admit it: what K3 sums."""
+    n, h, w, c = x.shape
+    rh = radius + warp_kernel.kernel_radius(mode)
+    th, tw = warp_kernel.TILE
+    bounds = warp_kernel.tile_tap_bounds(f, radius, mode, adjoint)
+    # the bounds of each pixel's tile, (N, H, W, 4)
+    px = bounds.repeat_interleave(th, 1).repeat_interleave(tw, 2)[:, :h, :w]
+    xp = torch.nn.functional.pad(x, (0, 0, rh, rh, rh, rh))
+    fp = torch.nn.functional.pad(f, (0, 0, rh, rh, rh, rh))
+    out = torch.zeros_like(x)
+    for dy in range(-rh, rh + 1):
+        for dx in range(-rh, rh + 1):
+            keep = ((px[..., 0] <= dy) & (dy <= px[..., 1]) & (px[..., 2] <= dx)
+                    & (dx <= px[..., 3]))
+            if not keep.any():
+                continue
+            xs = xp[:, rh + dy: rh + dy + h, rh + dx: rh + dx + w]
+            if adjoint:
+                fs = fp[:, rh + dy: rh + dy + h, rh + dx: rh + dx + w]
+                wgt = (warp_kernel._kernel_fn(dy + fs[..., 1], mode)
+                       * warp_kernel._kernel_fn(dx + fs[..., 0], mode))
+            else:
+                wgt = (warp_kernel._kernel_fn(dy - f[..., 1], mode)
+                       * warp_kernel._kernel_fn(dx - f[..., 0], mode))
+            out = out + torch.where(keep, wgt, 0.0)[..., None] * xs
+    return out
+
+
+@pytest.mark.parametrize("mode", ["bicubic", "bilinear"])
+@pytest.mark.parametrize("adjoint", [False, True])
+@pytest.mark.parametrize("radius,fmax,smooth", [(4, 4.0, True), (4, 3.0, False),
+                                                (24, 24.0, False), (24, 20.0, True)])
+def test_tile_tap_bounds_keep_every_weighted_tap(mode, adjoint, radius, fmax, smooth):
+    """K3's premise: summing only the taps inside each 32 x 64 tile's flow-
+    range bounds (`tile_tap_bounds`: the tile's range for the forward, its
+    halo's for the adjoint) gives the whole window sum, on 2 x 40 x 150
+    frames (tiles ragged in both axes) with smooth and random flows; the
+    skipped taps carry weight exactly 0, so the sums agree within f32
+    noise (1e-6). Smooth flows leave most taps out."""
+    rng = np.random.default_rng(radius + int(fmax))
+    x = torch.from_numpy(rng.uniform(0, 1, (2, 40, 150, 3)).astype(np.float32))
+    if smooth:
+        yy, xx = np.meshgrid(np.arange(40), np.arange(150), indexing="ij")
+        f = np.stack([fmax * np.sin(xx / 37.0 + yy / 23.0), 0.6 * fmax * np.cos(xx / 29.0)], -1)
+        f = np.broadcast_to(f, (2, 40, 150, 2)) * np.array([1.0, -1.0])[:, None, None, None]
+        f = torch.from_numpy(np.ascontiguousarray(f, np.float32))
+    else:
+        f = torch.from_numpy(rng.uniform(-fmax, fmax, (2, 40, 150, 2)).astype(np.float32))
+    full = warp_kernel.window_warp_plain(x, f, radius, mode, adjoint)
+    bounded = _bounded_window_sum(x, f, radius, mode, adjoint)
+    np.testing.assert_allclose(bounded.numpy(), full.numpy(), rtol=0, atol=1e-6)
+    b = warp_kernel.tile_tap_bounds(f, radius, mode, adjoint)
+    rh = radius + warp_kernel.kernel_radius(mode)
+    assert b.shape == (2, 2, 3, 4) and (b[..., 0] >= -rh).all() and (b[..., 1] <= rh).all()
+    if smooth and radius == 24:  # the smooth tiles' bounds are far inside the window
+        assert ((b[..., 1] - b[..., 0]) < 2 * rh).all()
+
+
+def test_tile_and_staged_variant_match_the_kernel_source():
+    """`TILE` is the kernel's output tile, and `python -m
+    tclight_torch.ablate_warp` can still build its staged forward from the
+    kernel's source (its replaced text is there; the variant differs)."""
+    from tclight_torch import ablate_warp
+
+    src = (kernels.CSRC / "window_warp.cu").read_text()
+    assert f"constexpr int TH = {warp_kernel.TILE[0]}, TW = {warp_kernel.TILE[1]};" in src
+    texts = ablate_warp.variant_sources()
+    assert texts["direct"] == src and texts["staged"] != src
+    assert "SMEM_FLOATS" in texts["staged"] and "window_warp_adj_kernel" in texts["staged"]
+
+
 def test_window_warp_cuda_refuses_cpu_tensors():
     x, f = _case()
     with pytest.raises(ValueError, match="CUDA"):
