@@ -27,7 +27,10 @@
 //    window crosses device memory about once. A window staged in shared
 //    memory first (the TPU kernel's design: the tile's flow range, then the
 //    bounded window copied in coalesced rows, in chunks beyond a budget)
-//    measured slower on the H100 (`python -m tclight_torch.ablate_warp`).
+//    measured twice as slow on the H100 (0.39 against 0.20 ms at
+//    16 x 720 x 960 x 3, r = 4, PERF.md), so neither direction stages a
+//    window and there is no chunked route: a wide flow range costs taps,
+//    not shared memory.
 //  - Adjoint, as the scatter it is. First the flow range over the tile's
 //    halo window (tile +- rh, clipped to the frame), as the TPU kernel
 //    bounds its taps (warp_kernel.py:129-141): a tap d reads the flow at
@@ -37,11 +40,31 @@
 //    the frame (read once, coalesced by rows) computes its 2RK + 2RK
 //    weights once from its own flow and adds w * g[s] into the 2RK x 2RK
 //    outputs q = s - d of the tile that its taps d reach (|d| <= rh), by
-//    shared-memory atomic adds into the tile's f32 accumulators (C x 32 x
-//    64). That is 4RK^2 adds a source however wide the flow range, where a
+//    shared-memory atomic adds into the tile's accumulators (C x 32 x 64).
+//    That is 4RK^2 adds a source however wide the flow range, where a
 //    gather walks the whole bounded window per output (53 x 53 taps at r =
-//    24). The adds land in no fixed order: the f32 sums of a few dozen
-//    terms differ from the plain version's by rounding only.
+//    24).
+//  - Deterministic sums. The adds land in no fixed order, so the
+//    accumulators are fixed point, whose sums do not depend on the order:
+//    the same inputs give the same bits on every run. An output's sum is
+//    held in two 32-bit limbs: one shared-memory atomic add of a 64-bit
+//    integer measured slower on the H100 than two of 32 bits (PERF.md).
+//    The same pass that takes the flow range takes
+//    gmax = max |g| over the halo. A term is |w g| <= gmax (|k| <= 1), and
+//    an output receives at most one term per tap of the bounded range (its
+//    source is q + d): ntap = (hi_y - lo_y + 1)(hi_x - lo_x + 1) terms.
+//    With ntap < 2^(32 - L) and gmax < 2^e1, a term T, the f32 product
+//    w * (g 2^k) rounded once to an integer (scaling by a power of two is
+//    exact), with k = 2L - 2 - e1, sums below 2^(L + 30). Its low L bits
+//    go to an unsigned limb (ntap of them sum below 2^32) and T >> L to a
+//    signed one (they sum below 2^30 + ntap < 2^31 in magnitude, as the
+//    entry point's radius <= 16000 keeps ntap < 2^30); the output is
+//    (high << L) + low, times 2^-k. k is clamped to [-100, 126], where 2^k
+//    and 2^-k are normal f32 (-100 is never reached). An output's error is
+//    at most ntap half-units of 2^-k, below ntap^3 2^-60 gmax: 2^-37 gmax
+//    at r = 4, 2^-25 at r = 24, 2^-13 at r = 100 (an f32 sum of 16 such
+//    terms errs by up to about 2^-20 gmax). A non-finite g in the halo
+//    makes the tile's outputs NaN.
 //  - The outputs go out per thread, a warp's 32 pixels one contiguous span.
 
 #include <cuda_runtime.h>
@@ -69,28 +92,32 @@ __device__ __forceinline__ float tap_weight(int i, float s) {
   return (((s - 5.f) * s + 8.f) * s - 4.f) * a;
 }
 
-// min / max of four values over the block (red: 4 x 8 floats)
-__device__ __forceinline__ void block_range(float (&v)[4], float* red) {
+// min (even i) / max (odd i) of N values over the block (red: N x 8 floats)
+template <int N>
+__device__ __forceinline__ void block_range(float (&v)[N], float* red) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    v[0] = fminf(v[0], __shfl_xor_sync(0xffffffffu, v[0], o));
-    v[1] = fmaxf(v[1], __shfl_xor_sync(0xffffffffu, v[1], o));
-    v[2] = fminf(v[2], __shfl_xor_sync(0xffffffffu, v[2], o));
-    v[3] = fmaxf(v[3], __shfl_xor_sync(0xffffffffu, v[3], o));
-  }
+  for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const float u = __shfl_xor_sync(0xffffffffu, v[i], o);
+      v[i] = (i & 1) ? fmaxf(v[i], u) : fminf(v[i], u);
+    }
   const int lane = threadIdx.x % 32, wid = threadIdx.x / 32;
   if (lane == 0)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) red[i * 8 + wid] = v[i];
+    for (int i = 0; i < N; ++i) red[i * 8 + wid] = v[i];
   __syncthreads();
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < N; ++i) {
     float r = red[i * 8];
     for (int w = 1; w < THREADS / 32; ++w)
       r = (i & 1) ? fmaxf(r, red[i * 8 + w]) : fminf(r, red[i * 8 + w]);
     v[i] = r;
   }
 }
+
+// 2^e as an f32, for -126 <= e <= 127
+__device__ __forceinline__ float pow2(int e) { return __int_as_float((127 + e) << 23); }
 
 template <int C, int RK>
 __global__ void __launch_bounds__(THREADS)
@@ -143,12 +170,14 @@ window_warp_fwd_kernel(const float* __restrict__ x, const float* __restrict__ fl
 }
 
 template <int C, int RK>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 4)  // 4 blocks an SM at C = 3: 48 KB each
 window_warp_adj_kernel(const float* __restrict__ g, const float* __restrict__ flows,
                        float* __restrict__ out, int h, int w, int rh) {
   constexpr int NW = 2 * RK;
-  __shared__ float so[C][TH][TW];  // the tile's accumulators
-  __shared__ float red[32];
+  // the tile's fixed-point accumulators (dynamic: 16 KB a channel): the
+  // low limbs, C x TH x TW unsigned, then the high limbs, C x TH x TW int
+  extern __shared__ unsigned so[];
+  __shared__ float red[6 * 8];
   const int n = blockIdx.z;
   const int x0 = blockIdx.x * TW, y0 = blockIdx.y * TH;
   const int tx = threadIdx.x % TW, ty = threadIdx.x / TW;
@@ -157,35 +186,53 @@ window_warp_adj_kernel(const float* __restrict__ g, const float* __restrict__ fl
   const float* gn = g + (size_t)n * plane * C;
   const float2* fn = reinterpret_cast<const float2*>(flows) + (size_t)n * plane;
   float* on = out + (size_t)n * plane * C;
-  for (int i = threadIdx.x; i < C * TH * TW; i += THREADS) (&so[0][0][0])[i] = 0.f;
+  for (int i = threadIdx.x; i < 2 * C * TH * TW; i += THREADS) so[i] = 0u;
 
-  // 1. the flow range over the halo window, clipped to the frame (a
-  //    source outside the frame holds a zero cotangent and adds nothing)
-  float rng[4] = {INFINITY, -INFINITY, INFINITY, -INFINITY};
+  // 1. the flow range and max |g| over the halo window, clipped to the
+  //    frame (a source outside the frame holds a zero cotangent and adds
+  //    nothing); a non-finite g counts as infinite. v[4] is unused.
+  float v[6] = {INFINITY, -INFINITY, INFINITY, -INFINITY, 0.f, 0.f};
   {
     const int hy0 = max(y0 - rh, 0), hy1 = min(y0 + TH - 1 + rh, h - 1);
     const int hx0 = max(x0 - rh, 0), hx1 = min(x0 + TW - 1 + rh, w - 1);
     for (int r = hy0 + warp; r <= hy1; r += THREADS / 32)
       for (int cx = hx0 + lane; cx <= hx1; cx += 32) {
-        const float2 f = fn[(size_t)r * w + cx];
-        rng[0] = fminf(rng[0], f.x); rng[1] = fmaxf(rng[1], f.x);
-        rng[2] = fminf(rng[2], f.y); rng[3] = fmaxf(rng[3], f.y);
+        const size_t s = (size_t)r * w + cx;
+        const float2 f = fn[s];
+        v[0] = fminf(v[0], f.x); v[1] = fmaxf(v[1], f.x);
+        v[2] = fminf(v[2], f.y); v[3] = fmaxf(v[3], f.y);
+#pragma unroll
+        for (int ch = 0; ch < C; ++ch) {
+          const float a = fabsf(gn[s * C + ch]);
+          v[5] = fmaxf(v[5], a <= 3.402823466e38f ? a : INFINITY);
+        }
       }
   }
-  block_range(rng, red);  // its __syncthreads also orders the zeroing
-  const int lo_y = max((int)floorf(-rng[3]) - RK + 1, -rh), hi_y = min((int)floorf(-rng[2]) + RK, rh);
-  const int lo_x = max((int)floorf(-rng[1]) - RK + 1, -rh), hi_x = min((int)floorf(-rng[0]) + RK, rh);
+  block_range(v, red);  // its __syncthreads also orders the zeroing
+  const int lo_y = max((int)floorf(-v[3]) - RK + 1, -rh), hi_y = min((int)floorf(-v[2]) + RK, rh);
+  const int lo_x = max((int)floorf(-v[1]) - RK + 1, -rh), hi_x = min((int)floorf(-v[0]) + RK, rh);
+  const bool finite = v[5] <= 3.402823466e38f;
+
+  // 2. the fixed-point scale 2^k and the low limb's width L (header):
+  //    gmax < 2^e1, ntap < 2^(32 - L)
+  int e1;
+  frexpf(v[5], &e1);
+  const unsigned ntap = (unsigned)max(hi_y - lo_y + 1, 1) * (unsigned)max(hi_x - lo_x + 1, 1);
+  const int L = __clz((int)ntap);
+  const int k = min(max(2 * L - 2 - e1, -100), 126);
+  const long long low = (1ll << L) - 1;
+  const float up = pow2(k);
 
   // 3. every source of the window, in the frame, scatters into the tile
   const int sy0 = max(y0 + lo_y, 0), sy1 = min(y0 + TH - 1 + hi_y, h - 1);
   const int sx0 = max(x0 + lo_x, 0), sx1 = min(x0 + TW - 1 + hi_x, w - 1);
-  for (int sy = sy0 + warp; sy <= sy1; sy += THREADS / 32) {
+  for (int sy = sy0 + warp; finite && sy <= sy1; sy += THREADS / 32) {
     for (int sx = sx0 + lane; sx <= sx1; sx += 32) {
       const size_t s = (size_t)sy * w + sx;
       const float2 f = fn[s];
       float gv[C];
 #pragma unroll
-      for (int ch = 0; ch < C; ++ch) gv[ch] = gn[s * C + ch];
+      for (int ch = 0; ch < C; ++ch) gv[ch] = gn[s * C + ch] * up;
       // taps d = b + i reach q = s - d with weight k(d + f)
       const int by = (int)floorf(-f.y) - RK + 1, bx = (int)floorf(-f.x) - RK + 1;
       float wy[NW], wx[NW];
@@ -207,31 +254,51 @@ window_warp_adj_kernel(const float* __restrict__ g, const float* __restrict__ fl
           if (wx[b] == 0.f) continue;
           const float wgt = wy[a] * wx[b];
 #pragma unroll
-          for (int ch = 0; ch < C; ++ch) atomicAdd(&so[ch][qy[a]][qx[b]], wgt * gv[ch]);
+          for (int ch = 0; ch < C; ++ch) {
+            const long long t = __float2ll_rn(wgt * gv[ch]);
+            const int i = (ch * TH + qy[a]) * TW + qx[b];
+            atomicAdd(&so[i], (unsigned)(t & low));
+            atomicAdd(reinterpret_cast<int*>(&so[C * TH * TW + i]), (int)(t >> L));
+          }
         }
       }
     }
   }
   __syncthreads();
   // 4. the outputs: a warp's 32 pixels are one contiguous span
+  const float down = pow2(-k);
 #pragma unroll
   for (int i = 0; i < PIX; ++i) {
     const int ly = ty + ROWS_PER_STEP * i, py = y0 + ly, px = x0 + tx;
     if (py >= h || px >= w) continue;
     float* o = on + ((size_t)py * w + px) * C;
 #pragma unroll
-    for (int ch = 0; ch < C; ++ch) o[ch] = so[ch][ly][tx];
+    for (int ch = 0; ch < C; ++ch) {
+      const int j = (ch * TH + ly) * TW + tx;
+      const long long sum = (long long)(int)so[C * TH * TW + j] * (1ll << L) + (long long)so[j];
+      o[ch] = finite ? __ll2float_rn(sum) * down : NAN;
+    }
   }
 }
 
 template <int C, int RK>
-void launch(const float* x, const float* flows, float* out, int n, int h, int w, int rh,
-            bool adjoint, cudaStream_t s) {
+cudaError_t launch(const float* x, const float* flows, float* out, int n, int h, int w,
+                   int rh, bool adjoint, cudaStream_t s) {
   const dim3 grid((w + TW - 1) / TW, (h + TH - 1) / TH, n);
-  if (adjoint)
-    window_warp_adj_kernel<C, RK><<<grid, THREADS, 0, s>>>(x, flows, out, h, w, rh);
-  else
+  if (adjoint) {
+    constexpr int smem = 2 * C * TH * TW * 4;  // C = 4 takes more than the default 48 KB
+    static bool attr_set = false;  // once per kernel instance, not per launch
+    if (!attr_set) {
+      cudaError_t err = cudaFuncSetAttribute(window_warp_adj_kernel<C, RK>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return err;
+      attr_set = true;
+    }
+    window_warp_adj_kernel<C, RK><<<grid, THREADS, smem, s>>>(x, flows, out, h, w, rh);
+  } else {
     window_warp_fwd_kernel<C, RK><<<grid, THREADS, 0, s>>>(x, flows, out, h, w, rh);
+  }
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -241,23 +308,24 @@ void launch(const float* x, const float* flows, float* out, int n, int h, int w,
 extern "C" int tclight_window_warp_f32(const float* x, const float* flows, float* out,
                                        int n, int h, int w, int c, int radius, int mode,
                                        int adjoint, void* stream) {
+  // radius <= 16000 keeps the adjoint's ntap below 2^30 (its high limb)
   if (c < 1 || c > MAXC || (mode != 0 && mode != 1) || radius < 0 || n > 65535 ||
-      radius > 20000)
+      radius > 16000)
     return (int)cudaErrorInvalidValue;
   if (n == 0 || h == 0 || w == 0) return 0;
   const int rk = mode == 1 ? 1 : 2;
   const int rh = radius + rk;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaSuccess;
 #define TCLIGHT_WARP_CASE(C_)                                                      \
   case C_:                                                                         \
-    if (rk == 2)                                                                   \
-      launch<C_, 2>(x, flows, out, n, h, w, rh, adjoint != 0, s);                  \
-    else                                                                           \
-      launch<C_, 1>(x, flows, out, n, h, w, rh, adjoint != 0, s);                  \
+    err = rk == 2 ? launch<C_, 2>(x, flows, out, n, h, w, rh, adjoint != 0, s)     \
+                  : launch<C_, 1>(x, flows, out, n, h, w, rh, adjoint != 0, s);    \
     break;
   switch (c) {
     TCLIGHT_WARP_CASE(1) TCLIGHT_WARP_CASE(2) TCLIGHT_WARP_CASE(3) TCLIGHT_WARP_CASE(4)
   }
 #undef TCLIGHT_WARP_CASE
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -21,11 +21,13 @@ pixel: x, flows and out cross device memory once) and by f32 operations
 when the tile's flow range is wide. Its design, a block per 32 x 64 output
 tile: the forward is a direct gather of each pixel's 4x4 (bilinear 2x2)
 taps with separable weights, read through L1 (a window staged in shared
-memory first measured slower: `python -m tclight_torch.ablate_warp`); the
-adjoint bounds its sources by the flow range of the tile's halo
-(`tile_tap_bounds` is that step in plain torch) and scatters each source's
-4x4 taps into the tile's accumulators in shared memory (details in the
-source).
+memory first measured slower, PERF.md); the adjoint bounds its sources by
+the flow range of the tile's halo (`tile_tap_bounds` is that step in plain
+torch) and scatters each source's 4x4 taps into the tile's fixed-point
+accumulators in shared memory, two 32-bit limbs scaled by 2^k
+(`adjoint_fixed_point_exponent` gives k and the low limb's width in plain
+torch), so its sums do not depend on the order of the adds and a run
+repeats bit for bit (details in the source).
 
 `warp_flow_window` is the autograd wrapper: its image gradient is the
 adjoint window sum (exact: the warp is linear in the image) and its flow
@@ -43,7 +45,8 @@ import torch.nn.functional as F
 from tclight_torch.ops import kernels
 
 __all__ = ["window_warp", "window_warp_plain", "window_warp_cuda",
-           "warp_flow_window", "kernel_radius", "tile_tap_bounds", "TILE"]
+           "warp_flow_window", "kernel_radius", "tile_tap_bounds",
+           "adjoint_fixed_point_exponent", "TILE"]
 
 _MODES = {"bicubic": 0, "bilinear": 1}
 
@@ -94,8 +97,7 @@ def tile_tap_bounds(flows: torch.Tensor, radius: int, mode: str = "bicubic",
     plain torch: the taps (lo_y, hi_y, lo_x, hi_x) that can carry weight,
     as an int tensor (N, tiles_y, tiles_x, 4). The forward's taps of a
     pixel are floor(f) - rk + 1 .. floor(f) + rk, so the tile's flow range
-    bounds them (the staged forward of `tclight_torch.ablate_warp` stages
-    that window); the adjoint's tap d reads the flow at q + d, so its range
+    bounds them; the adjoint's tap d reads the flow at q + d, so its range
     is taken over the halo (the tile +- radius + rk, clipped to the frame)
     and the taps are floor(-max f) - rk + 1 .. floor(-min f) + rk (K3's
     adjoint scatters from the sources of that window). Both are clipped to
@@ -121,6 +123,31 @@ def tile_tap_bounds(flows: torch.Tensor, radius: int, mode: str = "bicubic",
             out[:, by, bx] = torch.stack([lo[:, 1].clamp(min=-rh), hi[:, 1].clamp(max=rh),
                                           lo[:, 0].clamp(min=-rh), hi[:, 0].clamp(max=rh)], -1)
     return out
+
+
+def adjoint_fixed_point_exponent(g: torch.Tensor, flows: torch.Tensor, radius: int,
+                                 mode: str = "bicubic") -> tuple[torch.Tensor, torch.Tensor]:
+    """K3's adjoint fixed point per output tile, in plain torch: (k, L),
+    int tensors (N, tiles_y, tiles_x). The tile's tap count ntap (of its
+    `tile_tap_bounds`) is below 2^(32 - L) and max |g| over its halo below
+    2^e1; k = 2L - 2 - e1, clamped to [-100, 126]. Each of an output's at
+    most ntap terms is at most max |g|, so their sum scaled by 2^k stays
+    below 2^(L + 30): the kernel adds each rounded term's low L bits into
+    an unsigned 32-bit limb and the rest into a signed one."""
+    n, h, w, _ = g.shape
+    rh = int(radius) + kernel_radius(mode)
+    th, tw = TILE
+    b = tile_tap_bounds(flows, radius, mode, adjoint=True)
+    ntap = (b[..., 1] - b[..., 0] + 1).clamp(min=1) * (b[..., 3] - b[..., 2] + 1).clamp(min=1)
+    gmax = torch.zeros(b.shape[:3])
+    for by in range(b.shape[1]):
+        for bx in range(b.shape[2]):
+            y0, x0 = by * th, bx * tw
+            gmax[:, by, bx] = g[:, max(y0 - rh, 0):y0 + th + rh,
+                                max(x0 - rh, 0):x0 + tw + rh].abs().reshape(n, -1).amax(1)
+    e1 = torch.frexp(gmax).exponent.long()
+    low_bits = 31 - torch.floor(torch.log2(ntap.double())).long()  # 32 - bit length
+    return (2 * low_bits - 2 - e1).clamp(-100, 126), low_bits
 
 
 def window_warp_cuda(x: torch.Tensor, flows: torch.Tensor, radius: int,

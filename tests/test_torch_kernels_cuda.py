@@ -453,6 +453,38 @@ def test_window_warp_kernel_channels_and_frame_edges(cuda, c, mode, adjoint):
     assert (out - ref).abs().max().item() <= 1e-5 * (2 * radius + 5)
 
 
+@pytest.mark.parametrize("radius,fmax,mode", [(24, 24.0, "bicubic"), (4, 3.0, "bilinear")])
+def test_window_warp_adjoint_repeats_bit_for_bit(cuda, radius, fmax, mode):
+    """K3's adjoint adds into its tile accumulators in no fixed order, in
+    fixed point: three runs on the same inputs give the same bits,
+    with random flows that send many sources to each output."""
+    x = torch.randn(2, 96, 200, 3, device="cuda", generator=cuda)
+    f = (torch.rand(2, 96, 200, 2, device="cuda", generator=cuda) * 2 - 1) * fmax
+    runs = [warp_kernel.window_warp(x, f, radius, mode, adjoint=True) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
+    ref = warp_kernel.window_warp_plain(x, f, radius, mode, adjoint=True)
+    assert (runs[0] - ref).abs().max().item() <= 1e-5 * (2 * radius + 5)
+
+
+def test_window_warp_adjoint_nonfinite_cotangent_fills_its_tiles(cuda):
+    """A non-finite cotangent makes NaN the outputs of every tile whose halo
+    holds it, and leaves the other tiles as the plain version has them."""
+    radius = 4
+    x = torch.rand(1, 64, 256, 1, device="cuda", generator=cuda)
+    f = (torch.rand(1, 64, 256, 2, device="cuda", generator=cuda) * 2 - 1) * 3
+    x[0, 10, 20, 0] = float("inf")
+    out = warp_kernel.window_warp(x, f, radius, adjoint=True)
+    torch.cuda.synchronize()
+    # halo rh = 6: the inf at (10, 20) lies in the halos of tiles (0, 0) only
+    assert out[0, :32, :64].isnan().all()
+    ref = warp_kernel.window_warp_plain(x[:, :, 64:].clone(), f[:, :, 64:].clone(), radius,
+                                        adjoint=True)
+    rest = out[:, :, 64 + 6:]
+    assert torch.isfinite(rest).all()
+    assert (rest - ref[:, :, 6:]).abs().max().item() <= 1e-5 * (2 * radius + 5)
+
+
 def test_window_warp_kernel_refuses_what_it_does_not_take(cuda):
     x = torch.rand(1, 8, 8, 5, device="cuda", generator=cuda)
     f = torch.zeros(1, 8, 8, 2, device="cuda")
@@ -462,6 +494,9 @@ def test_window_warp_kernel_refuses_what_it_does_not_take(cuda):
         warp_kernel.window_warp_cuda(x[..., :3].contiguous().double(), f, 4)
     with pytest.raises(ValueError, match="mode"):
         warp_kernel.window_warp_cuda(x[..., :3].contiguous(), f, 4, mode="nearest")
+    # past 16000 the adjoint's tap count could overflow its high limb
+    with pytest.raises(RuntimeError, match="cudaError"):
+        warp_kernel.window_warp_cuda(x[..., :3].contiguous(), f, 16001, adjoint=True)
 
 
 def test_window_warp_autograd_runs_the_adjoint_kernel(cuda):

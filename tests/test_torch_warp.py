@@ -156,17 +156,61 @@ def test_tile_tap_bounds_keep_every_weighted_tap(mode, adjoint, radius, fmax, sm
         assert ((b[..., 1] - b[..., 0]) < 2 * rh).all()
 
 
-def test_tile_and_staged_variant_match_the_kernel_source():
-    """`TILE` is the kernel's output tile, and `python -m
-    tclight_torch.ablate_warp` can still build its staged forward from the
-    kernel's source (its replaced text is there; the variant differs)."""
-    from tclight_torch import ablate_warp
-
+def test_tile_matches_the_kernel_source():
+    """`TILE` is the kernel's output tile."""
     src = (kernels.CSRC / "window_warp.cu").read_text()
     assert f"constexpr int TH = {warp_kernel.TILE[0]}, TW = {warp_kernel.TILE[1]};" in src
-    texts = ablate_warp.variant_sources()
-    assert texts["direct"] == src and texts["staged"] != src
-    assert "SMEM_FLOATS" in texts["staged"] and "window_warp_adj_kernel" in texts["staged"]
+
+
+@pytest.mark.parametrize("radius,mode,gscale", [(4, "bicubic", 1.0), (24, "bicubic", 1.0),
+                                                (4, "bilinear", 1e-30),
+                                                (24, "bilinear", 1e30)])
+def test_adjoint_fixed_point_sums_hold_the_window_sum(radius, mode, gscale):
+    """K3's adjoint premise: each term w * g scaled by its tile's 2^k
+    (`adjoint_fixed_point_exponent`) and rounded to an integer T, its low L
+    bits summed in an unsigned 32-bit limb and T >> L in a signed one (in
+    any order: integer sums are exact), overflows neither limb, is within
+    ntap half-units of the f64 sum of the same f32 terms, and gives the
+    plain window sum within 1e-6 of max |g|; on 2 x 40 x 150 frames with
+    random flows, cotangents of order 1, 1e-30 (k clamped at 126) and
+    1e30."""
+    rng = np.random.default_rng(radius)
+    g = torch.from_numpy((rng.uniform(-1, 1, (2, 40, 150, 3)) * gscale).astype(np.float32))
+    f = torch.from_numpy(rng.uniform(-radius, radius, (2, 40, 150, 2)).astype(np.float32))
+    n, h, w, _ = g.shape
+    th, tw = warp_kernel.TILE
+    rh = radius + warp_kernel.kernel_radius(mode)
+
+    def per_pixel(t):
+        return t.repeat_interleave(th, 1).repeat_interleave(tw, 2)[:, :h, :w, None]
+
+    k, low_bits = warp_kernel.adjoint_fixed_point_exponent(g, f, radius, mode)
+    k, low_bits = per_pixel(k), per_pixel(low_bits)
+    bounds = warp_kernel.tile_tap_bounds(f, radius, mode, adjoint=True)
+    ntap = per_pixel((bounds[..., 1] - bounds[..., 0] + 1) * (bounds[..., 3] - bounds[..., 2] + 1))
+    up = torch.exp2(k.float())
+    gp = torch.nn.functional.pad(g, (0, 0, rh, rh, rh, rh))
+    fp = torch.nn.functional.pad(f, (0, 0, rh, rh, rh, rh))
+    low = torch.zeros(g.shape, dtype=torch.int64)
+    high = torch.zeros(g.shape, dtype=torch.int64)
+    exact = torch.zeros(g.shape, dtype=torch.float64)
+    for dy in range(-rh, rh + 1):
+        for dx in range(-rh, rh + 1):
+            gs = gp[:, rh + dy: rh + dy + h, rh + dx: rh + dx + w]
+            fs = fp[:, rh + dy: rh + dy + h, rh + dx: rh + dx + w]
+            wgt = (warp_kernel._kernel_fn(dy + fs[..., 1], mode)
+                   * warp_kernel._kernel_fn(dx + fs[..., 0], mode))[..., None]
+            term = wgt * (gs * up)  # f32, as the kernel rounds it
+            t = torch.round(term).long()
+            low += t & ((1 << low_bits) - 1)
+            high += t >> low_bits
+            exact += term.double()
+    assert (low < 2 ** 32).all() and (high.abs() < 2 ** 31).all()
+    total = (high << low_bits) + low
+    assert ((total.double() - exact).abs() <= 0.5 * ntap).all()
+    got = total.double() * torch.exp2(-k.double())
+    ref = warp_kernel.window_warp_plain(g, f, radius, mode, adjoint=True).double()
+    assert (got - ref).abs().max().item() <= 1e-6 * g.abs().max().item()
 
 
 def test_window_warp_cuda_refuses_cpu_tensors():
