@@ -1,15 +1,17 @@
 """K2 (the ToMe matcher), K6 and K7 (the int8 attentions, their pre-pass
-and max pass included) and K3 (the window warp, both directions) of two
-checkouts of this repository, timed in turns on one card at chip_smoke's
-shapes: this checkout, the other, the other, this. Each leg is a process
-of its own that imports the `tclight_torch` of its checkout and calls only
-the wrappers both have, `online_argmax_scores_cuda`,
-`flash_attention_int8_cuda` and `window_warp_cuda`, on the same inputs
+and max pass included), K3 (the window warp, both directions) and K5 (the
+K-window gather, both directions) of two checkouts of this repository,
+timed in turns on one card at chip_smoke's shapes: this checkout, the
+other, the other, this. Each leg is a process of its own that imports the
+`tclight_torch` of its checkout and calls only the wrappers both have,
+`online_argmax_scores_cuda`, `flash_attention_int8_cuda`,
+`window_warp_cuda` and `banded_gather_multi_cuda`, on the same inputs
 made from a seed; K3's farneback case uses the Farneback flows of
-chip_smoke's 8-frame video (rolling texture, 960x720), computed once by
-this checkout into build/turns/.
+chip_smoke's 8-frame video (rolling texture, 960x720), and K5 the K = 2
+plans of chip_smoke's turnover ids (8 frames at 960x720, its post-opt
+batch of 16), both computed once by this checkout into build/turns/.
 
-    python -m tclight_torch.turns OTHER_CHECKOUT [K2 K6 K7 K3]
+    python -m tclight_torch.turns OTHER_CHECKOUT [K2 K6 K7 K3 K5]
 
 Prints the card's name and power limit, then one line per leg and shape:
 milliseconds (CUDA events over a few calls, after a warm-up). Needs a
@@ -33,7 +35,9 @@ SHAPES = ([("K2", "global L0", (2, 23760, 23760, 320)), ("K2", "local L0", (2, 3
           + [("K6", label, shape) for label, shape in ATTENTION]
           + [("K7", label, shape) for label, shape in ATTENTION]
           + [("K3", f"{d} {case}", (16, 720, 960, r, d == "adjoint"))
-             for case, r in (("farneback", 4), ("random", 24)) for d in ("forward", "adjoint")])
+             for case, r in (("farneback", 4), ("random", 24)) for d in ("forward", "adjoint")]
+          + [("K5", f"{d} {form}", (d, form)) for d in ("render", "adjoint")
+             for form in ("staged8", "staged4", "direct")])
 FRAMES = 8  # chip_smoke's main video; its post-opt batch pads it to 16 with frame 0
 
 
@@ -52,13 +56,42 @@ def farneback_flows(path) -> None:
     np.save(path, past[list(range(FRAMES)) + [0] * (16 - FRAMES)])
 
 
-def leg(shapes, flows_path) -> None:
+def k5_plans(path) -> None:
+    """The render's and the adjoint's K = 2 plans of chip_smoke's turnover
+    ids for its post-opt batch, saved to `path` (as chip_smoke's K5 rows
+    take them)."""
+    import numpy as np
+    import torch
+
+    from chip_smoke import HEIGHT, WIDTH, post_batch, turnover_ids
+    from tclight_torch.ops import banded_gather as bg
+    from tclight_torch.ops.flow import voxelization
+    from tclight_torch.pipeline import postopt
+
+    hw = HEIGHT * WIDTH
+    unq_inv = voxelization(turnover_ids(FRAMES, HEIGHT, WIDTH).reshape(-1))
+    p_pad = max(128, -(-(int(unq_inv.max()) + 1) // 128) * 128)
+    tables, _ = postopt.build_uvt_tables(unq_inv, FRAMES, HEIGHT, WIDTH, p_pad,
+                                         allow_banded=True)
+    idx = torch.from_numpy(post_batch())
+    wf, wb = postopt._banded_windows(hw, p_pad)
+    base = torch.arange(len(idx), dtype=torch.int32) * (bg.frame_tiles(hw) * 128)
+    k = tables[1].shape[-1]
+    torch.save({"render": (p_pad, tables[1][idx].reshape(-1, k), tables[2][idx].reshape(-1, 512),
+                           wf),
+                "adjoint": (len(idx) * bg.frame_tiles(hw) * 128,
+                            (tables[6][idx] + base[:, None, None]).reshape(-1, k),
+                            tables[7][idx].reshape(-1, 512), wb)}, path)
+
+
+def leg(shapes, flows_path, plans_path) -> None:
     """One checkout's times; runs with that checkout first on sys.path."""
     import numpy as np
     import torch
     import torch.nn.functional as F
 
     from tclight_torch.ops.attention import flash_attention_int8_cuda
+    from tclight_torch.ops.banded_gather import banded_gather_multi_cuda
     from tclight_torch.ops.match_kernel import online_argmax_scores_cuda
     from tclight_torch.ops.warp_kernel import window_warp_cuda
 
@@ -80,6 +113,18 @@ def leg(shapes, flows_path) -> None:
             a = F.normalize(torch.randn(b, s, c, device="cuda", generator=gen), dim=-1).bfloat16()
             bt = F.normalize(torch.randn(b, d, c, device="cuda", generator=gen), dim=-1).bfloat16()
             t = ms(lambda: online_argmax_scores_cuda(a, bt), 5)
+        elif kernel == "K5":
+            direction, form = shape
+            n_rows, starts, offs, window = torch.load(plans_path)[direction]
+            table = torch.randn(n_rows, 3, device="cuda", generator=gen)
+            starts, offs = starts.cuda(), offs.cuda()
+            if "form" in inspect.signature(banded_gather_multi_cuda).parameters:
+                t = ms(lambda: banded_gather_multi_cuda(table, starts, offs, window, form=form), 20)
+            elif form == "staged8":
+                label = f"{direction} (one body)"
+                t = ms(lambda: banded_gather_multi_cuda(table, starts, offs, window), 20)
+            else:
+                continue
         elif kernel == "K3":
             n, h, w, r, adjoint = shape
             x = torch.rand(n, h, w, 3, device="cuda", generator=gen)
@@ -99,8 +144,9 @@ def leg(shapes, flows_path) -> None:
 
 
 def main(argv: list[str]) -> int:
-    kernels = set(argv[1:]) or {"K2", "K6", "K7", "K3"}
-    if not argv or not kernels <= {"K2", "K6", "K7", "K3"}:
+    every = {"K2", "K6", "K7", "K3", "K5"}
+    kernels = set(argv[1:]) or every
+    if not argv or not kernels <= every:
         print(__doc__, file=sys.stderr)
         return 2
     here = Path(__file__).resolve().parents[1]
@@ -112,8 +158,14 @@ def main(argv: list[str]) -> int:
     if "K3" in kernels and not flows_path.exists():
         flows_path.parent.mkdir(parents=True, exist_ok=True)
         farneback_flows(flows_path)
+    plans_path = here / "build" / "turns" / "k5_plans.pt"
+    if "K5" in kernels and not plans_path.exists():
+        plans_path.parent.mkdir(parents=True, exist_ok=True)
+        sys.path.insert(0, str(here))
+        k5_plans(plans_path)
     shapes = [sh for sh in SHAPES if sh[0] in kernels]
-    code = inspect.getsource(leg) + f"\nleg({shapes!r}, {str(flows_path)!r})\n"
+    code = ("import inspect\n" + inspect.getsource(leg)
+            + f"\nleg({shapes!r}, {str(flows_path)!r}, {str(plans_path)!r})\n")
     for name, root in (("this", here), ("other", other), ("other", other), ("this", here)):
         print(f"[turn] {name} {root}", flush=True)
         r = subprocess.run([sys.executable, "-c", f"import sys; sys.path.insert(0, {str(root)!r})\n"

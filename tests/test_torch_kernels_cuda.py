@@ -601,6 +601,100 @@ def test_banded_gather_multi_kernel_matches_plain(cuda, k):
     assert torch.equal(out, banded_gather.banded_gather_plain_multi(table, st_t, offs_t, 2048))
 
 
+def _k5_plan(rng, k, window, bl=512, nb=24):
+    """A synthetic K-window plan: window w of block b starts at b * bl + w *
+    band + 1 (bands far apart), each (block, window) selects a random span of
+    1..window rows, 5% of the entries are masked, 2% lie at or past
+    K * window (not in the last block). Block 1 selects no entry of its last window, block 3's
+    first window spans the whole window, and the table ends at the last
+    row of the last block's last window (a span that ends at the table's
+    last row, whose last floats no 16-byte copy reaches unless C = 4)."""
+    band = nb * bl + 4 * window + 1000
+    # odd starts: the table's row count is odd, so at C < 4 its last floats
+    # end off a 16-byte boundary
+    starts = (np.arange(nb)[:, None] * bl + np.arange(k)[None, :] * band + 1).astype(np.int32)
+    span = rng.integers(1, window + 1, (nb, k))
+    kk = rng.integers(0, k, (nb, bl))
+    ll = (rng.random((nb, bl)) * span[np.arange(nb)[:, None], kk]).astype(np.int64)
+    if k > 1:
+        kk[1] = np.where(kk[1] == k - 1, 0, kk[1])
+        ll[1] = np.minimum(ll[1], span[1, 0] - 1)
+    offs = kk * window + ll
+    offs[3, :2] = [0, window - 1]
+    offs = np.where(rng.random((nb, bl)) < 0.05, -1, offs)
+    past = rng.random((nb, bl)) < 0.02
+    past[-1] = False  # the plain version reads them (then drops them) at the last window
+    offs = np.where(past, k * window + rng.integers(0, 300, (nb, bl)), offs)
+    offs[-1, 0] = k * window - 1
+    n_rows = int(starts[-1, -1]) + window
+    return starts, offs, n_rows
+
+
+def _k5_launch(table, starts, offs, window, form):
+    stats = kernels.STATS["banded_gather_multi"]
+    before = stats.launches
+    out = banded_gather.banded_gather_multi_cuda(table, starts, offs, window, form=form)
+    torch.cuda.synchronize()
+    assert stats.launches == before + 1
+    return out
+
+
+@pytest.mark.parametrize("form", sorted(banded_gather.K5_FORMS))
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+@pytest.mark.parametrize("c", [1, 2, 3, 4])
+@pytest.mark.parametrize("offs_dtype", [torch.int16, torch.int32])
+def test_banded_gather_multi_kernel_matches_plain_on_synthetic_plans(cuda, form, k, c,
+                                                                     offs_dtype):
+    """K5 against its plain version at K = 1..4 windows, every channel
+    count, both offset types: spans from one row to the whole window (the
+    staged body's pools take the narrow ones and leave the wide ones to
+    the gather's direct reads), a block with no entry of a window, the
+    table's last row, masked entries and offsets at or past K * window.
+    Exact."""
+    window = 8192 // k if offs_dtype == torch.int16 else 2048
+    rng = np.random.default_rng(100 * k + 10 * c + (offs_dtype == torch.int16))
+    starts, offs, n_rows = _k5_plan(rng, k, window)
+    table = torch.randn(n_rows, c, device="cuda", generator=cuda)
+    st_t = torch.from_numpy(starts).cuda()
+    offs_t = torch.from_numpy(offs).to(offs_dtype).cuda()
+    out = _k5_launch(table, st_t, offs_t, window, form)
+    ref = banded_gather.banded_gather_plain_multi(table, st_t, offs_t, window)
+    assert torch.equal(out, ref)
+    assert (ref[offs_t.long() >= k * window] == 0).all()
+
+
+@pytest.mark.parametrize("form", sorted(banded_gather.K5_FORMS))
+@pytest.mark.parametrize("c", [1, 3])
+def test_banded_gather_multi_kernel_takes_an_odd_block_length(cuda, form, c):
+    """bl = 333: the offsets take no vector loads, and at C = 1 or 3 every
+    other block's output starts off a 16-byte boundary (scalar stores)."""
+    rng = np.random.default_rng(c)
+    starts, offs, n_rows = _k5_plan(rng, 2, 1024, bl=333, nb=10)
+    table = torch.randn(n_rows, c, device="cuda", generator=cuda)
+    st_t, offs_t = torch.from_numpy(starts).cuda(), torch.from_numpy(offs).to(torch.int32).cuda()
+    out = _k5_launch(table, st_t, offs_t, 1024, form)
+    assert torch.equal(out, banded_gather.banded_gather_plain_multi(table, st_t, offs_t, 1024))
+
+
+@pytest.mark.parametrize("form", sorted(banded_gather.K5_FORMS))
+def test_banded_gather_multi_kernel_repeats_bit_for_bit(cuda, form):
+    """Two launches on one plan give the same bits (a gather: no sums)."""
+    rng = np.random.default_rng(7)
+    starts, offs, n_rows = _k5_plan(rng, 3, 2048, nb=300)
+    table = torch.randn(n_rows, 3, device="cuda", generator=cuda)
+    st_t, offs_t = torch.from_numpy(starts).cuda(), torch.from_numpy(offs).to(torch.int16).cuda()
+    first = _k5_launch(table, st_t, offs_t, 2048, form)
+    assert torch.equal(first, _k5_launch(table, st_t, offs_t, 2048, form))
+
+
+def test_banded_gather_multi_kernel_refuses_long_blocks(cuda):
+    table = torch.randn(4096, 3, device="cuda", generator=cuda)
+    starts = torch.zeros(1, 2, dtype=torch.int32, device="cuda")
+    offs = torch.zeros(1, 2049, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="at most 2048"):
+        banded_gather.banded_gather_multi(table, starts, offs, 2048)
+
+
 @pytest.mark.parametrize("nwin", [1, 2])
 def test_banded_gather_kernels_write_rows_past_their_windows(cuda, nwin):
     """Offsets no staged window holds: K4 reads them from the table, as the
