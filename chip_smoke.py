@@ -37,7 +37,8 @@ Phases, one line each:
      banded gather against its plain version on the main path's UVT
      plans, both directions;
   9. K5: the K-window gather against its plain version on synthetic
-     turnover-heavy track ids, and its own path: `run_uvt` on those ids;
+     turnover-heavy track ids (K = 2 plans, both directions), and its own
+     path: `run_uvt` on those ids, its launches counted by direction;
  10. yt-int8: `tclight_torch.run.main` on configs/examples/tclight_navsim.yaml's
      settings (alpha_t 0.4, 30 frames at 960x720, of the synthetic video)
      with generation.attn_qk_int8=true, 4 steps, post-optimization off:
@@ -819,8 +820,10 @@ def _banded_rows(tag: str, gen, tables, hw: int, p_pad: int, batch: np.ndarray) 
         rows_read = torch.unique(lib_idx[offs >= 0]).numel()
         b_ms, by = bound_ms(4 * out.numel() + offs.numel() * offs.element_size()
                             + starts.numel() * 4 + rows_read * table.shape[1] * 4, 0.0)
+        # both kernels read each selected row straight from the table (a
+        # staged K5 measured slower, csrc/banded_gather.cu)
         row = dict(shape=f"{label} B={b} hw={hw} p_pad={p_pad} NB={offs.shape[0]} "
-                   f"window={window} K={k} offs={str(offs.dtype)[6:]}",
+                   f"window={window} K={k} offs={str(offs.dtype)[6:]}", body="direct gather",
                    live_entries=int((offs >= 0).sum().item()), rows_read=rows_read,
                    max_abs_err=err, tol=0.0, ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
                    bound_ms=b_ms, bound_by=by)
@@ -861,6 +864,7 @@ def check_turnover(gen: torch.Generator) -> dict:
     """K5 on the planner's K = 2 plans of turnover-heavy ids, then its own
     path: `run_uvt` on those ids for 3 epochs, the launch counts set to 0
     just before it and read just after."""
+    from tclight_torch.ops import banded_gather as bg
     from tclight_torch.ops import kernels
     from tclight_torch.ops.flow import voxelization
     from tclight_torch.pipeline import postopt
@@ -883,15 +887,22 @@ def check_turnover(gen: torch.Generator) -> dict:
                                        warp_radius=postopt.flow_radius(flows.cpu().numpy()))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = kernels.STATS["banded_gather_multi"].launches
-    ok = (launches > 0 and out.shape == frames.shape and np.isfinite(hist).all()
-          and bool(torch.isfinite(out).all()))
+    stats = kernels.STATS["banded_gather_multi"]
+    # K5's launches by direction: a batch of B frames is B * row_blocks(hw)
+    # plan blocks in the render and B * row_blocks(p_pad) in the adjoint
+    per_dir = {"render": bg.row_blocks(HEIGHT * WIDTH), "adjoint": bg.row_blocks(p_pad)}
+    directions = {name: sum(n for key, n in stats.shapes.items() if key[0] % rb == 0)
+                  for name, rb in per_dir.items()}
+    ok = (stats.launches > 0 and sum(directions.values()) == stats.launches
+          and min(directions.values()) > 0 and out.shape == frames.shape
+          and np.isfinite(hist).all() and bool(torch.isfinite(out).all()))
     phase("K5-path", ok=ok, ids=f"{FRAMES}x{HEIGHT}x{WIDTH} tracks={n_unique} K=2",
           run_uvt_s=wall, epoch_s=times.tolist(), loss=hist.tolist(),
-          k5_launches=launches, k3_launches=kernels.STATS["window_warp"].launches)
+          k5_launches=stats.launches, k5_directions=directions,
+          k3_launches=kernels.STATS["window_warp"].launches)
     if not ok:
-        raise SystemExit("run_uvt on turnover ids did not run through K5")
-    return {"rows": rows, "launches": launches}
+        raise SystemExit("run_uvt on turnover ids did not run through K5 in both directions")
+    return {"rows": rows, "launches": directions}
 
 
 KERNEL_GROUPS = (("K6/K7 flash_attention_int8 (pre-passes and max pass included)",
@@ -1080,8 +1091,11 @@ def main() -> int:
                      "tclight_tpu/ops/banded_gather.py:434", launches["banded_gather:adjoint"],
                      banded["rows"][1:], path="main (the UVT adjoint)"),
         kernel_entry("banded_gather_multi", "tclight_torch/csrc/banded_gather.cu",
-                     "tclight_tpu/ops/banded_gather.py:465", turnover["launches"],
-                     turnover["rows"], path="run_uvt on turnover-heavy ids"),
+                     "tclight_tpu/ops/banded_gather.py:465", turnover["launches"]["render"],
+                     turnover["rows"][:1], path="run_uvt on turnover-heavy ids (the render)"),
+        kernel_entry("banded_gather_multi:adjoint", "tclight_torch/csrc/banded_gather.cu",
+                     "tclight_tpu/ops/banded_gather.py:465", turnover["launches"]["adjoint"],
+                     turnover["rows"][1:], path="run_uvt on turnover-heavy ids (the adjoint)"),
         kernel_entry("flash_attention_int8", "tclight_torch/csrc/flash_attention_qk_int8.cu",
                      "tclight_tpu/ops/attention.py:180", launches["flash_attention_int8"],
                      int8[False]["rows"],

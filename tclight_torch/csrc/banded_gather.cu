@@ -30,29 +30,23 @@
 // the span and fetched by one bulk copy lost to the direct gather on the
 // adjoint's sparse plans and on plans whose rows repeat (PERF.md): L1 and
 // L2 already serve the repeats.
-// K5: see its section below.
+//
+// K5 is K4's direct gather with the window select: each entry's window k
+// and in-window offset come from one read of the block's offsets, the
+// row from starts[b, k] (the block's K starts stay in L1). A staged body
+// was measured against it on the render's and the adjoint's K = 2 plans:
+// persistent blocks of threads, two stages of shared memory, each
+// window's selected span (not the whole window) fetched by one TMA bulk
+// copy while the previous block gathered. It lost on the render (0.099 -
+// 0.105 ms against 0.086) and tied on the adjoint (0.149 - 0.152 against
+// 0.151 - 0.153), with pools for 8 blocks an SM; pools for 4 took 0.144
+// and 0.208 (PERF.md §6; the staged body is in commit cae8620). At ~1.5 table rows an output on the render and ~1 on
+// the adjoint, L1 and L2 already serve each block's span.
 
 #include <cuda_runtime.h>
-#include <limits.h>
-#include <algorithm>
 #include <stdint.h>
 
-#include "hopper.cuh"
-
 namespace {
-
-// the largest dynamic shared memory a kernel was given; raised, never
-// lowered, so the attribute is set once per kernel and size, not per launch
-template <auto Kernel>
-int raise_smem_limit(size_t bytes) {
-  static size_t limit = 48 * 1024;  // what every kernel may use unasked
-  if (bytes <= limit) return 0;
-  cudaError_t e = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)bytes);
-  if (e != cudaSuccess) return (int)e;
-  limit = bytes;
-  return 0;
-}
 
 constexpr int K4_ROWS = 4;       // consecutive entries a thread gathers
 constexpr int K4_THREADS = 128;
@@ -157,210 +151,34 @@ int launch_k4_c(const float* table, long long n_rows, int c, const int* starts,
 }
 
 // ------------------------------------------------------------------ K5
-//
-// Both K5 bodies read each block's offsets once (K4's vector loads), keep
-// every entry's window k and in-window offset l in registers, and write
-// the block's bl * C output floats as float4 streaming stores, a thread's
-// K5_ROWS entries contiguous (a warp covers one contiguous run).
-//
-// The staged body (banded_gather_multi_staged_kernel) is persistent: one
-// block of threads per resident slot walks plan blocks b, b + grid, ...
-// with two stages of shared memory. While plan block j is gathered from
-// stage j % 2, the offsets of block j + grid are read, every window's
-// span (min and max l over its entries) is reduced in one pass
-// (redux.sync per warp, then across warps), and thread 0 issues one TMA
-// 1-D bulk copy per window (cp.async.bulk ... complete_tx) of just that
-// span, all K on the stage's mbarrier. A stage's pool holds the K spans
-// back to back; it is sized so that K5_MIN_BLOCKS blocks fit on an SM,
-// and a span that does not fit what is left of it (or lies in the
-// table's last partial 16 bytes, which a bulk copy cannot reach) is read
-// from global memory by the gather instead: the result does not depend
-// on the pool's size. The bulk copy does not zero-fill; rows past the
-// table's end are zeros by the gather's own test.
-//
-// The direct body (banded_gather_multi_direct_kernel) is K4's: each
-// selected row straight from global memory, with the window select, and
-// no staging.
 
-constexpr int K5_ROWS = K4_ROWS;  // entries a thread gathers
-constexpr int K5_MAX_THREADS = 512;
-constexpr int K5_MAX_BL = K5_ROWS * K5_MAX_THREADS;
-
-// one window of a stage, written by thread 0: floats [a0, a1) of the
-// table are staged at pool offset `base` (-1: not staged)
-struct K5Window {
-  long long a0, a1;
-  int start, base;
-};
-
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// entries [i0, i0 + K5_ROWS) of a plan block as (window, offset in it);
+// entries [i0, i0 + K4_ROWS) of a plan block as (window, offset in it);
 // k = -1 where the entry gives a zero row (offs < 0 or >= nwin * window).
 // Offsets are widened to int before the window subtraction.
 template <typename OffT>
 __device__ __forceinline__ void k5_entries(const OffT* ob, int i0, int bl, bool vec, int window,
-                                           int nwin, int (&k)[K5_ROWS], int (&l)[K5_ROWS]) {
-  int o[K5_ROWS];
+                                           int nwin, int (&k)[K4_ROWS], int (&l)[K4_ROWS]) {
+  int o[K4_ROWS];
   load_offs<OffT>(ob, i0, bl, vec, o);
   const long long limit = (long long)nwin * window;
 #pragma unroll
-  for (int e = 0; e < K5_ROWS; ++e) {
+  for (int e = 0; e < K4_ROWS; ++e) {
     const bool live = o[e] >= 0 && o[e] < limit;
     k[e] = live ? o[e] / window : -1;
     l[e] = live ? o[e] - k[e] * window : 0;
   }
 }
 
-// a thread's K5_ROWS gathered rows to out rows [i0, i0 + K5_ROWS)
-template <int C>
-__device__ __forceinline__ void k5_store(float* outb, int i0, int bl, bool vec_out,
-                                         const float (&r)[K5_ROWS * C]) {
-  if (vec_out && i0 + K5_ROWS <= bl) {
-    float4* dst = reinterpret_cast<float4*>(outb + (size_t)i0 * C);
-#pragma unroll
-    for (int q = 0; q < K5_ROWS * C / 4; ++q)
-      __stcs(dst + q, make_float4(r[4 * q], r[4 * q + 1], r[4 * q + 2], r[4 * q + 3]));
-  } else {
-#pragma unroll
-    for (int e = 0; e < K5_ROWS; ++e) {
-      if (i0 + e < bl) {
-#pragma unroll
-        for (int ch = 0; ch < C; ++ch) outb[(size_t)(i0 + e) * C + ch] = r[e * C + ch];
-      }
-    }
-  }
-}
-
-template <typename OffT, int C>
-__global__ void __launch_bounds__(K5_MAX_THREADS)
-banded_gather_multi_staged_kernel(const float* __restrict__ table, long long n_rows,
-                                  const int* __restrict__ starts, const OffT* __restrict__ offs,
-                                  float* __restrict__ out, int nb, int bl, int window, int nwin,
-                                  int pool_floats) {
-  using namespace tclight::hopper;
-  constexpr int V = K5_ROWS;
-  extern __shared__ float4 smem4[];
-  float* pool = reinterpret_cast<float*>(smem4);                      // [2][pool_floats]
-  K5Window* wins = reinterpret_cast<K5Window*>(pool + 2 * pool_floats);  // [2][nwin]
-  int* red = reinterpret_cast<int*>(wins + 2 * nwin);                 // [2][warps][nwin]
-  __shared__ __align__(8) uint64_t bar[2];
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, warps = blockDim.x >> 5;
-  const int i0 = V * tid;  // bl <= V * blockDim.x: one pass
-  // whole 16-byte chunks of the table: what a bulk copy may read
-  const long long tail = (n_rows * C) & ~3LL;
-  const bool vec = bl % V == 0 && reinterpret_cast<uintptr_t>(offs) % 16 == 0;
-  if (tid == 0) {
-    mbar_init(&bar[0], 1);
-    mbar_init(&bar[1], 1);
-    mbar_fence_init();
-  }
-  __syncthreads();
-
-  // read plan block b's offsets, reduce its windows' spans, and (thread 0)
-  // start the copies of the spans into stage s
-  auto prepare = [&](int b, int s, int (&k)[V], int (&l)[V]) {
-    k5_entries<OffT>(offs + (size_t)b * bl, i0, bl, vec, window, nwin, k, l);
-    for (int w = 0; w < nwin; ++w) {
-      int lo = INT_MAX, hi = -1;
-#pragma unroll
-      for (int e = 0; e < V; ++e) {
-        if (k[e] == w) {
-          lo = min(lo, l[e]);
-          hi = max(hi, l[e]);
-        }
-      }
-      lo = __reduce_min_sync(0xffffffffu, lo);
-      hi = __reduce_max_sync(0xffffffffu, hi);
-      if (lane == 0) {
-        red[warp * nwin + w] = lo;
-        red[(warps + warp) * nwin + w] = hi;
-      }
-    }
-    __syncthreads();
-    if (tid == 0) {
-      K5Window* win = wins + s * nwin;
-      float* stage = pool + (size_t)s * pool_floats;
-      int used = 0;
-      for (int w = 0; w < nwin; ++w) {
-        int lo = INT_MAX, hi = -1;
-        for (int i = 0; i < warps; ++i) {
-          lo = min(lo, red[i * nwin + w]);
-          hi = max(hi, red[(warps + i) * nwin + w]);
-        }
-        const int start = starts[(size_t)b * nwin + w];
-        K5Window rec{0, 0, start, -1};
-        if (hi >= 0 && (long long)start + lo >= 0) {
-          const long long a0 = (((long long)start + lo) * C) & ~3LL;
-          const long long a1 = min((((long long)start + hi + 1) * C + 3) & ~3LL, tail);
-          if (a1 > a0 && used + (a1 - a0) <= pool_floats) {
-            rec = {a0, a1, start, used};
-            used += (int)(a1 - a0);
-          }
-        }
-        win[w] = rec;
-      }
-      if (used == 0) {
-        mbar_arrive(&bar[s]);
-      } else {
-        // the stage was last read by ordinary loads; the copies write it
-        // through the async proxy
-        fence_proxy_async();
-        mbar_expect_tx(&bar[s], (uint32_t)used * 4);
-        for (int w = 0; w < nwin; ++w)
-          if (win[w].base >= 0)
-            bulk_load(stage + win[w].base, table + win[w].a0,
-                      (uint32_t)(win[w].a1 - win[w].a0) * 4, &bar[s]);
-      }
-    }
-    __syncthreads();
-  };
-
-  int kc[V], lc[V];
-  int b = blockIdx.x;
-  if (b < nb) prepare(b, 0, kc, lc);
-  for (int it = 0; b < nb; b += gridDim.x, ++it) {
-    const int s = it & 1;
-    int kn[V], ln[V];
-    if (b + (int)gridDim.x < nb) prepare(b + gridDim.x, s ^ 1, kn, ln);
-    mbar_wait(&bar[s], (it >> 1) & 1);
-    const K5Window* win = wins + s * nwin;
-    const float* stage = pool + (size_t)s * pool_floats;
-    float r[V * C];
-#pragma unroll
-    for (int e = 0; e < V; ++e) {
-      float* re = r + e * C;
-      long long row = 0;
-      bool staged = false;
-      if (kc[e] >= 0) {
-        const K5Window wk = win[kc[e]];
-        row = max((long long)wk.start + lc[e], 0LL);
-        const long long f = row * C;
-        staged = wk.base >= 0 && f >= wk.a0 && f + C <= wk.a1;
-        if (staged) {
-#pragma unroll
-          for (int ch = 0; ch < C; ++ch) re[ch] = stage[wk.base + (f - wk.a0) + ch];
-        }
-      }
-      if (!staged) fetch_row<C>(re, table, row, kc[e] >= 0 && row < n_rows);
-    }
-    float* outb = out + (size_t)b * bl * C;
-    k5_store<C>(outb, i0, bl, reinterpret_cast<uintptr_t>(outb) % 16 == 0, r);
-    __syncthreads();  // stage s is refilled by the next iteration's prepare
-#pragma unroll
-    for (int e = 0; e < V; ++e) kc[e] = kn[e], lc[e] = ln[e];
-  }
-}
-
+// K5: as K4, each thread reads the offsets of its K4_ROWS consecutive
+// entries once, loads the rows they select (row starts[b, k] + l, a row
+// past the table's end a zero row) and writes its K4_ROWS * C contiguous
+// output floats as float4 streaming stores.
 template <typename OffT, int C>
 __global__ void __launch_bounds__(K4_THREADS)
-banded_gather_multi_direct_kernel(const float* __restrict__ table, long long n_rows,
-                                  const int* __restrict__ starts, const OffT* __restrict__ offs,
-                                  float* __restrict__ out, int bl, int window, int nwin) {
-  constexpr int V = K5_ROWS;
+banded_gather_multi_kernel(const float* __restrict__ table, long long n_rows,
+                           const int* __restrict__ starts, const OffT* __restrict__ offs,
+                           float* __restrict__ out, int bl, int window, int nwin) {
+  constexpr int V = K4_ROWS;
   const int b = blockIdx.x;
   const OffT* ob = offs + (size_t)b * bl;
   const int* sb = starts + (size_t)b * nwin;
@@ -376,83 +194,41 @@ banded_gather_multi_direct_kernel(const float* __restrict__ table, long long n_r
       const long long row = k[e] >= 0 ? max((long long)__ldg(sb + k[e]) + l[e], 0LL) : 0;
       fetch_row<C>(r + e * C, table, row, k[e] >= 0 && row < n_rows);
     }
-    k5_store<C>(outb, i0, bl, vec_out, r);
+    if (vec_out && i0 + V <= bl) {
+      float4* dst = reinterpret_cast<float4*>(outb + (size_t)i0 * C);
+#pragma unroll
+      for (int q = 0; q < V * C / 4; ++q)
+        __stcs(dst + q, make_float4(r[4 * q], r[4 * q + 1], r[4 * q + 2], r[4 * q + 3]));
+    } else {
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        if (i0 + e < bl) {
+#pragma unroll
+          for (int ch = 0; ch < C; ++ch) outb[(size_t)(i0 + e) * C + ch] = r[e * C + ch];
+        }
+      }
+    }
   }
-}
-
-int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-  }
-  return n;
-}
-
-// stage bytes that let `blocks` staged blocks share an SM's 228 KB (1 KB
-// of each block's is reserved by the hardware)
-constexpr int k5_stage_bytes(int blocks) { return ((228 * 1024 / blocks - 1024) / 2 - 512) & ~15; }
-
-template <typename OffT, int C>
-int launch_k5_staged(const float* table, long long n_rows, const int* starts, const void* offs,
-                     float* out, int nb, int bl, int window, int nwin, int min_blocks,
-                     cudaStream_t s) {
-  const int threads = ((bl + K5_ROWS - 1) / K5_ROWS + 31) / 32 * 32;
-  // every window's widest span, 16-byte aligned at both ends, up to what
-  // lets min_blocks blocks share an SM
-  const long long want = (long long)nwin * ((long long)window * C + 8);
-  const int pool = (int)std::min(want, (long long)k5_stage_bytes(min_blocks) / 4) & ~3;
-  const size_t smem = 2 * (size_t)pool * 4 + 2 * (size_t)nwin * sizeof(K5Window) +
-                      2 * (size_t)(threads / 32) * nwin * sizeof(int);
-  auto kernel = banded_gather_multi_staged_kernel<OffT, C>;
-  int e = raise_smem_limit<banded_gather_multi_staged_kernel<OffT, C>>(smem);
-  if (e) return e;
-  int per_sm = 0;
-  e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
-  if (e) return e;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const int grid = (int)std::min((long long)nb, (long long)per_sm * sm_count());
-  kernel<<<grid, threads, smem, s>>>(table, n_rows, starts, static_cast<const OffT*>(offs), out,
-                                     nb, bl, window, nwin, pool);
-  return (int)cudaGetLastError();
-}
-
-template <typename OffT, int C>
-int launch_k5_direct(const float* table, long long n_rows, const int* starts, const void* offs,
-                     float* out, int nb, int bl, int window, int nwin, cudaStream_t s) {
-  int threads = ((bl + K5_ROWS - 1) / K5_ROWS + 31) / 32 * 32;
-  if (threads > K4_THREADS) threads = K4_THREADS;
-  banded_gather_multi_direct_kernel<OffT, C><<<nb, threads, 0, s>>>(
-      table, n_rows, starts, static_cast<const OffT*>(offs), out, bl, window, nwin);
-  return (int)cudaGetLastError();
 }
 
 template <typename OffT, int C>
 int launch_k5(const float* table, long long n_rows, const int* starts, const void* offs,
-              float* out, int nb, int bl, int window, int nwin, int form, cudaStream_t s) {
-  switch (form) {
-    case 1: return launch_k5_staged<OffT, C>(table, n_rows, starts, offs, out, nb, bl, window,
-                                             nwin, 8, s);
-    case 2: return launch_k5_staged<OffT, C>(table, n_rows, starts, offs, out, nb, bl, window,
-                                             nwin, 4, s);
-    default: return launch_k5_direct<OffT, C>(table, n_rows, starts, offs, out, nb, bl, window,
-                                              nwin, s);
-  }
+              float* out, int nb, int bl, int window, int nwin, cudaStream_t s) {
+  int threads = ((bl + K4_ROWS - 1) / K4_ROWS + 31) / 32 * 32;
+  if (threads > K4_THREADS) threads = K4_THREADS;
+  banded_gather_multi_kernel<OffT, C><<<nb, threads, 0, s>>>(
+      table, n_rows, starts, static_cast<const OffT*>(offs), out, bl, window, nwin);
+  return (int)cudaGetLastError();
 }
 
 template <typename OffT>
 int launch_k5_c(const float* table, long long n_rows, int c, const int* starts, const void* offs,
-                float* out, int nb, int bl, int window, int nwin, int form, cudaStream_t s) {
+                float* out, int nb, int bl, int window, int nwin, cudaStream_t s) {
   switch (c) {
-    case 1: return launch_k5<OffT, 1>(table, n_rows, starts, offs, out, nb, bl, window, nwin,
-                                      form, s);
-    case 2: return launch_k5<OffT, 2>(table, n_rows, starts, offs, out, nb, bl, window, nwin,
-                                      form, s);
-    case 3: return launch_k5<OffT, 3>(table, n_rows, starts, offs, out, nb, bl, window, nwin,
-                                      form, s);
-    default: return launch_k5<OffT, 4>(table, n_rows, starts, offs, out, nb, bl, window, nwin,
-                                       form, s);
+    case 1: return launch_k5<OffT, 1>(table, n_rows, starts, offs, out, nb, bl, window, nwin, s);
+    case 2: return launch_k5<OffT, 2>(table, n_rows, starts, offs, out, nb, bl, window, nwin, s);
+    case 3: return launch_k5<OffT, 3>(table, n_rows, starts, offs, out, nb, bl, window, nwin, s);
+    default: return launch_k5<OffT, 4>(table, n_rows, starts, offs, out, nb, bl, window, nwin, s);
   }
 }
 
@@ -474,20 +250,17 @@ extern "C" int tclight_banded_gather(const float* table, long long n_rows, int c
 }
 
 // K5. K windows per block: starts (nb, nwin) int32, offs encode the window
-// as offs / window; bl <= K5_MAX_BL. form: 1 the staged body with pools for
-// 8 blocks an SM, 2 the staged body with pools for 4, 3 the direct body.
+// as offs / window.
 extern "C" int tclight_banded_gather_multi(const float* table, long long n_rows, int c,
                                            const int* starts, const void* offs,
                                            int offs_bytes, float* out, int nb, int bl,
-                                           int window, int nwin, int form, void* stream) {
-  if (c < 1 || c > 4 || bl < 1 || bl > K5_MAX_BL || window < 1 || nwin < 1 || n_rows < 0)
+                                           int window, int nwin, void* stream) {
+  if (c < 1 || c > 4 || bl < 1 || window < 1 || nwin < 1 || n_rows < 0)
     return (int)cudaErrorInvalidValue;
   if (reinterpret_cast<uintptr_t>(table) % 16 != 0) return (int)cudaErrorMisalignedAddress;
   if (nb == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return offs_bytes == 2
-             ? launch_k5_c<int16_t>(table, n_rows, c, starts, offs, out, nb, bl, window, nwin,
-                                    form, s)
-             : launch_k5_c<int32_t>(table, n_rows, c, starts, offs, out, nb, bl, window, nwin,
-                                    form, s);
+             ? launch_k5_c<int16_t>(table, n_rows, c, starts, offs, out, nb, bl, window, nwin, s)
+             : launch_k5_c<int32_t>(table, n_rows, c, starts, offs, out, nb, bl, window, nwin, s);
 }

@@ -36,9 +36,12 @@ class VideoDataParser:
         self.n_unique: int | None = None
         self._data_cache = None
 
-    def load_video(self, frame_ids: Sequence[int] | None = None) -> np.ndarray:
-        """(N, H, W, 3) float32 frames in [0, 1]."""
-        return load_video(self.rgb_path, self.height, self.width, frame_ids=frame_ids)
+    def load_video(self, frame_ids: Sequence[int] | None = None,
+                   path: str | None = None) -> np.ndarray:
+        """(N, H, W, 3) float32 frames in [0, 1] of the parser's video, or of
+        the video or image at `path` (the fbc background), at the parser's
+        size."""
+        return load_video(path or self.rgb_path, self.height, self.width, frame_ids=frame_ids)
 
     def _flow_cache_dir(self, direction: str) -> Path:
         stem = Path(self.rgb_path).with_suffix("")

@@ -26,9 +26,9 @@ base b * frame_tiles(L) * 128, as the TPU addresses it.
 
 K4 and K5 replace the TPU kernels `_kernel` and `_kernel_multi`. On the
 H100 both are bound by bytes: every output row is written once and every
-selected table row read once. K4 gathers each selected row straight from
-the table, with no staging; K5 stages each window's selected span
-(details in the source).
+selected table row read once. Both gather each selected row straight from
+the table, with no staging (a staged K5 measured slower; details in the
+source).
 """
 
 from __future__ import annotations
@@ -432,7 +432,8 @@ def _check(table, starts, offs, nwin):
         raise ValueError(f"banded gather: {table.shape[1]} channels; the kernel takes 1 to 4")
     if table.data_ptr() % 16:
         raise ValueError("banded gather: the table's base must be 16-byte aligned for "
-                         "cp.async (a row slice of a larger table is not); pass a copy")
+                         "the kernels' 16-byte loads (a row slice of a larger table is not); "
+                         "pass a copy")
     if offs.dtype not in (torch.int16, torch.int32) or offs.dim() != 2:
         raise ValueError(f"banded gather: offs must be 2-d int16 or int32, got {offs.dtype}")
     want = (offs.shape[0],) if nwin is None else (offs.shape[0], nwin)
@@ -447,21 +448,17 @@ def _check(table, starts, offs, nwin):
 _HEAD = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
          ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
 _ENTRIES = {"tclight_banded_gather": _HEAD + [ctypes.c_void_p],
-            "tclight_banded_gather_multi": _HEAD + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]}
-# the most entries a K5 block takes (`K5_MAX_BL` in the source)
-_K5_MAX_BL = 2048
-# K5's bodies: the staged one with pools for 8 or 4 blocks an SM, the direct one
-K5_FORMS = {"staged8": 1, "staged4": 2, "direct": 3}
+            "tclight_banded_gather_multi": _HEAD + [ctypes.c_int, ctypes.c_void_p]}
 
 
-def _launch(entry, stat, table, starts, offs, window, nwin, form=0):
+def _launch(entry, stat, table, starts, offs, window, nwin):
     nb, bl = offs.shape
     c = table.shape[1]
     out = torch.empty((nb, bl, c), dtype=torch.float32, device=table.device)
     fn = kernels.function("banded_gather", entry, _ENTRIES[entry], ctypes.c_int)
     rc = fn(table.data_ptr(), table.shape[0], c, starts.data_ptr(), offs.data_ptr(),
             offs.element_size(), out.data_ptr(), nb, bl, int(window),
-            *((nwin, form) if nwin else ()), torch.cuda.current_stream(table.device).cuda_stream)
+            *((nwin,) if nwin else ()), torch.cuda.current_stream(table.device).cuda_stream)
     kernels.check_launch(rc, stat)
     kernels.STATS[stat].record((nb, bl, c, int(window)) + ((nwin,) if nwin else ()))
     return out
@@ -477,16 +474,13 @@ def banded_gather_cuda(table: torch.Tensor, starts: torch.Tensor,
 
 
 def banded_gather_multi_cuda(table: torch.Tensor, starts: torch.Tensor,
-                             offs: torch.Tensor, window: int,
-                             form: str = "staged8") -> torch.Tensor:
-    """Launch K5: starts (NB, K) int32, offs (NB, BL), BL <= 2048; an
-    offset of K * window or more gives a zero row."""
+                             offs: torch.Tensor, window: int) -> torch.Tensor:
+    """Launch K5: starts (NB, K) int32, offs (NB, BL); an offset of K *
+    window or more gives a zero row. Each selected row is read straight
+    from the table, from the start of its window."""
     _check(table, starts, offs, starts.shape[1] if starts.dim() == 2 else -1)
-    if offs.shape[1] > _K5_MAX_BL:
-        raise ValueError(f"banded gather: {offs.shape[1]} entries a block; K5 takes at most "
-                         f"{_K5_MAX_BL}")
     return _launch("tclight_banded_gather_multi", "banded_gather_multi", table, starts,
-                   offs, window, starts.shape[1], K5_FORMS[form])
+                   offs, window, starts.shape[1])
 
 
 def banded_gather(table: torch.Tensor, starts: torch.Tensor, offs: torch.Tensor,

@@ -396,6 +396,25 @@ class Generator:
                                device=self.device)
         raise NotImplementedError(self.noise_mode)
 
+    def encode_conditions(self, frames: np.ndarray) -> torch.Tensor:
+        """IC-Light's concat conditions: the frames' latents, and on a
+        12-channel (fbc) UNet the background's latents after them, from
+        `generation.background_image_path` tiled to the frame count, or
+        zeros without one (tclight_tpu/pipeline/generator.py:1090-1101)."""
+        conds = self.encode_imgs_batch(frames)
+        if self.models.unet.config.in_channels != 12:
+            return conds
+        bg_path = _cfg_get(self.config.get("generation", {}), "background_image_path", None)
+        if bg_path:
+            n = len(frames)
+            bg = self.data_parser.load_video(path=str(bg_path))
+            if len(bg) < n:
+                bg = np.concatenate([bg] * (n // len(bg) + 1))[:n]
+            bg_lat = self.encode_imgs_batch(bg[:n])
+        else:
+            bg_lat = torch.zeros_like(conds)
+        return torch.cat([conds, bg_lat], -1)
+
     @torch.inference_mode()
     def __call__(self, latents_path, output_path, frame_ids, init_noise=None,
                  step_noises=None):
@@ -411,10 +430,7 @@ class Generator:
         init_noise = torch.as_tensor(init_noise, dtype=torch.float32, device=self.device)
 
         t_s = time.perf_counter()
-        concat_conds = self.encode_imgs_batch(frames)
-        if self.models.unet.config.in_channels == 12:
-            # fbc without a background: zero background latents
-            concat_conds = torch.cat([concat_conds, torch.zeros_like(concat_conds)], -1)
+        concat_conds = self.encode_conditions(frames)
         self._sync()
         self.stage_times["encode"] = time.perf_counter() - t_s
 

@@ -1,29 +1,42 @@
 """IC-Light / SD model stack (counterpart of tclight_tpu/pipeline/iclight.py).
 
 SD1.5 with an 8-channel (fc) or 12-channel (fbc) conv_in; the
-conditioning latents are concatenated by the Generator. This slice builds
-stacks with random weights, made from a seed, or from state dicts the
-caller hands in (the tests bridge the JAX package's weights with
-`models/bridge.py`). Loading diffusers checkpoints is a later slice.
+conditioning latents are concatenated by the Generator. Stacks come with
+random weights made from a seed, from state dicts the caller hands in
+(the tests bridge the JAX package's weights with `models/bridge.py`), or
+from local checkpoint files (`load_iclight`), laid out as the JAX
+package reads them:
+
+  <model_dir>/unet.safetensors          diffusers UNet state dict
+  <model_dir>/vae.safetensors           diffusers VAE state dict
+  <model_dir>/text_encoder.safetensors  transformers CLIP text model state dict
+  <model_dir>/tokenizer/                CLIP tokenizer files (optional)
+  <model_dir>/iclight_sd15_fc.safetensors   (or _fbc) IC-Light weight offsets
 """
 
 from __future__ import annotations
 
 import dataclasses
 import hashlib
+from pathlib import Path
 from typing import Any
 
 import torch
 from torch import nn
 
 from tclight_torch.diffusion.schedulers import DPMSolverMultistepScheduler
+from tclight_torch.models import bridge
 from tclight_torch.models.clip_text import CLIPTextConfig, CLIPTextModel
+from tclight_torch.models.convert import (convert_clip_text, convert_unet, convert_vae,
+                                          expand_conv_in, load_torch_state_dict,
+                                          merge_offsets)
 from tclight_torch.models.unet import ToMeSpec, UNet2DCondition, UNetConfig
 from tclight_torch.models.vae import AutoencoderKL, VAEConfig
 from tclight_torch.utils.device import resolve_device
 
 __all__ = ["DummyTokenizer", "ICLightModels", "init_like_flax", "build_iclight",
-           "build_tiny_iclight", "build_full_width_random"]
+           "build_tiny_iclight", "build_full_width_random", "load_tokenizer",
+           "load_iclight"]
 
 
 class DummyTokenizer:
@@ -134,3 +147,61 @@ def build_full_width_random(seed: int = 0, num_inference_steps: int = 25,
     return build_iclight(UNetConfig.sd15(in_channels=8), VAEConfig.sd15(),
                          CLIPTextConfig.sd15(), num_inference_steps, seed,
                          None, device)
+
+
+def load_tokenizer(tokenizer_dir: str | Path):
+    """The CLIP tokenizer saved in `tokenizer_dir` (transformers' files)."""
+    from transformers import CLIPTokenizer
+
+    return CLIPTokenizer.from_pretrained(str(tokenizer_dir))
+
+
+def load_iclight(model_dir: str | Path, mode: str = "fc", num_inference_steps: int = 25,
+                 device: str | torch.device | None = "cuda") -> ICLightModels:
+    """The IC-Light stack from the checkpoint files in `model_dir` (layout
+    in the module docstring), as the JAX package's `load_iclight` builds
+    it: the UNet's conv_in zero-extended to 8 (`fc`) or 12 (`fbc`) input
+    channels and the mode's IC-Light offsets added when their file is
+    there; the diffusers / transformers keys go through `models/convert.py`
+    and `models/bridge.py`. The configs are SD1.5's, or the tiny ones of
+    `build_tiny_iclight` when the UNet's first width is theirs (32, not
+    320). The UNet and the VAE run in bf16 on the card and in f32 on the
+    CPU; the CLIP text model in f32. The tokenizer comes from `tokenizer/`
+    when it is there, else the DummyTokenizer, as in the JAX package."""
+    if mode not in ("fc", "fbc"):
+        raise ValueError(f"mode must be 'fc' or 'fbc', got {mode!r}")
+    dev = resolve_device(device)
+    model_dir = Path(model_dir)
+    in_channels = {"fc": 8, "fbc": 12}[mode]
+    dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
+
+    sd_unet = load_torch_state_dict(model_dir / "unet.safetensors")
+    width = sd_unet["conv_in.weight"].shape[0]
+    size = next((name for name in ("sd15", "tiny")
+                 if getattr(UNetConfig, name)().block_out_channels[0] == width), None)
+    if size is None:
+        raise ValueError(f"{model_dir}: a UNet of first width {width} is neither SD1.5's "
+                         "(320) nor the tiny test stack's (32)")
+    ucfg = getattr(UNetConfig, size)(in_channels=in_channels, dtype=dtype)
+    vcfg = getattr(VAEConfig, size)(dtype=dtype)
+    tcfg = getattr(CLIPTextConfig, size)()
+
+    sd_unet = expand_conv_in(sd_unet, in_channels)
+    offset_file = model_dir / f"iclight_sd15_{mode}.safetensors"
+    if offset_file.exists():
+        sd_unet = merge_offsets(sd_unet, load_torch_state_dict(offset_file))
+    state_dicts = {
+        "unet": bridge.unet_state_dict(
+            convert_unet(sd_unet, n_levels=len(ucfg.block_out_channels))),
+        "vae": bridge.vae_state_dict(convert_vae(
+            load_torch_state_dict(model_dir / "vae.safetensors"),
+            n_levels=len(vcfg.block_out_channels))),
+        "text_encoder": bridge.clip_text_state_dict(convert_clip_text(
+            load_torch_state_dict(model_dir / "text_encoder.safetensors"))),
+    }
+    del sd_unet
+    models = build_iclight(ucfg, vcfg, tcfg, num_inference_steps,
+                           state_dicts=state_dicts, device=dev)
+    tok_dir = model_dir / "tokenizer"
+    tokenizer = load_tokenizer(tok_dir) if tok_dir.exists() else DummyTokenizer()
+    return dataclasses.replace(models, tokenizer=tokenizer)

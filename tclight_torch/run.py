@@ -11,10 +11,12 @@ flows of `data.flow_model`: Farneback flows are computed; RAFT and MemFlow
 flows are read from the flow cache next to the video
 (`<stem>_{future,past}_flow_<backend>/NNNNN.npy`, as the JAX package writes
 it), and a frame that misses the cache raises, since those networks are
-not ported (ROADMAP A9). Weights: with
+not ported (ROADMAP A9). Weights: from the checkpoint files in
+`model_dir` when it names an existing directory (layout in
+tclight_torch/pipeline/iclight.py; IC-Light's `fbc` offsets and 12-channel
+UNet when `generation.background_cond` is set, else `fc`); else, with
 `--full-width-random`, the SD1.5 IC-Light stack on random weights; with
-TCLIGHT_TINY=1, the tiny random stack. Loading checkpoints from
-`model_dir` is not ported yet.
+TCLIGHT_TINY=1, the tiny random stack.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ def main(argv=None, device: str = "cuda") -> int:
     from tclight_torch.data.dataparsers import make_data_parser
     from tclight_torch.pipeline.generator import Generator
     from tclight_torch.pipeline.iclight import (build_full_width_random,
-                                               build_tiny_iclight)
+                                               build_tiny_iclight, load_iclight)
     from tclight_torch.utils.device import resolve_device
     from tclight_torch.utils.logging import get_logger
     from tclight_torch.utils.video_io import count_frames, get_frame_ids
@@ -51,9 +53,10 @@ def main(argv=None, device: str = "cuda") -> int:
     steps = config.get_path("generation.n_timesteps", 25) or 25
     model_dir = config.get("model_dir")
     if model_dir and Path(str(model_dir)).exists():
-        raise NotImplementedError("loading checkpoints from model_dir is not "
-                                  "ported yet; use --full-width-random")
-    if known.full_width_random:
+        mode = "fbc" if config.get_path("generation.background_cond") else "fc"
+        log.info("loading IC-Light (%s) from %s", mode, model_dir)
+        models = load_iclight(model_dir, mode=mode, num_inference_steps=steps, device=dev)
+    elif known.full_width_random:
         models = build_full_width_random(num_inference_steps=steps, device=dev)
     elif os.environ.get("TCLIGHT_TINY"):
         log.warning("using tiny random-weight models (TCLIGHT_TINY)")
@@ -62,8 +65,8 @@ def main(argv=None, device: str = "cuda") -> int:
         models = build_tiny_iclight(num_inference_steps=steps, dtype=dtype,
                                     device=dev)
     else:
-        log.error("no weights: pass --full-width-random or export "
-                  "TCLIGHT_TINY=1 (checkpoint loading is not ported yet)")
+        log.error("no weights: set model_dir to a local checkpoint directory, pass "
+                  "--full-width-random or export TCLIGHT_TINY=1")
         return 2
 
     parser = make_data_parser(config.data)

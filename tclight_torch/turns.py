@@ -11,7 +11,11 @@ chip_smoke's 8-frame video (rolling texture, 960x720), and K5 the K = 2
 plans of chip_smoke's turnover ids (8 frames at 960x720, its post-opt
 batch of 16), both computed once by this checkout into build/turns/.
 
-    python -m tclight_torch.turns OTHER_CHECKOUT [K2 K6 K7 K3 K5]
+    python -m tclight_torch.turns OTHER_CHECKOUT [K2 K6 K7 K3 K5 K5-path]
+
+K5-path is chip_smoke's K5 path: `run_uvt` on the turnover ids for 5
+epochs; its ms is the median epoch past the first (the first plans and
+warms up).
 
 Prints the card's name and power limit, then one line per leg and shape:
 milliseconds (CUDA events over a few calls, after a warm-up). Needs a
@@ -36,8 +40,8 @@ SHAPES = ([("K2", "global L0", (2, 23760, 23760, 320)), ("K2", "local L0", (2, 3
           + [("K7", label, shape) for label, shape in ATTENTION]
           + [("K3", f"{d} {case}", (16, 720, 960, r, d == "adjoint"))
              for case, r in (("farneback", 4), ("random", 24)) for d in ("forward", "adjoint")]
-          + [("K5", f"{d} {form}", (d, form)) for d in ("render", "adjoint")
-             for form in ("staged8", "staged4", "direct")])
+          + [("K5", d, d) for d in ("render", "adjoint")]
+          + [("K5-path", "run_uvt", (8, 720, 960, 5))])
 FRAMES = 8  # chip_smoke's main video; its post-opt batch pads it to 16 with frame 0
 
 
@@ -57,9 +61,9 @@ def farneback_flows(path) -> None:
 
 
 def k5_plans(path) -> None:
-    """The render's and the adjoint's K = 2 plans of chip_smoke's turnover
-    ids for its post-opt batch, saved to `path` (as chip_smoke's K5 rows
-    take them)."""
+    """chip_smoke's turnover ids, and the render's and the adjoint's K = 2
+    plans of them for its post-opt batch, saved to `path` (as chip_smoke's
+    K5 rows take them)."""
     import numpy as np
     import torch
 
@@ -77,7 +81,8 @@ def k5_plans(path) -> None:
     wf, wb = postopt._banded_windows(hw, p_pad)
     base = torch.arange(len(idx), dtype=torch.int32) * (bg.frame_tiles(hw) * 128)
     k = tables[1].shape[-1]
-    torch.save({"render": (p_pad, tables[1][idx].reshape(-1, k), tables[2][idx].reshape(-1, 512),
+    torch.save({"ids": (unq_inv, int(unq_inv.max()) + 1),
+                "render": (p_pad, tables[1][idx].reshape(-1, k), tables[2][idx].reshape(-1, 512),
                            wf),
                 "adjoint": (len(idx) * bg.frame_tiles(hw) * 128,
                             (tables[6][idx] + base[:, None, None]).reshape(-1, k),
@@ -114,17 +119,24 @@ def leg(shapes, flows_path, plans_path) -> None:
             bt = F.normalize(torch.randn(b, d, c, device="cuda", generator=gen), dim=-1).bfloat16()
             t = ms(lambda: online_argmax_scores_cuda(a, bt), 5)
         elif kernel == "K5":
-            direction, form = shape
-            n_rows, starts, offs, window = torch.load(plans_path)[direction]
+            n_rows, starts, offs, window = torch.load(plans_path, weights_only=False)[shape]
             table = torch.randn(n_rows, 3, device="cuda", generator=gen)
             starts, offs = starts.cuda(), offs.cuda()
-            if "form" in inspect.signature(banded_gather_multi_cuda).parameters:
-                t = ms(lambda: banded_gather_multi_cuda(table, starts, offs, window, form=form), 20)
-            elif form == "staged8":
-                label = f"{direction} (one body)"
-                t = ms(lambda: banded_gather_multi_cuda(table, starts, offs, window), 20)
-            else:
-                continue
+            t = ms(lambda: banded_gather_multi_cuda(table, starts, offs, window), 20)
+        elif kernel == "K5-path":
+            # chip_smoke's K5-path phase: run_uvt on the turnover ids
+            from tclight_torch.pipeline import postopt
+
+            n, h, w, epochs = shape
+            unq_inv, n_unique = torch.load(plans_path, weights_only=False)["ids"]
+            frames = torch.rand(n, h, w, 3, device="cuda", generator=gen)
+            flows = torch.zeros(n, h, w, 2, device="cuda")
+            masks = torch.ones(n, h, w, device="cuda")
+            _, _, times = postopt.run_uvt(frames, flows, masks, unq_inv, n_unique,
+                                          postopt.PostOptConfig(epochs=epochs),
+                                          warp_radius=postopt.flow_radius(flows.cpu().numpy()))
+            label += " epoch_s=" + ",".join(f"{x:.4f}" for x in times)
+            t = float(np.median(times[1:])) * 1e3
         elif kernel == "K3":
             n, h, w, r, adjoint = shape
             x = torch.rand(n, h, w, 3, device="cuda", generator=gen)
@@ -144,7 +156,7 @@ def leg(shapes, flows_path, plans_path) -> None:
 
 
 def main(argv: list[str]) -> int:
-    every = {"K2", "K6", "K7", "K3", "K5"}
+    every = {"K2", "K6", "K7", "K3", "K5", "K5-path"}
     kernels = set(argv[1:]) or every
     if not argv or not kernels <= every:
         print(__doc__, file=sys.stderr)
@@ -159,12 +171,12 @@ def main(argv: list[str]) -> int:
         flows_path.parent.mkdir(parents=True, exist_ok=True)
         farneback_flows(flows_path)
     plans_path = here / "build" / "turns" / "k5_plans.pt"
-    if "K5" in kernels and not plans_path.exists():
+    if kernels & {"K5", "K5-path"} and not plans_path.exists():
         plans_path.parent.mkdir(parents=True, exist_ok=True)
         sys.path.insert(0, str(here))
         k5_plans(plans_path)
     shapes = [sh for sh in SHAPES if sh[0] in kernels]
-    code = ("import inspect\n" + inspect.getsource(leg)
+    code = (inspect.getsource(leg)
             + f"\nleg({shapes!r}, {str(flows_path)!r}, {str(plans_path)!r})\n")
     for name, root in (("this", here), ("other", other), ("other", other), ("this", here)):
         print(f"[turn] {name} {root}", flush=True)

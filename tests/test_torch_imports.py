@@ -1,6 +1,9 @@
 """The port stands alone: importing every module of tclight_torch (the
-post-optimization's included) loads neither JAX, optax nor the JAX
-package, and its entry points refuse to run on the CPU unless asked to."""
+post-optimization's and the checkpoint loaders' included) loads neither
+JAX, optax nor the JAX package, nor `safetensors` (which the card's
+machine lacks: the port reads the files itself) or `transformers` (only a
+tokenizer directory needs it), and its entry points refuse to run on the
+CPU unless asked to."""
 
 import os
 import subprocess
@@ -28,6 +31,11 @@ slice2 = {"tclight_torch.ops." + m for m in (
 slice2 |= {"tclight_torch.native", "tclight_torch.data.flow_backends",
            "tclight_torch.data.dataparsers", "tclight_torch.pipeline.postopt"}
 assert slice2 <= set(names), sorted(slice2 - set(names))
+# the checkpoint loaders' modules, and the packages they must not need
+loaders = {"tclight_torch.models.convert", "tclight_torch.pipeline.iclight"}
+assert loaders <= set(names), sorted(loaders - set(names))
+extra = sorted(m for m in sys.modules if m.split(".")[0] in ("safetensors", "transformers"))
+assert not extra, extra
 """
 
 
@@ -49,7 +57,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     from tclight_torch.config import ConfigDict
     from tclight_torch.pipeline.generator import Generator
     from tclight_torch.pipeline.iclight import (build_full_width_random,
-                                               build_tiny_iclight)
+                                               build_tiny_iclight, load_iclight)
     from tclight_torch.utils.device import resolve_device
 
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -58,6 +66,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         build_tiny_iclight()
     with pytest.raises(RuntimeError, match="CUDA"):
         build_full_width_random()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_iclight(REPO / "no_such_model_dir")
     models = build_tiny_iclight(device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         Generator(models, ConfigDict({"post_opt": {"apply_opt": False}}))

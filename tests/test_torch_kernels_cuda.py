@@ -630,69 +630,57 @@ def _k5_plan(rng, k, window, bl=512, nb=24):
     return starts, offs, n_rows
 
 
-def _k5_launch(table, starts, offs, window, form):
+def _k5_launch(table, starts, offs, window):
     stats = kernels.STATS["banded_gather_multi"]
     before = stats.launches
-    out = banded_gather.banded_gather_multi_cuda(table, starts, offs, window, form=form)
+    out = banded_gather.banded_gather_multi_cuda(table, starts, offs, window)
     torch.cuda.synchronize()
     assert stats.launches == before + 1
     return out
 
 
-@pytest.mark.parametrize("form", sorted(banded_gather.K5_FORMS))
 @pytest.mark.parametrize("k", [1, 2, 3, 4])
 @pytest.mark.parametrize("c", [1, 2, 3, 4])
 @pytest.mark.parametrize("offs_dtype", [torch.int16, torch.int32])
-def test_banded_gather_multi_kernel_matches_plain_on_synthetic_plans(cuda, form, k, c,
-                                                                     offs_dtype):
+def test_banded_gather_multi_kernel_matches_plain_on_synthetic_plans(cuda, k, c, offs_dtype):
     """K5 against its plain version at K = 1..4 windows, every channel
-    count, both offset types: spans from one row to the whole window (the
-    staged body's pools take the narrow ones and leave the wide ones to
-    the gather's direct reads), a block with no entry of a window, the
-    table's last row, masked entries and offsets at or past K * window.
-    Exact."""
+    count, both offset types: spans from one row to the whole window, a
+    block with no entry of a window, the table's last row, masked entries
+    and offsets at or past K * window. Exact."""
     window = 8192 // k if offs_dtype == torch.int16 else 2048
     rng = np.random.default_rng(100 * k + 10 * c + (offs_dtype == torch.int16))
     starts, offs, n_rows = _k5_plan(rng, k, window)
     table = torch.randn(n_rows, c, device="cuda", generator=cuda)
     st_t = torch.from_numpy(starts).cuda()
     offs_t = torch.from_numpy(offs).to(offs_dtype).cuda()
-    out = _k5_launch(table, st_t, offs_t, window, form)
+    out = _k5_launch(table, st_t, offs_t, window)
     ref = banded_gather.banded_gather_plain_multi(table, st_t, offs_t, window)
     assert torch.equal(out, ref)
     assert (ref[offs_t.long() >= k * window] == 0).all()
 
 
-@pytest.mark.parametrize("form", sorted(banded_gather.K5_FORMS))
+@pytest.mark.parametrize("bl", [333, 1001])
 @pytest.mark.parametrize("c", [1, 3])
-def test_banded_gather_multi_kernel_takes_an_odd_block_length(cuda, form, c):
-    """bl = 333: the offsets take no vector loads, and at C = 1 or 3 every
-    other block's output starts off a 16-byte boundary (scalar stores)."""
-    rng = np.random.default_rng(c)
-    starts, offs, n_rows = _k5_plan(rng, 2, 1024, bl=333, nb=10)
+def test_banded_gather_multi_kernel_takes_an_odd_block_length(cuda, bl, c):
+    """Odd block lengths: the offsets take no vector loads, at C = 1 or 3
+    every other block's output starts off a 16-byte boundary (scalar
+    stores), and at 1001 a thread gathers two runs of entries."""
+    rng = np.random.default_rng(c + bl)
+    starts, offs, n_rows = _k5_plan(rng, 2, 1024, bl=bl, nb=10)
     table = torch.randn(n_rows, c, device="cuda", generator=cuda)
     st_t, offs_t = torch.from_numpy(starts).cuda(), torch.from_numpy(offs).to(torch.int32).cuda()
-    out = _k5_launch(table, st_t, offs_t, 1024, form)
+    out = _k5_launch(table, st_t, offs_t, 1024)
     assert torch.equal(out, banded_gather.banded_gather_plain_multi(table, st_t, offs_t, 1024))
 
 
-@pytest.mark.parametrize("form", sorted(banded_gather.K5_FORMS))
-def test_banded_gather_multi_kernel_repeats_bit_for_bit(cuda, form):
+def test_banded_gather_multi_kernel_repeats_bit_for_bit(cuda):
     """Two launches on one plan give the same bits (a gather: no sums)."""
     rng = np.random.default_rng(7)
     starts, offs, n_rows = _k5_plan(rng, 3, 2048, nb=300)
     table = torch.randn(n_rows, 3, device="cuda", generator=cuda)
     st_t, offs_t = torch.from_numpy(starts).cuda(), torch.from_numpy(offs).to(torch.int16).cuda()
-    first = _k5_launch(table, st_t, offs_t, 2048, form)
-    assert torch.equal(first, _k5_launch(table, st_t, offs_t, 2048, form))
-
-
-def test_banded_gather_multi_kernel_refuses_long_blocks(cuda):
-    table = torch.randn(4096, 3, device="cuda", generator=cuda)
-    starts = torch.zeros(1, 2, dtype=torch.int32, device="cuda")
-    offs = torch.zeros(1, 2049, dtype=torch.int32, device="cuda")
-    with pytest.raises(ValueError, match="at most 2048"):
-        banded_gather.banded_gather_multi(table, starts, offs, 2048)
+    first = _k5_launch(table, st_t, offs_t, 2048)
+    assert torch.equal(first, _k5_launch(table, st_t, offs_t, 2048))
 
 
 @pytest.mark.parametrize("nwin", [1, 2])
