@@ -40,8 +40,9 @@
 // copy while the previous block gathered. It lost on the render (0.099 -
 // 0.105 ms against 0.086) and tied on the adjoint (0.149 - 0.152 against
 // 0.151 - 0.153), with pools for 8 blocks an SM; pools for 4 took 0.144
-// and 0.208 (PERF.md §6; the staged body is in commit cae8620). At ~1.5 table rows an output on the render and ~1 on
-// the adjoint, L1 and L2 already serve each block's span.
+// and 0.208 (PERF.md §6; the staged body is in commit cae8620). With
+// the render's plans indexing 1.5 table rows a pixel and the adjoint's
+// 0.67 pixels a track, L1 and L2 already serve each block's span.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
