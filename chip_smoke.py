@@ -51,7 +51,19 @@ Phases, one line each:
  12. traced runs of 2 sampling steps (fp, then int8 q.k^T), of one step
      of the yt-int8 config and of 2 + 2 post-opt epochs give the device
      time per kernel group (torch.profiler);
- 13. one JSON line with every kernel's launches, error and times.
+ 13. raft: a full-width RAFT on random weights, written as a reference
+     checkpoint and loaded by the evaluate CLI's loader: the card against
+     the CPU at 128x160 under the entry point's own precision (f32 on
+     PyTorch's convolution kernels), then
+     both directions over the main cell's 8 frames at 960x720 (ms per pair,
+     peak memory); memflow: the same for `load_memflow_core`, 7 streaming
+     steps at 960x720 (ms per step, the memory count after each); eval:
+     `tclight_torch.evaluate.main` on the main cell's run directory with
+     that RAFT, random CLIP ViT-B/32, ViT-H/14 and VGG16 / lpips
+     checkpoints and --eval_cost: every result.txt row, finite, and the
+     wall time of each metric group. These paths launch none of the
+     kernels (checked);
+ 14. one JSON line with every kernel's launches, error and times.
 The last line is {"ok": true, "device": {...}}. Any failed phase exits
 nonzero. Needs the repository around it and a CUDA device.
 """
@@ -63,6 +75,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1012,6 +1025,233 @@ def profile_main_path() -> None:
     profile_window("profile-postopt", post, 4, "epoch")
 
 
+# The flow networks and the evaluation (no hand-written kernel on these
+# paths: convolutions, matmuls and gathers). The card's flows against the
+# CPU's, both f32, on random weights that amplify rounding (see
+# tests/test_torch_flow_cuda.py): max / mean end-point error in px.
+FLOW_EPE_MAX, FLOW_EPE_MEAN = 1e-3, 1e-4
+SMALL_FLOW = (128, 160)
+
+
+class default_precision:
+    """PyTorch's default precision flags (TF32 on for cuDNN convolutions,
+    off for matmuls) inside the block, restored after: the flow and eval
+    phases measure what a user of the entry points gets, not this
+    script's global TF32-off setting."""
+
+    def __enter__(self):
+        self.saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+
+    def __exit__(self, *exc):
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = self.saved
+
+
+def flow_frames(n: int, h: int, w: int, seed: int) -> np.ndarray:
+    import cv2
+
+    rng = np.random.default_rng(seed)
+    base = cv2.GaussianBlur(rng.uniform(0.1, 0.9, (h, w, 3)).astype(np.float32), (0, 0), 2)
+    return np.stack([np.roll(base, 3 * t, axis=1) for t in range(n)]).astype(np.float32)
+
+
+def epe(a: np.ndarray, b: np.ndarray) -> tuple[float, float]:
+    e = np.linalg.norm(a - b, axis=-1)
+    return float(e.max()), float(e.mean())
+
+
+def write_flow_checkpoints(tmp: Path) -> tuple[Path, Path]:
+    """Full-width RAFT and MemFlowNetSK on random weights (seed 0; random
+    BatchNorm statistics; MemFlow's gamma 0.5, so its memory attention
+    counts), written in the reference checkpoints' layouts: `module.`
+    keys, MemFlow's nested under "model"."""
+    from tclight_torch.models import memflow_sk, raft
+
+    torch.manual_seed(0)
+    gen = torch.Generator().manual_seed(1)
+    out = []
+    for name, model, export in (("raft-things.pth", raft.RAFT(), raft.reference_state_dict),
+                                ("MemFlowNet_things.pth", memflow_sk.MemFlowNetSK(),
+                                 memflow_sk.reference_state_dict)):
+        if hasattr(model, "gamma"):
+            model.gamma.data.fill_(0.5)
+        sd = export(model)
+        for k in sd:
+            if k.endswith(("running_var", "running_mean")):
+                sd[k] = torch.rand(sd[k].shape, generator=gen) + 0.5
+        sd = {f"module.{k}": v for k, v in sd.items()}
+        torch.save(sd if name.startswith("raft") else {"model": sd}, tmp / name)
+        out.append(tmp / name)
+    return out[0], out[1]
+
+
+def check_raft(ckpt: Path) -> dict:
+    """[raft]: the checkpoint through the evaluate CLI's loader; (a) the card
+    against the CPU on 2 pairs at SMALL_FLOW, under the entry point's own
+    precision (f32); (b) both directions
+    over the main cell's 8 frames at 960x720 (`compute_flow_pairs`, 4 pairs
+    a call): ms per pair, peak device memory, finite flows, no kernel
+    launched."""
+    from tclight_torch.data.flow_backends import compute_flow_pairs
+    from tclight_torch.eval.loaders import load_flow_backend
+    from tclight_torch.ops import kernels
+    from tclight_torch.utils.video_io import load_video
+
+    with default_precision():
+        _, card = load_flow_backend("raft", ckpt)
+        _, cpu = load_flow_backend("raft", ckpt, device="cpu")
+        small = flow_frames(3, *SMALL_FLOW, seed=2)
+        ref = cpu.batched_flow(small[:2], small[1:])
+        e_max, e_mean = epe(card.batched_flow(small[:2], small[1:]), ref)
+        del cpu
+        frames = load_video(OUT / "vid")
+        card.batched_flow(frames[:1], frames[1:2])  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_stats()
+        t0 = time.perf_counter()
+        flows = [compute_flow_pairs(frames, d, "raft", raft=card) for d in ("future", "past")]
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        launched = sum(st.launches for st in kernels.STATS.values())
+    pairs = 2 * (len(frames) - 1)
+    finite = all(np.isfinite(f).all() and f.shape == frames.shape[:3] + (2,) for f in flows)
+    ok = e_max <= FLOW_EPE_MAX and e_mean <= FLOW_EPE_MEAN and finite and launched == 0
+    phase("raft", ok=ok, small_shape=SMALL_FLOW, epe_max=e_max, epe_mean=e_mean,
+          tol=(FLOW_EPE_MAX, FLOW_EPE_MEAN), precision="f32, PyTorch's convolution kernels",
+          frames=frames.shape,
+          pairs=pairs, ms_per_pair=wall * 1e3 / pairs, wall_s=wall, peak_mem_gb=peak,
+          flow_abs_max=float(max(np.abs(f).max() for f in flows)), kernel_launches=launched)
+    if not ok:
+        raise SystemExit("[raft] failed")
+    return {"ms_per_pair": wall * 1e3 / pairs, "peak_mem_gb": peak}
+
+
+def check_memflow(ckpt: Path) -> dict:
+    """[memflow]: `load_memflow_core`; (a) the card against the CPU over 3
+    streaming steps at SMALL_FLOW; (b) 7 streaming steps over the main
+    cell's frames at 960x720 (after one warm-up step and a reset): ms per
+    step, peak device memory, the memory count after each step."""
+    from tclight_torch.data.flow_backends import load_memflow_core
+    from tclight_torch.ops import kernels
+    from tclight_torch.utils.video_io import load_video
+
+    with default_precision():
+        card = load_memflow_core(ckpt)
+        cpu = load_memflow_core(ckpt, device="cpu")
+        small = flow_frames(4, *SMALL_FLOW, seed=3)
+        errs = [epe(card.step(small[i], small[i + 1]), cpu.step(small[i], small[i + 1]))
+                for i in range(3)]
+        del cpu
+        frames = load_video(OUT / "vid")
+        card.reset()
+        card.step(frames[0], frames[1])  # warm-up
+        card.reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_stats()
+        step_ms, counts, finite = [], [], True
+        for i in range(len(frames) - 1):
+            t0 = time.perf_counter()
+            flow = card.step(frames[i], frames[i + 1])
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            counts.append(card.mem.count)
+            finite &= bool(np.isfinite(flow).all()) and flow.shape == frames.shape[1:3] + (2,)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        launched = sum(st.launches for st in kernels.STATS.values())
+    e_max, e_mean = max(e[0] for e in errs), max(e[1] for e in errs)
+    hw = (frames.shape[1] // 8) * (frames.shape[2] // 8)
+    ok = (e_max <= FLOW_EPE_MAX and e_mean <= FLOW_EPE_MEAN and finite and launched == 0
+          and counts == [hw] * len(counts))
+    phase("memflow", ok=ok, small_shape=SMALL_FLOW, epe_max=e_max, epe_mean=e_mean,
+          epe_per_step=errs, tol=(FLOW_EPE_MAX, FLOW_EPE_MEAN),
+          precision="f32, PyTorch's convolution kernels",
+          frames=frames.shape, steps=len(step_ms), step_ms=step_ms,
+          ms_per_step=float(np.mean(step_ms)), peak_mem_gb=peak, mem_counts=counts,
+          kernel_launches=launched)
+    if not ok:
+        raise SystemExit("[memflow] failed")
+    return {"ms_per_step": float(np.mean(step_ms)), "peak_mem_gb": peak}
+
+
+def write_eval_checkpoints(tmp: Path) -> dict[str, Path]:
+    """Random CLIP ViT-B/32 (clip-frame) and ViT-H/14 (pick-score) vision
+    towers and a random VGG16 with lpips heads (seed 0), in transformers' /
+    torchvision's / lpips' layouts; ViT-H/14 in f16, to halve its 2.5 GB."""
+    from tclight_torch.models import clip_vision, vgg_lpips
+
+    torch.manual_seed(0)
+    dirs = {}
+    for name, cfg, dtype in (("clip", clip_vision.CLIPVisionConfig.vit_b32(), torch.float32),
+                             ("pick", clip_vision.CLIPVisionConfig.vit_h14(), torch.float16)):
+        with torch.device("cuda"):
+            model = clip_vision.CLIPVisionModel(cfg)
+        for pname, p in model.named_parameters():
+            if "norm" in pname:
+                p.data.fill_(1.0 if pname.endswith("weight") else 0.0)
+            else:
+                p.data.normal_(0.0, 0.02)
+        dirs[name] = tmp / name
+        dirs[name].mkdir()
+        torch.save({k: v.to(dtype) for k, v in clip_vision.reference_state_dict(model).items()},
+                   dirs[name] / "vision.pth")
+        del model
+    dirs["lpips"] = tmp / "lpips"
+    dirs["lpips"].mkdir()
+    torch.save(vgg_lpips.reference_state_dict(vgg_lpips.VGG16Features()),
+               dirs["lpips"] / "vgg16.pth")
+    torch.save({f"lin{i}.model.1.weight": torch.rand(1, c, 1, 1)
+                for i, c in enumerate((64, 128, 256, 512, 512))},
+               dirs["lpips"] / "lpips_vgg.pth")
+    return dirs
+
+
+EVAL_ROWS = {"warp-error-ssim", "psnr", "ssim", "clip-frame", "frame-lpips", "z_fps",
+             "z_max_memory_allocated(M)", "z_resolution", "z_total_frames", "z_total_time(s)",
+             "zz_flow_backend"}
+
+
+def check_eval(raft_ckpt: Path, tmp: Path) -> dict:
+    """[eval]: `tclight_torch.evaluate.main` on the main cell's run directory
+    with the random RAFT, CLIP, PickScore and LPIPS checkpoints and
+    --eval_cost; every row of result.txt (the text rows need a tokenizer
+    and are skipped, as in the JAX package), finite; the wall time of each
+    metric group."""
+    from tclight_torch import evaluate
+    from tclight_torch.ops import kernels
+
+    run_dir = next((OUT / "wd").rglob("output.mp4")).parent
+    (run_dir / "result.txt").unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    dirs = write_eval_checkpoints(tmp)
+    write_s = time.perf_counter() - t0
+    timings: dict = {}
+    with default_precision():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_stats()
+        t0 = time.perf_counter()
+        rc = evaluate.main(["--output_dir", str(run_dir), "--flow_model", "raft",
+                            "--flow_ckpt", str(raft_ckpt), "--clip_ckpt", str(dirs["clip"]),
+                            "--pick_ckpt", str(dirs["pick"]), "--lpips_ckpt", str(dirs["lpips"]),
+                            "--eval_cost"], timings=timings)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        launched = sum(st.launches for st in kernels.STATS.values())
+    rows = dict(line.split(": ", 1) for line in
+                (run_dir / "result.txt").read_text().splitlines()[1:])
+    finite = all(math.isfinite(float(v)) for k, v in rows.items() if not k.startswith("zz"))
+    ok = (rc == 0 and EVAL_ROWS <= rows.keys() and finite and launched == 0
+          and rows["zz_flow_backend"] == "raft" and "zz_skipped_metrics" not in rows)
+    phase("eval", ok=ok, rows=rows, wall_s=wall, group_s=timings, peak_mem_gb=peak,
+          checkpoint_write_s=write_s,
+          precision="f32 (the CLI's own setting)",
+          kernel_launches=launched)
+    if not ok:
+        raise SystemExit("[eval] failed")
+    return {"wall_s": wall, "group_s": timings}
+
+
 def kernel_entry(name, source, replaces, launches, rows, path="main") -> dict:
     head = rows[0]
     entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1073,6 +1313,11 @@ def main() -> int:
                  "flash_attention_int8pv_maxpass"):
         launches[name] = int8_launches[name]
     profile_main_path()
+    with tempfile.TemporaryDirectory(dir=OUT) as tmp:
+        raft_ckpt, memflow_ckpt = write_flow_checkpoints(Path(tmp))
+        check_raft(raft_ckpt)
+        check_memflow(memflow_ckpt)
+        check_eval(raft_ckpt, Path(tmp))
 
     print(json.dumps({"kernels": [
         kernel_entry("flash_attention", "tclight_torch/csrc/flash_attention.cu",

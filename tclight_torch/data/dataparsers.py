@@ -1,6 +1,7 @@
 """Video data parser (counterpart of tclight_tpu/data/dataparsers.py):
 frame loading, flows cached on disk next to the video, soft backward
-masks and pixel tracks.
+masks and pixel tracks; `make_data_parser` also builds the synthetic-scene
+parsers of data/synthetic.py.
 
 The flow cache is the JAX package's: `<stem>_{future,past}_flow_<backend>/
 NNNNN.npy`, one (H, W, 2) f32 array per frame, so a cache written by either
@@ -25,13 +26,18 @@ log = get_logger()
 
 
 class VideoDataParser:
-    def __init__(self, cfg):
+    """`flow_backend` overrides the config's `flow_model`; `raft` is the
+    loaded flow network of the "raft" or "memflow" backend, which computes
+    the flows that miss the cache (without one such a miss raises)."""
+
+    def __init__(self, cfg, flow_backend: str | None = None, raft=None):
         self.cfg = cfg
         self.rgb_path = cfg.get("rgb_path")
         self.height = cfg.get("height")
         self.width = cfg.get("width")
         self.fps = cfg.get("fps", 25)
-        self.flow_backend = cfg.get("flow_model", "farneback")
+        self.flow_backend = flow_backend or cfg.get("flow_model", "farneback")
+        self.raft = raft
         self.unq_inv: np.ndarray | None = None
         self.n_unique: int | None = None
         self._data_cache = None
@@ -63,7 +69,8 @@ class VideoDataParser:
         if missing:
             log.info("computing %d %s flows with %s", len(missing), direction,
                      self.flow_backend)
-            computed = compute_flow_pairs(frames, direction, self.flow_backend)
+            computed = compute_flow_pairs(frames, direction, self.flow_backend,
+                                          raft=self.raft)
             cache.mkdir(parents=True, exist_ok=True)
             for j in missing:
                 flows[j] = computed[j]
@@ -103,9 +110,15 @@ class VideoDataParser:
         return out
 
 
-def make_data_parser(data_cfg) -> VideoDataParser:
+def make_data_parser(data_cfg, **kw):
+    """The parser of `data_cfg.scene_type`: "video", or one of the
+    synthetic scenes "sceneflow", "carla" and "interiornet"
+    (data/synthetic.py). `kw` goes to the parser (flow_backend, raft)."""
     scene_type = str(data_cfg.get("scene_type", "video")).lower()
     if scene_type == "video":
-        return VideoDataParser(data_cfg)
-    raise NotImplementedError(f"scene type {scene_type} is not ported; only "
-                              "data.scene_type: video is")
+        return VideoDataParser(data_cfg, **kw)
+    if scene_type in ("sceneflow", "carla", "interiornet"):
+        from tclight_torch.data import synthetic
+
+        return synthetic.make_parser(scene_type, data_cfg, **kw)
+    raise NotImplementedError(f"scene type {scene_type}")

@@ -11,8 +11,10 @@ Leaves change layout as follows:
 - ``bias`` and plain parameters (``position_embedding``) as they are.
 
 `module_to_flax` goes the other way, from a port module to a flax tree.
-This is how the tests hand the same weights to both packages. Loading the
-diffusers checkpoints that real runs use is a separate, later step.
+This is how the tests hand the same weights to both packages. Checkpoints
+load through the same map: a converter of the JAX package's (copied into
+the port) turns a reference state dict into a flax tree, and the
+functions here turn the tree into the port's state dict.
 """
 
 from __future__ import annotations
@@ -24,7 +26,9 @@ import torch
 from torch import nn
 
 __all__ = ["flax_to_state_dict", "unet_state_dict", "vae_state_dict",
-           "clip_text_state_dict", "module_to_flax"]
+           "clip_text_state_dict", "raft_state_dict", "memflow_sk_state_dict",
+           "memflow_state_dict", "clip_vision_state_dict", "vgg16_state_dict",
+           "module_to_flax"]
 
 
 def _leaf(name: str, arr: np.ndarray) -> tuple[str, np.ndarray]:
@@ -51,7 +55,7 @@ def flax_to_state_dict(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
             if isinstance(value, Mapping):
                 walk(value, prefix + (key,))
             else:
-                name, arr = _leaf(key, np.asarray(value, dtype=np.float32))
+                name, arr = _leaf(key, np.array(value, dtype=np.float32))
                 out[".".join(prefix + (name,))] = torch.from_numpy(
                     np.ascontiguousarray(arr))
 
@@ -75,6 +79,36 @@ def vae_state_dict(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
 
 def clip_text_state_dict(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     """`CLIPTextModel` parameters (tclight_tpu/models/clip_text.py)."""
+    return flax_to_state_dict(params)
+
+
+def raft_state_dict(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """`RAFT` parameters (tclight_tpu/models/raft.py; `convert_raft_params`'s
+    tree). FrozenAffine's `scale` becomes its `weight`."""
+    return flax_to_state_dict(params)
+
+
+def memflow_sk_state_dict(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """`MemFlowNetSK` parameters (tclight_tpu/models/memflow_sk.py;
+    `convert_memflow_params`' tree). Depthwise kernels (k, k, 1, C) become
+    (C, 1, k, k)."""
+    return flax_to_state_dict(params)
+
+
+def memflow_state_dict(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """`MemFlowNet` parameters (tclight_tpu/models/memflow.py)."""
+    return flax_to_state_dict(params)
+
+
+def clip_vision_state_dict(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """`CLIPVisionModel` parameters (tclight_tpu/models/clip_vision.py;
+    `convert_clip_vision`'s tree)."""
+    return flax_to_state_dict(params)
+
+
+def vgg16_state_dict(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """`VGG16Features` parameters (tclight_tpu/models/vgg_lpips.py;
+    `convert_vgg16_features`' tree)."""
     return flax_to_state_dict(params)
 
 

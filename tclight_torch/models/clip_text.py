@@ -1,6 +1,7 @@
-"""CLIP text encoder (ViT-L/14 text tower) (counterpart of
-tclight_tpu/models/clip_text.py). Returns the final-layer hidden states,
-which SD1.5 cross-attends to."""
+"""CLIP text encoder (counterpart of tclight_tpu/models/clip_text.py):
+the ViT-L/14 text tower that SD1.5 cross-attends to, and the ViT-B/32 and
+ViT-H/14 towers of the evaluation's text metrics. Returns the final-layer
+hidden states."""
 
 from __future__ import annotations
 
@@ -23,6 +24,18 @@ class CLIPTextConfig:
     @staticmethod
     def sd15(dtype=torch.float32) -> "CLIPTextConfig":
         return CLIPTextConfig(dtype=dtype)
+
+    @staticmethod
+    def vit_b32(dtype=torch.float32) -> "CLIPTextConfig":
+        """openai CLIP ViT-B/32's text tower (hidden 512, projection 512)."""
+        return CLIPTextConfig(hidden_size=512, num_layers=12, num_heads=8,
+                              intermediate_size=2048, dtype=dtype)
+
+    @staticmethod
+    def vit_h14(dtype=torch.float32) -> "CLIPTextConfig":
+        """laion CLIP-ViT-H-14's text tower (the PickScore_v1 backbone)."""
+        return CLIPTextConfig(hidden_size=1024, num_layers=24, num_heads=16,
+                              intermediate_size=4096, dtype=dtype)
 
     @staticmethod
     def tiny(dtype=torch.float32) -> "CLIPTextConfig":

@@ -84,13 +84,17 @@ def read_safetensors(path: str | Path) -> dict[str, np.ndarray]:
 
 def load_torch_state_dict(path: str | Path) -> dict[str, np.ndarray]:
     """A flat state dict from `.safetensors` (the port's reader) or a torch
-    `.bin` / `.pt` file, as numpy arrays (bf16 as f32)."""
+    `.bin` / `.pt` / `.pth` file, as numpy arrays (bf16 as f32). A torch
+    file that nests its weights under "state_dict" or "model" (MemFlow's
+    checkpoints) is unwrapped."""
     path = Path(path)
     if path.suffix == ".safetensors":
         return read_safetensors(path)
     sd = torch.load(str(path), map_location="cpu", weights_only=True)
-    if "state_dict" in sd:
-        sd = sd["state_dict"]
+    for key in ("state_dict", "model"):
+        if isinstance(sd.get(key), dict):
+            sd = sd[key]
+            break
     return {k: _numpy(v) for k, v in sd.items()}
 
 

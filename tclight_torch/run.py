@@ -10,8 +10,10 @@ frames go through the exposure alignment and the UVT refinement, on the
 flows of `data.flow_model`: Farneback flows are computed; RAFT and MemFlow
 flows are read from the flow cache next to the video
 (`<stem>_{future,past}_flow_<backend>/NNNNN.npy`, as the JAX package writes
-it), and a frame that misses the cache raises, since those networks are
-not ported (ROADMAP A9). Weights: from the checkpoint files in
+it), and a frame that misses the cache raises ValueError, since the CLI
+loads no flow network (as the JAX package's run.py loads none). The
+synthetic scenes (`data.scene_type` sceneflow, carla, interiornet) bring
+their own flows (data/synthetic.py). Weights: from the checkpoint files in
 `model_dir` when it names an existing directory (layout in
 tclight_torch/pipeline/iclight.py; IC-Light's `fbc` offsets and 12-channel
 UNet when `generation.background_cond` is set, else `fc`); else, with
@@ -48,8 +50,6 @@ def main(argv=None, device: str = "cuda") -> int:
 
     if config.get("sd_version", "iclight") != "iclight":
         raise NotImplementedError("only sd_version: iclight is ported")
-    if str(config.get_path("data.scene_type", "video")).lower() != "video":
-        raise NotImplementedError("only data.scene_type: video is ported")
     steps = config.get_path("generation.n_timesteps", 25) or 25
     model_dir = config.get("model_dir")
     if model_dir and Path(str(model_dir)).exists():

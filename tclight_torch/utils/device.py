@@ -2,10 +2,13 @@
 
 Entry points run on the card unless the caller asks for the CPU: the
 default is "cuda", and without a CUDA device that default raises rather
-than carrying on quietly on the CPU.
+than carrying on quietly on the CPU. `tf32` fixes the card's f32
+precision for a block (the flow networks and the evaluate CLI set theirs).
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -17,3 +20,19 @@ def resolve_device(device: str | torch.device | None = "cuda") -> torch.device:
             "tclight_torch runs on a CUDA device by default and none is "
             "available; pass device='cpu' to run the plain CPU path")
     return dev
+
+
+@contextlib.contextmanager
+def tf32(conv: bool, matmul: bool = False, cudnn: bool = True):
+    """Within the block, convolutions take TF32 inputs if `conv` and CUDA
+    matmuls if `matmul` (else full f32; the sums are f32 either way), and
+    cuDNN serves the convolutions if `cudnn` (else PyTorch's own kernels);
+    the flags are restored after. They are process-wide; PyTorch's defaults
+    are cuDNN on, TF32 on for its convolutions and off for matmuls."""
+    flags = torch.backends.cudnn
+    saved = flags.enabled, flags.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    flags.enabled, flags.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = cudnn, conv, matmul
+    try:
+        yield
+    finally:
+        flags.enabled, flags.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved

@@ -61,14 +61,35 @@ def test_native_tracks_match_jitted_flowid_on_integer_motion():
 
 
 def test_farneback_flows_match_jax_and_unported_backends_raise():
+    """Farneback flows are identical; the network backends raise JAX's
+    ValueError without a model, and with a tiny RAFT (JAX's weights carried
+    across) they match JAX's within 1e-4 px (f32, 4 refinement steps)."""
+    import jax
+
+    from tclight_torch.models import bridge
+    from tclight_torch.models.raft import RAFTConfig, RAFTFlowModel
+    from tclight_tpu.models.raft import RAFT as JRAFT
+    from tclight_tpu.models.raft import RAFTConfig as JRAFTConfig
+    from tclight_tpu.models.raft import RAFTFlowModel as JRAFTFlowModel
+
     frames = _frames(n=3, seed=3)
     for direction in ("future", "past"):
         np.testing.assert_array_equal(
             flow_backends.compute_flow_pairs(frames, direction),
             jbackends.compute_flow_pairs(frames, direction))
     for backend in ("raft", "memflow"):
-        with pytest.raises(NotImplementedError, match="A9"):
+        with pytest.raises(ValueError, match="requires a loaded"):
             flow_backends.compute_flow_pairs(frames, "future", backend)
+        with pytest.raises(ValueError, match="requires a loaded"):
+            jbackends.compute_flow_pairs(frames, "future", backend)
+    params = jax.jit(lambda k, x: JRAFT(JRAFTConfig.tiny()).init(k, x, x, iters=1))(
+        jax.random.PRNGKey(0), jnp.asarray(frames[:1]))
+    ours = RAFTFlowModel(bridge.raft_state_dict(params), RAFTConfig.tiny(), device="cpu")
+    theirs = JRAFTFlowModel(params, JRAFTConfig.tiny())
+    for direction in ("future", "past"):
+        np.testing.assert_allclose(
+            flow_backends.compute_flow_pairs(frames, direction, "raft", raft=ours),
+            jbackends.compute_flow_pairs(frames, direction, "raft", raft=theirs), atol=1e-4)
 
 
 @pytest.mark.parametrize("writer", ["jax", "torch"])
@@ -105,4 +126,12 @@ def test_load_data_is_memoized_and_parser_factory(tmp_path):
     a = parser.load_data([0, 1, 2], device="cpu")
     assert parser.load_data([0, 1, 2], device="cpu") is a
     with pytest.raises(NotImplementedError):
-        make_data_parser({"scene_type": "carla"})
+        make_data_parser({"scene_type": "bogus"})
+    # the synthetic scenes are ported (tests/test_torch_synthetic.py); the
+    # parser's flow slot reaches the flow backends
+    parser = make_data_parser({"scene_type": "interiornet", "data_dir": str(tmp_path)},
+                              flow_backend="raft", raft="net")
+    assert type(parser).__name__ == "InteriorNetDataParser"
+    assert (parser.flow_backend, parser.raft) == ("raft", "net")
+    parser = make_data_parser(cfg, flow_backend="memflow", raft="net")
+    assert (parser.flow_backend, parser.raft) == ("memflow", "net")

@@ -1,5 +1,6 @@
 """The port stands alone: importing every module of tclight_torch (the
-post-optimization's and the checkpoint loaders' included) loads neither
+post-optimization's, the checkpoint loaders', the flow networks' and the
+evaluation's included) loads neither
 JAX, optax nor the JAX package, nor `safetensors` (which the card's
 machine lacks: the port reads the files itself) or `transformers` (only a
 tokenizer directory needs it), and its entry points refuse to run on the
@@ -36,6 +37,13 @@ loaders = {"tclight_torch.models.convert", "tclight_torch.pipeline.iclight"}
 assert loaders <= set(names), sorted(loaders - set(names))
 extra = sorted(m for m in sys.modules if m.split(".")[0] in ("safetensors", "transformers"))
 assert not extra, extra
+# the flow networks, the synthetic scenes and the evaluation
+slice8 = {"tclight_torch.models." + m for m in (
+    "raft", "memflow_sk", "memflow", "clip_vision", "vgg_lpips")}
+slice8 |= {"tclight_torch.data.formats", "tclight_torch.data.synthetic",
+           "tclight_torch.eval", "tclight_torch.eval.metrics", "tclight_torch.eval.loaders",
+           "tclight_torch.evaluate"}
+assert slice8 <= set(names), sorted(slice8 - set(names))
 """
 
 
@@ -44,7 +52,7 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert int(proc.stdout.split()[0]) >= 31
+    assert int(proc.stdout.split()[0]) >= 42
 
 
 def _require_no_cuda():
@@ -71,6 +79,19 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     models = build_tiny_iclight(device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         Generator(models, ConfigDict({"post_opt": {"apply_opt": False}}))
+    # the flow networks and the metric models
+    from tclight_torch.models.memflow_sk import InferenceCoreSK, MemFlowNetSK, MemFlowSKConfig
+    from tclight_torch.models.raft import RAFT, RAFTConfig, RAFTFlowModel
+
+    sd = RAFT(RAFTConfig.tiny()).state_dict()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        RAFTFlowModel(sd, RAFTConfig.tiny())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        InferenceCoreSK(MemFlowNetSK(MemFlowSKConfig(decoder_depth=1)))
+    from tclight_torch.eval import loaders
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        loaders.load_lpips(REPO / "no_such_dir")
 
 
 def test_cli_defaults_to_cuda_and_raises_without_it(monkeypatch):
@@ -82,3 +103,7 @@ def test_cli_defaults_to_cuda_and_raises_without_it(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         main(["--config", "configs/tclight_default.yaml", "-i", "unused.mp4",
               "-p", "x", "post_opt.apply_opt=false", "work_dir=workdir/unused"])
+    from tclight_torch import evaluate
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        evaluate.main(["--output_dir", "workdir/unused", "--flow_model", "farneback"])
