@@ -61,8 +61,13 @@ Phases, one line each:
      `tclight_torch.evaluate.main` on the main cell's run directory with
      that RAFT, random CLIP ViT-B/32, ViT-H/14 and VGG16 / lpips
      checkpoints and --eval_cost: every result.txt row, finite, and the
-     wall time of each metric group. These paths launch none of the
-     kernels (checked);
+     wall time of each metric group; the random RAFT's consistency mask
+     keeps no pixel (its warp-error row reads 100.00, its valid share is
+     printed), so the warp-error metric is also held, card against CPU, on
+     Farneback's flows of the rolling texture, whose mask must keep half
+     the pixels and whose row must read below 100. These phases run under
+     PyTorch's default precision flags and launch none of the kernels
+     (checked);
  14. one JSON line with every kernel's launches, error and times.
 The last line is {"ok": true, "device": {...}}. Any failed phase exits
 nonzero. Needs the repository around it and a CUDA device.
@@ -1033,20 +1038,6 @@ FLOW_EPE_MAX, FLOW_EPE_MEAN = 1e-3, 1e-4
 SMALL_FLOW = (128, 160)
 
 
-class default_precision:
-    """PyTorch's default precision flags (TF32 on for cuDNN convolutions,
-    off for matmuls) inside the block, restored after: the flow and eval
-    phases measure what a user of the entry points gets, not this
-    script's global TF32-off setting."""
-
-    def __enter__(self):
-        self.saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
-
-    def __exit__(self, *exc):
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = self.saved
-
-
 def flow_frames(n: int, h: int, w: int, seed: int) -> np.ndarray:
     import cv2
 
@@ -1097,23 +1088,22 @@ def check_raft(ckpt: Path) -> dict:
     from tclight_torch.ops import kernels
     from tclight_torch.utils.video_io import load_video
 
-    with default_precision():
-        _, card = load_flow_backend("raft", ckpt)
-        _, cpu = load_flow_backend("raft", ckpt, device="cpu")
-        small = flow_frames(3, *SMALL_FLOW, seed=2)
-        ref = cpu.batched_flow(small[:2], small[1:])
-        e_max, e_mean = epe(card.batched_flow(small[:2], small[1:]), ref)
-        del cpu
-        frames = load_video(OUT / "vid")
-        card.batched_flow(frames[:1], frames[1:2])  # warm-up
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        kernels.reset_stats()
-        t0 = time.perf_counter()
-        flows = [compute_flow_pairs(frames, d, "raft", raft=card) for d in ("future", "past")]
-        wall = time.perf_counter() - t0
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        launched = sum(st.launches for st in kernels.STATS.values())
+    _, card = load_flow_backend("raft", ckpt)
+    _, cpu = load_flow_backend("raft", ckpt, device="cpu")
+    small = flow_frames(3, *SMALL_FLOW, seed=2)
+    ref = cpu.batched_flow(small[:2], small[1:])
+    e_max, e_mean = epe(card.batched_flow(small[:2], small[1:]), ref)
+    del cpu
+    frames = load_video(OUT / "vid")
+    card.batched_flow(frames[:1], frames[1:2])  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_stats()
+    t0 = time.perf_counter()
+    flows = [compute_flow_pairs(frames, d, "raft", raft=card) for d in ("future", "past")]
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launched = sum(st.launches for st in kernels.STATS.values())
     pairs = 2 * (len(frames) - 1)
     finite = all(np.isfinite(f).all() and f.shape == frames.shape[:3] + (2,) for f in flows)
     ok = e_max <= FLOW_EPE_MAX and e_mean <= FLOW_EPE_MEAN and finite and launched == 0
@@ -1136,29 +1126,28 @@ def check_memflow(ckpt: Path) -> dict:
     from tclight_torch.ops import kernels
     from tclight_torch.utils.video_io import load_video
 
-    with default_precision():
-        card = load_memflow_core(ckpt)
-        cpu = load_memflow_core(ckpt, device="cpu")
-        small = flow_frames(4, *SMALL_FLOW, seed=3)
-        errs = [epe(card.step(small[i], small[i + 1]), cpu.step(small[i], small[i + 1]))
-                for i in range(3)]
-        del cpu
-        frames = load_video(OUT / "vid")
-        card.reset()
-        card.step(frames[0], frames[1])  # warm-up
-        card.reset()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        kernels.reset_stats()
-        step_ms, counts, finite = [], [], True
-        for i in range(len(frames) - 1):
-            t0 = time.perf_counter()
-            flow = card.step(frames[i], frames[i + 1])
-            step_ms.append((time.perf_counter() - t0) * 1e3)
-            counts.append(card.mem.count)
-            finite &= bool(np.isfinite(flow).all()) and flow.shape == frames.shape[1:3] + (2,)
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        launched = sum(st.launches for st in kernels.STATS.values())
+    card = load_memflow_core(ckpt)
+    cpu = load_memflow_core(ckpt, device="cpu")
+    small = flow_frames(4, *SMALL_FLOW, seed=3)
+    errs = [epe(card.step(small[i], small[i + 1]), cpu.step(small[i], small[i + 1]))
+            for i in range(3)]
+    del cpu
+    frames = load_video(OUT / "vid")
+    card.reset()
+    card.step(frames[0], frames[1])  # warm-up
+    card.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_stats()
+    step_ms, counts, finite = [], [], True
+    for i in range(len(frames) - 1):
+        t0 = time.perf_counter()
+        flow = card.step(frames[i], frames[i + 1])
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        counts.append(card.mem.count)
+        finite &= bool(np.isfinite(flow).all()) and flow.shape == frames.shape[1:3] + (2,)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launched = sum(st.launches for st in kernels.STATS.values())
     e_max, e_mean = max(e[0] for e in errs), max(e[1] for e in errs)
     hw = (frames.shape[1] // 8) * (frames.shape[2] // 8)
     ok = (e_max <= FLOW_EPE_MAX and e_mean <= FLOW_EPE_MEAN and finite and launched == 0
@@ -1211,12 +1200,52 @@ EVAL_ROWS = {"warp-error-ssim", "psnr", "ssim", "clip-frame", "frame-lpips", "z_
              "zz_flow_backend"}
 
 
+# The warp-error row prints 100 x the mean SSIM with 2 decimals: the card's
+# value against the CPU's to 1.5 units of that digit; Farneback's
+# consistency mask on the rolling texture must keep at least half the pixels.
+WARP_SSIM_TOL, MIN_VALID_SHARE = 1.5e-4, 0.5
+
+
+def check_warp_error(run_dir: Path, raft_ckpt: Path) -> dict:
+    """The warp-error metric on flows whose consistency mask keeps pixels.
+    The random RAFT's forward and backward flows disagree, so its mask drops
+    (nearly) every pixel and its row reads 100.00, zeros against zeros: its
+    valid share is reported beside it. Farneback's flows of the rolling
+    texture agree, so `warp_error_ssim` on them, the masks and the bilinear
+    warp on the card, is held against the CPU and must read below 100."""
+    from tclight_torch.data.flow_backends import compute_flow_pairs
+    from tclight_torch.eval.loaders import load_flow_backend
+    from tclight_torch.eval.metrics import warp_error_ssim
+    from tclight_torch.ops.flow import compute_fwdbwd_mask
+    from tclight_torch.utils.video_io import load_video
+
+    # the frames that evaluate_run reads (the run's size, so no resize)
+    edited = load_video(run_dir / "output.mp4")
+    source = load_video(run_dir / "output_gt.mp4")
+    out = {}
+    for backend in ("raft", "farneback"):
+        _, model = load_flow_backend(backend, raft_ckpt if backend == "raft" else None)
+        fwd = compute_flow_pairs(source, "future", backend, raft=model)[:-1]
+        bwd = compute_flow_pairs(source, "past", backend, raft=model)[1:]
+        with torch.no_grad():
+            _, mask = compute_fwdbwd_mask(torch.from_numpy(fwd).cuda(),
+                                          torch.from_numpy(bwd).cuda())
+        out[backend] = {"valid_share": float(mask.float().mean())}
+        del model
+    card = warp_error_ssim(edited, source, flow_fwd=fwd, flow_bwd=bwd)
+    cpu = warp_error_ssim(edited, source, flow_fwd=fwd, flow_bwd=bwd, device="cpu")
+    out["farneback"].update(card=card, cpu=cpu)
+    out["ok"] = (out["farneback"]["valid_share"] >= MIN_VALID_SHARE and card < 1.0
+                 and abs(card - cpu) <= WARP_SSIM_TOL)
+    return out
+
+
 def check_eval(raft_ckpt: Path, tmp: Path) -> dict:
     """[eval]: `tclight_torch.evaluate.main` on the main cell's run directory
     with the random RAFT, CLIP, PickScore and LPIPS checkpoints and
     --eval_cost; every row of result.txt (the text rows need a tokenizer
     and are skipped, as in the JAX package), finite; the wall time of each
-    metric group."""
+    metric group; then `check_warp_error`."""
     from tclight_torch import evaluate
     from tclight_torch.ops import kernels
 
@@ -1226,27 +1255,31 @@ def check_eval(raft_ckpt: Path, tmp: Path) -> dict:
     dirs = write_eval_checkpoints(tmp)
     write_s = time.perf_counter() - t0
     timings: dict = {}
-    with default_precision():
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        kernels.reset_stats()
-        t0 = time.perf_counter()
-        rc = evaluate.main(["--output_dir", str(run_dir), "--flow_model", "raft",
-                            "--flow_ckpt", str(raft_ckpt), "--clip_ckpt", str(dirs["clip"]),
-                            "--pick_ckpt", str(dirs["pick"]), "--lpips_ckpt", str(dirs["lpips"]),
-                            "--eval_cost"], timings=timings)
-        wall = time.perf_counter() - t0
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        launched = sum(st.launches for st in kernels.STATS.values())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_stats()
+    t0 = time.perf_counter()
+    rc = evaluate.main(["--output_dir", str(run_dir), "--flow_model", "raft",
+                        "--flow_ckpt", str(raft_ckpt), "--clip_ckpt", str(dirs["clip"]),
+                        "--pick_ckpt", str(dirs["pick"]), "--lpips_ckpt", str(dirs["lpips"]),
+                        "--eval_cost"], timings=timings)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launched = sum(st.launches for st in kernels.STATS.values())
     rows = dict(line.split(": ", 1) for line in
                 (run_dir / "result.txt").read_text().splitlines()[1:])
     finite = all(math.isfinite(float(v)) for k, v in rows.items() if not k.startswith("zz"))
+    t0 = time.perf_counter()
+    warp = check_warp_error(run_dir, raft_ckpt)
+    warp_s = time.perf_counter() - t0
     ok = (rc == 0 and EVAL_ROWS <= rows.keys() and finite and launched == 0
-          and rows["zz_flow_backend"] == "raft" and "zz_skipped_metrics" not in rows)
+          and rows["zz_flow_backend"] == "raft" and "zz_skipped_metrics" not in rows
+          and warp.pop("ok"))
     phase("eval", ok=ok, rows=rows, wall_s=wall, group_s=timings, peak_mem_gb=peak,
           checkpoint_write_s=write_s,
           precision="f32 (the CLI's own setting)",
-          kernel_launches=launched)
+          kernel_launches=launched, warp_error=warp, warp_check_s=warp_s,
+          warp_tol=WARP_SSIM_TOL, min_valid_share=MIN_VALID_SHARE)
     if not ok:
         raise SystemExit("[eval] failed")
     return {"wall_s": wall, "group_s": timings}
@@ -1313,6 +1346,10 @@ def main() -> int:
                  "flash_attention_int8pv_maxpass"):
         launches[name] = int8_launches[name]
     profile_main_path()
+    # PyTorch's default again (TF32 on for cuDNN's convolutions): the flow
+    # and eval phases measure what a user of those entry points gets, which
+    # set their own precision
+    torch.backends.cudnn.allow_tf32 = True
     with tempfile.TemporaryDirectory(dir=OUT) as tmp:
         raft_ckpt, memflow_ckpt = write_flow_checkpoints(Path(tmp))
         check_raft(raft_ckpt)

@@ -181,10 +181,10 @@ def main(argv=None, device: str = "cuda", timings: dict | None = None) -> int:
     parser.add_argument("--flow_ckpt", type=str, default=None)
     args = parser.parse_args(argv)
 
-    from tclight_torch.utils.device import resolve_device, tf32
+    from tclight_torch.utils.device import full_f32, resolve_device
 
     dev = resolve_device(device)
-    with tf32(False):  # full f32 (the flow networks set their own kernels)
+    with full_f32():  # the flow networks also turn cuDNN off for their calls
         return _evaluate(args, dev, timings)
 
 

@@ -40,7 +40,7 @@ from torch import nn
 from tclight_torch.models import raft
 from tclight_torch.models.raft import (BasicEncoder, conv, convex_upsample, corr_lookup,
                                        corr_pyramid, nchw, nhwc, pixel_grid)
-from tclight_torch.utils.device import resolve_device, tf32
+from tclight_torch.utils.device import full_f32, resolve_device
 
 __all__ = ["MemFlowSKConfig", "PCBlock", "SKMotionEncoder", "SKUpdateBlock",
            "MemFlowNetSK", "MemoryState", "forward_interpolate_np", "InferenceCoreSK",
@@ -261,7 +261,7 @@ class InferenceCoreSK:
             self.mem = self.model.empty_memory(1, h, w, self.device)
         fi = (torch.from_numpy(self.flow_prev[None]).to(self.device)
               if self.warm_start and self.flow_prev is not None else None)
-        with tf32(False, cudnn=False):
+        with full_f32(cudnn=False):
             flow_low, flow_up, key, value = self.model(up(frame1), up(frame2), self.mem, fi)
         # the memory roll: append this frame's (key, value), keep the most
         # recent `cap` entries

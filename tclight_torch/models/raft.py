@@ -19,8 +19,8 @@ The correlation is a matmul and a gather, so no hand-written kernel runs
 here. Precision on the card: `RAFTFlowModel` computes in full f32, set
 for its call whatever the global flags, on PyTorch's own convolution
 kernels: cuDNN in f32 picks an FFT algorithm for this network that took
-7-10x longer, and TF32 inputs move the flows (PERF.md §5,
-`python -m tclight_torch.profile_flow`).
+7-10x longer, and TF32 inputs move the flows (PERF.md, the flow
+networks' findings).
 
 `convert_raft_params` (numpy, the JAX package's code) maps a reference
 `raft-things.pth` onto the flax tree, and `models.bridge.raft_state_dict`
@@ -37,7 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tclight_torch.utils.device import resolve_device, tf32
+from tclight_torch.utils.device import full_f32, resolve_device
 
 __all__ = ["RAFTConfig", "BasicEncoder", "corr_pyramid", "corr_lookup",
            "corr_lookup_chunked", "BasicUpdateBlock", "convex_upsample", "RAFT",
@@ -476,7 +476,7 @@ class RAFTFlowModel:
     @torch.no_grad()
     def __call__(self, frames_a: np.ndarray, frames_b: np.ndarray) -> np.ndarray:
         up = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(self.device)
-        with tf32(False, cudnn=False):
+        with full_f32(cudnn=False):
             return self.model(up(frames_a), up(frames_b))[0].cpu().numpy()
 
     def batched_flow(self, frames_a: np.ndarray, frames_b: np.ndarray,

@@ -2,8 +2,9 @@
 
 Entry points run on the card unless the caller asks for the CPU: the
 default is "cuda", and without a CUDA device that default raises rather
-than carrying on quietly on the CPU. `tf32` fixes the card's f32
-precision for a block (the flow networks and the evaluate CLI set theirs).
+than carrying on quietly on the CPU. `full_f32` runs a block's f32
+convolutions and matmuls in full f32 (the flow networks and the evaluate
+CLI run so).
 """
 
 from __future__ import annotations
@@ -23,15 +24,15 @@ def resolve_device(device: str | torch.device | None = "cuda") -> torch.device:
 
 
 @contextlib.contextmanager
-def tf32(conv: bool, matmul: bool = False, cudnn: bool = True):
-    """Within the block, convolutions take TF32 inputs if `conv` and CUDA
-    matmuls if `matmul` (else full f32; the sums are f32 either way), and
-    cuDNN serves the convolutions if `cudnn` (else PyTorch's own kernels);
-    the flags are restored after. They are process-wide; PyTorch's defaults
-    are cuDNN on, TF32 on for its convolutions and off for matmuls."""
+def full_f32(cudnn: bool = True):
+    """Within the block, f32 convolutions and CUDA matmuls take full f32
+    inputs (no TF32), and cuDNN serves the convolutions if `cudnn` (else
+    PyTorch's own kernels); the process-wide flags are restored after.
+    PyTorch's defaults are cuDNN on, TF32 on for its convolutions and off
+    for matmuls."""
     flags = torch.backends.cudnn
     saved = flags.enabled, flags.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-    flags.enabled, flags.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = cudnn, conv, matmul
+    flags.enabled, flags.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = cudnn, False, False
     try:
         yield
     finally:

@@ -88,13 +88,36 @@ def _rows(path):
     return dict(line.split(": ", 1) for line in lines[1:])
 
 
+def _write_run(out_dir, h, w):
+    """A run directory: a rolling texture as the source, a brightness edit
+    of it as the output."""
+    import yaml
+
+    from tclight_torch.utils.video_io import save_video
+
+    run_dir = out_dir / "run"
+    run_dir.mkdir(parents=True)
+    source = _frames(5, h, w, seed=2)
+    save_video(np.clip(source * 0.9 + 0.05, 0, 1), run_dir / "output.mp4", fps=8)
+    save_video(source, run_dir / "output_gt.mp4", fps=8)
+    (run_dir / "config.yaml").write_text(yaml.safe_dump({"generation": {"prompt": {"x": "a"}}}))
+    return run_dir
+
+
+def _assert_rows_close(card, cpu):
+    assert card.keys() == cpu.keys()
+    for k, v in cpu.items():
+        if k.startswith("zz"):
+            assert card[k] == v
+        else:
+            unit = 10.0 ** -len(v.split(".")[1])
+            assert abs(float(card[k]) - float(v)) <= 1.5 * unit, (k, card[k], v)
+
+
 def test_evaluate_on_card_matches_cpu(cuda, tmp_path):
     """Tiny RAFT and CLIP checkpoints and a random full-size VGG16 with lpips
     heads, written in the reference layouts; one run directory."""
-    import yaml
-
     from tclight_torch import evaluate
-    from tclight_torch.utils.video_io import save_video
 
     torch.manual_seed(0)
     torch.save(raft.reference_state_dict(raft.RAFT(raft.RAFTConfig.tiny())),
@@ -110,12 +133,7 @@ def test_evaluate_on_card_matches_cpu(cuda, tmp_path):
     torch.save({f"lin{i}.model.1.weight": torch.rand(1, c, 1, 1)
                 for i, c in enumerate((64, 128, 256, 512, 512))},
                tmp_path / "lpips" / "lpips_vgg.pth")
-    run_dir = tmp_path / "out" / "run"
-    run_dir.mkdir(parents=True)
-    source = _frames(5, 64, 96, seed=2)
-    save_video(np.clip(source * 0.9 + 0.05, 0, 1), run_dir / "output.mp4", fps=8)
-    save_video(source, run_dir / "output_gt.mp4", fps=8)
-    (run_dir / "config.yaml").write_text(yaml.safe_dump({"generation": {"prompt": {"x": "a"}}}))
+    run_dir = _write_run(tmp_path / "out", 64, 96)
     args = ["--output_dir", str(tmp_path / "out"), "--flow_model", "raft", "--flow_ckpt",
             str(tmp_path / "raft.pth"), "--clip_ckpt", str(tmp_path / "clip"),
             "--lpips_ckpt", str(tmp_path / "lpips")]
@@ -123,11 +141,30 @@ def test_evaluate_on_card_matches_cpu(cuda, tmp_path):
     cpu = _rows(run_dir / "result.txt")
     assert evaluate.main(args) == 0
     card = _rows(run_dir / "result.txt")
-    assert card.keys() == cpu.keys() and {"warp-error-ssim", "clip-frame",
-                                          "frame-lpips"} <= card.keys()
-    for k, v in cpu.items():
-        if k.startswith("zz"):
-            assert card[k] == v
-        else:
-            unit = 10.0 ** -len(v.split(".")[1])
-            assert abs(float(card[k]) - float(v)) <= 1.5 * unit, (k, card[k], v)
+    assert {"warp-error-ssim", "clip-frame", "frame-lpips"} <= card.keys()
+    _assert_rows_close(card, cpu)
+
+
+def test_evaluate_farneback_on_card_matches_cpu(cuda, tmp_path):
+    """The random RAFT's forward and backward flows disagree, so the
+    consistency mask keeps no pixel and warp-error-ssim reads 100.00 above.
+    Farneback's flows of the rolling texture agree: the mask keeps most
+    pixels, so the card's masks and bilinear warp reach the metric."""
+    from tclight_torch import evaluate
+    from tclight_torch.data.flow_backends import compute_flow_pairs
+    from tclight_torch.ops.flow import compute_fwdbwd_mask
+    from tclight_torch.utils.video_io import load_video
+
+    run_dir = _write_run(tmp_path / "out", 128, 160)
+    source = load_video(run_dir / "output_gt.mp4")
+    fwd = compute_flow_pairs(source, "future")[:-1]
+    bwd = compute_flow_pairs(source, "past")[1:]
+    _, mask = compute_fwdbwd_mask(torch.from_numpy(fwd).cuda(), torch.from_numpy(bwd).cuda())
+    assert mask.float().mean() >= 0.5
+    args = ["--output_dir", str(tmp_path / "out"), "--flow_model", "farneback"]
+    assert evaluate.main(args, device="cpu") == 0
+    cpu = _rows(run_dir / "result.txt")
+    assert evaluate.main(args) == 0
+    card = _rows(run_dir / "result.txt")
+    assert card["zz_flow_backend"] == "farneback" and float(card["warp-error-ssim"]) < 100.0
+    _assert_rows_close(card, cpu)
