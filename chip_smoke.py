@@ -28,7 +28,9 @@ Phases, one line each:
      (35 exposure + 70 UVT epochs); checks the mp4, that the path launched
      K1-K4, finite loss histories, the banded UVT route, and that the
      output's warp L1 under the known roll flow is below the same path's
-     with the post-optimization off;
+     with the post-optimization off; then K1 and K2 against their plain
+     versions at each shape the run launched them at that phases 3 and 4
+     did not hold (the CFG dedup's batches of one), as in phase 14;
   8. K3 window warp (forward and adjoint) against its plain version at the
      post-opt batch (16, 720, 960, 3), with the main video's flows and with
      random flows, and on a (2, 160, 192, 3) batch with random flows of up
@@ -43,7 +45,8 @@ Phases, one line each:
      settings (alpha_t 0.4, 30 frames at 960x720, of the synthetic video)
      with generation.attn_qk_int8=true, 4 steps, post-optimization off:
      a 30-frame mp4, K6 (and its pre-pass kernels, once per K6 launch)
-     launched at xy and at yt shapes, K1 never, K2 yes;
+     launched at xy and at yt shapes, K1 never, K2 yes, and held at each
+     of its launch shapes not held before;
  11. int8 / int8pv: the 8-frame main config with the post-optimization
      off and attn_qk_int8 (then attn_pv_int8 too): K6 (then K7, with its
      pre-pass and max pass once a launch) launched, K1 never, and the frames against the fp run's (max abs difference,
@@ -68,7 +71,33 @@ Phases, one line each:
      the pixels and whose row must read below 100. These phases run under
      PyTorch's default precision flags and launch none of the kernels
      (checked);
- 14. one JSON line with every kernel's launches, error and times.
+ 14. the editing path, background conditioning and single-image
+     relighting, each at the full SD1.5 width on random weights, each with
+     the launch counts set to 0 before its run and read after (K1 and K2
+     must have launched where the path reaches them):
+     pnp: `tclight_torch.run.main` with sd_version 1.5 on the generic
+     4-channel stack (bf16): the DDIM inversion of the main cell's 8 frames
+     (4 steps, the cache at each), then PnP generation (pnp_attn_t 0.5,
+     pnp_f_t 0.8); controlnet: the same with a canny ControlNet, the stack
+     written by the port's exporters as a checkpoint directory and loaded
+     through `load_sd`; each also holds one noise prediction of its path
+     on a three-level tiny stack, card (bf16) against the CPU (f32), within
+     1.5 times the CPU's own bf16 error, a limit at most half of what
+     turning the Q/K injection or the ControlNet's residuals off moves it;
+     bkgd: the fbc stack with background_cond, a random RMBG reference
+     checkpoint whose mattes spread over (0, 1) and a synthetic background
+     video (the composite changes the frames; RMBG's mattes card against
+     CPU; RMBG's ms at 896 x 1152); single-image: `SingleImageRelighter.
+     process` (fc) and `process_bg` (fbc) at 512 x 640, 4 steps, the 1.5x
+     pass at denoise 0.5. After each run, K1 and K2 are held against their
+     plain versions at every shape the run launched them at that no
+     earlier row covers (the keys their wrappers record; PnP's three-way
+     batches with Q and K tiled from the first third), with the same
+     fields as phases 3 and 4; and K1's row at the ControlNet's unmerged
+     level 0;
+ 15. one JSON line with every kernel's launches, error and times (K1's and
+     K2's launches also by path, their rows of phase 14 among their
+     shapes).
 The last line is {"ok": true, "device": {...}}. Any failed phase exits
 nonzero. Needs the repository around it and a CUDA device.
 """
@@ -172,41 +201,54 @@ def attention_shapes(lat_h: int = HEIGHT // 8, lat_w: int = WIDTH // 8,
     return out
 
 
-def check_flash(gen: torch.Generator) -> dict:
+def flash_row(label: str, b: int, sq: int, skv: int, h: int, d: int,
+              gen: torch.Generator, tiled: bool = False) -> dict:
+    """K1 against its plain version on random bf16 q, k, v of one shape,
+    beside SDPA, the byte and tensor-core bound and the exponentials'
+    bound. `tiled`: Q and K are the first third's, repeated three times
+    (contiguous copies), as PnP's injection makes them."""
     from tclight_torch.ops.attention import (flash_attention_cuda,
                                              flash_attention_plain)
 
-    rows = []
-    for level, b, s, d in attention_shapes() + attention_shapes(YT_FRAMES, HEIGHT // 8, "yt-"):
-        q, k, v = (torch.randn(b, s, HEADS, d, device="cuda", generator=gen,
-                               dtype=torch.bfloat16) for _ in range(3))
-        scale = d ** -0.5
-        out = flash_attention_cuda(q, k, v, scale)
-        torch.cuda.synchronize()
-        ref = flash_attention_plain(q.float(), k.float(), v.float(), scale)
-        err = (out.float() - ref).abs().max().item()
-        # bf16 output rounding (2^-8 relative) plus bf16 p in the p.v product
-        tol = 2e-2 * ref.abs().max().item()
-        ok = math.isfinite(err) and err <= tol
-        reps = 3 if s > 20000 else 10
-        k_ms = cuda_ms(lambda: flash_attention_cuda(q, k, v, scale), reps)
-        p_ms = cuda_ms(lambda: flash_attention_plain(q.float(), k.float(), v.float(), scale), 1)
-        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        l_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale), reps)
-        flops = 4.0 * b * HEADS * s * s * d
-        b_ms, by = bound_ms(4 * q.numel() * 2, flops)
-        # one exponential per score: the softmax's floor on the special-
-        # function units, beside the tensor-core and byte bound
-        exp_ms = b * HEADS * s * s / PEAK_EXP2 * 1e3
-        row = dict(shape=f"{level} B={b} S={s} H={HEADS} D={d}", max_abs_err=err,
-                   tol=tol, ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
-                   bound_ms=b_ms, bound_by=by, exp_bound_ms=exp_ms)
-        phase("K1", ok=ok, **row)
-        if not ok:
-            raise SystemExit(f"K1 disagrees with its plain version at {row['shape']}")
-        rows.append(row)
-        del q, k, v, out, ref, qt, kt, vt
-        torch.cuda.empty_cache()
+    q = torch.randn(b, sq, h, d, device="cuda", generator=gen, dtype=torch.bfloat16)
+    k, v = (torch.randn(b, skv, h, d, device="cuda", generator=gen, dtype=torch.bfloat16)
+            for _ in range(2))
+    if tiled:
+        q, k = q[:b // 3].repeat(3, 1, 1, 1), k[:b // 3].repeat(3, 1, 1, 1)
+    scale = d ** -0.5
+    out = flash_attention_cuda(q, k, v, scale)
+    torch.cuda.synchronize()
+    ref = flash_attention_plain(q.float(), k.float(), v.float(), scale)
+    err = (out.float() - ref).abs().max().item()
+    # bf16 output rounding (2^-8 relative) plus bf16 p in the p.v product
+    tol = 2e-2 * ref.abs().max().item()
+    ok = math.isfinite(err) and err <= tol
+    reps = 3 if max(sq, skv) > 20000 else 10
+    k_ms = cuda_ms(lambda: flash_attention_cuda(q, k, v, scale), reps)
+    p_ms = cuda_ms(lambda: flash_attention_plain(q.float(), k.float(), v.float(), scale), 1)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    l_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale), reps)
+    flops = 4.0 * b * h * sq * skv * d
+    b_ms, by = bound_ms(2 * (2 * q.numel() + 2 * k.numel()), flops)
+    # one exponential per score: the softmax's floor on the special-
+    # function units, beside the tensor-core and byte bound
+    exp_ms = b * h * sq * skv / PEAK_EXP2 * 1e3
+    shape = f"B={b} S={sq} H={h} D={d}" if sq == skv else f"B={b} Sq={sq} Skv={skv} H={h} D={d}"
+    row = dict(shape=f"{label} {shape}" + (" QK tiled" if tiled else ""), max_abs_err=err,
+               tol=tol, ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=by,
+               exp_bound_ms=exp_ms)
+    phase("K1", ok=ok, **row)
+    if not ok:
+        raise SystemExit(f"K1 disagrees with its plain version at {row['shape']}")
+    del q, k, v, out, ref, qt, kt, vt
+    torch.cuda.empty_cache()
+    return row
+
+
+def check_flash(gen: torch.Generator) -> dict:
+    rows = [flash_row(level, b, s, s, HEADS, d, gen)
+            for level, b, s, d in (attention_shapes()
+                                   + attention_shapes(YT_FRAMES, HEIGHT // 8, "yt-"))]
     return {"rows": rows}
 
 
@@ -371,52 +413,75 @@ def match_shapes() -> list[tuple[str, int, int, int, int]]:
     return out + [("tpu-notes", 2, 23760, 24576, 320)]
 
 
-def check_match(gen: torch.Generator) -> dict:
+def match_row(name: str, b: int, s: int, d: int, c: int, gen: torch.Generator) -> dict:
+    """K2 against its plain version on unit-norm bf16 rows of one shape
+    (the matcher's cosine metric), beside bmm + max and the bound."""
     from tclight_torch.ops.match_kernel import (match_plan, online_argmax_scores_cuda,
                                                 online_argmax_scores_plain)
 
-    rows = []
-    for name, b, s, d, c in match_shapes():
-        # unit-norm rows, as the matcher's cosine metric gives it
-        a = F.normalize(torch.randn(b, s, c, device="cuda", generator=gen), dim=-1).bfloat16()
-        bt = F.normalize(torch.randn(b, d, c, device="cuda", generator=gen), dim=-1).bfloat16()
-        m, i = online_argmax_scores_cuda(a, bt)
-        torch.cuda.synchronize()
-        mr, ir = online_argmax_scores_plain(a, bt)
-        err = (m - mr).abs().max().item()
-        # f32 sums of exact bf16 products in another order: ~1e-6; an index
-        # may differ only where the best two scores are that close
-        tol = 1e-4
-        scores = torch.einsum("bsc,bdc->bsd", a.float(), bt.float())
-        top2 = scores.transpose(0, 1).reshape(s, b * d).topk(2, dim=-1).values
-        del scores
-        clear = (top2[:, 0] - top2[:, 1]) > tol
-        mismatch = int(((i != ir) & clear).sum().item())
-        near_ties = int((~clear).sum().item())
-        ok = math.isfinite(err) and err <= tol and mismatch == 0
-        reps = 3
-        k_ms = cuda_ms(lambda: online_argmax_scores_cuda(a, bt), reps)
-        p_ms = cuda_ms(lambda: online_argmax_scores_plain(a, bt), 1)
+    a = F.normalize(torch.randn(b, s, c, device="cuda", generator=gen), dim=-1).bfloat16()
+    bt = F.normalize(torch.randn(b, d, c, device="cuda", generator=gen), dim=-1).bfloat16()
+    m, i = online_argmax_scores_cuda(a, bt)
+    torch.cuda.synchronize()
+    mr, ir = online_argmax_scores_plain(a, bt)
+    err = (m - mr).abs().max().item()
+    # f32 sums of exact bf16 products in another order: ~1e-6; an index
+    # may differ only where the best two scores are that close
+    tol = 1e-4
+    scores = torch.einsum("bsc,bdc->bsd", a.float(), bt.float())
+    top2 = scores.transpose(0, 1).reshape(s, b * d).topk(2, dim=-1).values
+    del scores
+    clear = (top2[:, 0] - top2[:, 1]) > tol
+    mismatch = int(((i != ir) & clear).sum().item())
+    near_ties = int((~clear).sum().item())
+    ok = math.isfinite(err) and err <= tol and mismatch == 0
+    reps = 3
+    k_ms = cuda_ms(lambda: online_argmax_scores_cuda(a, bt), reps)
+    p_ms = cuda_ms(lambda: online_argmax_scores_plain(a, bt), 1)
 
-        def library():
-            sc = torch.bmm(a, bt.transpose(1, 2)).transpose(0, 1).reshape(s, b * d)
-            return sc.max(dim=-1)
+    def library():
+        sc = torch.bmm(a, bt.transpose(1, 2)).transpose(0, 1).reshape(s, b * d)
+        return sc.max(dim=-1)
 
-        l_ms = cuda_ms(library, reps)
-        flops = 2.0 * b * s * d * c
-        b_ms, by = bound_ms(2 * (a.numel() + bt.numel()) + 8 * s, flops)
-        plan = match_plan(b, s, d, c, torch.cuda.get_device_properties(0).multi_processor_count)
-        row = dict(shape=f"{name} B={b} S={s} D={d} C={c}", max_abs_err=err, tol=tol,
-                   idx_mismatch=mismatch, near_ties=near_ties, ms=k_ms,
-                   plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=by,
-                   src_rows=plan["src_rows"], chunks=plan["chunks"], units=plan["units"])
-        phase("K2", ok=ok, **row)
-        if not ok:
-            raise SystemExit(f"K2 disagrees with its plain version at {row['shape']}")
-        rows.append(row)
-        del a, bt, m, i, mr, ir, top2
-        torch.cuda.empty_cache()
-    return {"rows": rows}
+    l_ms = cuda_ms(library, reps)
+    flops = 2.0 * b * s * d * c
+    b_ms, by = bound_ms(2 * (a.numel() + bt.numel()) + 8 * s, flops)
+    plan = match_plan(b, s, d, c, torch.cuda.get_device_properties(0).multi_processor_count)
+    row = dict(shape=f"{name} B={b} S={s} D={d} C={c}", max_abs_err=err, tol=tol,
+               idx_mismatch=mismatch, near_ties=near_ties, ms=k_ms,
+               plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=by,
+               src_rows=plan["src_rows"], chunks=plan["chunks"], units=plan["units"])
+    phase("K2", ok=ok, **row)
+    if not ok:
+        raise SystemExit(f"K2 disagrees with its plain version at {row['shape']}")
+    del a, bt, m, i, mr, ir, top2
+    torch.cuda.empty_cache()
+    return row
+
+
+def check_match(gen: torch.Generator) -> dict:
+    return {"rows": [match_row(name, b, s, d, c, gen) for name, b, s, d, c in match_shapes()]}
+
+
+def check_path_shapes(tag: str, shapes: dict, gen: torch.Generator, held: dict) -> dict:
+    """K1 and K2 against their plain versions at every shape that the run
+    of path `tag` launched them at (the keys their wrappers record: (B,
+    Sq, Skv, H, D) and (B, S, D, C)) and no row in `held` ((kernel, key) ->
+    row) covers; the new rows join `held`. On the PnP path a batch of
+    three thirds has Q and K tiled from the first third, as the up blocks'
+    injection makes them. Returns each kernel's new rows."""
+    rows = {"flash_attention": [], "online_argmax_scores": []}
+    for name, key in sorted((n, k) for n in rows for k in shapes[n]):
+        if (name, key) in held:
+            continue
+        if name == "flash_attention":
+            row = flash_row(tag, *key, gen, tiled=tag == "pnp" and key[0] % 3 == 0)
+        else:
+            _, s, d, _ = key
+            row = match_row(f"{tag} {'global' if s == d else 'local'}", *key, gen)
+        held[(name, key)] = row
+        rows[name].append(row)
+    return rows
 
 
 def make_video(path: Path, frames: int = FRAMES, height: int = HEIGHT,
@@ -524,7 +589,9 @@ def read_mp4(path: Path) -> tuple[int, tuple | None]:
     return n, shape
 
 
-def run_main_path() -> dict:
+def run_main_path() -> tuple[dict, dict]:
+    """The main path's run and checks: (K1's and K2's launch keys, the
+    launch counts of the kernels line)."""
     import yaml
 
     from tclight_torch.ops import kernels
@@ -556,13 +623,13 @@ def run_main_path() -> dict:
     route = ("banded" if cached is not None and len(cached[1]) == 10 else "dense/sorted")
     flash, match = stats["flash_attention"], stats["online_argmax_scores"]
     warp, band = stats["window_warp"], stats["banded_gather"]
-    flash_dims = sorted(flash[1])
+    flash_dims = sorted({key[-1] for key in flash[1]})
     # K4's launches by direction: the render's plans and the adjoint's
     # have their own windows (the last item of the shape key)
     wf, wb = postopt._banded_windows(HEIGHT * WIDTH, postopt._UVT_TABLE_CACHE["slot"][0][4])
     directions = {name: sum(n for key, n in band[1].items() if key[-1] == w)
                   for name, w in (("render", wf), ("adjoint", wb))}
-    merges = {"global" if s == d else "local" for s, d, _ in match[1]}
+    merges = {"global" if s == d else "local" for _, s, d, _ in match[1]}
     warp_on = warp_l1(out_dir / "frames")
 
     # the same path with the post-optimization off, for the warp L1
@@ -599,10 +666,11 @@ def run_main_path() -> dict:
           warp_l1_postopt=warp_on, warp_l1_no_postopt=warp_off)
     if not ok:
         raise SystemExit("main path check failed")
-    return {"flash_attention": flash[0], "online_argmax_scores": match[0],
-            "window_warp": warp[0], "banded_gather": band[0],
-            "banded_gather:render": directions["render"],
-            "banded_gather:adjoint": directions["adjoint"]}
+    counts = {"flash_attention": flash[0], "online_argmax_scores": match[0],
+              "window_warp": warp[0], "banded_gather": band[0],
+              "banded_gather:render": directions["render"],
+              "banded_gather:adjoint": directions["adjoint"]}
+    return {k: stats[k][1] for k in ("flash_attention", "online_argmax_scores")}, counts
 
 
 def read_frames(frames_dir: Path) -> np.ndarray:
@@ -614,11 +682,12 @@ def read_frames(frames_dir: Path) -> np.ndarray:
     return out.astype(np.float32) / 255.0
 
 
-def run_yt_int8() -> dict:
+def run_yt_int8() -> tuple[dict, dict]:
     """The yt pass with int8 attention: configs/examples/tclight_navsim.yaml
     (alpha_t 0.4, 30 frames at 960x720) on a 30-frame synthetic video, with
     attn_qk_int8, 4 steps and the post-optimization off. The launch counts
-    are set to 0 just before and read just after."""
+    are set to 0 just before and read just after. Returns K1's and K2's
+    launch keys and K6's counts."""
     import yaml
 
     from tclight_torch.ops import kernels
@@ -665,7 +734,8 @@ def run_yt_int8() -> dict:
           k2_shapes=sorted(stats["online_argmax_scores"][1].items()))
     if not ok:
         raise SystemExit("yt-int8 run check failed")
-    return {"flash_attention_int8": k6[0], "flash_attention_int8_prepass": pre[0]}
+    return ({k: stats[k][1] for k in ("flash_attention", "online_argmax_scores")},
+            {"flash_attention_int8": k6[0], "flash_attention_int8_prepass": pre[0]})
 
 
 def run_int8_variants() -> dict:
@@ -980,7 +1050,7 @@ def profile_main_path() -> None:
     from tclight_torch.data.dataparsers import VideoDataParser
     from tclight_torch.pipeline import postopt
     from tclight_torch.pipeline.generator import Generator
-    from tclight_torch.pipeline.iclight import build_full_width_random
+    from tclight_torch.pipeline.iclight import build_full_width_random, encode_prompt_pair
 
     steps = 2
     config = load_config([a for a in main_args(OUT / "wd_prof", True)
@@ -990,7 +1060,7 @@ def profile_main_path() -> None:
     gen = Generator(models, config, data_parser=VideoDataParser(config.data))
     frames = gen.data_parser.load_video(frame_ids=list(range(FRAMES)))
     conds = gen.encode_imgs_batch(frames)
-    cond, uncond = gen.encode_prompt_pair(PROMPT, gen.negative_prompt)
+    cond, uncond = encode_prompt_pair(gen.models, PROMPT, gen.negative_prompt)
     x = gen.prepare_init_noise(FRAMES, HEIGHT, WIDTH,
                                torch.Generator(device="cuda").manual_seed(0))
     profile_window("profile", lambda: gen.ddim_sample(x, (uncond, cond), conds), steps, "step")
@@ -1004,9 +1074,10 @@ def profile_main_path() -> None:
     gen_yt = Generator(models, yt_cfg, data_parser=VideoDataParser(yt_cfg.data))
     conds_yt = gen_yt.encode_imgs_batch(gen_yt.data_parser.load_video(
         frame_ids=list(range(YT_FRAMES))))
-    embeds = tuple(reversed(gen_yt.encode_prompt_pair(PROMPT, gen_yt.negative_prompt)))
-    embeds_t = tuple(reversed(gen_yt.encode_prompt_pair(gen_yt.prompt_t,
-                                                        gen_yt.negative_prompt_t)))
+    embeds = tuple(reversed(encode_prompt_pair(gen_yt.models, PROMPT,
+                                               gen_yt.negative_prompt)))
+    embeds_t = tuple(reversed(encode_prompt_pair(gen_yt.models, gen_yt.prompt_t,
+                                                 gen_yt.negative_prompt_t)))
     x_yt = gen_yt.prepare_init_noise(YT_FRAMES, HEIGHT, WIDTH,
                                      torch.Generator(device="cuda").manual_seed(0))
     profile_window("profile-yt-int8", lambda: gen_yt.ddim_sample(x_yt, embeds, conds_yt,
@@ -1285,6 +1356,357 @@ def check_eval(raft_ckpt: Path, tmp: Path) -> dict:
     return {"wall_s": wall, "group_s": timings}
 
 
+# The editing path, background conditioning and single-image relighting.
+# Each phase sets the launch counts to 0 before its run through the entry
+# point and reads them after; K1 / K2 must have launched where the path
+# reaches them (the ControlNet, RMBG and the VAE launch no hand-written
+# kernel).
+EDIT_PROMPT = "an oil painting of a rolling landscape"
+SMALL_EDIT = (4, 64)  # frames and size of the tiny-stack check
+
+
+def editing_args(work: Path, control: str, extra: list[str]) -> list[str]:
+    """The main cell's video and size through `tclight_torch.run` on the
+    generic-SD path: inversion and generation of STEPS DDIM steps (the
+    cache at every generation timestep), post-optimization off."""
+    return ["--config", str(REPO / "configs" / "tclight_default.yaml"),
+            "-i", str(OUT / "vid"), "-p", EDIT_PROMPT, "sd_version=1.5",
+            f"generation.control={control}", "post_opt.apply_opt=false",
+            f"generation.n_timesteps={STEPS}", f"generation.chunk_size={CHUNK}",
+            "generation.chunk_ord=mix-4", f"generation.frame_range=[0,{FRAMES},1]",
+            f"data.height={HEIGHT}", f"data.width={WIDTH}", "generation.save_frame=false",
+            f"inversion.steps={STEPS}", f"inversion.save_steps={STEPS}",
+            "inversion.save_intermediate=true", f"inversion.batch_size={FRAMES}",
+            f"work_dir={work}"] + extra
+
+
+def run_entry(tag: str, fn) -> tuple[dict, float, float]:
+    """fn() with the launch counts set to 0 before and read after:
+    ({kernel: (launches, {launch key: count})}, wall s, peak GiB)."""
+    from tclight_torch.ops import kernels
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_stats()
+    t0 = time.perf_counter()
+    rc = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stats = {k: (v.launches, dict(v.shapes)) for k, v in kernels.STATS.items()}
+    if rc not in (0, None):
+        raise SystemExit(f"[{tag}] exited {rc}")
+    return stats, wall, torch.cuda.max_memory_allocated() / 2**30
+
+
+def small_sd(dtype, device: str, state_dicts: dict | None = None):
+    """The tiny SD stack with a three-level UNet (channels 32, 64, 64), so
+    that PnP's sites sit as on SD1.5's: the conv injection at level 1, the
+    Q/K injection at levels 1 and 0 but not level 1's first block."""
+    import dataclasses
+
+    from tclight_torch.diffusion.schedulers import DDIMStateScheduler
+    from tclight_torch.models.clip_text import CLIPTextConfig
+    from tclight_torch.models.unet import UNetConfig
+    from tclight_torch.models.vae import VAEConfig
+    from tclight_torch.pipeline.iclight import build_iclight
+
+    ucfg = dataclasses.replace(UNetConfig.tiny(4, dtype=dtype), block_out_channels=(32, 64, 64))
+    models = build_iclight(ucfg, VAEConfig.tiny(dtype=dtype), CLIPTextConfig.tiny(), 2, 0,
+                           state_dicts, device)
+    return dataclasses.replace(models, model_key="1.5",
+                               scheduler=DDIMStateScheduler(num_inference_steps=2))
+
+
+def small_editing_eps(control: str, weights: dict, device: str, dtype, x: np.ndarray,
+                      src: np.ndarray, frames: np.ndarray, hooks: bool = True) -> np.ndarray:
+    """The Generator's guided noise prediction for one chunk of the
+    editing path on `small_sd` at the first of 2 DDIM timesteps, merge
+    ratios 0: PnP's [source | uncond | cond] batch with the conv and Q/K
+    injection, as at a first step (`hooks` False: the Q/K injection off),
+    or the canny ControlNet's residuals of `frames` (`hooks` False: times
+    0)."""
+    from tclight_torch.config import ConfigDict
+    from tclight_torch.models.controlnet import ControlNetModel
+    from tclight_torch.pipeline.generator import Generator
+    from tclight_torch.pipeline.iclight import encode_prompt, encode_prompt_pair
+
+    models = small_sd(dtype, device, weights)
+    if control != "pnp":
+        with torch.device(device):
+            models.controlnet = ControlNetModel(models.unet.config)
+        models.controlnet.load_state_dict(weights["controlnet"])
+        models.controlnet.eval().requires_grad_(False)
+    n = len(x)
+    gen = Generator(models, ConfigDict({
+        "sd_version": "1.5",
+        "generation": {"control": control, "n_timesteps": 2, "chunk_size": n,
+                       "local_merge_ratio": 0.0, "global_merge_ratio": 0.0,
+                       "control_scale": 1.0 if hooks else 0.0,
+                       "negative_prompt": "blurry", "save_frame": False},
+        "post_opt": {"apply_opt": False}, "seed": 0}), device=device)
+    t = float(gen.scheduler.timesteps()[0])
+    xt, st = (torch.from_numpy(a).to(device) for a in (x, src))
+    cc = torch.zeros(xt.shape[:3] + (0,), device=device)
+    with torch.inference_mode():
+        cond, uncond = encode_prompt_pair(gen.models, EDIT_PROMPT, gen.negative_prompt)
+        if control == "pnp":
+            embeds = (encode_prompt(gen.models, ""), uncond, cond)
+            eps, _ = gen._pred_chunk_pnp(xt, st, cc, embeds, t, 0, False, None, False,
+                                         pnp_attn=hooks, pnp_conv=True)
+        else:
+            eps, _ = gen._pred_chunk_ctrl(xt, cc, gen.control_images(frames), (uncond, cond),
+                                          t, 0, False, None, False)
+    return eps.float().cpu().numpy()
+
+
+def check_small_editing(control: str) -> dict:
+    """One noise prediction of the editing path (`small_editing_eps`) over
+    4 frames of 64 x 64 (32 x 32 latents: K1 at the merged levels 0 and 1
+    and at the ControlNet's per-frame level 0; K2 runs, merging nothing),
+    from the same random latents on the CPU in f32 (the reference), on the
+    CPU in bf16 (the plain versions) and on the card in bf16 (K1, K2).
+    Each error is the relative RMS difference from the reference (the max
+    abs differences are printed beside them, not checked). `fault`
+    is the reference's own difference with the Q/K injection off (PnP) or
+    without the ControlNet's residuals: the size of the error that a K1 or
+    K2 wrong on the three-way batch or on the ControlNet's frames makes.
+    The card may differ by 1.5 times the CPU's bf16 error (the card's bf16
+    rounds at other places), and `fault` must be at least twice that
+    limit, so the check sees an error half its size."""
+    from tclight_torch.models.controlnet import ControlNetModel
+    from tclight_torch.ops import kernels
+    from tclight_torch.pipeline.iclight import init_like_flax
+
+    n, size = SMALL_EDIT
+    ref_models = small_sd(torch.float32, "cpu")
+    weights = {k: getattr(ref_models, k).state_dict() for k in ("unet", "vae", "text_encoder")}
+    if control != "pnp":
+        net = ControlNetModel(ref_models.unet.config)
+        init_like_flax(net, torch.Generator().manual_seed(1))
+        weights["controlnet"] = net.state_dict()
+    f = 2 ** (len(ref_models.vae.config.block_out_channels) - 1)
+    rng = np.random.default_rng(11)
+    x, src = (rng.standard_normal((n, size // f, size // f, 4)).astype(np.float32)
+              for _ in range(2))
+    base = rng.uniform(0.2, 0.8, (size, size, 3)).astype(np.float32)
+    frames = np.stack([np.roll(base, 3 * t, axis=1) for t in range(n)])
+
+    def rel(a: np.ndarray, ref: np.ndarray) -> float:
+        return float(np.sqrt(np.mean((a - ref) ** 2) / np.mean(ref ** 2)))
+
+    ref = small_editing_eps(control, weights, "cpu", torch.float32, x, src, frames)
+    plain_eps = small_editing_eps(control, weights, "cpu", torch.bfloat16, x, src, frames)
+    plain = rel(plain_eps, ref)
+    fault = rel(small_editing_eps(control, weights, "cpu", torch.float32, x, src, frames,
+                                  hooks=False), ref)
+    kernels.reset_stats()
+    card_eps = small_editing_eps(control, weights, "cuda", torch.bfloat16, x, src, frames)
+    launches = {k: kernels.STATS[k].launches for k in ("flash_attention", "online_argmax_scores")}
+    card = rel(card_eps, ref) if np.isfinite(card_eps).all() else float("inf")
+    tol = 1.5 * plain
+    return dict(small_ok=card <= tol and fault >= 2 * tol and launches["flash_attention"] > 0,
+                small_eps_rel_err=card, small_cpu_bf16_rel_err=plain, small_tol=tol,
+                small_fault_rel=fault, small_launches=launches,
+                small_eps_max_abs_err=float(np.abs(card_eps - ref).max()),
+                small_cpu_bf16_max_abs_err=float(np.abs(plain_eps - ref).max()))
+
+
+def editing_phase(tag: str, control: str, extra: list[str], fields: dict) -> dict:
+    """One editing run through `tclight_torch.run.main`, then its checks:
+    the mp4 of every frame, the inversion cache at every generation
+    timestep, K1 and K2 launched, the small check of one noise prediction
+    (`check_small_editing`); one phase line. Returns the run's launch
+    stats."""
+    import yaml
+
+    from tclight_torch.diffusion.schedulers import DDIMStateScheduler
+    from tclight_torch.pipeline.invert import check_latent_exists
+    from tclight_torch.run import main
+
+    work = OUT / f"wd_{tag}"
+    stats, wall, peak = run_entry(tag, lambda: main(editing_args(work, control, extra)))
+    mp4 = next(work.rglob("output.mp4"))
+    n, shape = read_mp4(mp4)
+    st = yaml.safe_load((mp4.parent / "config.yaml").read_text())["stage_times"]
+    ts = DDIMStateScheduler(num_inference_steps=STEPS).timesteps()
+    cached = all(check_latent_exists(work / "latents", t, range(FRAMES)) for t in ts)
+    small = check_small_editing(control)
+    flash, match = stats["flash_attention"], stats["online_argmax_scores"]
+    ok = (n == FRAMES and shape == (HEIGHT, WIDTH, 3) and cached and flash[0] > 0
+          and match[0] > 0 and small["small_ok"])
+    phase(tag, ok=ok, frames=n, frame_shape=shape, wall_s=wall,
+          inversion_s=st["inversion"], sampling_s=st["sampling"],
+          step_s=st["step_times"], encode_s=st["encode"], decode_s=st["decode"],
+          peak_mem_gb=peak, flash_launches=flash[0], match_launches=match[0],
+          flash_shapes=sorted(flash[1].items()), match_shapes=sorted(match[1].items()),
+          cache_complete=cached, **small, **fields)
+    if not ok:
+        raise SystemExit(f"[{tag}] failed")
+    return stats
+
+
+def run_pnp() -> dict:
+    """[pnp]: the generic SD1.5 stack (4-channel UNet, bf16) on random
+    weights: the inversion of the main cell's 8 frames, 4 DDIM steps with
+    the cache at each, then PnP generation (pnp_attn_t 0.5, pnp_f_t 0.8)
+    over [source | uncond | cond] chunks."""
+    return editing_phase("pnp", "pnp", ["--full-width-random", "generation.pnp_attn_t=0.5",
+                                        "generation.pnp_f_t=0.8"],
+                         {"pnp_attn_steps": int(STEPS * 0.5), "pnp_conv_steps": int(STEPS * 0.8)})
+
+
+def run_controlnet(tmp: Path) -> dict:
+    """[controlnet]: the same stack and a canny ControlNet on random
+    weights, written by the port's exporters as a checkpoint directory
+    (bf16 safetensors) and loaded through `load_sd(model_dir,
+    control="canny")` by the CLI; inversion, then ControlNet generation."""
+    from tclight_torch.models.controlnet import ControlNetModel
+    from tclight_torch.pipeline.iclight import (build_full_width_random_sd, init_like_flax,
+                                               write_model_dir)
+
+    t0 = time.perf_counter()
+    models = build_full_width_random_sd(num_inference_steps=STEPS)
+    with torch.device("cuda"):
+        models.controlnet = ControlNetModel(models.unet.config)
+    init_like_flax(models.controlnet, torch.Generator(device="cuda").manual_seed(5))
+    write_model_dir(models, tmp / "sd15", control="canny", dtype=torch.bfloat16)
+    size_gb = sum(p.stat().st_size for p in (tmp / "sd15").iterdir()) / 2**30
+    write_s = time.perf_counter() - t0
+    del models
+    torch.cuda.empty_cache()
+    return editing_phase("controlnet", "canny", [f"model_dir={tmp / 'sd15'}"],
+                         {"model_dir_gb": size_gb, "write_s": write_s})
+
+
+def run_bkgd(tmp: Path) -> dict:
+    """[bkgd]: the fbc (12-channel) IC-Light stack on random weights with
+    background_cond over a synthetic background video and a random RMBG
+    reference checkpoint, through `tclight_torch.run.main` (4 DPM++ steps,
+    post-optimization off): the saved ground truth is the composite of the
+    source over the background through the card's mattes (nearer it than
+    the source by 2x at least); RMBG's mattes on the card against the CPU on a
+    small frame (f32 both, within 1e-4); `random_rmbg`'s mattes spread, on
+    the frames and on the small frame: half their values at least lie in
+    (0.01, 0.99); RMBG's ms at the 720 x 960 frames' working size (896 x
+    1152)."""
+    import cv2
+    import yaml
+
+    from tclight_torch.models.briarmbg import (compute_alpha_mattes, load_rmbg, random_rmbg,
+                                               reference_state_dict, working_size)
+    from tclight_torch.run import main
+    from tclight_torch.utils.device import full_f32
+    from tclight_torch.utils.video_io import save_frames
+
+    ckpt = tmp / "rmbg.pth"
+    torch.save(reference_state_dict(random_rmbg(0, "cpu")), ckpt)
+    bg_dir = OUT / "bg"
+    rng = np.random.default_rng(7)
+    # a dark background, far from the source's mid-grey texture, so the
+    # composite stands clear of the source beyond the mp4's coding error
+    base = 0.05 + 0.1 * cv2.GaussianBlur(
+        rng.uniform(0, 1, (HEIGHT, WIDTH, 3)).astype(np.float32), (0, 0), 9)
+    save_frames(np.stack([np.roll(base, -3 * t, axis=0) for t in range(3)]), bg_dir)
+    work = OUT / "wd_bkgd"
+    args = main_args(work, False) + [
+        "generation.background_cond=true", f"generation.background_image_path={bg_dir}",
+        f"generation.rmbg_ckpt={ckpt}", "generation.save_frame=false"]
+    stats, wall, peak = run_entry("bkgd", lambda: main(args))
+    mp4 = next(work.rglob("output.mp4"))
+    n, shape = read_mp4(mp4)
+    st = yaml.safe_load((mp4.parent / "config.yaml").read_text())["stage_times"]
+    cap = cv2.VideoCapture(str(mp4.parent / "output_gt.mp4"))
+    gt = []
+    while True:
+        ok_read, frame = cap.read()
+        if not ok_read:
+            break
+        gt.append(cv2.cvtColor(frame, cv2.COLOR_BGR2RGB).astype(np.float32) / 255.0)
+    cap.release()
+    source = read_frames(OUT / "vid")
+    model_cuda = load_rmbg(ckpt, "cuda")
+    model_cpu = load_rmbg(ckpt, "cpu")
+    # the saved ground truth (an 8-bit mp4) against the composite of the
+    # source over the background with the card's mattes, and against the
+    # source itself
+    alpha = compute_alpha_mattes(model_cuda, source)[..., None]
+    bgs = read_frames(bg_dir)
+    composite = alpha * source + (1 - alpha) * np.concatenate([bgs] * 3)[:FRAMES]
+    gt = np.stack(gt) if len(gt) == FRAMES else np.zeros_like(source)
+    to_composite = float(np.abs(gt - composite).mean())
+    to_source = float(np.abs(gt - source).mean())
+    small = source[:1, :96, :128]
+    small_cpu = compute_alpha_mattes(model_cpu, small)
+    err = float(np.abs(compute_alpha_mattes(model_cuda, small) - small_cpu).max())
+    # the share of matte values off the sigmoid's flat ends: the mattes
+    # compared are neither saturated nor flat
+    spread = float(((small_cpu > 0.01) & (small_cpu < 0.99)).mean())
+    alpha_spread = float(((alpha > 0.01) & (alpha < 0.99)).mean())
+    rh, rw = working_size(HEIGHT, WIDTH)
+    x = torch.rand(1, rh, rw, 3, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(0)) * 255.0
+    with full_f32(), torch.inference_mode():
+        rmbg_ms = cuda_ms(lambda: model_cuda(x), 5)
+    flash, match = stats["flash_attention"], stats["online_argmax_scores"]
+    ok = (n == FRAMES and shape == (HEIGHT, WIDTH, 3) and to_composite < 0.5 * to_source
+          and err <= 1e-4 and spread >= 0.5 and alpha_spread >= 0.5
+          and flash[0] > 0 and match[0] > 0)
+    phase("bkgd", ok=ok, frames=n, frame_shape=shape, wall_s=wall, sampling_s=st["sampling"],
+          step_s=st["step_times"], encode_s=st["encode"], peak_mem_gb=peak,
+          gt_mean_abs_diff_vs_composite=to_composite, gt_mean_abs_diff_vs_source=to_source,
+          matte_share_in_0_01_0_99=alpha_spread, rmbg_card_vs_cpu_max_abs_err=err,
+          rmbg_small_share_in_0_01_0_99=spread, rmbg_ms=rmbg_ms, rmbg_shape=f"1x{rh}x{rw}",
+          precision="f32 (full f32 on the card)", flash_launches=flash[0],
+          match_launches=match[0])
+    if not ok:
+        raise SystemExit("[bkgd] failed")
+    return stats
+
+
+def run_single_image() -> dict:
+    """[single-image]: `SingleImageRelighter.process` (fc, 8-channel) at
+    512 x 640 (the demo's width / height), 4 steps, then the 1.5x
+    high-resolution img2img pass (768 x 960, denoise 0.5); then
+    `process_bg` (fbc, 12-channel) with an uploaded background, the same
+    way; full-width random stacks in bf16."""
+    from tclight_torch.pipeline.iclight import build_full_width_random
+    from tclight_torch.pipeline.single_image import (BGSource, BGSourceFBC,
+                                                     SingleImageRelighter)
+
+    rng = np.random.default_rng(3)
+    fg = read_frames(OUT / "vid")[0]
+    bg = rng.uniform(0, 1, (480, 640, 3)).astype(np.float32)
+    out, launches, shapes = {}, {}, {}
+    for mode in ("fc", "fbc"):
+        models = build_full_width_random(num_inference_steps=STEPS,
+                                         in_channels=8 if mode == "fc" else 12)
+        relight = SingleImageRelighter(models, steps=STEPS)
+        kw = dict(seed=1, highres_scale=1.5, highres_denoise=0.5, image_width=512,
+                  image_height=640)
+
+        def fn():
+            if mode == "fc":
+                out[mode] = relight.process(fg, PROMPT, BGSource.NONE, **kw)
+            else:
+                out[mode] = relight.process_bg(fg, bg, PROMPT, BGSourceFBC.UPLOAD, **kw)
+
+        stats, wall, peak = run_entry(f"single-image-{mode}", fn)
+        img, flash = out[mode], stats["flash_attention"]
+        ok = img.shape == (960, 768, 3) and np.isfinite(img).all() and flash[0] > 0
+        phase("single-image", ok=ok, mode=mode, out_shape=img.shape, wall_s=wall,
+              peak_mem_gb=peak, flash_launches=flash[0], flash_shapes=sorted(flash[1].items()),
+              match_launches=stats["online_argmax_scores"][0])
+        if not ok:
+            raise SystemExit(f"[single-image] {mode} failed")
+        for k, (n, by_key) in stats.items():
+            launches[k] = launches.get(k, 0) + n
+            counts = shapes.setdefault(k, {})
+            for key, count in by_key.items():
+                counts[key] = counts.get(key, 0) + count
+        del models, relight
+        torch.cuda.empty_cache()
+    return {k: (launches[k], shapes[k]) for k in launches}
+
+
 def kernel_entry(name, source, replaces, launches, rows, path="main") -> dict:
     head = rows[0]
     entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1336,11 +1758,26 @@ def main() -> int:
           cpu_bf16_max_abs_err=plain_err, tol=tol)
     if not dev_err <= tol:
         raise SystemExit("the card's small run disagrees with the f32 reference")
-    launches = run_main_path()
+    # the rows held so far, by launch key: each path's run adds a row for
+    # every shape it launched K1 or K2 at that none of these covers
+    held = {("flash_attention", (b, s, s, HEADS, d)): row for (_, b, s, d), row in zip(
+        attention_shapes() + attention_shapes(YT_FRAMES, HEIGHT // 8), flash["rows"])}
+    held |= {("online_argmax_scores", key[1:]): row
+             for key, row in zip(match_shapes(), match["rows"])}
+    path_rows = {"flash_attention": [], "online_argmax_scores": []}
+
+    def hold(tag: str, shapes: dict) -> None:
+        for k, rows in check_path_shapes(tag, shapes, gen, held).items():
+            path_rows[k] += rows
+
+    shapes, launches = run_main_path()
+    hold("main", shapes)
     warp = check_warp(gen)
     banded = check_banded(gen)
     turnover = check_turnover(gen)
-    launches.update(run_yt_int8())
+    shapes, yt_launches = run_yt_int8()
+    hold("yt-int8", shapes)
+    launches.update(yt_launches)
     int8_launches = run_int8_variants()
     for name in ("flash_attention_int8pv", "flash_attention_int8pv_prepass",
                  "flash_attention_int8pv_maxpass"):
@@ -1355,14 +1792,38 @@ def main() -> int:
         check_raft(raft_ckpt)
         check_memflow(memflow_ckpt)
         check_eval(raft_ckpt, Path(tmp))
+    by_path = {"main": {k: launches[k] for k in path_rows}}
+    with tempfile.TemporaryDirectory(dir=OUT) as tmp:
+        for tag, run in (("pnp", run_pnp), ("controlnet", lambda: run_controlnet(Path(tmp))),
+                         ("bkgd", lambda: run_bkgd(Path(tmp))),
+                         ("single-image", run_single_image)):
+            stats = run()
+            by_path[tag] = {k: stats[k][0] for k in path_rows}
+            hold(tag, {k: stats[k][1] for k in path_rows})
+            if tag == "controlnet":
+                # the ControlNet's unmerged per-frame level 0, the largest
+                # K1 shape of the slice; the inversion runs it too, so its
+                # row may be PnP's
+                tnum = (HEIGHT // 8) * (WIDTH // 8)
+                key = (2 * CHUNK, tnum, tnum, HEADS, 320 // HEADS)
+                if key not in stats["flash_attention"][1]:
+                    raise SystemExit("the ControlNet path launched no K1 at its level-0 shape")
+                row = held[("flash_attention", key)]
+                phase("controlnet-K1-L0", launched=stats["flash_attention"][1][key],
+                      **{k: row[k] for k in ("shape", "ms", "plain_ms", "library_ms",
+                                             "bound_ms", "bound_by", "exp_bound_ms")})
+    phase("launches", **{f"{tag}": counts for tag, counts in by_path.items()})
 
+    k1 = kernel_entry("flash_attention", "tclight_torch/csrc/flash_attention.cu",
+                      "tclight_tpu/ops/attention.py:135", launches["flash_attention"],
+                      flash["rows"] + path_rows["flash_attention"])
+    k2 = kernel_entry("online_argmax_scores", "tclight_torch/csrc/match_argmax.cu",
+                      "tclight_tpu/ops/match_kernel.py:34", launches["online_argmax_scores"],
+                      match["rows"] + path_rows["online_argmax_scores"])
+    for entry in (k1, k2):
+        entry["launches_by_path"] = {tag: c[entry["name"]] for tag, c in by_path.items()}
     print(json.dumps({"kernels": [
-        kernel_entry("flash_attention", "tclight_torch/csrc/flash_attention.cu",
-                     "tclight_tpu/ops/attention.py:135", launches["flash_attention"],
-                     flash["rows"]),
-        kernel_entry("online_argmax_scores", "tclight_torch/csrc/match_argmax.cu",
-                     "tclight_tpu/ops/match_kernel.py:34",
-                     launches["online_argmax_scores"], match["rows"]),
+        k1, k2,
         kernel_entry("window_warp", "tclight_torch/csrc/window_warp.cu",
                      "tclight_tpu/ops/warp_kernel.py:108", launches["window_warp"],
                      warp["rows"]),

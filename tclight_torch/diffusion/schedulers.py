@@ -1,9 +1,11 @@
-"""Multistep DPM-Solver++ (SDE variant, Karras sigmas) with explicit state
-(counterpart of tclight_tpu/diffusion/schedulers.py).
+"""Diffusion samplers with explicit state (counterpart of
+tclight_tpu/diffusion/schedulers.py): multistep DPM-Solver++ (SDE variant,
+Karras sigmas), IC-Light's sampler; deterministic DDIM (eta = 0,
+leading-spaced timesteps) for the inversion and the generic-SD editing path.
 
 Schedules are host numpy. `step` takes the SDE noise as a tensor: the
 caller draws it from a `torch.Generator` or injects it (the tests inject
-the noise the JAX package draws).
+the noise the JAX package draws). `sde` says whether a scheduler needs it.
 """
 
 from __future__ import annotations
@@ -14,8 +16,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-__all__ = ["NoiseSchedule", "karras_sigmas", "DPMState",
-           "DPMSolverMultistepScheduler"]
+__all__ = ["NoiseSchedule", "karras_sigmas", "DDIMScheduler", "DDIMStateScheduler",
+           "DPMState", "DPMSolverMultistepScheduler"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,6 +62,73 @@ def _sigma_to_t(sigma: np.ndarray, log_sigmas: np.ndarray) -> np.ndarray:
     low, high = log_sigmas[low_idx], log_sigmas[high_idx]
     w = np.clip((low - log_sigma) / (low - high), 0, 1)
     return (1 - w) * low_idx + w * high_idx
+
+
+def _f32(x) -> torch.Tensor:
+    return torch.tensor(x, dtype=torch.float32)
+
+
+@dataclasses.dataclass(frozen=True)
+class DDIMScheduler:
+    """Deterministic DDIM (eta = 0), epsilon prediction, leading-spaced
+    timesteps (JAX's DDIMScheduler)."""
+
+    schedule: NoiseSchedule = NoiseSchedule()
+    num_inference_steps: int = 50
+
+    def timesteps(self) -> np.ndarray:
+        step = self.schedule.num_train_timesteps // self.num_inference_steps
+        return (np.arange(0, self.num_inference_steps) * step).round()[::-1].astype(np.int64)
+
+    def alphas_cumprod(self) -> np.ndarray:
+        """The train schedule's alpha-bars in f32, as JAX indexes them."""
+        return self.schedule.alphas_cumprod().astype(np.float32)
+
+    def step(self, eps: torch.Tensor, t_idx: int, sample: torch.Tensor,
+             inversion: bool = False) -> torch.Tensor:
+        """One update at `timesteps()[t_idx]`: x_t -> x_{t - step}, or with
+        `inversion` x_t -> x_{t + step} (from the less noisy timestep
+        t - step, whose alpha-bar is 1 below 0)."""
+        ac = self.alphas_cumprod()
+        n_step = self.schedule.num_train_timesteps // self.num_inference_steps
+        t = int(self.timesteps()[t_idx])
+        a_at = lambda i: ac[i] if i >= 0 else np.float32(1.0)
+        a_t, a_next = (a_at(t - n_step), ac[t]) if inversion else (ac[t], a_at(t - n_step))
+        a_t, a_next = _f32(a_t), _f32(a_next)
+        x0 = (sample - torch.sqrt(1 - a_t).item() * eps) / torch.sqrt(a_t).item()
+        return torch.sqrt(a_next).item() * x0 + torch.sqrt(1 - a_next).item() * eps
+
+    def add_noise(self, x0: torch.Tensor, noise: torch.Tensor, t: int) -> torch.Tensor:
+        a = _f32(self.alphas_cumprod()[t])
+        return torch.sqrt(a).item() * x0 + torch.sqrt(1 - a).item() * noise
+
+
+@dataclasses.dataclass(frozen=True)
+class DDIMStateScheduler:
+    """DDIM behind the DPM-Solver's (init_state, step) protocol, so the
+    Generator samples with either: the generic-SD editing path's sampler
+    (JAX's DDIMStateScheduler). The state is the step index."""
+
+    schedule: NoiseSchedule = NoiseSchedule()
+    num_inference_steps: int = 50
+    sde = False
+
+    def _inner(self) -> DDIMScheduler:
+        return DDIMScheduler(self.schedule, self.num_inference_steps)
+
+    def timesteps(self) -> np.ndarray:
+        return self._inner().timesteps().astype(np.float32)
+
+    def init_state(self, sample: torch.Tensor) -> int:
+        return 0
+
+    def step(self, state: int, eps: torch.Tensor, sample: torch.Tensor,
+             noise: torch.Tensor | None = None) -> tuple[int, torch.Tensor]:
+        """(state + 1, x_{t - step}); deterministic, `noise` is unused."""
+        return state + 1, self._inner().step(eps, state, sample)
+
+    def add_noise(self, x0: torch.Tensor, noise: torch.Tensor, t: int) -> torch.Tensor:
+        return self._inner().add_noise(x0, noise, t)
 
 
 class DPMState(NamedTuple):
@@ -154,3 +223,9 @@ class DPMSolverMultistepScheduler:
                 raise ValueError("sde-dpmsolver++ needs a noise tensor per step")
             prev = prev + noise_scale.item() * noise
         return DPMState(x0, True, i + 1), prev
+
+    def add_noise(self, x0: torch.Tensor, noise: torch.Tensor, step_index: int
+                  ) -> torch.Tensor:
+        """A clean sample noised to the ladder position `step_index`."""
+        alpha, sig = _alpha_sigma(torch.from_numpy(self.sigmas())[step_index])
+        return alpha.item() * x0 + sig.item() * noise

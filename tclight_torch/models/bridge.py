@@ -28,7 +28,7 @@ from torch import nn
 __all__ = ["flax_to_state_dict", "unet_state_dict", "vae_state_dict",
            "clip_text_state_dict", "raft_state_dict", "memflow_sk_state_dict",
            "memflow_state_dict", "clip_vision_state_dict", "vgg16_state_dict",
-           "module_to_flax"]
+           "controlnet_state_dict", "rmbg_state_dict", "module_to_flax"]
 
 
 def _leaf(name: str, arr: np.ndarray) -> tuple[str, np.ndarray]:
@@ -110,6 +110,25 @@ def vgg16_state_dict(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     """`VGG16Features` parameters (tclight_tpu/models/vgg_lpips.py;
     `convert_vgg16_features`' tree)."""
     return flax_to_state_dict(params)
+
+
+def controlnet_state_dict(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """`ControlNetModel` parameters (tclight_tpu/models/controlnet.py;
+    `convert_controlnet`'s tree)."""
+    return flax_to_state_dict(params)
+
+
+def rmbg_state_dict(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """`BriaRMBG` variables (tclight_tpu/models/briarmbg.py;
+    `convert_rmbg_params`' {"params", "batch_stats"}): the BatchNorm
+    statistics `mean` / `var` become `running_mean` / `running_var`, and
+    each BatchNorm gets a `num_batches_tracked` of 0."""
+    sd = flax_to_state_dict(variables["params"])
+    for key, arr in flax_to_state_dict(variables["batch_stats"]).items():
+        prefix, leaf = key.rsplit(".", 1)
+        sd[f"{prefix}.running_{leaf}"] = arr
+        sd.setdefault(f"{prefix}.num_batches_tracked", torch.zeros((), dtype=torch.long))
+    return sd
 
 
 def module_to_flax(module: nn.Module) -> dict[str, Any]:

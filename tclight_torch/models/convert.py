@@ -18,7 +18,13 @@ JAX package's layout.
 `load_torch_state_dict` reads `.safetensors` files with its own reader (an
 8-byte header length, a JSON header, then the raw little-endian bytes), so
 no `safetensors` package is needed; `.bin` / `.pt` files go through
-`torch.load(weights_only=True)`.
+`torch.load(weights_only=True)`. `write_safetensors` writes that format.
+
+The exporters `unet_reference_state_dict`, `vae_reference_state_dict` and
+`clip_text_reference_state_dict` are the converters' inverses: a port
+module's state dict under the diffusers / transformers keys, so a stack on
+random weights can be written as a checkpoint directory and loaded back
+(the port's modules keep the reference's layouts, so only keys change).
 """
 
 from __future__ import annotations
@@ -34,11 +40,15 @@ import torch
 __all__ = [
     "load_torch_state_dict",
     "read_safetensors",
+    "write_safetensors",
     "expand_conv_in",
     "merge_offsets",
     "convert_unet",
     "convert_vae",
     "convert_clip_text",
+    "unet_reference_state_dict",
+    "vae_reference_state_dict",
+    "clip_text_reference_state_dict",
 ]
 
 _SAFETENSORS_DTYPES = {
@@ -80,6 +90,27 @@ def read_safetensors(path: str | Path) -> dict[str, np.ndarray]:
             t = torch.frombuffer(bytearray(f.read(end - begin)), dtype=dtype)
             out[name] = _numpy(t.reshape(shape))
     return out
+
+
+def write_safetensors(sd: Mapping[str, torch.Tensor], path: str | Path) -> None:
+    """Write tensors as a `.safetensors` file that `read_safetensors` (and
+    the safetensors package) reads: the header padded with spaces to a
+    multiple of 8 bytes, then each tensor's bytes in key order."""
+    names = {v: k for k, v in _SAFETENSORS_DTYPES.items()}
+    tensors = {k: v.detach().contiguous().cpu() for k, v in sd.items()}
+    header, offset = {}, 0
+    for k, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[k] = {"dtype": names[t.dtype], "shape": list(t.shape),
+                     "data_offsets": [offset, offset + n]}
+        offset += n
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(len(raw).to_bytes(8, "little"))
+        f.write(raw)
+        for t in tensors.values():
+            f.write(t.reshape(-1).view(torch.uint8).numpy().tobytes())
 
 
 def load_torch_state_dict(path: str | Path) -> dict[str, np.ndarray]:
@@ -365,3 +396,77 @@ def convert_clip_text(sd: Mapping[str, np.ndarray]) -> dict:
                     else f"layers_{m.group(1)}/mlp_fc{m.group(2)}/bias")),
     ]
     return {"params": _apply_table(sd, table)}
+
+
+# ------------------------------------------------------------------ exporters
+
+
+def _rename(sd: Mapping[str, torch.Tensor], rules) -> dict[str, torch.Tensor]:
+    """Each key through every (pattern, replacement) rule of `rules` in
+    turn (re.sub, the replacement a string or a function of the match)."""
+    out = {}
+    for k, v in sd.items():
+        for pattern, repl in rules:
+            k = re.sub(pattern, repl, k)
+        out[k] = v
+    return out
+
+
+_BLOCK_RULES = [
+    (r"transformer_blocks_0\.", "transformer_blocks.0."),
+    (r"\.to_out_0\.", ".to_out.0."),
+    (r"\.ff\.net_0\.", ".ff.net.0."),
+    (r"\.ff\.net_2\.", ".ff.net.2."),
+]
+
+
+def _unet_trunk_rules(n_levels: int):
+    up = lambda m: str(n_levels - 1 - int(m[1]))
+    return [
+        (r"^down_(\d+)_res_(\d+)\.", r"down_blocks.\1.resnets.\2."),
+        (r"^down_(\d+)_attn_(\d+)\.", r"down_blocks.\1.attentions.\2."),
+        (r"^down_(\d+)_ds\.", r"down_blocks.\1.downsamplers.0."),
+        (r"^up_(\d+)_res_(\d+)\.", lambda m: f"up_blocks.{up(m)}.resnets.{m[2]}."),
+        (r"^up_(\d+)_attn_(\d+)\.", lambda m: f"up_blocks.{up(m)}.attentions.{m[2]}."),
+        (r"^up_(\d+)_us\.", lambda m: f"up_blocks.{up(m)}.upsamplers.0."),
+        (r"^mid_res_(\d+)\.", r"mid_block.resnets.\1."),
+        (r"^mid_attn\.", "mid_block.attentions.0."),
+    ] + _BLOCK_RULES
+
+
+def unet_reference_state_dict(unet: torch.nn.Module) -> dict[str, torch.Tensor]:
+    """A `UNet2DCondition`'s weights as a diffusers UNet2DConditionModel
+    state dict (`convert_unet`'s inverse)."""
+    n = len(unet.config.block_out_channels)
+    return _rename(unet.state_dict(), _unet_trunk_rules(n))
+
+
+def vae_reference_state_dict(vae: torch.nn.Module) -> dict[str, torch.Tensor]:
+    """An `AutoencoderKL`'s weights as a diffusers AutoencoderKL state dict
+    (`convert_vae`'s inverse)."""
+    n = len(vae.config.block_out_channels)
+    up = lambda m: str(n - 1 - int(m[1]))
+    return _rename(vae.state_dict(), [
+        (r"^encoder\.quant_conv\.", "quant_conv."),
+        (r"^decoder\.post_quant_conv\.", "post_quant_conv."),
+        (r"^encoder\.down_(\d+)_res_(\d+)\.", r"encoder.down_blocks.\1.resnets.\2."),
+        (r"^encoder\.down_(\d+)_ds\.", r"encoder.down_blocks.\1.downsamplers.0.conv."),
+        (r"^decoder\.up_(\d+)_res_(\d+)\.",
+         lambda m: f"decoder.up_blocks.{up(m)}.resnets.{m[2]}."),
+        (r"^decoder\.up_(\d+)_us\.", lambda m: f"decoder.up_blocks.{up(m)}.upsamplers.0.conv."),
+        (r"\.mid_res_(\d+)\.", r".mid_block.resnets.\1."),
+        (r"\.mid_attn\.", ".mid_block.attentions.0."),
+        (r"\.to_out_0\.", ".to_out.0."),
+    ])
+
+
+def clip_text_reference_state_dict(text: torch.nn.Module) -> dict[str, torch.Tensor]:
+    """A `CLIPTextModel`'s weights as a transformers CLIPTextModel state
+    dict (`convert_clip_text`'s inverse)."""
+    return _rename(text.state_dict(), [
+        (r"^token_embedding\.", "embeddings.token_embedding."),
+        (r"^position_embedding$", "embeddings.position_embedding.weight"),
+        (r"^layers_(\d+)\.", r"encoder.layers.\1."),
+        (r"\.mlp_fc([12])\.", r".mlp.fc\1."),
+        (r"^", "text_model."),
+    ])

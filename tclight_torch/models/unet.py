@@ -4,7 +4,10 @@
 The IC-Light conv_in widening is `in_channels` in the config; the concat of
 the conditioning latents is done by the caller. VidToMe token merging is a
 `ToMeSpec` handed to `forward`: merge -> self-attention -> unmerge, with the
-global token banks passed in and returned as a dict.
+global token banks passed in and returned as a dict. The generic-SD
+editing path's hooks are arguments of `forward`: Plug-and-Play's Q/K and
+conv-feature injection (`pnp_attn`, `pnp_conv`, on a [source | uncond |
+cond] batch) and ControlNet's residuals (`down_residuals`, `mid_residual`).
 
 Layout: NHWC at `forward`'s boundary, (B*F, H, W, C) with B the CFG batch
 and F the frames of a chunk; NCHW inside.
@@ -64,7 +67,11 @@ class UNetConfig:
 class Attention(nn.Module):
     """Multi-head attention: plain for short KV (skv <= 512), the flash
     kernel of `backend` otherwise (None, "int8" or "int8pv"; see
-    ops/attention.py)."""
+    ops/attention.py).
+
+    `inject_qk` is Plug-and-Play's source injection: the batch holds
+    [source | uncond | cond] in thirds, and every sample's Q and K become
+    the source third's."""
 
     def __init__(self, dim: int, heads: int, dim_head: int,
                  context_dim: Optional[int] = None):
@@ -77,12 +84,18 @@ class Attention(nn.Module):
         self.to_out_0 = nn.Linear(inner, inner)
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
-                backend: Optional[str] = None) -> torch.Tensor:
+                backend: Optional[str] = None, inject_qk: bool = False) -> torch.Tensor:
         ctx = x if context is None else context
         b, sq = x.shape[:2]
         skv = ctx.shape[1]
-        q = self.to_q(x).reshape(b, sq, self.heads, self.dim_head)
-        k = self.to_k(ctx).reshape(b, skv, self.heads, self.dim_head)
+        q, k = self.to_q(x), self.to_k(ctx)
+        if inject_qk:
+            # repeat copies: the tiled q and k are contiguous, as the
+            # flash kernels need them
+            third = b // 3
+            q, k = q[:third].repeat(3, 1, 1), k[:third].repeat(3, 1, 1)
+        q = q.reshape(b, sq, self.heads, self.dim_head)
+        k = k.reshape(b, skv, self.heads, self.dim_head)
         v = self.to_v(ctx).reshape(b, skv, self.heads, self.dim_head)
         if skv <= 512:
             out = dot_product_attention(q, k, v)
@@ -107,7 +120,8 @@ class BasicTransformerBlock(nn.Module):
     def forward(self, x, context, tome_spec: Optional[ToMeSpec],
                 merge_active: bool, randf: int, flip: bool,
                 bank: Optional[torch.Tensor], use_global: bool,
-                dup_after_attn1: bool = False, attn_backend: Optional[str] = None):
+                dup_after_attn1: bool = False, attn_backend: Optional[str] = None,
+                pnp_attn: bool = False):
         h = self.norm1(x)
         new_bank = bank
         spec = tome_spec
@@ -128,15 +142,16 @@ class BasicTransformerBlock(nn.Module):
                     flip, spec.align_batch)
                 g_rows = tome.global_unmerge_rows(mi_g, flip, l_len)
                 new_bank = tome.gather_rows(merged, g_rows)
-                attn_out = self.attn1(merged, backend=attn_backend)
+                attn_out = self.attn1(merged, backend=attn_backend, inject_qk=pnp_attn)
                 rows = tome.compose_rows(g_rows, rows)
             else:
                 if spec.merge_global:
                     new_bank = local_merged
-                attn_out = self.attn1(local_merged, backend=attn_backend)
+                attn_out = self.attn1(local_merged, backend=attn_backend,
+                                      inject_qk=pnp_attn)
             attn_out = tome.split_frame(tome.gather_rows(attn_out, rows), f)
         else:
-            attn_out = self.attn1(h, backend=attn_backend)
+            attn_out = self.attn1(h, backend=attn_backend, inject_qk=pnp_attn)
         x = x + attn_out
         if dup_after_attn1:
             # CFG-prefix dedup: everything so far ran on the shared half;
@@ -165,7 +180,7 @@ class Transformer2D(nn.Module):
 
     def forward(self, x, context, tome_spec, merge_active, randf, flip, bank,
                 use_global, dup_after_attn1: bool = False,
-                attn_backend: Optional[str] = None):
+                attn_backend: Optional[str] = None, pnp_attn: bool = False):
         b, c, hh, ww = x.shape
         residual = x
         z = self.proj_in(self.norm(x))
@@ -176,7 +191,7 @@ class Transformer2D(nn.Module):
             bank = bank[: bank.shape[0] // 2]
         z, new_bank = self.transformer_blocks_0(
             z, context, tome_spec, merge_active, randf, flip, bank, use_global,
-            dup_after_attn1, attn_backend)
+            dup_after_attn1, attn_backend, pnp_attn)
         if dup_after_attn1:
             residual = torch.cat([residual, residual], dim=0)
         z = z.reshape(residual.shape[0], hh, ww, c).permute(0, 3, 1, 2)
@@ -189,7 +204,17 @@ class UNet2DCondition(nn.Module):
 
     forward(x, t, context, ...) -> (eps (B*F, H, W, C_out) f32, new_banks).
     `attn_backend` goes to every attention, as the JAX UNet threads its
-    field of that name."""
+    field of that name.
+
+    Editing hooks (levels count from the finest, 0, as in JAX, so
+    `n - 2` is the second-coarsest):
+    - `pnp_attn`: Q/K injection in every up-block self-attention but
+      (level n - 2, block 0);
+    - `pnp_conv`: the source third's features tiled over the batch after
+      the resnet of (level n - 2, block 1), before its attention;
+    - `down_residuals` (NHWC, one per skip) are added to the skips and
+      `mid_residual` (NHWC) after the mid block.
+    The CFG-prefix dedup (`cfg_dedup`) excludes all four."""
 
     def __init__(self, config: UNetConfig):
         super().__init__()
@@ -247,10 +272,6 @@ class UNet2DCondition(nn.Module):
                 use_global: bool = False, cfg_dedup: bool = False,
                 attn_backend: Optional[str] = None, pnp_attn: bool = False, pnp_conv: bool = False,
                 down_residuals=None, mid_residual=None):
-        if pnp_attn or pnp_conv:
-            raise NotImplementedError("PnP injection is not ported")
-        if down_residuals is not None or mid_residual is not None:
-            raise NotImplementedError("ControlNet residuals are not ported")
         cfg = self.config
         ch = cfg.block_out_channels
         n = len(ch)
@@ -261,6 +282,9 @@ class UNet2DCondition(nn.Module):
         if cfg_dedup and (context.shape[0] != 2 * x.shape[0] or n < 2):
             raise ValueError("cfg_dedup: x is the shared half, context the "
                              "full batch, and the UNet needs an attention level")
+        if cfg_dedup and (pnp_attn or pnp_conv or down_residuals is not None
+                          or mid_residual is not None):
+            raise ValueError("cfg_dedup excludes PnP and ControlNet residuals")
         x = x.permute(0, 3, 1, 2)
         h0, w0 = x.shape[-2:]
         timesteps = torch.as_tensor(timesteps, dtype=torch.float32,
@@ -275,12 +299,12 @@ class UNet2DCondition(nn.Module):
         temb_full = torch.cat([temb, temb]) if cfg_dedup else temb
         pending = cfg_dedup
 
-        def run_attn(key, h, dup=False):
+        def run_attn(key, h, dup=False, inject=False):
             active = self._merge_active(tome_spec, h.shape[-2], h.shape[-1],
                                         h0, w0)
             h, nb = getattr(self, key)(h, context, tome_spec, active, randf,
                                        flip, banks.get(key), use_global, dup,
-                                       attn_backend)
+                                       attn_backend, inject)
             if nb is not None:
                 new_banks[key] = nb
             return h
@@ -299,16 +323,27 @@ class UNet2DCondition(nn.Module):
                 h = getattr(self, f"down_{lvl}_ds")(h)
                 skips.append(h)
 
+        if down_residuals is not None:
+            if len(down_residuals) != len(skips):
+                raise ValueError(f"{len(down_residuals)} residuals for {len(skips)} skips")
+            skips = [s + r.permute(0, 3, 1, 2).to(s.dtype)
+                     for s, r in zip(skips, down_residuals)]
+
         h = self.mid_res_0(h, temb_full)
         h = run_attn("mid_attn", h)
         h = self.mid_res_1(h, temb_full)
+        if mid_residual is not None:
+            h = h + mid_residual.permute(0, 3, 1, 2).to(h.dtype)
 
         for lvl in reversed(range(n)):
             for blk in range(cfg.layers_per_block + 1):
                 h = torch.cat([h, skips.pop()], dim=1)
                 h = getattr(self, f"up_{lvl}_res_{blk}")(h, temb_full)
+                if pnp_conv and lvl == n - 2 and blk == 1:
+                    h = h[: h.shape[0] // 3].repeat(3, 1, 1, 1)
                 if lvl < n - 1:
-                    h = run_attn(f"up_{lvl}_attn_{blk}", h)
+                    h = run_attn(f"up_{lvl}_attn_{blk}", h,
+                                 inject=pnp_attn and not (lvl == n - 2 and blk == 0))
             if lvl > 0:
                 h = getattr(self, f"up_{lvl}_us")(
                     h, out_size=tuple(skips[-1].shape[-2:]))

@@ -168,7 +168,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rc = fn(q.data_ptr(), kc.data_ptr(), vc.data_ptr(), out.data_ptr(), b, h, sq,
             skv, d, float(scale), torch.cuda.current_stream(q.device).cuda_stream)
     kernels.check_launch(rc, "flash_attention")
-    kernels.STATS["flash_attention"].record(d)
+    kernels.STATS["flash_attention"].record((b, sq, skv, h, d))
     return out
 
 

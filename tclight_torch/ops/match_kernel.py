@@ -161,7 +161,7 @@ def _launch(a: torch.Tensor, bt: torch.Tensor, n_chunks: int, grid: int
             node_idx.data_ptr(), b, s, d, c, n_chunks, grid,
             torch.cuda.current_stream(a.device).cuda_stream)
     kernels.check_launch(rc, "online_argmax_scores")
-    kernels.STATS["online_argmax_scores"].record((s, d, c))
+    kernels.STATS["online_argmax_scores"].record((b, s, d, c))
     return node_max, node_idx
 
 

@@ -30,10 +30,28 @@ route where the ids allow it (K4/K5); on the CPU the warps are gather warps
 and the palette adjoint the dense route, as the JAX package does off the
 TPU. A failure in it raises.
 
+Background conditioning (`generation.background_cond`): before encoding,
+the frames are composited over the background video of
+`background_image_path` through BriaRMBG's alpha mattes
+(`composite_background`; without an `rmbg_ckpt` on disk the frames stay as
+they are, with a warning, as in JAX).
+
+The generic-SD editing path (a stack from `load_sd` / `build_tiny_sd`,
+DDIM updates, no concat conditions): the init latents come from the
+inversion cache at `latents_path` (pipeline/invert.py) when it holds the
+first timestep. `generation.control: pnp` runs Plug-and-Play: each chunk
+is a [source | uncond | cond] batch whose source third is the cached
+latents of that timestep, with the UNet's Q/K injection for the first
+`int(T * pnp_attn_t)` steps and its conv-feature injection for the first
+`int(T * pnp_f_t)`; it needs the cache at every timestep, and merges
+batch-aligned. A ControlNet type (canny, tile, ip2p) runs the stack's
+ControlNet on the control images of the frames, its residuals scaled by
+`control_scale`. Neither path runs the yt pass.
+
 A missing prompt takes JAX's generic fallback prompt, with a warning.
-Not ported, and refused with NotImplementedError: PnP and ControlNet
-(`control != none`), background conditioning and the prompt upsampler (a
-missing prompt with an existing `prompt_upsampler_ckpt`).
+Not ported, and refused with NotImplementedError: the control types that
+need an annotator network (ROADMAP A10b) and the prompt upsampler (a
+missing prompt with an existing `prompt_upsampler_ckpt`, A13).
 """
 
 from __future__ import annotations
@@ -47,10 +65,13 @@ import numpy as np
 import torch
 
 from tclight_torch.config import ConfigDict, save_config
+from tclight_torch.data.controlnet_utils import (CONTROLNET_DICT, MODEL_BACKED,
+                                                 control_preprocess)
 from tclight_torch.models.unet import ToMeSpec
 from tclight_torch.ops.color import adaptive_instance_normalization
 from tclight_torch.pipeline import chunks as chunklib
-from tclight_torch.pipeline.iclight import ICLightModels
+from tclight_torch.pipeline.iclight import ICLightModels, encode_prompt, encode_prompt_pair
+from tclight_torch.pipeline.invert import check_latent_exists, load_latent
 from tclight_torch.pipeline.postopt import (PostOptConfig, flow_radius,
                                             run_exposure_align, run_uvt)
 from tclight_torch.utils.device import resolve_device
@@ -96,7 +117,20 @@ class Generator:
         self.save_frame = _cfg_get(gen, "save_frame", True)
         self.prompts = dict(_cfg_get(gen, "prompt", {"default": None}))
         self.seed = int(config.get("seed", 12345))
-        control = str(_cfg_get(gen, "control", "none") or "none")
+        # the editing path's modes: PnP, or a ControlNet type
+        self.control = str(_cfg_get(gen, "control", "none") or "none")
+        if self.control in MODEL_BACKED:
+            raise NotImplementedError(
+                f"generation.control: {self.control} needs an annotator network, which "
+                "is not ported yet (ROADMAP A10b)")
+        self.use_pnp = self.control == "pnp"
+        self.pnp_attn_t = float(_cfg_get(gen, "pnp_attn_t", 0.5))
+        self.pnp_f_t = float(_cfg_get(gen, "pnp_f_t", 0.8))
+        self.use_controlnet = self.control in CONTROLNET_DICT
+        if self.use_controlnet and models.controlnet is None:
+            raise ValueError(f"control={self.control} requires a ControlNet model "
+                             f"(load_sd(..., control={self.control!r}))")
+        self.control_scale = float(_cfg_get(gen, "control_scale", 1.0))
         post = config.get("post_opt", {})
         self.apply_opt = bool(_cfg_get(post, "apply_opt", True))
         self.post_cfg = PostOptConfig(
@@ -113,20 +147,14 @@ class Generator:
             exposure_lr_delay_mult=_cfg_get(post, "exposure_lr_delay_mult", 0.0),
             ms_ssim_levels=_cfg_get(post, "ms_ssim_levels", 5),
         )
-        refused = {
-            f"generation.control: {control} (PnP / ControlNet)": control != "none",
-            "generation.background_cond": bool(_cfg_get(gen, "background_cond", False)),
-        }
-        for what, hit in refused.items():
-            if hit:
-                raise NotImplementedError(f"{what} is not ported yet")
-
         self.tome_spec = ToMeSpec(
             n_frames=self.chunk_size,
             local_ratio=_cfg_get(gen, "local_merge_ratio", 0.6),
             merge_global=_cfg_get(gen, "merge_global", True),
             global_ratio=_cfg_get(gen, "global_merge_ratio", 0.5),
-            align_batch=bool(_cfg_get(gen, "align_batch", True)),
+            # PnP merges batch-aligned, so the [src | uncond | cond] batch
+            # merges alike (as the reference forces it)
+            align_batch=bool(_cfg_get(gen, "align_batch", True)) or self.use_pnp,
             max_downsample=_cfg_get(gen, "max_downsample", 2),
         )
         self.global_rand = _cfg_get(gen, "global_rand", 0.5)
@@ -145,39 +173,13 @@ class Generator:
         self.stage_times: dict = {}
         self._last_step_times: list[float] = []
         self.last_postopt_losses: dict = {}
+        self._pnp_latents_dir = None
+        self._frame_ids = None
+        self._control_images = None
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-
-    # ------------------------------------------------------------ prompts
-
-    @torch.inference_mode()
-    def encode_prompt_inner(self, txt: str) -> torch.Tensor:
-        """Chunked >77-token CLIP encoding. Returns (1, k*77, hidden)."""
-        tok = self.models.tokenizer
-        max_length = tok.model_max_length
-        chunk_length = max_length - 2
-        ids = tok(txt, truncation=False, add_special_tokens=False)["input_ids"]
-        chunks_ = [[tok.bos_token_id] + ids[i: i + chunk_length] + [tok.eos_token_id]
-                   for i in range(0, max(len(ids), 1), chunk_length)]
-        chunks_ = [c + [tok.eos_token_id] * (max_length - len(c)) for c in chunks_]
-        token_ids = torch.tensor(chunks_, dtype=torch.long, device=self.device)
-        conds = self.models.text_encoder(token_ids)
-        return conds.reshape(1, -1, conds.shape[-1])
-
-    def encode_prompt_pair(self, positive: str, negative: str):
-        """(cond, uncond), both (1, S, hidden), repeated to equal chunk
-        counts."""
-        c = self.encode_prompt_inner(positive)
-        uc = self.encode_prompt_inner(negative)
-        lc, luc = c.shape[1] // 77, uc.shape[1] // 77
-        max_chunk = max(lc, luc)
-        if lc < max_chunk:
-            c = torch.cat([c] * math.ceil(max_chunk / lc), dim=1)[:, : max_chunk * 77]
-        if luc < max_chunk:
-            uc = torch.cat([uc] * math.ceil(max_chunk / luc), dim=1)[:, : max_chunk * 77]
-        return c, uc
 
     # ---------------------------------------------------------------- VAE
 
@@ -236,6 +238,42 @@ class Generator:
         eps_u, eps_c = eps.chunk(2)
         return eps_u + self.guidance_scale * (eps_c - eps_u), banks
 
+    def _pred_chunk_pnp(self, x_c, src_c, cc_c, embeds3, t, randf, flip, banks,
+                        use_global, pnp_attn: bool, pnp_conv: bool):
+        """PnP batch [source | uncond | cond] with the UNet's Q/K and
+        conv-feature injection as the step's schedule says."""
+        unet = self.models.unet
+        dtype = unet.config.dtype
+        cs = x_c.shape[0]
+        inp = torch.cat([torch.cat([src_c, x_c, x_c]), torch.cat([cc_c, cc_c, cc_c])],
+                        dim=-1).to(dtype)
+        ctx = torch.cat([e.expand(cs, -1, -1) for e in embeds3]).to(dtype)
+        eps, banks = unet(inp, t, ctx, tome_spec=self.models.tome_spec, randf=randf,
+                          flip=flip, banks=banks, use_global=use_global,
+                          attn_backend=self.models.attn_backend, pnp_attn=pnp_attn,
+                          pnp_conv=pnp_conv)
+        _, eps_u, eps_c = eps.chunk(3)
+        return eps_u + self.guidance_scale * (eps_c - eps_u), banks
+
+    def _pred_chunk_ctrl(self, x_c, cc_c, ctrl_c, embeds, t, randf, flip, banks,
+                         use_global):
+        """CFG batch with the ControlNet's residuals (each times
+        `control_scale`) added in the UNet."""
+        unet = self.models.unet
+        dtype = unet.config.dtype
+        cs = x_c.shape[0]
+        inp = torch.cat([torch.cat([x_c, x_c]), torch.cat([cc_c, cc_c])], dim=-1).to(dtype)
+        uncond, cond = embeds
+        ctx = torch.cat([uncond.expand(cs, -1, -1), cond.expand(cs, -1, -1)]).to(dtype)
+        down, mid = self.models.controlnet(inp, t, ctx, torch.cat([ctrl_c, ctrl_c]))
+        s = self.control_scale
+        eps, banks = unet(inp, t, ctx, tome_spec=self.models.tome_spec, randf=randf,
+                          flip=flip, banks=banks, use_global=use_global,
+                          attn_backend=self.models.attn_backend,
+                          down_residuals=[r * s for r in down], mid_residual=mid * s)
+        eps_u, eps_c = eps.chunk(2)
+        return eps_u + self.guidance_scale * (eps_c - eps_u), banks
+
     @staticmethod
     def _scatter_noise(noises, e, idx: np.ndarray, valid: np.ndarray) -> None:
         """Write the valid frames of one slot into the noise buffer (in
@@ -252,13 +290,18 @@ class Generator:
         merging against them and carrying them on. Empty slots run too:
         they update the banks."""
         models = self.models if models is None else models
+        return self._run_plan(x, plan, randfs, flips, lambda idx, *rest: self._pred_chunk(
+            models, x[idx], concat_conds[idx], embeds, t, *rest))
+
+    def _run_plan(self, x, plan, randfs, flips, pred):
+        """The chunk slots of `plan` in order into a noise buffer shaped
+        like x: `pred(idx, randf, flip, banks, use_global)` gives a slot's
+        noise and the banks it carries on."""
         noises = torch.zeros_like(x)
         banks = None
         for s in range(plan.n_slots):
             idx = torch.as_tensor(plan.indices[s], dtype=torch.long, device=x.device)
-            e, banks = self._pred_chunk(models, x[idx], concat_conds[idx], embeds, t,
-                                        int(randfs[s]), bool(flips[s]), banks,
-                                        use_global=s > 0)
+            e, banks = pred(idx, int(randfs[s]), bool(flips[s]), banks, s > 0)
             self._scatter_noise(noises, e, plan.indices[s], plan.valid[s])
         return noises
 
@@ -340,10 +383,13 @@ class Generator:
                     step_noises=None, generator: torch.Generator | None = None):
         """The sampling loop. `embeds` is the (uncond, cond) pair of the
         prompt; `embeds_t` that of `prompt_t`, which the yt pass needs
-        (alpha_t > 0). The SDE noise of step i is `step_noises[i]` when
-        given, else drawn from `generator` (a generator seeded apart from
-        the init noise by default): one draw per step in either pass."""
-        if self.alpha_t > 0 and embeds_t is None:
+        (alpha_t > 0). An SDE scheduler's noise of step i is
+        `step_noises[i]` when given, else drawn from `generator` (a
+        generator seeded apart from the init noise by default): one draw
+        per step in either pass. PnP and ControlNet steps run their own
+        chunk batches (`_editing_noises`) and no yt pass."""
+        editing = self.use_pnp or self.use_controlnet
+        if self.alpha_t > 0 and embeds_t is None and not editing:
             raise ValueError("alpha_t > 0: the yt pass needs embeds_t")
         seed = self.seed if seed is None else seed
         n = x.shape[0]
@@ -351,6 +397,20 @@ class Generator:
         plan_rng = np.random.default_rng(seed)
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(seed + 1)
+        if self.use_pnp:
+            if self._pnp_latents_dir is None:
+                raise FileNotFoundError(
+                    "control=pnp requires inverted latents: pass a latents_path holding "
+                    "noisy_latents_{t} for every generation timestep (run the Inverter "
+                    "with save_intermediate and save_steps=n_timesteps)")
+            uncond, cond = embeds
+            src_e = encode_prompt(self.models, "")  # the source's guidance embedding
+            sq = uncond.shape[1]
+            if src_e.shape[1] < sq:
+                src_e = torch.cat([src_e] * math.ceil(sq / src_e.shape[1]), dim=1)[:, :sq]
+            embeds = (src_e, uncond, cond)
+        elif self.use_controlnet and self._control_images is None:
+            raise RuntimeError("control images not prepared; call the Generator via __call__")
         state = sched.init_state(x)
         self._last_step_times = []
         timesteps = sched.timesteps()
@@ -361,26 +421,50 @@ class Generator:
                                             self.tome_spec.merge_global)
             randfs = plan_rng.integers(0, 4, size=plan.n_slots)
             flips = plan_rng.random(plan.n_slots) <= self.global_rand
-            noises = self._step_core(x, concat_conds, embeds, float(t), plan,
-                                     randfs, flips)
-            if self.alpha_t > 0:
+            if editing:
+                noises = self._editing_noises(x, concat_conds, embeds, t, i,
+                                              len(timesteps), plan, randfs, flips)
+            else:
+                noises = self._step_core(x, concat_conds, embeds, float(t), plan,
+                                         randfs, flips)
+            if self.alpha_t > 0 and not editing:
                 alpha = self.alpha_t * self.final_factor_t ** min(i / len(timesteps), 1.0)
                 noises_t = self._temporal_noises(x, concat_conds, embeds_t, float(t),
                                                  plan_rng)
                 noises = self._fuse_yt(noises, noises_t, alpha)
-            if step_noises is not None:
+            noise = None
+            if sched.sde and step_noises is not None:
                 noise = step_noises[i]
                 if not torch.is_tensor(noise):
                     noise = torch.from_numpy(np.array(noise, dtype=np.float32))
                 noise = noise.to(device=x.device, dtype=x.dtype)
-            else:
+            elif sched.sde:
                 noise = torch.randn(x.shape, generator=generator, dtype=x.dtype,
                                     device=x.device)
             state, x = sched.step(state, noises, x, noise)
             self._sync()
             self._last_step_times.append(time.perf_counter() - t_step0)
-            log.info("step %d/%d t=%.1f", i + 1, len(timesteps), float(t))
+            log.info("step %d/%d t=%.1f [%s]", i + 1, len(timesteps), float(t), self.control)
         return x
+
+    def _editing_noises(self, x, concat_conds, embeds, t, i: int, n_steps: int,
+                        plan, randfs, flips):
+        """One step's noise prediction on the editing path. PnP: `embeds`
+        is (source, uncond, cond), the source third the cached latents at
+        t (by frame id), Q/K injection while i < int(T * pnp_attn_t) and
+        conv injection while i < int(T * pnp_f_t). ControlNet: the control
+        images go through the same chunk plan."""
+        t = float(t)
+        if self.use_pnp:
+            src = torch.from_numpy(load_latent(self._pnp_latents_dir, t, self._frame_ids))
+            src = src.to(device=x.device, dtype=x.dtype)
+            attn = i < int(n_steps * self.pnp_attn_t)
+            conv = i < int(n_steps * self.pnp_f_t)
+            return self._run_plan(x, plan, randfs, flips, lambda idx, *rest: self._pred_chunk_pnp(
+                x[idx], src[idx], concat_conds[idx], embeds, t, *rest, attn, conv))
+        ctrl = self._control_images
+        return self._run_plan(x, plan, randfs, flips, lambda idx, *rest: self._pred_chunk_ctrl(
+            x[idx], concat_conds[idx], ctrl[idx], embeds, t, *rest))
 
     # ------------------------------------------------------------ __call__
 
@@ -400,7 +484,12 @@ class Generator:
         """IC-Light's concat conditions: the frames' latents, and on a
         12-channel (fbc) UNet the background's latents after them, from
         `generation.background_image_path` tiled to the frame count, or
-        zeros without one (tclight_tpu/pipeline/generator.py:1090-1101)."""
+        zeros without one (tclight_tpu/pipeline/generator.py:1090-1101).
+        A generic SD stack has none: a zero-width tensor."""
+        if self.models.model_key != "iclight":
+            n, h, w, _ = frames.shape
+            f = self.vae_factor
+            return torch.zeros((n, h // f, w // f, 0), device=self.device)
         conds = self.encode_imgs_batch(frames)
         if self.models.unet.config.in_channels != 12:
             return conds
@@ -420,14 +509,24 @@ class Generator:
                  step_noises=None):
         """Relight the video; writes output.mp4 and output_gt.mp4 for each
         prompt and returns {prompt name: frames (N, H, W, 3) in [0, 1]}.
-        `latents_path` is unused on the IC-Light path."""
+        `latents_path` is the inversion cache of the generic-SD path (unused
+        on the IC-Light path)."""
         frames = self.data_parser.load_video(frame_ids=frame_ids)
+        if _cfg_get(self.config.get("generation", {}), "background_cond", False):
+            frames = self.composite_background(frames)
         n, h, w, _ = frames.shape
         tracker = CostTracker(self.device)
+        self._frame_ids = list(frame_ids) if frame_ids is not None else None
         if init_noise is None:
             init_noise = self.prepare_init_noise(
                 n, h, w, torch.Generator(device=self.device).manual_seed(self.seed))
         init_noise = torch.as_tensor(init_noise, dtype=torch.float32, device=self.device)
+        if self.use_controlnet:
+            self._control_images = self.control_images(frames)
+        if self.models.model_key != "iclight" and latents_path:
+            # the inversion's latents at the first timestep replace the
+            # init noise
+            init_noise = self._load_inverted_latents(latents_path, frame_ids, init_noise)
 
         t_s = time.perf_counter()
         concat_conds = self.encode_conditions(frames)
@@ -449,8 +548,9 @@ class Generator:
                 edit_prompt = self._handle_missing_prompt()
                 self.prompts[edit_name] = edit_prompt
             log.info("prompt [%s]: %s", edit_name, edit_prompt)
-            cond, uncond = self.encode_prompt_pair(edit_prompt, self.negative_prompt)
-            cond_t, uncond_t = self.encode_prompt_pair(self.prompt_t, self.negative_prompt_t)
+            cond, uncond = encode_prompt_pair(self.models, edit_prompt, self.negative_prompt)
+            cond_t, uncond_t = encode_prompt_pair(self.models, self.prompt_t,
+                                                  self.negative_prompt_t)
             t_s = time.perf_counter()
             clean_latent = self.ddim_sample(init_noise, (uncond, cond), concat_conds,
                                             embeds_t=(uncond_t, cond_t),
@@ -493,6 +593,66 @@ class Generator:
             log.info("done [%s]: %.1fs total, %.2fs/frame", edit_name,
                      cost["total_time"], cost["sec_per_frame"])
         return results
+
+    def composite_background(self, frames: np.ndarray) -> np.ndarray:
+        """Background conditioning: BriaRMBG's alpha mattes of the frames
+        (`generation.rmbg_ckpt`, a reference checkpoint) composite them over
+        the video or image of `background_image_path`, tiled to the frame
+        count. Without a background path the frames stay as they are; so
+        they do, with a warning, without an RMBG checkpoint on disk (JAX's
+        behaviour)."""
+        from tclight_torch.models.briarmbg import compute_alpha_mattes, load_rmbg
+
+        gen_cfg = self.config.get("generation", {})
+        bg_path = _cfg_get(gen_cfg, "background_image_path")
+        if not bg_path:
+            return frames
+        ckpt = _cfg_get(gen_cfg, "rmbg_ckpt")
+        if not (ckpt and Path(str(ckpt)).exists()):
+            log.warning("no RMBG checkpoint; skipping background compositing")
+            return frames
+        alpha = compute_alpha_mattes(load_rmbg(ckpt, self.device), frames)[..., None]
+        bg = self.data_parser.load_video(path=str(bg_path))
+        if len(bg) < len(frames):
+            bg = np.concatenate([bg] * (len(frames) // len(bg) + 1))[: len(frames)]
+        return alpha * frames + (1 - alpha) * bg[: len(frames)]
+
+    def control_images(self, frames: np.ndarray) -> torch.Tensor:
+        """The ControlNet's conditioning images of the frames, (N, H, W, 3)
+        on the device. The embedder downsamples by 8 (SD1.5's VAE); with
+        another VAE factor (the tiny stacks) the images are resized to 8x
+        the latent size, so the residuals land at latent resolution."""
+        import cv2
+
+        ctrl = control_preprocess(frames, self.control)
+        if self.vae_factor != 8:
+            n, h, w, _ = frames.shape
+            size = (w // self.vae_factor * 8, h // self.vae_factor * 8)
+            ctrl = np.stack([cv2.resize(f, size) for f in ctrl])
+        return torch.from_numpy(np.ascontiguousarray(ctrl, dtype=np.float32)).to(self.device)
+
+    def _load_inverted_latents(self, latents_path, frame_ids, init_noise):
+        """The inversion cache's latents at the first timestep, as init
+        latents; PnP needs the cache at every timestep (FileNotFoundError
+        otherwise). Outside PnP a missing latent keeps the fresh init noise,
+        with a warning."""
+        ts = self.scheduler.timesteps()
+        need = list(ts) if self.use_pnp else [ts[0]]
+        missing = [float(t) for t in need
+                   if not check_latent_exists(latents_path, float(t), frame_ids)]
+        if missing:
+            msg = (f"inverted latents missing at {latents_path} for timesteps "
+                   f"{missing[:5]}{'...' if len(missing) > 5 else ''}")
+            if self.use_pnp:
+                raise FileNotFoundError(msg + " - PnP needs latents at every generation "
+                                        "timestep (Inverter save_intermediate with "
+                                        "save_steps == n_timesteps)")
+            log.warning("%s; using fresh init noise", msg)
+            return init_noise
+        self._pnp_latents_dir = latents_path
+        loaded = load_latent(latents_path, float(ts[0]), frame_ids)
+        log.info("loaded inverted init latents %s from %s", loaded.shape, latents_path)
+        return torch.from_numpy(loaded).to(device=self.device, dtype=torch.float32)
 
     @torch.inference_mode(False)
     def _post_optimize(self, frames: torch.Tensor, past_flows: np.ndarray,

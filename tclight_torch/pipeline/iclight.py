@@ -1,42 +1,54 @@
 """IC-Light / SD model stack (counterpart of tclight_tpu/pipeline/iclight.py).
 
-SD1.5 with an 8-channel (fc) or 12-channel (fbc) conv_in; the
-conditioning latents are concatenated by the Generator. Stacks come with
-random weights made from a seed, from state dicts the caller hands in
-(the tests bridge the JAX package's weights with `models/bridge.py`), or
-from local checkpoint files (`load_iclight`), laid out as the JAX
-package reads them:
+SD1.5 with an 8-channel (fc) or 12-channel (fbc) conv_in and DPM-Solver++
+sampling for IC-Light; the generic SD stack of the editing path (inversion,
+PnP, ControlNet) has a 4-channel conv_in, DDIM updates and optionally a
+ControlNet. The conditioning latents are concatenated by the Generator.
+Stacks come with random weights made from a seed, from state dicts the
+caller hands in (the tests bridge the JAX package's weights with
+`models/bridge.py`), or from local checkpoint files (`load_iclight`,
+`load_sd`), laid out as the JAX package reads them:
 
   <model_dir>/unet.safetensors          diffusers UNet state dict
   <model_dir>/vae.safetensors           diffusers VAE state dict
   <model_dir>/text_encoder.safetensors  transformers CLIP text model state dict
   <model_dir>/tokenizer/                CLIP tokenizer files (optional)
   <model_dir>/iclight_sd15_fc.safetensors   (or _fbc) IC-Light weight offsets
+  <model_dir>/controlnet_{control}.safetensors  diffusers ControlNet (load_sd)
+
+`write_model_dir` writes a stack in that layout (the converters' inverses).
+`encode_prompt` / `encode_prompt_pair` are the prompt encoding the
+Generator and the single-image relighter share.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import hashlib
+import math
 from pathlib import Path
 from typing import Any
 
 import torch
 from torch import nn
 
-from tclight_torch.diffusion.schedulers import DPMSolverMultistepScheduler
+from tclight_torch.diffusion.schedulers import DDIMStateScheduler, DPMSolverMultistepScheduler
 from tclight_torch.models import bridge
 from tclight_torch.models.clip_text import CLIPTextConfig, CLIPTextModel
-from tclight_torch.models.convert import (convert_clip_text, convert_unet, convert_vae,
-                                          expand_conv_in, load_torch_state_dict,
-                                          merge_offsets)
+from tclight_torch.models.controlnet import ControlNetModel, load_controlnet
+from tclight_torch.models.convert import (clip_text_reference_state_dict, convert_clip_text,
+                                          convert_unet, convert_vae, expand_conv_in,
+                                          load_torch_state_dict, merge_offsets,
+                                          unet_reference_state_dict,
+                                          vae_reference_state_dict, write_safetensors)
 from tclight_torch.models.unet import ToMeSpec, UNet2DCondition, UNetConfig
 from tclight_torch.models.vae import AutoencoderKL, VAEConfig
 from tclight_torch.utils.device import resolve_device
 
 __all__ = ["DummyTokenizer", "ICLightModels", "init_like_flax", "build_iclight",
-           "build_tiny_iclight", "build_full_width_random", "load_tokenizer",
-           "load_iclight"]
+           "build_tiny_iclight", "build_tiny_sd", "build_full_width_random",
+           "build_full_width_random_sd", "load_tokenizer", "load_iclight", "load_sd",
+           "write_model_dir", "encode_prompt", "encode_prompt_pair"]
 
 
 class DummyTokenizer:
@@ -63,9 +75,11 @@ class ICLightModels:
     vae: AutoencoderKL
     text_encoder: CLIPTextModel
     tokenizer: Any
-    scheduler: DPMSolverMultistepScheduler
+    scheduler: DPMSolverMultistepScheduler | DDIMStateScheduler
     tome_spec: ToMeSpec | None = None
     attn_backend: str | None = None  # None, "int8" or "int8pv" (ops/attention.py)
+    model_key: str = "iclight"  # or the sd_version of a generic SD stack
+    controlnet: ControlNetModel | None = None
 
     @property
     def latent_scale(self) -> float:
@@ -138,15 +152,41 @@ def build_tiny_iclight(seed: int = 0, num_inference_steps: int = 4,
                          num_inference_steps, seed, state_dicts, device)
 
 
+def _as_sd(models: ICLightModels, num_inference_steps: int, sd_version: str = "1.5"
+           ) -> ICLightModels:
+    """A generic SD stack of the editing path: DDIM updates, `model_key`
+    the SD version."""
+    return dataclasses.replace(models, model_key=sd_version, scheduler=DDIMStateScheduler(
+        num_inference_steps=num_inference_steps))
+
+
+def build_tiny_sd(seed: int = 0, num_inference_steps: int = 4, dtype=torch.float32,
+                  state_dicts: dict | None = None,
+                  device: str | torch.device | None = "cuda") -> ICLightModels:
+    """Tiny generic-SD stack (4-channel UNet, DDIM updates) for tests of
+    the inversion and editing path."""
+    return _as_sd(build_tiny_iclight(seed, num_inference_steps, 4, dtype, state_dicts,
+                                     device), num_inference_steps)
+
+
 def build_full_width_random(seed: int = 0, num_inference_steps: int = 25,
-                            device: str | torch.device | None = "cuda"
-                            ) -> ICLightModels:
+                            device: str | torch.device | None = "cuda",
+                            in_channels: int = 8) -> ICLightModels:
     """The full SD1.5 IC-Light stack on random weights, with the shapes of
-    bench.py: UNet sd15 (8-channel conv_in) and VAE sd15 in bf16, the CLIP
-    ViT-L/14 text tower in f32."""
-    return build_iclight(UNetConfig.sd15(in_channels=8), VAEConfig.sd15(),
+    bench.py: UNet sd15 (8-channel conv_in, fc; 12 for fbc) and VAE sd15 in
+    bf16, the CLIP ViT-L/14 text tower in f32."""
+    return build_iclight(UNetConfig.sd15(in_channels=in_channels), VAEConfig.sd15(),
                          CLIPTextConfig.sd15(), num_inference_steps, seed,
                          None, device)
+
+
+def build_full_width_random_sd(seed: int = 0, num_inference_steps: int = 50,
+                               device: str | torch.device | None = "cuda"
+                               ) -> ICLightModels:
+    """The generic SD1.5 stack on random weights: `build_full_width_random`
+    with a 4-channel UNet and DDIM updates."""
+    return _as_sd(build_full_width_random(seed, num_inference_steps, device, 4),
+                  num_inference_steps)
 
 
 def load_tokenizer(tokenizer_dir: str | Path):
@@ -156,26 +196,15 @@ def load_tokenizer(tokenizer_dir: str | Path):
     return CLIPTokenizer.from_pretrained(str(tokenizer_dir))
 
 
-def load_iclight(model_dir: str | Path, mode: str = "fc", num_inference_steps: int = 25,
-                 device: str | torch.device | None = "cuda") -> ICLightModels:
-    """The IC-Light stack from the checkpoint files in `model_dir` (layout
-    in the module docstring), as the JAX package's `load_iclight` builds
-    it: the UNet's conv_in zero-extended to 8 (`fc`) or 12 (`fbc`) input
-    channels and the mode's IC-Light offsets added when their file is
-    there; the diffusers / transformers keys go through `models/convert.py`
-    and `models/bridge.py`. The configs are SD1.5's, or the tiny ones of
+def _read_stack(model_dir: Path, sd_unet: dict, in_channels: int,
+                num_inference_steps: int, dev: torch.device) -> ICLightModels:
+    """The stack of the UNet state dict `sd_unet` (diffusers keys, conv_in
+    already at `in_channels`) and `model_dir`'s VAE, text model and
+    tokenizer. The configs are SD1.5's, or the tiny ones of
     `build_tiny_iclight` when the UNet's first width is theirs (32, not
-    320). The UNet and the VAE run in bf16 on the card and in f32 on the
-    CPU; the CLIP text model in f32. The tokenizer comes from `tokenizer/`
-    when it is there, else the DummyTokenizer, as in the JAX package."""
-    if mode not in ("fc", "fbc"):
-        raise ValueError(f"mode must be 'fc' or 'fbc', got {mode!r}")
-    dev = resolve_device(device)
-    model_dir = Path(model_dir)
-    in_channels = {"fc": 8, "fbc": 12}[mode]
+    320); the UNet and the VAE run in bf16 on the card and in f32 on the
+    CPU, the CLIP text model in f32."""
     dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
-
-    sd_unet = load_torch_state_dict(model_dir / "unet.safetensors")
     width = sd_unet["conv_in.weight"].shape[0]
     size = next((name for name in ("sd15", "tiny")
                  if getattr(UNetConfig, name)().block_out_channels[0] == width), None)
@@ -185,11 +214,6 @@ def load_iclight(model_dir: str | Path, mode: str = "fc", num_inference_steps: i
     ucfg = getattr(UNetConfig, size)(in_channels=in_channels, dtype=dtype)
     vcfg = getattr(VAEConfig, size)(dtype=dtype)
     tcfg = getattr(CLIPTextConfig, size)()
-
-    sd_unet = expand_conv_in(sd_unet, in_channels)
-    offset_file = model_dir / f"iclight_sd15_{mode}.safetensors"
-    if offset_file.exists():
-        sd_unet = merge_offsets(sd_unet, load_torch_state_dict(offset_file))
     state_dicts = {
         "unet": bridge.unet_state_dict(
             convert_unet(sd_unet, n_levels=len(ucfg.block_out_channels))),
@@ -199,9 +223,107 @@ def load_iclight(model_dir: str | Path, mode: str = "fc", num_inference_steps: i
         "text_encoder": bridge.clip_text_state_dict(convert_clip_text(
             load_torch_state_dict(model_dir / "text_encoder.safetensors"))),
     }
-    del sd_unet
     models = build_iclight(ucfg, vcfg, tcfg, num_inference_steps,
                            state_dicts=state_dicts, device=dev)
     tok_dir = model_dir / "tokenizer"
     tokenizer = load_tokenizer(tok_dir) if tok_dir.exists() else DummyTokenizer()
     return dataclasses.replace(models, tokenizer=tokenizer)
+
+
+def load_iclight(model_dir: str | Path, mode: str = "fc", num_inference_steps: int = 25,
+                 device: str | torch.device | None = "cuda") -> ICLightModels:
+    """The IC-Light stack from the checkpoint files in `model_dir` (layout
+    in the module docstring), as the JAX package's `load_iclight` builds
+    it: the UNet's conv_in zero-extended to 8 (`fc`) or 12 (`fbc`) input
+    channels and the mode's IC-Light offsets added when their file is
+    there; the diffusers / transformers keys go through `models/convert.py`
+    and `models/bridge.py` (configs and precision: `_read_stack`). The
+    tokenizer comes from `tokenizer/` when it is there, else the
+    DummyTokenizer, as in the JAX package."""
+    if mode not in ("fc", "fbc"):
+        raise ValueError(f"mode must be 'fc' or 'fbc', got {mode!r}")
+    dev = resolve_device(device)
+    model_dir = Path(model_dir)
+    in_channels = {"fc": 8, "fbc": 12}[mode]
+    sd_unet = expand_conv_in(load_torch_state_dict(model_dir / "unet.safetensors"),
+                             in_channels)
+    offset_file = model_dir / f"iclight_sd15_{mode}.safetensors"
+    if offset_file.exists():
+        sd_unet = merge_offsets(sd_unet, load_torch_state_dict(offset_file))
+    return _read_stack(model_dir, sd_unet, in_channels, num_inference_steps, dev)
+
+
+def load_sd(model_dir: str | Path, sd_version: str = "1.5", num_inference_steps: int = 50,
+            control: str = "none", device: str | torch.device | None = "cuda"
+            ) -> ICLightModels:
+    """The generic SD stack of the editing path from `model_dir` (JAX's
+    `load_sd`): a 4-channel UNet, DDIM updates, `model_key` the SD version
+    (1.5, 2.0, 2.1), and for a ControlNet type `control` the
+    `controlnet_{control}.safetensors` beside it (FileNotFoundError when it
+    is missing). `sd_version: depth` (a 5-channel UNet fed DPT depth maps)
+    is not ported yet (ROADMAP A10b)."""
+    from tclight_torch.data.controlnet_utils import CONTROLNET_DICT
+
+    if sd_version == "depth":
+        raise NotImplementedError("sd_version 'depth' needs the DPT depth annotator, "
+                                  "which is not ported yet (ROADMAP A10b)")
+    dev = resolve_device(device)
+    model_dir = Path(model_dir)
+    models = _as_sd(_read_stack(model_dir, load_torch_state_dict(model_dir / "unet.safetensors"),
+                               4, num_inference_steps, dev), num_inference_steps, sd_version)
+    if control in CONTROLNET_DICT:
+        ckpt = model_dir / f"controlnet_{control}.safetensors"
+        if not ckpt.exists():
+            raise FileNotFoundError(f"control={control} needs {ckpt} (a local control_v11* "
+                                    "checkpoint converted to safetensors)")
+        models.controlnet = load_controlnet(ckpt, models.unet.config, dev)
+    return models
+
+
+def write_model_dir(models: ICLightModels, model_dir: str | Path, control: str | None = None,
+                    dtype: torch.dtype = torch.float32) -> None:
+    """Write the stack's UNet, VAE and CLIP text model, and its ControlNet
+    as `controlnet_{control}.safetensors`, in the layout `load_sd` reads
+    (diffusers / transformers keys, in `dtype`)."""
+    from tclight_torch.models.controlnet import reference_state_dict
+
+    model_dir = Path(model_dir)
+    model_dir.mkdir(parents=True, exist_ok=True)
+    files = {"unet": unet_reference_state_dict(models.unet),
+             "vae": vae_reference_state_dict(models.vae),
+             "text_encoder": clip_text_reference_state_dict(models.text_encoder)}
+    if control is not None:
+        files[f"controlnet_{control}"] = reference_state_dict(models.controlnet)
+    for name, sd in files.items():
+        write_safetensors({k: v.to(dtype) for k, v in sd.items()},
+                          model_dir / f"{name}.safetensors")
+
+
+@torch.inference_mode()
+def encode_prompt(models: ICLightModels, text: str) -> torch.Tensor:
+    """Chunked CLIP encoding of prompts longer than 77 tokens: each chunk
+    of 75 ids between BOS and EOS, padded with EOS. Returns (1, k*77,
+    hidden)."""
+    tok = models.tokenizer
+    max_length = tok.model_max_length
+    chunk_length = max_length - 2
+    ids = tok(text, truncation=False, add_special_tokens=False)["input_ids"]
+    chunks = [[tok.bos_token_id] + ids[i: i + chunk_length] + [tok.eos_token_id]
+              for i in range(0, max(len(ids), 1), chunk_length)]
+    chunks = [c + [tok.eos_token_id] * (max_length - len(c)) for c in chunks]
+    token_ids = torch.tensor(chunks, dtype=torch.long, device=models.device)
+    conds = models.text_encoder(token_ids)
+    return conds.reshape(1, -1, conds.shape[-1])
+
+
+def encode_prompt_pair(models: ICLightModels, positive: str, negative: str):
+    """(cond, uncond), both (1, S, hidden), the shorter repeated to the
+    longer's chunk count."""
+    c, uc = encode_prompt(models, positive), encode_prompt(models, negative)
+    lc, luc = c.shape[1] // 77, uc.shape[1] // 77
+    max_chunk = max(lc, luc)
+    if lc < max_chunk:
+        c = torch.cat([c] * math.ceil(max_chunk / lc), dim=1)[:, : max_chunk * 77]
+    if luc < max_chunk:
+        uc = torch.cat([uc] * math.ceil(max_chunk / luc), dim=1)[:, : max_chunk * 77]
+    return c, uc

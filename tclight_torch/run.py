@@ -1,4 +1,4 @@
-"""TC-Light CLI for the PyTorch port (counterpart of run.py), IC-Light path.
+"""TC-Light CLI for the PyTorch port (counterpart of run.py).
 
 Usage:
     python -m tclight_torch.run --config configs/tclight_default.yaml \\
@@ -17,8 +17,16 @@ their own flows (data/synthetic.py). Weights: from the checkpoint files in
 `model_dir` when it names an existing directory (layout in
 tclight_torch/pipeline/iclight.py; IC-Light's `fbc` offsets and 12-channel
 UNet when `generation.background_cond` is set, else `fc`); else, with
-`--full-width-random`, the SD1.5 IC-Light stack on random weights; with
+`--full-width-random`, the SD1.5 stack on random weights; with
 TCLIGHT_TINY=1, the tiny random stack.
+
+`sd_version` other than `iclight` (1.5, 2.0, 2.1) runs the generic-SD
+editing path: the 4-channel stack (`load_sd`, with the ControlNet of
+`generation.control` when it is a ControlNet type), the DDIM inversion of
+the frames into `inversion.save_path`, then the Generator from those
+latents (`generation.latents_path`), with PnP or the ControlNet as
+`generation.control` says. `sd_version: depth` is not ported yet (ROADMAP
+A10b).
 """
 
 from __future__ import annotations
@@ -36,7 +44,10 @@ def main(argv=None, device: str = "cuda") -> int:
     from tclight_torch.data.dataparsers import make_data_parser
     from tclight_torch.pipeline.generator import Generator
     from tclight_torch.pipeline.iclight import (build_full_width_random,
-                                               build_tiny_iclight, load_iclight)
+                                               build_full_width_random_sd,
+                                               build_tiny_iclight, build_tiny_sd,
+                                               load_iclight, load_sd)
+    from tclight_torch.pipeline.invert import Inverter
     from tclight_torch.utils.device import resolve_device
     from tclight_torch.utils.logging import get_logger
     from tclight_torch.utils.video_io import count_frames, get_frame_ids
@@ -48,22 +59,33 @@ def main(argv=None, device: str = "cuda") -> int:
     config = load_config(rest)
     dev = resolve_device(device)
 
-    if config.get("sd_version", "iclight") != "iclight":
-        raise NotImplementedError("only sd_version: iclight is ported")
-    steps = config.get_path("generation.n_timesteps", 25) or 25
+    sd_version = str(config.get("sd_version", "iclight"))
+    if sd_version == "depth":
+        raise NotImplementedError("sd_version 'depth' needs the DPT depth annotator, which "
+                                  "is not ported yet (ROADMAP A10b)")
+    editing = sd_version != "iclight"
+    steps = config.get_path("generation.n_timesteps", 50 if editing else 25) or 25
+    fbc = bool(config.get_path("generation.background_cond"))
     model_dir = config.get("model_dir")
-    if model_dir and Path(str(model_dir)).exists():
-        mode = "fbc" if config.get_path("generation.background_cond") else "fc"
+    if model_dir and Path(str(model_dir)).exists() and editing:
+        control = str(config.get_path("generation.control", "none") or "none")
+        log.info("loading SD %s (control %s) from %s", sd_version, control, model_dir)
+        models = load_sd(model_dir, sd_version, steps, control=control, device=dev)
+    elif model_dir and Path(str(model_dir)).exists():
+        mode = "fbc" if fbc else "fc"
         log.info("loading IC-Light (%s) from %s", mode, model_dir)
         models = load_iclight(model_dir, mode=mode, num_inference_steps=steps, device=dev)
+    elif known.full_width_random and editing:
+        models = build_full_width_random_sd(num_inference_steps=steps, device=dev)
     elif known.full_width_random:
-        models = build_full_width_random(num_inference_steps=steps, device=dev)
+        models = build_full_width_random(num_inference_steps=steps, device=dev,
+                                         in_channels=12 if fbc else 8)
     elif os.environ.get("TCLIGHT_TINY"):
         log.warning("using tiny random-weight models (TCLIGHT_TINY)")
         # the CUDA kernels take bf16
         dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
-        models = build_tiny_iclight(num_inference_steps=steps, dtype=dtype,
-                                    device=dev)
+        build = build_tiny_sd if editing else build_tiny_iclight
+        models = build(num_inference_steps=steps, dtype=dtype, device=dev)
     else:
         log.error("no weights: set model_dir to a local checkpoint directory, pass "
                   "--full-width-random or export TCLIGHT_TINY=1")
@@ -74,6 +96,11 @@ def main(argv=None, device: str = "cuda") -> int:
                               config.get_path("generation.frame_ids"),
                               n_total=count_frames(config.data.rgb_path))
     generator = Generator(models, config, data_parser=parser, device=dev)
+    if editing:
+        inverter = Inverter(models, config, data_parser=parser, device=dev)
+        inverter(config.get_path("inversion.save_path"), frame_ids)
+        # the run's config.yaml lists the inversion beside the Generator's stages
+        generator.stage_times.update(inverter.stage_times)
     generator(config.get_path("generation.latents_path"),
               config.get_path("generation.output_path") or config.get("work_dir"),
               frame_ids)

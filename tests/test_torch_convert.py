@@ -378,9 +378,8 @@ def _video(tmp_path, n=6, size=32, name="vid"):
 def test_cli_runs_from_model_dir_on_cpu(tmp_path, model_dir, monkeypatch):
     """`tclight_torch.run.main` with `model_dir` set: the fc stack from the
     directory's files (tiny, as their widths say) relights the video into
-    an mp4 of every frame; with `generation.background_cond`
-    it loads the fbc stack, and the Generator then refuses
-    background_cond, which is not ported yet (ROADMAP A11)."""
+    an mp4 of every frame; with `generation.background_cond` it loads the
+    fbc stack and runs it."""
     import cv2
 
     import tclight_torch.pipeline.iclight as iclight
@@ -405,9 +404,12 @@ def test_cli_runs_from_model_dir_on_cpu(tmp_path, model_dir, monkeypatch):
         n += 1
     cap.release()
     assert n == 6
-    with pytest.raises(NotImplementedError, match="background_cond"):
-        main(args + ["generation.background_cond=true"], device="cpu")
+    # background conditioning is ported (ROADMAP A11): the fbc stack runs
+    # (without a background path the frames are not composited)
+    assert main(args + ["generation.background_cond=true", f"work_dir={tmp_path / 'fbc'}"],
+                device="cpu") == 0
     assert loaded[-1]["mode"] == "fbc"
+    assert len(sorted((tmp_path / "fbc").rglob("output.mp4"))) == 1
 
 
 @pytest.mark.parametrize("background", [True, False])

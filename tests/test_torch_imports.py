@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of tclight_torch (the
-post-optimization's, the checkpoint loaders', the flow networks' and the
-evaluation's included) loads neither
+post-optimization's, the checkpoint loaders', the flow networks', the
+evaluation's, the editing path's, the background and single-image
+relighting's and the demos' included) loads neither
 JAX, optax nor the JAX package, nor `safetensors` (which the card's
 machine lacks: the port reads the files itself) or `transformers` (only a
 tokenizer directory needs it), and its entry points refuse to run on the
@@ -44,6 +45,14 @@ slice8 |= {"tclight_torch.data.formats", "tclight_torch.data.synthetic",
            "tclight_torch.eval", "tclight_torch.eval.metrics", "tclight_torch.eval.loaders",
            "tclight_torch.evaluate"}
 assert slice8 <= set(names), sorted(slice8 - set(names))
+# the editing path, background conditioning and single-image relighting;
+# the demos import gradio only under --serve
+slice9 = {"tclight_torch.models.controlnet", "tclight_torch.models.briarmbg",
+          "tclight_torch.data.controlnet_utils", "tclight_torch.pipeline.invert",
+          "tclight_torch.pipeline.single_image", "tclight_torch.gradio_demo_iclight",
+          "tclight_torch.gradio_demo_bg_iclight"}
+assert slice9 <= set(names), sorted(slice9 - set(names))
+assert "gradio" not in sys.modules
 """
 
 
@@ -52,7 +61,7 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert int(proc.stdout.split()[0]) >= 42
+    assert int(proc.stdout.split()[0]) >= 49
 
 
 def _require_no_cuda():
@@ -92,6 +101,23 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
 
     with pytest.raises(RuntimeError, match="CUDA"):
         loaders.load_lpips(REPO / "no_such_dir")
+    # the editing path, background conditioning and single-image relighting
+    from tclight_torch.gradio_demo_bg_iclight import build_relighter as build_fbc
+    from tclight_torch.gradio_demo_iclight import build_relighter as build_fc
+    from tclight_torch.models.briarmbg import load_rmbg
+    from tclight_torch.models.controlnet import load_controlnet
+    from tclight_torch.models.unet import UNetConfig
+    from tclight_torch.pipeline.iclight import (build_full_width_random_sd, build_tiny_sd,
+                                               load_sd)
+    from tclight_torch.pipeline.invert import Inverter
+
+    for call in (build_tiny_sd, build_full_width_random_sd, build_fc, build_fbc,
+                 lambda: load_sd(REPO / "no_such_model_dir"),
+                 lambda: load_controlnet(REPO / "no_such.safetensors", UNetConfig.tiny()),
+                 lambda: load_rmbg(REPO / "no_such.pth"),
+                 lambda: Inverter(build_tiny_sd(device="cpu"), {"inversion": {}})):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
 
 
 def test_cli_defaults_to_cuda_and_raises_without_it(monkeypatch):
@@ -107,3 +133,14 @@ def test_cli_defaults_to_cuda_and_raises_without_it(monkeypatch):
 
     with pytest.raises(RuntimeError, match="CUDA"):
         evaluate.main(["--output_dir", "workdir/unused", "--flow_model", "farneback"])
+    monkeypatch.delenv("ICLIGHT_MODEL_DIR", raising=False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["--config", "configs/tclight_default.yaml", "-i", "unused.mp4", "-p", "x",
+              "sd_version=1.5", "post_opt.apply_opt=false", "work_dir=workdir/unused"])
+    from tclight_torch import gradio_demo_bg_iclight, gradio_demo_iclight
+
+    png = REPO / "configs" / "no_such.png"
+    for demo, args in ((gradio_demo_iclight, ["--input", str(png)]),
+                       (gradio_demo_bg_iclight, ["--fg", str(png), "--bg", str(png)])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            demo.main(args)

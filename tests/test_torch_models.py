@@ -190,9 +190,17 @@ def test_tiny_clip_text():
 
 
 def test_pnp_and_controlnet_arguments_raise():
+    """The PnP and ControlNet hooks are ported (ROADMAP A10; held against
+    JAX in tests/test_torch_editing.py): they run, on a [source | uncond |
+    cond] batch and with a mid residual, and give finite eps of the input's
+    shape; what still raises is combining them with the CFG-prefix dedup,
+    which JAX forbids too."""
     model = tunet.UNet2DCondition(tunet.UNetConfig.tiny(8))
-    x, ctx = torch.zeros(2, 8, 8, 8), torch.zeros(2, 77, 32)
-    with pytest.raises(NotImplementedError):
-        model(x, 1.0, ctx, pnp_attn=True)
-    with pytest.raises(NotImplementedError):
-        model(x, 1.0, ctx, mid_residual=torch.zeros(1))
+    x, ctx = torch.randn(3, 8, 8, 8), torch.randn(3, 77, 32)
+    with torch.no_grad():
+        for kw in ({"pnp_attn": True}, {"pnp_conv": True}, {"pnp_attn": True, "pnp_conv": True},
+                   {"mid_residual": torch.randn(3, 4, 4, 64)}):
+            eps, _ = model(x, 1.0, ctx, **kw)
+            assert eps.shape == (3, 8, 8, 4) and torch.isfinite(eps).all()
+            with pytest.raises(ValueError, match="cfg_dedup"):
+                model(x[:1], 1.0, ctx[:2], cfg_dedup=True, **kw)

@@ -493,14 +493,38 @@ def test_cli_runs_navsim_settings_with_int8_on_cpu(tmp_path, monkeypatch):
     assert calls
 
 
-def test_unported_options_raise(tmp_path):
+def test_unported_options_raise(tmp_path, monkeypatch):
+    """What the port still refuses names its ROADMAP item: the control
+    types that need an annotator network and `sd_version: depth` (A10b),
+    the prompt upsampler (A13). PnP, the ControlNet types and background
+    conditioning are ported (A10, A11): they no longer refuse."""
+    from tclight_torch.pipeline.iclight import build_tiny_sd, load_sd
+    from tclight_torch.run import main
+
     vid_dir = _video(tmp_path)
     models = build_tiny_iclight(device="cpu")
+    for control in ("softedge", "openpose", "depth", "lineart", "lineart_anime"):
+        cfg = _config(tmp_path, vid_dir)
+        cfg["generation"]["control"] = control
+        with pytest.raises(NotImplementedError, match="A10b"):
+            Generator(models, ConfigDict(cfg), device="cpu")
+    with pytest.raises(NotImplementedError, match="A10b"):
+        load_sd(tmp_path / "no_model_dir", sd_version="depth", device="cpu")
+    monkeypatch.chdir(Path(__file__).resolve().parent.parent)
+    monkeypatch.setenv("TCLIGHT_TINY", "1")
+    with pytest.raises(NotImplementedError, match="A10b"):
+        main(_cli_args(tmp_path, vid_dir) + ["sd_version=depth"], device="cpu")
+    sd_models = build_tiny_sd(device="cpu")
     for key, value in (("control", "pnp"), ("background_cond", True)):
         cfg = _config(tmp_path, vid_dir)
         cfg["generation"][key] = value
-        with pytest.raises(NotImplementedError):
-            Generator(models, ConfigDict(cfg), device="cpu")
+        assert Generator(sd_models, ConfigDict(cfg), device="cpu").control == (
+            value if key == "control" else "none")
+    # a ControlNet type needs the stack's ControlNet, as in JAX
+    cfg = _config(tmp_path, vid_dir)
+    cfg["generation"]["control"] = "canny"
+    with pytest.raises(ValueError, match="ControlNet"):
+        Generator(sd_models, ConfigDict(cfg), device="cpu")
     # the yt pass and the int8 attention are ported: they no longer refuse;
     # attn_pv_int8 counts only together with attn_qk_int8
     for flags, backend in (({"alpha_t": 0.4}, None), ({"attn_qk_int8": True}, "int8"),
