@@ -95,7 +95,25 @@ Phases, one line each:
      batches with Q and K tiled from the first third), with the same
      fields as phases 3 and 4; and K1's row at the ControlNet's unmerged
      level 0;
- 15. one JSON line with every kernel's launches, error and times (K1's and
+     depth: `tclight_torch.run.main` with sd_version depth (the SD1.5-shaped
+     5-channel stack in bf16, a random DPT-Hybrid at its published widths
+     as a transformers-keyed `depth_ckpt`): inversion and generation of
+     the main cell's 8 frames, 4 steps each; DPT's ms a frame at 384 x 384
+     and its depth maps card against CPU; the small check on the 5-channel
+     stack. annotators: HED, the lineart_anime U-Net (ngf 64, 8 downs) and
+     the OpenPose body net at their published widths on random reference
+     checkpoints, each `*_model_fn` on the 8 frames (ms a frame, peak,
+     card against CPU in f32), then a softedge ControlNet run through
+     `run.main` reading `annotator_ckpt`, and the small softedge check;
+ 15. upsampler: Pixtral-12B at its published widths on random weights
+     (`check_small_upsampler`, `run_upsampler`): 400 tokens from the main
+     cell's last frame (2,700 image tokens) through
+     `pixtral.upsample_tokens`; ViT, prefill and per-token ms beside their
+     bounds, peak memory; finite logits, 16 cached greedy steps against a
+     recompute, the 2-layer full-width model card against CPU and read
+     back from both checkpoint layouts by `load_vlm`; K1 / K2 not
+     launched (its attention is a matmul, as JAX's);
+ 16. one JSON line with every kernel's launches, error and times (K1's and
      K2's launches also by path, their rows of phase 14 among their
      shapes).
 The last line is {"ok": true, "device": {...}}. Any failed phase exits
@@ -1397,10 +1415,11 @@ def run_entry(tag: str, fn) -> tuple[dict, float, float]:
     return stats, wall, torch.cuda.max_memory_allocated() / 2**30
 
 
-def small_sd(dtype, device: str, state_dicts: dict | None = None):
+def small_sd(dtype, device: str, state_dicts: dict | None = None, in_channels: int = 4):
     """The tiny SD stack with a three-level UNet (channels 32, 64, 64), so
     that PnP's sites sit as on SD1.5's: the conv injection at level 1, the
-    Q/K injection at levels 1 and 0 but not level 1's first block."""
+    Q/K injection at levels 1 and 0 but not level 1's first block; with 5
+    input channels, the sd-depth stack."""
     import dataclasses
 
     from tclight_torch.diffusion.schedulers import DDIMStateScheduler
@@ -1409,53 +1428,77 @@ def small_sd(dtype, device: str, state_dicts: dict | None = None):
     from tclight_torch.models.vae import VAEConfig
     from tclight_torch.pipeline.iclight import build_iclight
 
-    ucfg = dataclasses.replace(UNetConfig.tiny(4, dtype=dtype), block_out_channels=(32, 64, 64))
+    ucfg = dataclasses.replace(UNetConfig.tiny(in_channels, dtype=dtype),
+                               block_out_channels=(32, 64, 64))
     models = build_iclight(ucfg, VAEConfig.tiny(dtype=dtype), CLIPTextConfig.tiny(), 2, 0,
                            state_dicts, device)
-    return dataclasses.replace(models, model_key="1.5",
+    return dataclasses.replace(models, model_key="depth" if in_channels == 5 else "1.5",
                                scheduler=DDIMStateScheduler(num_inference_steps=2))
 
 
 def small_editing_eps(control: str, weights: dict, device: str, dtype, x: np.ndarray,
-                      src: np.ndarray, frames: np.ndarray, hooks: bool = True) -> np.ndarray:
+                      src: np.ndarray, frames: np.ndarray, hooks: bool = True,
+                      annotator: str | None = None, depth: np.ndarray | None = None
+                      ) -> np.ndarray:
     """The Generator's guided noise prediction for one chunk of the
     editing path on `small_sd` at the first of 2 DDIM timesteps, merge
     ratios 0: PnP's [source | uncond | cond] batch with the conv and Q/K
-    injection, as at a first step (`hooks` False: the Q/K injection off),
-    or the canny ControlNet's residuals of `frames` (`hooks` False: times
-    0)."""
+    injection, as at a first step (`hooks` False: the Q/K injection off);
+    a ControlNet's residuals of `frames`' control images (`hooks` False:
+    times 0; a model-backed type's annotator from the checkpoint
+    `annotator`, run on `device`); or, for control "none" with `depth`,
+    the sd-depth stack's plain CFG batch with the depth maps as the fifth
+    channel (`hooks` False: the depth channel 0)."""
     from tclight_torch.config import ConfigDict
     from tclight_torch.models.controlnet import ControlNetModel
     from tclight_torch.pipeline.generator import Generator
     from tclight_torch.pipeline.iclight import encode_prompt, encode_prompt_pair
 
-    models = small_sd(dtype, device, weights)
-    if control != "pnp":
+    models = small_sd(dtype, device, weights, 4 if depth is None else 5)
+    if control not in ("pnp", "none"):
         with torch.device(device):
             models.controlnet = ControlNetModel(models.unet.config)
         models.controlnet.load_state_dict(weights["controlnet"])
         models.controlnet.eval().requires_grad_(False)
     n = len(x)
     gen = Generator(models, ConfigDict({
-        "sd_version": "1.5",
+        "sd_version": "1.5" if depth is None else "depth",
         "generation": {"control": control, "n_timesteps": 2, "chunk_size": n,
                        "local_merge_ratio": 0.0, "global_merge_ratio": 0.0,
-                       "control_scale": 1.0 if hooks else 0.0,
+                       "control_scale": 1.0 if hooks else 0.0, "annotator_ckpt": annotator,
                        "negative_prompt": "blurry", "save_frame": False},
         "post_opt": {"apply_opt": False}, "seed": 0}), device=device)
     t = float(gen.scheduler.timesteps()[0])
     xt, st = (torch.from_numpy(a).to(device) for a in (x, src))
     cc = torch.zeros(xt.shape[:3] + (0,), device=device)
+    if depth is not None:
+        cc = torch.from_numpy(depth * (1.0 if hooks else 0.0)).to(device)
     with torch.inference_mode():
         cond, uncond = encode_prompt_pair(gen.models, EDIT_PROMPT, gen.negative_prompt)
         if control == "pnp":
             embeds = (encode_prompt(gen.models, ""), uncond, cond)
             eps, _ = gen._pred_chunk_pnp(xt, st, cc, embeds, t, 0, False, None, False,
                                          pnp_attn=hooks, pnp_conv=True)
+        elif control == "none":
+            eps, _ = gen._pred_chunk(gen.models, xt, cc, (uncond, cond), t, 0, False, None,
+                                     False)
         else:
             eps, _ = gen._pred_chunk_ctrl(xt, cc, gen.control_images(frames), (uncond, cond),
                                           t, 0, False, None, False)
     return eps.float().cpu().numpy()
+
+
+def random_annotator(module: torch.nn.Module, seed: int) -> torch.nn.Module:
+    """Random annotator weights at flax's scales (`init_like_flax`); HED's
+    `norm` a mid grey, so its logits stay on the sigmoid's slope."""
+    from tclight_torch.models.hed import ControlNetHED
+    from tclight_torch.pipeline.iclight import init_like_flax
+
+    init_like_flax(module, torch.Generator().manual_seed(seed))
+    if isinstance(module, ControlNetHED):
+        with torch.no_grad():
+            module.norm.copy_(torch.tensor([120.0, 110.0, 100.0]).reshape(1, 1, 1, 3))
+    return module.eval().requires_grad_(False)
 
 
 def check_small_editing(control: str) -> dict:
@@ -1464,22 +1507,31 @@ def check_small_editing(control: str) -> dict:
     and at the ControlNet's per-frame level 0; K2 runs, merging nothing),
     from the same random latents on the CPU in f32 (the reference), on the
     CPU in bf16 (the plain versions) and on the card in bf16 (K1, K2).
-    Each error is the relative RMS difference from the reference (the max
-    abs differences are printed beside them, not checked). `fault`
-    is the reference's own difference with the Q/K injection off (PnP) or
-    without the ControlNet's residuals: the size of the error that a K1 or
-    K2 wrong on the three-way batch or on the ControlNet's frames makes.
-    The card may differ by 1.5 times the CPU's bf16 error (the card's bf16
-    rounds at other places), and `fault` must be at least twice that
-    limit, so the check sees an error half its size."""
+    `control` is pnp, canny, softedge (HED control images from a random
+    full-width HED checkpoint, computed in f32 on each device) or sd-depth
+    (the 5-channel stack, its depth channel a tiny random DPT's maps of
+    the frames, made once on the CPU). Each error is the relative RMS
+    difference from the reference (the max abs differences are printed
+    beside them, not checked). `fault` is the reference's own difference
+    with the Q/K injection off (PnP), without the ControlNet's residuals,
+    or with the depth channel 0: the size of the error that a K1 or K2
+    wrong on the three-way batch, on the ControlNet's frames or on the
+    depth stack makes. The card may differ by 1.5 times the CPU's bf16
+    error (the card's bf16 rounds at other places), and `fault` must be
+    at least twice that limit, so the check sees an error half its
+    size."""
+    from tclight_torch.models import dpt, hed
     from tclight_torch.models.controlnet import ControlNetModel
     from tclight_torch.ops import kernels
     from tclight_torch.pipeline.iclight import init_like_flax
 
     n, size = SMALL_EDIT
-    ref_models = small_sd(torch.float32, "cpu")
+    ref_models = small_sd(torch.float32, "cpu", in_channels=5 if control == "sd-depth" else 4)
     weights = {k: getattr(ref_models, k).state_dict() for k in ("unet", "vae", "text_encoder")}
-    if control != "pnp":
+    kind, extra = control, {}
+    if control == "sd-depth":
+        kind = "none"
+    if control not in ("pnp", "sd-depth"):
         net = ControlNetModel(ref_models.unet.config)
         init_like_flax(net, torch.Generator().manual_seed(1))
         weights["controlnet"] = net.state_dict()
@@ -1490,16 +1542,29 @@ def check_small_editing(control: str) -> dict:
     base = rng.uniform(0.2, 0.8, (size, size, 3)).astype(np.float32)
     frames = np.stack([np.roll(base, 3 * t, axis=1) for t in range(n)])
 
+    if control == "sd-depth":
+        net = dpt.random_dpt(dpt.DPTConfig.tiny_hybrid(), seed=2, device="cpu")
+        extra["depth"] = dpt.prepare_depth_maps(net, frames, (size // f, size // f),
+                                                input_size=64)
+
     def rel(a: np.ndarray, ref: np.ndarray) -> float:
         return float(np.sqrt(np.mean((a - ref) ** 2) / np.mean(ref ** 2)))
 
-    ref = small_editing_eps(control, weights, "cpu", torch.float32, x, src, frames)
-    plain_eps = small_editing_eps(control, weights, "cpu", torch.bfloat16, x, src, frames)
-    plain = rel(plain_eps, ref)
-    fault = rel(small_editing_eps(control, weights, "cpu", torch.float32, x, src, frames,
-                                  hooks=False), ref)
-    kernels.reset_stats()
-    card_eps = small_editing_eps(control, weights, "cuda", torch.bfloat16, x, src, frames)
+    def eps(device, dtype, hooks=True):
+        return small_editing_eps(kind, weights, device, dtype, x, src, frames, hooks, **extra)
+
+    OUT.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=OUT) as tmp:
+        if control == "softedge":
+            extra["annotator"] = str(Path(tmp) / "hed.pth")
+            torch.save(hed.reference_state_dict(random_annotator(hed.ControlNetHED(), 3)),
+                       extra["annotator"])
+        ref = eps("cpu", torch.float32)
+        plain_eps = eps("cpu", torch.bfloat16)
+        plain = rel(plain_eps, ref)
+        fault = rel(eps("cpu", torch.float32, hooks=False), ref)
+        kernels.reset_stats()
+        card_eps = eps("cuda", torch.bfloat16)
     launches = {k: kernels.STATS[k].launches for k in ("flash_attention", "online_argmax_scores")}
     card = rel(card_eps, ref) if np.isfinite(card_eps).all() else float("inf")
     tol = 1.5 * plain
@@ -1707,6 +1772,374 @@ def run_single_image() -> dict:
     return {k: (launches[k], shapes[k]) for k in launches}
 
 
+def run_depth(tmp: Path) -> dict:
+    """[depth]: `tclight_torch.run.main` with sd_version depth on the SD1.5-
+    shaped 5-channel stack (bf16, random weights) and a random DPT-Hybrid
+    at its published widths written as a transformers-keyed `depth_ckpt`:
+    the inversion of the main cell's 8 frames (4 DDIM steps, the cache at
+    each, the depth channel from the DPT), then generation (4 steps);
+    checks the mp4, the cache, the depth cache (per frame -1 .. 1), K1 and
+    K2 launched, and the small sd-depth check (`check_small_editing`);
+    DPT's ms a frame at 384 x 384 (batch 4, as `prepare_depth_maps` runs
+    it) and its maps of two frames on the card against the CPU (f32 both,
+    within 1e-3 after the per-frame normalisation)."""
+    import yaml
+
+    from tclight_torch.diffusion.schedulers import DDIMStateScheduler
+    from tclight_torch.models import dpt
+    from tclight_torch.pipeline.invert import check_latent_exists
+    from tclight_torch.run import main
+    from tclight_torch.utils.device import full_f32
+
+    ckpt = tmp / "dpt_hybrid.pth"
+    torch.save(dpt.reference_state_dict(dpt.random_dpt(dpt.DPTConfig.hybrid(), 4, "cpu")), ckpt)
+    work = OUT / "wd_depth"
+    args = editing_args(work, "none", ["--full-width-random", "sd_version=depth",
+                                       f"generation.depth_ckpt={ckpt}"])
+    stats, wall, peak = run_entry("depth", lambda: main(args))
+    mp4 = next(work.rglob("output.mp4"))
+    n, shape = read_mp4(mp4)
+    st = yaml.safe_load((mp4.parent / "config.yaml").read_text())["stage_times"]
+    ts = DDIMStateScheduler(num_inference_steps=STEPS).timesteps()
+    cached = all(check_latent_exists(work / "latents", t, range(FRAMES)) for t in ts)
+    depth = np.load(work / "depth" / f"depth_{FRAMES}_{HEIGHT // 8}x{WIDTH // 8}.npy")
+    depth_ok = (depth.shape == (FRAMES, HEIGHT // 8, WIDTH // 8, 1)
+                and np.allclose(depth.min(axis=(1, 2, 3)), -1.0)
+                and np.allclose(depth.max(axis=(1, 2, 3)), 1.0))
+    model_cuda, model_cpu = dpt.load_dpt(ckpt, "cuda"), dpt.load_dpt(ckpt, "cpu")
+    x = torch.rand(4, 384, 384, 3, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(0)) * 2 - 1
+    with full_f32(), torch.inference_mode():
+        dpt_ms = cuda_ms(lambda: model_cuda(x), 5) / 4
+    frames = read_frames(OUT / "vid")[:2]
+    card = dpt.prepare_depth_maps(model_cuda, frames, (HEIGHT // 8, WIDTH // 8))
+    cpu = dpt.prepare_depth_maps(model_cpu, frames, (HEIGHT // 8, WIDTH // 8))
+    err = float(np.abs(card - cpu).max())
+    small = check_small_editing("sd-depth")
+    flash, match = stats["flash_attention"], stats["online_argmax_scores"]
+    ok = (n == FRAMES and shape == (HEIGHT, WIDTH, 3) and cached and depth_ok
+          and err <= 1e-3 and flash[0] > 0 and match[0] > 0 and small["small_ok"])
+    phase("depth", ok=ok, frames=n, frame_shape=shape, wall_s=wall,
+          inversion_s=st["inversion"], sampling_s=st["sampling"], step_s=st["step_times"],
+          encode_s=st["encode"], decode_s=st["decode"], peak_mem_gb=peak,
+          dpt="hybrid (random, published widths)", dpt_ms_per_frame_384=dpt_ms,
+          depth_card_vs_cpu_max_abs_err=err, depth_tol=1e-3, depth_cache=list(depth.shape),
+          cache_complete=cached, flash_launches=flash[0], match_launches=match[0],
+          flash_shapes=sorted(flash[1].items()), match_shapes=sorted(match[1].items()), **small)
+    if not ok:
+        raise SystemExit("[depth] failed")
+    del model_cuda, model_cpu, x
+    torch.cuda.empty_cache()
+    return stats
+
+
+def run_annotators(tmp: Path) -> dict:
+    """[annotators]: HED, the lineart_anime U-Net (ngf 64, 8 downs) and the
+    OpenPose body net at their published widths on random weights, each
+    written as a reference checkpoint and loaded by its `*_model_fn` on
+    the card: the main cell's 8 frames (ms a frame, peak memory), and the
+    first frame on the card against the CPU (f32 both: HED's edges and
+    the lineart maps, OpenPose's upsampled heatmaps and PAFs, within 1e-4
+    of their largest magnitude). Then `tclight_torch.run.main` with
+    control=softedge on the generic SD1.5 stack of [controlnet]'s
+    checkpoint directory (`tmp/sd15`) and a softedge ControlNet on random
+    weights written beside it, the HED of `annotator_ckpt`; with the small
+    softedge check (`check_small_editing`)."""
+    import yaml
+
+    from tclight_torch.diffusion.schedulers import DDIMStateScheduler
+    from tclight_torch.models import controlnet, hed, lineart, openpose
+    from tclight_torch.models.convert import write_safetensors
+    from tclight_torch.models.unet import UNetConfig
+    from tclight_torch.pipeline.iclight import init_like_flax
+    from tclight_torch.pipeline.invert import check_latent_exists
+    from tclight_torch.run import main
+
+    frames = read_frames(OUT / "vid")
+    nets = {"softedge": (hed.ControlNetHED(), hed.reference_state_dict, hed.softedge_model_fn),
+            "lineart_anime": (lineart.LineartAnimeUNet(64, 8), lineart.reference_state_dict,
+                              lineart.lineart_model_fn),
+            "openpose": (openpose.BodyPoseNet(), openpose.reference_state_dict,
+                         openpose.openpose_model_fn)}
+    rows, ckpts = {}, {}
+    for seed, (kind, (net, export, make_fn)) in enumerate(nets.items()):
+        ckpts[kind] = tmp / f"{kind}.pth"
+        torch.save(export(random_annotator(net, 20 + seed)), ckpts[kind])
+        torch.cuda.reset_peak_memory_stats()
+        fn = make_fn(ckpts[kind], device="cuda")
+        fn(frames[:1])  # the first call's set-up (cuDNN's plans) outside the timing
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(frames)
+        ms = (time.perf_counter() - t0) / FRAMES * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if kind == "openpose":
+            card_model = openpose.load_bodypose(ckpts[kind], device="cuda")
+            cpu_model = openpose.load_bodypose(ckpts[kind], device="cpu")
+            card_maps = np.concatenate(openpose.body_maps(card_model, frames[0]), -1)
+            ref = np.concatenate(openpose.body_maps(cpu_model, frames[0]), -1)
+            err = float(np.abs(card_maps - ref).max())
+        else:
+            ref = make_fn(ckpts[kind], device="cpu")(frames[:1])
+            err = float(np.abs(out[:1] - ref).max())
+        tol = 1e-4 * float(np.abs(ref).max())
+        rows[kind] = dict(ms_per_frame=ms, peak_mem_gb=peak, card_vs_cpu_max_abs_err=err,
+                          tol=tol, out_shape=list(out.shape), out_mean=float(out.mean()))
+        ok = out.shape == (FRAMES, HEIGHT, WIDTH, 3) and np.isfinite(out).all() and err <= tol
+        phase("annotator", ok=ok, kind=kind, precision="f32 (full f32 on the card)",
+              **rows[kind])
+        if not ok:
+            raise SystemExit(f"[annotator] {kind} failed")
+        del fn
+        torch.cuda.empty_cache()
+
+    model_dir = tmp / "sd15"  # [controlnet]'s stack
+    with torch.device("cuda"):
+        net = controlnet.ControlNetModel(UNetConfig.sd15(in_channels=4))
+    init_like_flax(net, torch.Generator(device="cuda").manual_seed(6))
+    write_safetensors({k: v.to(torch.bfloat16) for k, v in
+                       controlnet.reference_state_dict(net).items()},
+                      model_dir / "controlnet_softedge.safetensors")
+    del net
+    torch.cuda.empty_cache()
+    work = OUT / "wd_softedge"
+    args = editing_args(work, "softedge", [f"model_dir={model_dir}",
+                                           f"generation.annotator_ckpt={ckpts['softedge']}"])
+    stats, wall, peak = run_entry("annotators", lambda: main(args))
+    mp4 = next(work.rglob("output.mp4"))
+    n, shape = read_mp4(mp4)
+    st = yaml.safe_load((mp4.parent / "config.yaml").read_text())["stage_times"]
+    ts = DDIMStateScheduler(num_inference_steps=STEPS).timesteps()
+    cached = all(check_latent_exists(work / "latents", t, range(FRAMES)) for t in ts)
+    small = check_small_editing("softedge")
+    flash, match = stats["flash_attention"], stats["online_argmax_scores"]
+    ok = (n == FRAMES and shape == (HEIGHT, WIDTH, 3) and cached and flash[0] > 0
+          and match[0] > 0 and small["small_ok"])
+    phase("softedge", ok=ok, frames=n, frame_shape=shape, wall_s=wall,
+          inversion_s=st["inversion"], sampling_s=st["sampling"], step_s=st["step_times"],
+          encode_s=st["encode"], peak_mem_gb=peak, cache_complete=cached,
+          flash_launches=flash[0], match_launches=match[0],
+          flash_shapes=sorted(flash[1].items()), match_shapes=sorted(match[1].items()), **small)
+    if not ok:
+        raise SystemExit("[softedge] failed")
+    return stats
+
+
+UPSAMPLER_SMALL_SIDE = 128  # the 2-layer check's image: 8 x 8 patches
+
+
+def small_vlm_configs(dtype: torch.dtype):
+    """Pixtral-12B's decoder and ViT at their published widths, 2 layers
+    each; the decoder in `dtype`, the ViT in f32."""
+    import dataclasses
+
+    from tclight_torch.models.ar_transformer import ARConfig
+    from tclight_torch.models.pixtral import ViTConfig
+
+    return (dataclasses.replace(ARConfig.pixtral_12b(), n_layers=2, dtype=dtype),
+            dataclasses.replace(ViTConfig(), n_layers=2))
+
+
+def rel_rms(a, ref) -> float:
+    a, ref = np.asarray(a, np.float64), np.asarray(ref, np.float64)
+    return float(np.sqrt(np.mean((a - ref) ** 2) / np.mean(ref ** 2)))
+
+
+def check_small_upsampler(tmp: Path) -> dict:
+    """The upsampler at full width and 2 layers (decoder and ViT): random
+    f32 weights made on the card; the prompt logits (BOS, 64 [IMG] from a
+    128 x 128 image, the instruction) of the bf16 decoder on the card
+    against the f32 model on the CPU, within 1.5 times the CPU bf16
+    decoder's own error (relative RMS); the f32 model on the card: 16
+    greedy tokens decoded against the static cache equal those of
+    recomputing the whole sequence at each step; the bf16 model written as
+    a cosmos-native `model.pt` and as HF-keyed safetensors under `tmp` and
+    read back by `load_vlm`: the same parameters and logits."""
+    from tclight_torch.models import convert_ar, pixtral
+    from tclight_torch.models.ar_transformer import ARGenerator
+    from tclight_torch.models.convert import write_safetensors
+    from tclight_torch.pipeline.iclight import DummyTokenizer
+
+    cfg32, vcfg = small_vlm_configs(torch.float32)
+    cfg16, _ = small_vlm_configs(torch.bfloat16)
+    base = pixtral.build_vlm(cfg32, vcfg, seed=3, device="cuda")
+    sds = {name: {k: v.cpu() for k, v in getattr(base, name).state_dict().items()}
+           for name in ("text", "vit", "projector")}
+    side = UPSAMPLER_SMALL_SIDE
+    img = torch.from_numpy(np.random.default_rng(5).uniform(
+        size=(1, side, side, 3)).astype(np.float32))
+    ids = pixtral.prepare_dialog_tokens(DummyTokenizer(), (side // 16) ** 2)
+
+    @torch.inference_mode()
+    def logits_of(vlm):
+        return vlm.text(embeddings=vlm.embed_vision_language(ids, img))[0].float().cpu().numpy()
+
+    # 16 greedy tokens against the cache and by recomputing, f32 on the card
+    emb = base.embed_vision_language(ids, img)
+    cached = ARGenerator(base.text).generate(prompt_embeddings=emb, max_gen_len=16,
+                                             temperature=0.0)
+    seq, recomputed = emb, []
+    with torch.inference_mode():
+        for _ in range(16):
+            tok = base.text(embeddings=seq)[0][:, -1].argmax(-1)
+            recomputed.append(int(tok))
+            seq = torch.cat([seq, base.text.embed(tok[:, None])], dim=1)
+    cache_ok = cached[0].tolist() == recomputed
+    del base, emb, seq
+    torch.cuda.empty_cache()
+    ref = logits_of(pixtral.build_vlm(cfg32, vcfg, state_dicts=sds, device="cpu"))
+    plain = rel_rms(logits_of(pixtral.build_vlm(cfg16, vcfg, state_dicts=sds, device="cpu")), ref)
+    card_vlm = pixtral.build_vlm(cfg16, vcfg, state_dicts=sds, device="cuda")
+    card_logits = logits_of(card_vlm)
+    card = rel_rms(card_logits, ref) if np.isfinite(card_logits).all() else float("inf")
+    tol = 1.5 * plain
+    # both checkpoint layouts through load_vlm
+    load_err, load_params_equal = {}, True
+    for layout in ("cosmos", "hf"):
+        d = tmp / f"vlm_{layout}"
+        d.mkdir()
+        sd = convert_ar.reference_state_dict(card_vlm, layout)
+        if layout == "cosmos":
+            torch.save(sd, d / "model.pt")
+        else:
+            write_safetensors(sd, d / "model.safetensors")
+        del sd
+        loaded = pixtral.load_vlm(d, cfg16, vcfg, device="cuda")
+        for name in ("text", "vit", "projector"):
+            back = getattr(loaded, name).state_dict()
+            load_params_equal &= all(torch.equal(back[k], v)
+                                     for k, v in getattr(card_vlm, name).state_dict().items())
+        load_err[layout] = float(np.abs(logits_of(loaded) - card_logits).max())
+        del loaded
+        for f in d.iterdir():
+            f.unlink()
+        torch.cuda.empty_cache()
+    del card_vlm
+    torch.cuda.empty_cache()
+    ok = (card <= tol and cache_ok and load_params_equal
+          and all(e == 0.0 for e in load_err.values()))
+    return dict(small_ok=ok, small_layers=2, small_prompt_tokens=int(ids.shape[1]),
+                small_logits_rel_err=card, small_cpu_bf16_rel_err=plain, small_tol=tol,
+                small_cache_tokens=cached[0].tolist(), small_recompute_tokens=recomputed,
+                small_cache_equals_recompute=cache_ok, load_params_equal=load_params_equal,
+                load_logits_max_abs_diff=load_err)
+
+
+def run_upsampler() -> dict:
+    """[upsampler]: Pixtral-12B at its published widths on random weights
+    made on the card (decoder bf16, ViT f32): the main cell's last 720 x 960
+    frame, 45 x 60 = 2,700 image tokens and the instruction, through
+    `pixtral.upsample_tokens` with the DummyTokenizer (400 tokens at
+    temperature 0.01, top-p 0.9). Checks: finite prompt logits; 16 greedy
+    steps against the cache vs recomputing the sequence without it (bf16:
+    each step's logits within 25% relative RMS, where a wrong cache gives
+    ~140%, and the argmax agreement printed); then `check_small_upsampler`.
+    Prints the parameter count and bytes, the ViT's ms, prefill ms, ms per
+    decoded token beside its byte bound (every decoder weight but the
+    embedding table, which one row of is read, and the KV cache of all
+    max_seq_len slots, which JAX's attention reads), and peak memory."""
+    from tclight_torch.models import pixtral
+    from tclight_torch.models.ar_transformer import ARConfig, init_cache
+    from tclight_torch.pipeline.iclight import DummyTokenizer
+
+    cfg, vcfg = ARConfig.pixtral_12b(), pixtral.ViTConfig()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    vlm = pixtral.build_vlm(cfg, vcfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    count = {name: sum(p.numel() for p in getattr(vlm, name).parameters())
+             for name in ("text", "vit", "projector")}
+    nbytes = {name: sum(p.numel() * p.element_size() for p in getattr(vlm, name).parameters())
+              for name in ("text", "vit", "projector")}
+    tok = DummyTokenizer()
+    frames = read_frames(OUT / "vid")
+    img = torch.from_numpy(np.ascontiguousarray(pixtral.upsampler_image(frames))).cuda()
+    n_img = (img.shape[1] // 16) * (img.shape[2] // 16)
+    ids = pixtral.prepare_dialog_tokens(tok, n_img)
+    with torch.inference_mode():
+        vit_ms = cuda_ms(lambda: vlm.vit(img), 3)
+        emb = vlm.embed_vision_language(ids, img)
+        s = emb.shape[1]
+        state = {"caches": init_cache(cfg, 1, "cuda")}
+
+        def prefill():
+            state["logits"], state["caches"] = vlm.text(embeddings=emb, caches=state["caches"],
+                                                        cur_len=0)
+
+        # the prefill and 8 decode steps traced: device time by kernel group
+        # and the device's busy share of the traced wall
+        profile_window("profile-upsampler-prefill", prefill, 1, "prefill")
+        finite = bool(torch.isfinite(state["logits"]).all())
+        step_logits = [state.pop("logits")[:, -1]]
+        toks = [step_logits[0].argmax(-1)]
+
+        first = torch.full((1,), s, device="cuda")
+
+        def steps(lo, hi):  # as ARGenerator steps, greedy
+            for i in range(lo, hi):
+                lg, state["caches"] = vlm.text(
+                    tokens=toks[-1][:, None], caches=state["caches"], cur_len=s + i - 1,
+                    positions=first + (i - 1))
+                step_logits.append(lg[:, -1])
+                toks.append(lg[:, -1].argmax(-1))
+
+        steps(1, 8)
+        profile_window("profile-upsampler-decode", lambda: steps(8, 16), 8, "token")
+        del state
+        errs, agree = [], 0
+        seq = emb
+        for i in range(16):
+            lg = vlm.text(embeddings=seq)[0][:, -1]
+            errs.append(rel_rms(step_logits[i].cpu(), lg.cpu()))
+            agree += int(lg.argmax(-1) == toks[i])
+            seq = torch.cat([seq, vlm.text.embed(toks[i][:, None])], dim=1)
+        del seq, emb, step_logits
+    torch.cuda.empty_cache()
+    cache_ok = max(errs) <= 0.25
+    out = {}
+
+    def generate():
+        out["tokens"] = pixtral.upsample_tokens(vlm, tok, frames, max_gen_len=400)
+
+    stats, wall, _ = run_entry("upsampler", generate)
+    times = vlm.last_times
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    # a decode step reads every decoder weight but the embedding table (one
+    # row of it) and the whole KV cache; its products are 2 flops a weight
+    emb = vlm.text.tok_embeddings.weight
+    weights = count["text"] - emb.numel()
+    kv_bytes = 2 * cfg.n_layers * cfg.max_seq_len * cfg.n_kv_heads * cfg.hd * emb.element_size()
+    step_bytes = nbytes["text"] - emb.numel() * emb.element_size() + cfg.dim * 2 + kv_bytes
+    decode_ms = times["decode_s"] / times["decode_steps"] * 1e3
+    decode_bound_ms, decode_by = bound_ms(step_bytes, 2.0 * weights)
+    prompt = times["prompt_tokens"]
+    prefill_flops = (2.0 * weights * prompt
+                     + 4.0 * cfg.n_layers * cfg.n_heads * prompt * cfg.max_seq_len * cfg.hd)
+    prefill_bound_ms, prefill_by = bound_ms(nbytes["text"], prefill_flops)
+    del vlm
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=OUT) as tmp:
+        small = check_small_upsampler(Path(tmp))
+    flash, match = stats["flash_attention"], stats["online_argmax_scores"]
+    ok = finite and cache_ok and small["small_ok"] and flash[0] == 0 and match[0] == 0
+    phase("upsampler", ok=ok, params=count, param_gb={k: v / 1e9 for k, v in nbytes.items()},
+          build_s=build_s, image=list(img.shape), image_tokens=n_img, prompt_tokens=prompt,
+          vit_ms=vit_ms, embed_s=times["embed_s"], prefill_ms=times["prefill_s"] * 1e3,
+          prefill_bound_ms=prefill_bound_ms, prefill_bound_by=prefill_by,
+          decode_steps=times["decode_steps"], tokens_out=int(out["tokens"].shape[1]),
+          decode_ms_per_token=decode_ms,
+          decode_bound_ms=decode_bound_ms, decode_bound_by=decode_by,
+          decode_step_gb=step_bytes / 1e9, wall_s=wall, peak_mem_gb=peak,
+          logits_finite=finite, cache_vs_recompute_rel_rms_max=max(errs),
+          cache_vs_recompute_argmax_agree=f"{agree}/16", flash_launches=flash[0],
+          match_launches=match[0], **small)
+    if not ok:
+        raise SystemExit("[upsampler] failed")
+    return stats
+
+
 def kernel_entry(name, source, replaces, launches, rows, path="main") -> dict:
     head = rows[0]
     entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1796,7 +2229,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=OUT) as tmp:
         for tag, run in (("pnp", run_pnp), ("controlnet", lambda: run_controlnet(Path(tmp))),
                          ("bkgd", lambda: run_bkgd(Path(tmp))),
-                         ("single-image", run_single_image)):
+                         ("single-image", run_single_image),
+                         ("depth", lambda: run_depth(Path(tmp))),
+                         ("annotators", lambda: run_annotators(Path(tmp)))):
             stats = run()
             by_path[tag] = {k: stats[k][0] for k in path_rows}
             hold(tag, {k: stats[k][1] for k in path_rows})
@@ -1812,6 +2247,10 @@ def main() -> int:
                 phase("controlnet-K1-L0", launched=stats["flash_attention"][1][key],
                       **{k: row[k] for k in ("shape", "ms", "plain_ms", "library_ms",
                                              "bound_ms", "bound_by", "exp_bound_ms")})
+    # the upsampler launches neither kernel: its attention is a matmul and a
+    # softmax, as JAX's is (checked in the phase)
+    stats = run_upsampler()
+    by_path["upsampler"] = {k: stats[k][0] for k in path_rows}
     phase("launches", **{f"{tag}": counts for tag, counts in by_path.items()})
 
     k1 = kernel_entry("flash_attention", "tclight_torch/csrc/flash_attention.cu",

@@ -4,12 +4,16 @@ control types and the preprocessors that need no network: canny edges,
 tile's resample blur and ip2p's identity.
 
 The model-backed types (openpose, softedge, depth, lineart,
-lineart_anime) need an annotator network (HED, OpenPose, DPT, lineart),
-which the port has not yet: they raise NotImplementedError naming
-ROADMAP A10b.
+lineart_anime) take a `model_fn`, frames -> control images, which the
+Generator makes from `generation.annotator_ckpt` (models/hed.py for
+softedge, models/lineart.py for lineart / lineart_anime,
+models/openpose.py for openpose) or, for depth, from its DPT depth maps.
+Without one they raise NotImplementedError, as in JAX.
 """
 
 from __future__ import annotations
+
+from typing import Callable, Optional
 
 import numpy as np
 
@@ -59,7 +63,9 @@ def ip2p_preprocess(frames: np.ndarray) -> np.ndarray:
     return frames.copy()
 
 
-def control_preprocess(frames: np.ndarray, control_type: str, **kw) -> np.ndarray:
+def control_preprocess(frames: np.ndarray, control_type: str,
+                       model_fn: Optional[Callable[[np.ndarray], np.ndarray]] = None,
+                       **kw) -> np.ndarray:
     """frames (N, H, W, 3) in [0, 1] -> control images (N, H, W, 3) in [0, 1]."""
     if control_type == "none":
         raise ValueError("control_type 'none' has no preprocessing")
@@ -70,7 +76,9 @@ def control_preprocess(frames: np.ndarray, control_type: str, **kw) -> np.ndarra
     if control_type == "ip2p":
         return ip2p_preprocess(frames)
     if control_type in MODEL_BACKED:
-        raise NotImplementedError(
-            f"control '{control_type}' needs an annotator network, which is not "
-            "ported yet (ROADMAP A10b)")
+        if model_fn is None:
+            raise NotImplementedError(
+                f"'{control_type}' preprocessing needs a local model; pass "
+                f"model_fn (e.g. a MiDaS/HED port loaded from a checkpoint)")
+        return model_fn(frames)
     raise KeyError(f"unknown control type {control_type!r}; known: {sorted(CONTROLNET_DICT)}")

@@ -28,7 +28,9 @@ from torch import nn
 __all__ = ["flax_to_state_dict", "unet_state_dict", "vae_state_dict",
            "clip_text_state_dict", "raft_state_dict", "memflow_sk_state_dict",
            "memflow_state_dict", "clip_vision_state_dict", "vgg16_state_dict",
-           "controlnet_state_dict", "rmbg_state_dict", "module_to_flax"]
+           "controlnet_state_dict", "rmbg_state_dict", "vlm_state_dicts",
+           "dpt_state_dict", "hed_state_dict", "lineart_state_dict", "bodypose_state_dict",
+           "module_to_flax"]
 
 
 def _leaf(name: str, arr: np.ndarray) -> tuple[str, np.ndarray]:
@@ -129,6 +131,54 @@ def rmbg_state_dict(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
         sd[f"{prefix}.running_{leaf}"] = arr
         sd.setdefault(f"{prefix}.num_batches_tracked", torch.zeros((), dtype=torch.long))
     return sd
+
+
+def vlm_state_dicts(text_params: Mapping[str, Any], vit_params: Mapping[str, Any],
+                    proj_params: Mapping[str, Any]) -> dict[str, dict[str, torch.Tensor]]:
+    """The Pixtral VLM's three trees (tclight_tpu/models/pixtral.py: the
+    decoder's `Transformer`, `PixtralViT`, `MultimodalProjector`) as the
+    state dicts {"text", "vit", "projector"} of `pixtral.build_vlm`. The
+    flax Embed's `embedding` becomes the embedding's `weight`, the patch
+    conv's HWIO kernel an OIHW weight."""
+    return {"text": flax_to_state_dict(text_params), "vit": flax_to_state_dict(vit_params),
+            "projector": flax_to_state_dict(proj_params)}
+
+
+def dpt_state_dict(params: Mapping[str, Any], cfg) -> dict[str, torch.Tensor]:
+    """`DPTForDepthEstimation` parameters (tclight_tpu/models/dpt.py;
+    `convert_dpt`'s tree, `cfg` its DPTConfig); group norms' and layer
+    norms' `scale` become their `weight`. The transposed-conv resizes'
+    (kh, kw, in, out) kernels become (in, out, kh, kw) weights turned by
+    180 degrees: flax's ConvTranspose (transpose_kernel=False) reads its
+    kernel flipped against ConvTranspose2d's, and `convert_dpt` stores the
+    checkpoint's kernel unflipped, so this is the kernel the JAX model
+    applies (ROADMAP C8)."""
+    sd = flax_to_state_dict(params)
+    for i, f in enumerate(cfg.reassemble_factors):
+        key = f"reassemble_resize_{i}.weight"
+        if f > 1 and key in sd:
+            sd[key] = sd[key].transpose(0, 1).flip(2, 3).contiguous()
+    return sd
+
+
+def hed_state_dict(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """`ControlNetHED` parameters (tclight_tpu/models/hed.py; `convert_hed`'s
+    tree): `norm` keeps its (1, 1, 1, 3) shape."""
+    return flax_to_state_dict(params)
+
+
+def lineart_state_dict(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """`LineartAnimeUNet` parameters (tclight_tpu/models/lineart.py;
+    `convert_lineart_anime`'s tree). Its transposed convs' kernels are in
+    flax's transpose_kernel layout (kh, kw, out, in), which the HWIO ->
+    OIHW map turns into ConvTranspose2d's (in, out, kh, kw)."""
+    return flax_to_state_dict(params)
+
+
+def bodypose_state_dict(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """`BodyPoseNet` parameters (tclight_tpu/models/openpose.py;
+    `convert_bodypose`'s tree, one entry per named conv)."""
+    return flax_to_state_dict(params)
 
 
 def module_to_flax(module: nn.Module) -> dict[str, Any]:

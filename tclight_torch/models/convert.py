@@ -40,6 +40,7 @@ import torch
 __all__ = [
     "load_torch_state_dict",
     "read_safetensors",
+    "mmap_safetensors",
     "write_safetensors",
     "expand_conv_in",
     "merge_offsets",
@@ -66,29 +67,35 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
 
 def read_safetensors(path: str | Path) -> dict[str, np.ndarray]:
     """Every tensor of a `.safetensors` file as a numpy array (bf16 as
-    f32). The file is an 8-byte little-endian header length, a JSON header
+    f32; the others views of the file's copy-on-write memory map)."""
+    return {k: _numpy(v) for k, v in mmap_safetensors(path).items()}
+
+
+def mmap_safetensors(path: str | Path) -> dict[str, torch.Tensor]:
+    """Every tensor of a `.safetensors` file as a torch tensor in the file's
+    dtype (bf16 stays bf16), backed by a copy-on-write memory map of the
+    file: a tensor's bytes are read when its values are, so a checkpoint
+    larger than the host's memory can be cast and moved tensor by tensor.
+    The file is an 8-byte little-endian header length, a JSON header
     {name: {"dtype", "shape", "data_offsets": [begin, end]}} (offsets into
     the data after the header), then the data."""
-    out: dict[str, np.ndarray] = {}
     with open(path, "rb") as f:
         n = int.from_bytes(f.read(8), "little")
         header = json.loads(f.read(n))
-        base = 8 + n
-        for name, info in header.items():
-            if name == "__metadata__":
-                continue
-            dtype = _SAFETENSORS_DTYPES.get(info["dtype"])
-            if dtype is None:
-                raise ValueError(f"{path}: tensor {name} has dtype {info['dtype']}, "
-                                 f"not one of {sorted(_SAFETENSORS_DTYPES)}")
-            begin, end = info["data_offsets"]
-            shape = tuple(info["shape"])
-            if end == begin:
-                out[name] = _numpy(torch.empty(shape, dtype=dtype))
-                continue
-            f.seek(base + begin)
-            t = torch.frombuffer(bytearray(f.read(end - begin)), dtype=dtype)
-            out[name] = _numpy(t.reshape(shape))
+    raw = torch.from_numpy(np.memmap(path, dtype=np.uint8, mode="c"))
+    out: dict[str, torch.Tensor] = {}
+    for name, info in header.items():
+        if name == "__metadata__":
+            continue
+        dtype = _SAFETENSORS_DTYPES.get(info["dtype"])
+        if dtype is None:
+            raise ValueError(f"{path}: tensor {name} has dtype {info['dtype']}, "
+                             f"not one of {sorted(_SAFETENSORS_DTYPES)}")
+        begin, end = info["data_offsets"]
+        chunk = raw[8 + n + begin: 8 + n + end]
+        if chunk.storage_offset() % torch.empty((), dtype=dtype).element_size():
+            chunk = chunk.clone()  # a misaligned tensor is read now
+        out[name] = chunk.view(dtype).reshape(info["shape"])
     return out
 
 

@@ -44,14 +44,20 @@ is a [source | uncond | cond] batch whose source third is the cached
 latents of that timestep, with the UNet's Q/K injection for the first
 `int(T * pnp_attn_t)` steps and its conv-feature injection for the first
 `int(T * pnp_f_t)`; it needs the cache at every timestep, and merges
-batch-aligned. A ControlNet type (canny, tile, ip2p) runs the stack's
-ControlNet on the control images of the frames, its residuals scaled by
-`control_scale`. Neither path runs the yt pass.
+batch-aligned. A ControlNet type runs the stack's ControlNet on the control
+images of the frames, its residuals scaled by `control_scale`: canny, tile
+and ip2p need no network; softedge, lineart / lineart_anime and openpose
+run the annotator of `generation.annotator_ckpt` (HED, the lineart U-Net,
+the OpenPose body net), and depth the DPT depth maps. Neither path runs
+the yt pass. The sd-depth stack (a 5-channel UNet) takes the DPT depth
+maps of the frames at latent size as its fifth channel (`prepare_depth`,
+from `generation.depth_ckpt`, cached under the output directory in JAX's
+file, or from an injected `depth_fn`).
 
-A missing prompt takes JAX's generic fallback prompt, with a warning.
-Not ported, and refused with NotImplementedError: the control types that
-need an annotator network (ROADMAP A10b) and the prompt upsampler (a
-missing prompt with an existing `prompt_upsampler_ckpt`, A13).
+A missing prompt is written by the Pixtral prompt upsampler of
+`generation.prompt_upsampler_ckpt` from the last frame when that directory
+exists (models/pixtral.py), else it takes JAX's generic fallback prompt,
+with a warning.
 """
 
 from __future__ import annotations
@@ -65,8 +71,7 @@ import numpy as np
 import torch
 
 from tclight_torch.config import ConfigDict, save_config
-from tclight_torch.data.controlnet_utils import (CONTROLNET_DICT, MODEL_BACKED,
-                                                 control_preprocess)
+from tclight_torch.data.controlnet_utils import CONTROLNET_DICT, control_preprocess
 from tclight_torch.models.unet import ToMeSpec
 from tclight_torch.ops.color import adaptive_instance_normalization
 from tclight_torch.pipeline import chunks as chunklib
@@ -119,10 +124,6 @@ class Generator:
         self.seed = int(config.get("seed", 12345))
         # the editing path's modes: PnP, or a ControlNet type
         self.control = str(_cfg_get(gen, "control", "none") or "none")
-        if self.control in MODEL_BACKED:
-            raise NotImplementedError(
-                f"generation.control: {self.control} needs an annotator network, which "
-                "is not ported yet (ROADMAP A10b)")
         self.use_pnp = self.control == "pnp"
         self.pnp_attn_t = float(_cfg_get(gen, "pnp_attn_t", 0.5))
         self.pnp_f_t = float(_cfg_get(gen, "pnp_f_t", 0.8))
@@ -176,6 +177,9 @@ class Generator:
         self._pnp_latents_dir = None
         self._frame_ids = None
         self._control_images = None
+        # (frames, latent_hw) -> (N, lh, lw, 1) depth maps in place of the
+        # DPT of generation.depth_ckpt (`prepare_depth`)
+        self.depth_fn = None
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -480,15 +484,20 @@ class Generator:
                                device=self.device)
         raise NotImplementedError(self.noise_mode)
 
-    def encode_conditions(self, frames: np.ndarray) -> torch.Tensor:
+    def encode_conditions(self, frames: np.ndarray, output_path=None) -> torch.Tensor:
         """IC-Light's concat conditions: the frames' latents, and on a
         12-channel (fbc) UNet the background's latents after them, from
         `generation.background_image_path` tiled to the frame count, or
         zeros without one (tclight_tpu/pipeline/generator.py:1090-1101).
-        A generic SD stack has none: a zero-width tensor."""
+        The sd-depth stack (5-channel UNet) has the frames' depth maps at
+        latent size (`prepare_depth`); a generic SD stack none: a
+        zero-width tensor."""
         if self.models.model_key != "iclight":
             n, h, w, _ = frames.shape
             f = self.vae_factor
+            if self.models.unet.config.in_channels == 5:
+                depth = self.prepare_depth(frames, (h // f, w // f), output_path)
+                return torch.as_tensor(depth, dtype=torch.float32, device=self.device)
             return torch.zeros((n, h // f, w // f, 0), device=self.device)
         conds = self.encode_imgs_batch(frames)
         if self.models.unet.config.in_channels != 12:
@@ -529,7 +538,7 @@ class Generator:
             init_noise = self._load_inverted_latents(latents_path, frame_ids, init_noise)
 
         t_s = time.perf_counter()
-        concat_conds = self.encode_conditions(frames)
+        concat_conds = self.encode_conditions(frames, output_path)
         self._sync()
         self.stage_times["encode"] = time.perf_counter() - t_s
 
@@ -545,7 +554,7 @@ class Generator:
         results = {}
         for edit_name, edit_prompt in self.prompts.items():
             if edit_prompt is None:
-                edit_prompt = self._handle_missing_prompt()
+                edit_prompt = self._handle_missing_prompt(frames, output_path)
                 self.prompts[edit_name] = edit_prompt
             log.info("prompt [%s]: %s", edit_name, edit_prompt)
             cond, uncond = encode_prompt_pair(self.models, edit_prompt, self.negative_prompt)
@@ -617,14 +626,52 @@ class Generator:
             bg = np.concatenate([bg] * (len(frames) // len(bg) + 1))[: len(frames)]
         return alpha * frames + (1 - alpha) * bg[: len(frames)]
 
-    def control_images(self, frames: np.ndarray) -> torch.Tensor:
-        """The ControlNet's conditioning images of the frames, (N, H, W, 3)
-        on the device. The embedder downsamples by 8 (SD1.5's VAE); with
-        another VAE factor (the tiny stacks) the images are resized to 8x
-        the latent size, so the residuals land at latent resolution."""
+    def annotator_fn(self, frames: np.ndarray):
+        """The `model_fn` of a model-backed control type, or None: HED
+        (softedge), the lineart U-Net (lineart, lineart_anime) or the
+        OpenPose body net (openpose) from an existing
+        `generation.annotator_ckpt`; for depth, the frames' DPT depth maps
+        (`prepare_depth` at latent size, uncached) resized to the frames
+        (cv2 bilinear), mapped to [0, 1] and repeated over three
+        channels."""
         import cv2
 
-        ctrl = control_preprocess(frames, self.control)
+        ann = _cfg_get(self.config.get("generation", {}), "annotator_ckpt")
+        have = bool(ann) and Path(str(ann)).exists()
+        if self.control in ("softedge", "scribble") and have:
+            from tclight_torch.models.hed import softedge_model_fn
+
+            return softedge_model_fn(ann, self.device)
+        if self.control in ("lineart", "lineart_anime") and have:
+            from tclight_torch.models.lineart import lineart_model_fn
+
+            return lineart_model_fn(ann, device=self.device)
+        if self.control == "openpose" and have:
+            from tclight_torch.models.openpose import openpose_model_fn
+
+            return openpose_model_fn(ann, device=self.device)
+        if self.control == "depth":
+            n, h, w, _ = frames.shape
+            f = self.vae_factor
+
+            def depth_model_fn(fr):
+                d = np.asarray(self.prepare_depth(fr, (h // f, w // f), None))
+                d = np.stack([cv2.resize(x, (w, h)) for x in d])
+                d = d[..., None] if d.ndim == 3 else d
+                return np.repeat((d + 1.0) / 2.0, 3, axis=-1).astype(np.float32)
+
+            return depth_model_fn
+        return None
+
+    def control_images(self, frames: np.ndarray) -> torch.Tensor:
+        """The ControlNet's conditioning images of the frames, (N, H, W, 3)
+        on the device (a model-backed type through `annotator_fn`). The
+        embedder downsamples by 8 (SD1.5's VAE); with another VAE factor
+        (the tiny stacks) the images are resized to 8x the latent size, so
+        the residuals land at latent resolution."""
+        import cv2
+
+        ctrl = control_preprocess(frames, self.control, model_fn=self.annotator_fn(frames))
         if self.vae_factor != 8:
             n, h, w, _ = frames.shape
             size = (w // self.vae_factor * 8, h // self.vae_factor * 8)
@@ -687,18 +734,48 @@ class Generator:
                 raise FloatingPointError(f"the {name} loss history is not finite")
         return frames.detach(), losses_exposure, losses_uvt
 
-    def _handle_missing_prompt(self) -> str:
-        """A missing prompt, as JAX's `_handle_missing_prompt`: with an
-        existing upsampler checkpoint JAX upsamples a prompt from the frames
-        (Pixtral), which the port has not yet (ROADMAP A13); without one it
-        warns and uses a generic prompt."""
+    def _handle_missing_prompt(self, frames: np.ndarray, output_path) -> str:
+        """A missing prompt: with an existing `prompt_upsampler_ckpt`
+        directory, the prompt the Pixtral upsampler writes for the last
+        frame (`pixtral.upsample_prompt_from_frames`, on the Generator's
+        device); without one, a warning and JAX's generic prompt."""
         ckpt = _cfg_get(self.config.get("generation", {}), "prompt_upsampler_ckpt")
         if ckpt and Path(str(ckpt)).exists():
-            raise NotImplementedError(
-                "prompt upsampling from prompt_upsampler_ckpt is not ported yet "
-                "(ROADMAP A13); give generation.prompt")
+            from tclight_torch.models.pixtral import upsample_prompt_from_frames
+
+            return upsample_prompt_from_frames(ckpt, frames, device=self.device)
         log.warning("no prompt given and no upsampler checkpoint; using default")
         return DEFAULT_PROMPT
+
+    def prepare_depth(self, frames: np.ndarray, latent_hw, output_path) -> np.ndarray:
+        """The sd-depth UNet's depth channel (N, lh, lw, 1) in [-1, 1], from
+        `self.depth_fn(frames, latent_hw)` when set (a numpy array), else
+        the DPT checkpoint of `generation.depth_ckpt` (transformers keys;
+        FileNotFoundError without one). With an output path it is cached
+        as JAX caches it, `output_path/depth/depth_{n}_{lh}x{lw}.npy`, and
+        read back from there (by either package)."""
+        cache = None
+        if output_path:
+            cache = (Path(output_path) / "depth"
+                     / f"depth_{len(frames)}_{latent_hw[0]}x{latent_hw[1]}.npy")
+            if cache.exists():
+                log.info("loaded depth maps from %s", cache)
+                return np.load(cache)
+        if self.depth_fn is not None:
+            depth = np.asarray(self.depth_fn(frames, latent_hw))
+        else:
+            from tclight_torch.models.dpt import load_dpt, prepare_depth_maps
+
+            ckpt = _cfg_get(self.config.get("generation", {}), "depth_ckpt")
+            if not ckpt or not Path(str(ckpt)).exists():
+                raise FileNotFoundError(
+                    "sd-depth needs generation.depth_ckpt pointing at a local DPT checkpoint "
+                    "(transformers DPTForDepthEstimation state dict)")
+            depth = prepare_depth_maps(load_dpt(ckpt, self.device), frames, latent_hw)
+        if cache is not None:
+            cache.parent.mkdir(parents=True, exist_ok=True)
+            np.save(cache, depth)
+        return depth
 
     @staticmethod
     def _save_loss_curves(out_dir: Path, losses_exposure, losses_uvt) -> None:

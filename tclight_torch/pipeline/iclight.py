@@ -162,11 +162,14 @@ def _as_sd(models: ICLightModels, num_inference_steps: int, sd_version: str = "1
 
 def build_tiny_sd(seed: int = 0, num_inference_steps: int = 4, dtype=torch.float32,
                   state_dicts: dict | None = None,
-                  device: str | torch.device | None = "cuda") -> ICLightModels:
-    """Tiny generic-SD stack (4-channel UNet, DDIM updates) for tests of
-    the inversion and editing path."""
-    return _as_sd(build_tiny_iclight(seed, num_inference_steps, 4, dtype, state_dicts,
-                                     device), num_inference_steps)
+                  device: str | torch.device | None = "cuda",
+                  sd_version: str = "1.5") -> ICLightModels:
+    """Tiny generic-SD stack (DDIM updates) for tests of the inversion and
+    editing path: a 4-channel UNet, or the sd-depth stack's 5 channels
+    for `sd_version` "depth"."""
+    in_channels = 5 if sd_version == "depth" else 4
+    return _as_sd(build_tiny_iclight(seed, num_inference_steps, in_channels, dtype,
+                                     state_dicts, device), num_inference_steps, sd_version)
 
 
 def build_full_width_random(seed: int = 0, num_inference_steps: int = 25,
@@ -181,12 +184,14 @@ def build_full_width_random(seed: int = 0, num_inference_steps: int = 25,
 
 
 def build_full_width_random_sd(seed: int = 0, num_inference_steps: int = 50,
-                               device: str | torch.device | None = "cuda"
-                               ) -> ICLightModels:
+                               device: str | torch.device | None = "cuda",
+                               sd_version: str = "1.5") -> ICLightModels:
     """The generic SD1.5 stack on random weights: `build_full_width_random`
-    with a 4-channel UNet and DDIM updates."""
-    return _as_sd(build_full_width_random(seed, num_inference_steps, device, 4),
-                  num_inference_steps)
+    with a 4-channel UNet (5 for `sd_version` "depth", JAX's SD1.5-shaped
+    sd-depth stack) and DDIM updates."""
+    in_channels = 5 if sd_version == "depth" else 4
+    return _as_sd(build_full_width_random(seed, num_inference_steps, device, in_channels),
+                  num_inference_steps, sd_version)
 
 
 def load_tokenizer(tokenizer_dir: str | Path):
@@ -260,17 +265,20 @@ def load_sd(model_dir: str | Path, sd_version: str = "1.5", num_inference_steps:
     `load_sd`): a 4-channel UNet, DDIM updates, `model_key` the SD version
     (1.5, 2.0, 2.1), and for a ControlNet type `control` the
     `controlnet_{control}.safetensors` beside it (FileNotFoundError when it
-    is missing). `sd_version: depth` (a 5-channel UNet fed DPT depth maps)
-    is not ported yet (ROADMAP A10b)."""
+    is missing). `sd_version: depth` is the sd-depth stack: the UNet's
+    conv_in zero-extended to 5 channels (the fifth the DPT depth maps the
+    Generator and the Inverter concatenate), with SD1.5's configs as JAX's
+    `load_sd` builds them for every version."""
     from tclight_torch.data.controlnet_utils import CONTROLNET_DICT
 
-    if sd_version == "depth":
-        raise NotImplementedError("sd_version 'depth' needs the DPT depth annotator, "
-                                  "which is not ported yet (ROADMAP A10b)")
     dev = resolve_device(device)
     model_dir = Path(model_dir)
-    models = _as_sd(_read_stack(model_dir, load_torch_state_dict(model_dir / "unet.safetensors"),
-                               4, num_inference_steps, dev), num_inference_steps, sd_version)
+    in_channels = 5 if sd_version == "depth" else 4
+    sd_unet = load_torch_state_dict(model_dir / "unet.safetensors")
+    if sd_version == "depth":
+        sd_unet = expand_conv_in(sd_unet, in_channels)
+    models = _as_sd(_read_stack(model_dir, sd_unet, in_channels, num_inference_steps, dev),
+                    num_inference_steps, sd_version)
     if control in CONTROLNET_DICT:
         ckpt = model_dir / f"controlnet_{control}.safetensors"
         if not ckpt.exists():

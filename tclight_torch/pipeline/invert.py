@@ -5,7 +5,10 @@ The frames are VAE-encoded, then run through the reversed DDIM schedule
 (no CFG, the frames in batches) to noise; `noisy_latents_{t}` is saved at
 the timesteps of a `save_steps`-step schedule (with `save_intermediate`)
 and at the first generation timestep, and optionally the latents are
-sampled back and decoded as a check (`recon`). The cache is the JAX
+sampled back and decoded as a check (`recon`). On the sd-depth stack
+(a 5-channel UNet) every UNet call takes the frames' DPT depth maps as
+its fifth channel (`_prepare_depth`: an injected `depth_fn`, else the DPT
+of `generation.depth_ckpt`). The cache is the JAX
 package's, so a cache written by either package is read by the other: one
 `noisy_latents_{round(t)}.npy` per timestep, an (N, h, w, 4) f32 numpy
 array (NHWC), indexed by frame id when loaded.
@@ -78,9 +81,8 @@ class Inverter:
         # every latent PnP needs when n_timesteps == save_steps
         self.timesteps_to_save = {
             int(t) for t in DDIMScheduler(num_inference_steps=self.save_steps).timesteps()}
-        if models.unet.config.in_channels == 5:
-            raise NotImplementedError("inverting the sd-depth UNet needs the DPT depth "
-                                      "annotator, which is not ported yet (ROADMAP A10b)")
+        # (frames, latent_hw) -> (N, lh, lw, 1) depth maps in place of the DPT
+        self.depth_fn = None
 
     @torch.inference_mode()
     def _encode_text(self, prompt: str) -> torch.Tensor:
@@ -92,22 +94,43 @@ class Inverter:
         ids = ids + [tok.eos_token_id] * (n - len(ids))
         return self.models.text_encoder(torch.tensor([ids], device=self.device))
 
-    def _unet_eps(self, x: torch.Tensor, t: float, cond: torch.Tensor) -> torch.Tensor:
+    def _prepare_depth(self, frames: np.ndarray, latent_hw) -> torch.Tensor:
+        """The sd-depth stack's depth channel (N, lh, lw, 1) on the device:
+        `depth_fn`, else the DPT checkpoint of `generation.depth_ckpt`
+        (FileNotFoundError without one)."""
+        if self.depth_fn is not None:
+            depth = self.depth_fn(frames, latent_hw)
+        else:
+            from tclight_torch.models.dpt import load_dpt, prepare_depth_maps
+
+            ckpt = (self.config.get("generation", {}) or {}).get("depth_ckpt")
+            if not ckpt or not Path(str(ckpt)).exists():
+                raise FileNotFoundError("sd-depth inversion needs generation.depth_ckpt")
+            depth = prepare_depth_maps(load_dpt(ckpt, self.device), frames, latent_hw)
+        return torch.as_tensor(np.asarray(depth), dtype=torch.float32, device=self.device)
+
+    def _unet_eps(self, x: torch.Tensor, t: float, cond: torch.Tensor,
+                  depth: torch.Tensor | None = None) -> torch.Tensor:
         unet = self.models.unet
         dtype = unet.config.dtype
+        if depth is not None:
+            x = torch.cat([x, depth.to(x.dtype)], dim=-1)
         eps, _ = unet(x.to(dtype), t, cond.expand(x.shape[0], -1, -1).to(dtype))
         return eps
 
-    def _run(self, x: torch.Tensor, cond: torch.Tensor, i: int, inversion: bool):
+    def _run(self, x: torch.Tensor, cond: torch.Tensor, i: int, inversion: bool,
+             depth: torch.Tensor | None = None):
         t = float(self.scheduler.timesteps()[i])
-        outs = [self.scheduler.step(self._unet_eps(x[j: j + self.batch_size], t, cond), i,
-                                    x[j: j + self.batch_size], inversion=inversion)
-                for j in range(0, x.shape[0], self.batch_size)]
+        bs = self.batch_size
+        outs = [self.scheduler.step(
+            self._unet_eps(x[j: j + bs], t, cond, None if depth is None else depth[j: j + bs]),
+            i, x[j: j + bs], inversion=inversion) for j in range(0, x.shape[0], bs)]
         return torch.cat(outs)
 
     @torch.inference_mode()
     def ddim_inversion(self, latents: torch.Tensor, cond: torch.Tensor,
-                       save_path: str | Path) -> torch.Tensor:
+                       save_path: str | Path, depth: torch.Tensor | None = None
+                       ) -> torch.Tensor:
         """x0 latents (N, h, w, 4) -> noise by the reversed DDIM steps, low t
         to high t; saves the cache along the way."""
         ts = self.scheduler.timesteps()
@@ -115,17 +138,18 @@ class Inverter:
         save_path.mkdir(parents=True, exist_ok=True)
         x = latents
         for i in reversed(range(len(ts))):
-            x = self._run(x, cond, i, inversion=True)
+            x = self._run(x, cond, i, inversion=True, depth=depth)
             if self.save_intermediate and int(ts[i]) in self.timesteps_to_save:
                 np.save(latent_filename(save_path, ts[i]), x.float().cpu().numpy())
         np.save(latent_filename(save_path, ts[0]), x.float().cpu().numpy())
         return x
 
     @torch.inference_mode()
-    def ddim_sample(self, x: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
+    def ddim_sample(self, x: torch.Tensor, cond: torch.Tensor,
+                    depth: torch.Tensor | None = None) -> torch.Tensor:
         """Plain DDIM sampling back from the inverted noise."""
         for i in range(len(self.scheduler.timesteps())):
-            x = self._run(x, cond, i, inversion=False)
+            x = self._run(x, cond, i, inversion=False, depth=depth)
         return x
 
     @torch.inference_mode()
@@ -147,11 +171,15 @@ class Inverter:
         t_s = time.perf_counter()
         frames = self.data_parser.load_video(frame_ids=frame_ids)
         cond = self._encode_text(self.prompt)
-        noisy = self.ddim_inversion(self.encode_imgs_batch(frames), cond, save_path)
+        latents = self.encode_imgs_batch(frames)
+        depth = None
+        if self.models.unet.config.in_channels == 5:
+            depth = self._prepare_depth(frames, tuple(latents.shape[1:3]))
+        noisy = self.ddim_inversion(latents, cond, save_path, depth)
         if self.recon:
             from tclight_torch.utils.video_io import save_frames
 
-            recon = self.ddim_sample(noisy, cond)
+            recon = self.ddim_sample(noisy, cond, depth)
             imgs = self.models.vae.decode(recon / self.models.latent_scale)
             imgs = torch.clamp(imgs / 2 + 0.5, 0, 1).float().cpu().numpy()
             save_frames(imgs, Path(save_path) / "recon")

@@ -20,13 +20,16 @@ UNet when `generation.background_cond` is set, else `fc`); else, with
 `--full-width-random`, the SD1.5 stack on random weights; with
 TCLIGHT_TINY=1, the tiny random stack.
 
-`sd_version` other than `iclight` (1.5, 2.0, 2.1) runs the generic-SD
-editing path: the 4-channel stack (`load_sd`, with the ControlNet of
-`generation.control` when it is a ControlNet type), the DDIM inversion of
-the frames into `inversion.save_path`, then the Generator from those
-latents (`generation.latents_path`), with PnP or the ControlNet as
-`generation.control` says. `sd_version: depth` is not ported yet (ROADMAP
-A10b).
+`sd_version` other than `iclight` (1.5, 2.0, 2.1, depth) runs the
+generic-SD editing path: the 4-channel stack (`load_sd`, with the
+ControlNet of `generation.control` when it is a ControlNet type; a
+model-backed type reads `generation.annotator_ckpt`, depth the DPT of
+`generation.depth_ckpt`), the DDIM inversion of the frames into
+`inversion.save_path`, then the Generator from those latents
+(`generation.latents_path`), with PnP or the ControlNet as
+`generation.control` says. `sd_version: depth` is the sd-depth stack: a
+5-channel UNet whose fifth channel is the frames' DPT depth maps
+(`generation.depth_ckpt`, a transformers DPT checkpoint).
 """
 
 from __future__ import annotations
@@ -60,9 +63,6 @@ def main(argv=None, device: str = "cuda") -> int:
     dev = resolve_device(device)
 
     sd_version = str(config.get("sd_version", "iclight"))
-    if sd_version == "depth":
-        raise NotImplementedError("sd_version 'depth' needs the DPT depth annotator, which "
-                                  "is not ported yet (ROADMAP A10b)")
     editing = sd_version != "iclight"
     steps = config.get_path("generation.n_timesteps", 50 if editing else 25) or 25
     fbc = bool(config.get_path("generation.background_cond"))
@@ -76,7 +76,8 @@ def main(argv=None, device: str = "cuda") -> int:
         log.info("loading IC-Light (%s) from %s", mode, model_dir)
         models = load_iclight(model_dir, mode=mode, num_inference_steps=steps, device=dev)
     elif known.full_width_random and editing:
-        models = build_full_width_random_sd(num_inference_steps=steps, device=dev)
+        models = build_full_width_random_sd(num_inference_steps=steps, device=dev,
+                                            sd_version=sd_version)
     elif known.full_width_random:
         models = build_full_width_random(num_inference_steps=steps, device=dev,
                                          in_channels=12 if fbc else 8)
@@ -84,8 +85,11 @@ def main(argv=None, device: str = "cuda") -> int:
         log.warning("using tiny random-weight models (TCLIGHT_TINY)")
         # the CUDA kernels take bf16
         dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
-        build = build_tiny_sd if editing else build_tiny_iclight
-        models = build(num_inference_steps=steps, dtype=dtype, device=dev)
+        if editing:
+            models = build_tiny_sd(num_inference_steps=steps, dtype=dtype, device=dev,
+                                   sd_version=sd_version)
+        else:
+            models = build_tiny_iclight(num_inference_steps=steps, dtype=dtype, device=dev)
     else:
         log.error("no weights: set model_dir to a local checkpoint directory, pass "
                   "--full-width-random or export TCLIGHT_TINY=1")

@@ -242,8 +242,9 @@ def test_controlnet_converter_and_exporter(tmp_path):
                                      ("ip2p", {})])
 def test_control_preprocess_matches_jax(kind, kw):
     """canny (cv2 on the same uint8 frames), tile (identity, and a 0.5
-    resample blur) and ip2p, equal to JAX's; the model-backed types and
-    'none' refused."""
+    resample blur) and ip2p, equal to JAX's; the model-backed types without
+    a `model_fn` refused with JAX's error, with one its output; 'none'
+    refused."""
     rng = np.random.default_rng(6)
     frames = np.clip(rng.uniform(0, 1, (2, 40, 56, 3)) + np.linspace(0, 0.5, 56)[None, None, :,
                                                                                None],
@@ -253,8 +254,12 @@ def test_control_preprocess_matches_jax(kind, kw):
     assert out.shape == frames.shape and out.dtype == np.float32
     assert controlnet_utils.CONTROLNET_DICT == jctrl.CONTROLNET_DICT
     for model_backed in controlnet_utils.MODEL_BACKED:
-        with pytest.raises(NotImplementedError, match="A10b"):
+        with pytest.raises(NotImplementedError, match="needs a local model"):
             controlnet_utils.control_preprocess(frames, model_backed)
+        with pytest.raises(NotImplementedError, match="needs a local model"):
+            jctrl.control_preprocess(frames, model_backed)
+        np.testing.assert_array_equal(controlnet_utils.control_preprocess(
+            frames, model_backed, model_fn=lambda f: 1.0 - f), 1.0 - frames)
     with pytest.raises(ValueError):
         controlnet_utils.control_preprocess(frames, "none")
 
@@ -285,8 +290,8 @@ def test_latent_cache_indexes_by_frame_id(tmp_path):
 def test_load_sd_reads_a_written_model_dir(tmp_path):
     """`write_model_dir` writes the tiny SD stack and its ControlNet in the
     checkpoint layout; `load_sd` reads them back into equal weights, a DDIM
-    scheduler and `model_key` "1.5". A missing ControlNet file and
-    sd_version depth are refused."""
+    scheduler and `model_key` "1.5". A missing ControlNet file is refused;
+    sd_version depth reads the same files into the 5-channel stack."""
     models = build_tiny_sd(seed=2, num_inference_steps=3, device="cpu")
     models.controlnet = _perturbed(controlnet.ControlNetModel(models.unet.config), 7)
     write_model_dir(models, tmp_path, control="canny")
@@ -300,8 +305,10 @@ def test_load_sd_reads_a_written_model_dir(tmp_path):
             np.testing.assert_array_equal(back[k].numpy(), own[k].numpy(), err_msg=f"{name}.{k}")
     with pytest.raises(FileNotFoundError, match="controlnet_tile"):
         load_sd(tmp_path, "1.5", 3, control="tile", device="cpu")
-    with pytest.raises(NotImplementedError, match="A10b"):
-        load_sd(tmp_path, "depth", 3, device="cpu")
+    depth = load_sd(tmp_path, "depth", 3, device="cpu")
+    assert depth.model_key == "depth" and depth.unet.config.in_channels == 5
+    np.testing.assert_array_equal(depth.unet.state_dict()["conv_in.weight"][:, :4].numpy(),
+                                  models.unet.state_dict()["conv_in.weight"].numpy())
 
 
 def _video(path: Path, n: int = 4, size: int = 32) -> Path:
@@ -338,7 +345,7 @@ def test_cli_runs_sd15_editing_on_cpu(tmp_path, monkeypatch, control):
     the Generator runs PnP (the tiny random SD stack, TCLIGHT_TINY) or a
     canny ControlNet (a model_dir of tiny checkpoints), and writes an mp4
     of every frame; the run's config.yaml lists the inversion's seconds
-    among its stage times. `sd_version: depth` is refused naming A10b."""
+    among its stage times. (`sd_version: depth`: test_torch_depth.py.)"""
     from tclight_torch.run import main
 
     monkeypatch.chdir(Path(__file__).resolve().parent.parent)
@@ -360,5 +367,3 @@ def test_cli_runs_sd15_editing_on_cpu(tmp_path, monkeypatch, control):
     assert len(mp4s) == 1 and _frames(mp4s[0]) == 4
     stage_times = yaml.safe_load((mp4s[0].parent / "config.yaml").read_text())["stage_times"]
     assert stage_times["inversion"] > 0 and stage_times["sampling"] > 0
-    with pytest.raises(NotImplementedError, match="A10b"):
-        main(args + ["sd_version=depth"], device="cpu")

@@ -1,7 +1,9 @@
 """The port stands alone: importing every module of tclight_torch (the
 post-optimization's, the checkpoint loaders', the flow networks', the
 evaluation's, the editing path's, the background and single-image
-relighting's and the demos' included) loads neither
+relighting's, the demos', the prompt upsampler's (RoPE, the AR decoder,
+its converters, Pixtral) and the annotators' (DPT, HED, lineart,
+OpenPose) included) loads neither
 JAX, optax nor the JAX package, nor `safetensors` (which the card's
 machine lacks: the port reads the files itself) or `transformers` (only a
 tokenizer directory needs it), and its entry points refuse to run on the
@@ -53,6 +55,10 @@ slice9 = {"tclight_torch.models.controlnet", "tclight_torch.models.briarmbg",
           "tclight_torch.gradio_demo_bg_iclight"}
 assert slice9 <= set(names), sorted(slice9 - set(names))
 assert "gradio" not in sys.modules
+# the prompt upsampler and the annotators
+slice10 = {"tclight_torch.models." + m for m in (
+    "rope", "ar_transformer", "convert_ar", "pixtral", "dpt", "hed", "lineart", "openpose")}
+assert slice10 <= set(names), sorted(slice10 - set(names))
 """
 
 
@@ -61,7 +67,7 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert int(proc.stdout.split()[0]) >= 49
+    assert int(proc.stdout.split()[0]) >= 57
 
 
 def _require_no_cuda():
@@ -111,6 +117,17 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
                                                load_sd)
     from tclight_torch.pipeline.invert import Inverter
 
+    # the prompt upsampler and the annotators
+    from tclight_torch.models import dpt, hed, lineart, openpose, pixtral
+
+    for call in (pixtral.build_tiny_vlm, lambda: pixtral.load_vlm(REPO / "no_such_dir"),
+                 lambda: dpt.random_dpt(dpt.DPTConfig.tiny()),
+                 lambda: dpt.load_dpt(REPO / "no_such.pth"),
+                 lambda: hed.load_hed(REPO / "no_such.pth"),
+                 lambda: lineart.load_lineart(REPO / "no_such.pth"),
+                 lambda: openpose.load_bodypose(REPO / "no_such.pth")):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
     for call in (build_tiny_sd, build_full_width_random_sd, build_fc, build_fbc,
                  lambda: load_sd(REPO / "no_such_model_dir"),
                  lambda: load_controlnet(REPO / "no_such.safetensors", UNetConfig.tiny()),

@@ -494,27 +494,40 @@ def test_cli_runs_navsim_settings_with_int8_on_cpu(tmp_path, monkeypatch):
 
 
 def test_unported_options_raise(tmp_path, monkeypatch):
-    """What the port still refuses names its ROADMAP item: the control
-    types that need an annotator network and `sd_version: depth` (A10b),
-    the prompt upsampler (A13). PnP, the ControlNet types and background
-    conditioning are ported (A10, A11): they no longer refuse."""
+    """Nothing the JAX package runs is refused any more. The control types
+    that need an annotator network and `sd_version: depth` (A10b) are
+    ported: a Generator takes them, and without their checkpoint they fail
+    as JAX's do (NotImplementedError without `annotator_ckpt`,
+    FileNotFoundError without `depth_ckpt`); so is the prompt upsampler
+    (A13): an upsampler path that holds no checkpoint raises JAX's
+    FileNotFoundError. PnP, the ControlNet types and background
+    conditioning are ported (A10, A11)."""
+    from tclight_torch.models.controlnet import ControlNetModel
     from tclight_torch.pipeline.iclight import build_tiny_sd, load_sd
     from tclight_torch.run import main
 
     vid_dir = _video(tmp_path)
     models = build_tiny_iclight(device="cpu")
-    for control in ("softedge", "openpose", "depth", "lineart", "lineart_anime"):
+    sd_models = build_tiny_sd(device="cpu")
+    sd_models.controlnet = ControlNetModel(sd_models.unet.config)
+    frames = VideoDataParser(_config(tmp_path, vid_dir)["data"]).load_video()
+    for control in ("softedge", "openpose", "lineart", "lineart_anime"):
         cfg = _config(tmp_path, vid_dir)
         cfg["generation"]["control"] = control
-        with pytest.raises(NotImplementedError, match="A10b"):
-            Generator(models, ConfigDict(cfg), device="cpu")
-    with pytest.raises(NotImplementedError, match="A10b"):
+        gen = Generator(sd_models, ConfigDict(cfg), device="cpu")
+        with pytest.raises(NotImplementedError, match="needs a local model"):
+            gen.control_images(frames)
+    cfg = _config(tmp_path, vid_dir)
+    cfg["generation"]["control"] = "depth"
+    with pytest.raises(FileNotFoundError, match="depth_ckpt"):
+        Generator(sd_models, ConfigDict(cfg), device="cpu").control_images(frames)
+    sd_models.controlnet = None
+    with pytest.raises(FileNotFoundError, match="unet.safetensors"):
         load_sd(tmp_path / "no_model_dir", sd_version="depth", device="cpu")
     monkeypatch.chdir(Path(__file__).resolve().parent.parent)
     monkeypatch.setenv("TCLIGHT_TINY", "1")
-    with pytest.raises(NotImplementedError, match="A10b"):
+    with pytest.raises(FileNotFoundError, match="depth_ckpt"):
         main(_cli_args(tmp_path, vid_dir) + ["sd_version=depth"], device="cpu")
-    sd_models = build_tiny_sd(device="cpu")
     for key, value in (("control", "pnp"), ("background_cond", True)):
         cfg = _config(tmp_path, vid_dir)
         cfg["generation"][key] = value
@@ -539,14 +552,15 @@ def test_unported_options_raise(tmp_path, monkeypatch):
     cfg["post_opt"]["apply_opt"] = True
     assert Generator(models, ConfigDict(cfg), device="cpu").apply_opt
     # a missing prompt runs on JAX's fallback (test_missing_prompt_...);
-    # with an upsampler checkpoint on disk it needs the unported upsampler
+    # with an upsampler path on disk the upsampler loads it (its parity:
+    # test_torch_upsampler.py), and a path without a checkpoint raises
     ckpt = tmp_path / "upsampler.ckpt"
     ckpt.write_bytes(b"")
     cfg = _config(tmp_path, vid_dir)
     cfg["generation"].update(prompt={"default": None}, prompt_upsampler_ckpt=str(ckpt))
     gen = Generator(models, ConfigDict(cfg), data_parser=VideoDataParser(cfg["data"]),
                     device="cpu")
-    with pytest.raises(NotImplementedError, match="A13"):
+    with pytest.raises(FileNotFoundError, match="no model.pt"):
         gen(None, str(tmp_path / "out"), list(range(N_FRAMES)))
 
 
