@@ -113,8 +113,28 @@ Phases, one line each:
      recompute, the 2-layer full-width model card against CPU and read
      back from both checkpoint layouts by `load_vlm`; K1 / K2 not
      launched (its attention is a matmul, as JAX's);
- 16. one JSON line with every kernel's launches, error and times (K1's and
-     K2's launches also by path, their rows of phase 14 among their
+ 16. parallel: the port's multi-device code (tclight_torch/parallel/) in
+     a world of one rank over NCCL (the machine has one card; the
+     multi-rank semantics are held on CPU gloo worlds in the tests): the
+     parallel denoise step (tiny UNet, bf16, K1 / K2), the sharded
+     exposure and UVT steps (K3, K4, and K5 on turnover ids) and the
+     context-parallel DiT forward, each against the same call without a
+     process group (bit for bit, or one bf16 step);
+ 17. cosmos-small: a 2-block DiT of head dim 128 with non-zero gates over
+     2,048 tokens, the card (bf16, K1) against the CPU (f32), within 1.5
+     times the CPU's bf16 error, a limit at most half of what zeroing the
+     self-attention moves it;
+ 18. t2w / v2w: `python -m tclight_torch.cosmos.text2world` (and
+     video2world on a 121-frame video made here) as their mains run,
+     --model_size 7b: the 7B DiT built on the card in bf16 from a seed,
+     the CV8x8x8 tokenizer, 121 frames at 352 x 640 (14,080 DiT tokens),
+     2 Heun steps; wall, seconds per solver step, one DiT forward, the
+     decode, peak memory, the mp4's 121 frames; one denoiser evaluation
+     at 704 x 1280 (56,320 tokens) and K1's share of it; K1 held at every
+     new shape (14,080 and 56,320 tokens, head dim 128), K6 and K7 at
+     14,080;
+ 19. one JSON line with every kernel's launches, error and times (K1's and
+     K2's launches also by path, their rows of phases 14-18 among their
      shapes).
 The last line is {"ok": true, "device": {...}}. Any failed phase exits
 nonzero. Needs the repository around it and a CUDA device.
@@ -272,82 +292,91 @@ def check_flash(gen: torch.Generator) -> dict:
 
 def check_int8(gen: torch.Generator, pv_int8: bool) -> dict:
     """K6 (pv_int8 False) or K7 against the plain int8 version on the same
-    bf16 inputs, at the xy shapes and the 30-frame yt pass's shapes. `ms`
-    is the wrapper's (the quantization pre-pass and the kernel; for K7 its
-    max pass too), `prepass_ms` the pre-pass kernels alone, with the plain
-    pre-pass's time beside it (`prepass_plain_ms`); for K7 also
-    `maxpass_ms`, its max pass alone, beside its plain version's
-    (`maxpass_plain_ms`). Beside them K1 and SDPA at the same shape (the
-    library has no call for the quantized function), and the quantization
-    error of the plain version against the fp attention. Also the rows of
-    the pre-pass kernels against the plain pre-pass, in the kernel's
-    operand layout (`prepass_rows`), and for K7 those of the max pass
-    against its plain version (`maxpass_rows`)."""
+    bf16 inputs, at the xy shapes and the 30-frame yt pass's shapes
+    (`int8_row`). Returns the rows, the pre-pass rows and (K7) the max
+    pass rows."""
+    out = {"rows": [], "prepass_rows": [], "maxpass_rows": []}
+    for level, b, s, d in attention_shapes() + attention_shapes(YT_FRAMES, HEIGHT // 8, "yt-"):
+        int8_row(level, b, s, HEADS, d, gen, pv_int8, out)
+    return out
+
+
+def int8_row(level: str, b: int, s: int, h: int, d: int, gen: torch.Generator,
+             pv_int8: bool, out: dict) -> dict:
+    """K6 (pv_int8 False) or K7 against the plain int8 version on random
+    bf16 inputs of one shape. `ms` is the wrapper's (the quantization
+    pre-pass and the kernel; for K7 its max pass too), `prepass_ms` the
+    pre-pass kernels alone, with the plain pre-pass's time beside it
+    (`prepass_plain_ms`); for K7 also `maxpass_ms`, its max pass alone,
+    beside its plain version's (`maxpass_plain_ms`). Beside them K1 and
+    SDPA at the same shape (the library has no call for the quantized
+    function), and the quantization error of the plain version against
+    the fp attention. Appends the row to out["rows"], the pre-pass
+    kernels' row against the plain pre-pass, in the kernel's operand
+    layout, to out["prepass_rows"], and for K7 the max pass's against its
+    plain version to out["maxpass_rows"]."""
     from tclight_torch.ops.attention import (flash_attention_cuda,
                                              flash_attention_int8_cuda,
                                              flash_attention_int8_plain,
-                                             flash_attention_plain, int8_block_rowmax,
+                                             flash_attention_plain,
                                              int8pv_operands, int8pv_operands_plain,
                                              qk_int8_operands, qk_int8_operands_plain)
 
     tag = "K7" if pv_int8 else "K6"
     operands, operands_plain = ((int8pv_operands, int8pv_operands_plain) if pv_int8
                                 else (qk_int8_operands, qk_int8_operands_plain))
-    rows, prepass_rows, maxpass_rows = [], [], []
-    shapes = attention_shapes() + attention_shapes(YT_FRAMES, HEIGHT // 8, "yt-")
-    for level, b, s, d in shapes:
-        q, k, v = (torch.randn(b, s, HEADS, d, device="cuda", generator=gen,
-                               dtype=torch.bfloat16) for _ in range(3))
-        scale = d ** -0.5
-        out = flash_attention_int8_cuda(q, k, v, scale, pv_int8)
-        torch.cuda.synchronize()
-        ref, p_ms = timed_once(lambda: flash_attention_int8_plain(q, k, v, scale, pv_int8))
-        ref = ref.float()
-        fp = flash_attention_plain(q.float(), k.float(), v.float(), scale)
-        err = (out.float() - ref).abs().max().item()
-        # bf16 output rounding and exp2 rounding, as K1; K6 also takes p in
-        # bf16 for p.v, and a K7 p8 at a rounding tie moves by one step
-        # (1/127 of its block's max)
-        tol = 2e-2 * ref.abs().max().item()
-        quant_err = (ref - fp).abs().max().item() / fp.abs().max().item()
-        kernel_fp_err = (out.float() - fp).abs().max().item() / fp.abs().max().item()
-        ok = math.isfinite(err) and err <= tol
-        reps = 3 if s > 20000 else 10
-        k_ms = cuda_ms(lambda: flash_attention_int8_cuda(q, k, v, scale, pv_int8), reps)
-        plain_pre_ms = cuda_ms(lambda: operands_plain(q, k, v), reps)
-        pre_ms = cuda_ms(lambda: operands(q, k, v), reps)
-        prepass_rows.append(check_prepass(tag, level, q, k, v, operands, operands_plain,
-                                          pre_ms))
-        extra = {}
-        if pv_int8:
-            maxpass_rows.append(check_maxpass(level, q, k, v, scale, reps))
-            extra = {"maxpass_ms": maxpass_rows[-1]["ms"],
-                     "maxpass_plain_ms": maxpass_rows[-1]["plain_ms"]}
-        k1_ms = cuda_ms(lambda: flash_attention_cuda(q, k, v, scale), reps)
-        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale), reps)
-        # the kernel's operands cross memory once: q8, k8 (head dim padded
-        # to 32) and v8 (to 16) or v in bf16, the scales, the bf16 output;
-        # q.k^T at the int8 peak, p.v at the int8 (K7) or bf16 (K6) peak
-        dk, dv, bh = -(-d // 32) * 32, -(-d // 16) * 16, b * HEADS
-        n_bytes = (bh * s * dk * 2 + (bh * s * dv if pv_int8 else 2 * v.numel())
-                   + 2 * q.numel() + 4 * bh * (s + -(-s // 1024) + (dv if pv_int8 else 0)))
-        prod = 2.0 * bh * s * s * d
-        t_ops = (prod / PEAK_INT8_OPS + prod / (PEAK_INT8_OPS if pv_int8 else PEAK_BF16_FLOPS)) * 1e3
-        t_bytes = n_bytes / PEAK_BYTES * 1e3
-        b_ms, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-        row = dict(shape=f"{level} B={b} S={s} H={HEADS} D={d}", max_abs_err=err, tol=tol,
-                   quant_rel_err_plain_vs_fp=quant_err, rel_err_kernel_vs_fp=kernel_fp_err,
-                   ms=k_ms, prepass_ms=pre_ms, prepass_plain_ms=plain_pre_ms, **extra,
-                   plain_ms=p_ms, library_ms=None, k1_ms=k1_ms, sdpa_ms=sdpa_ms, bound_ms=b_ms,
-                   bound_by=by)
-        phase(tag, ok=ok, **row)
-        if not ok:
-            raise SystemExit(f"{tag} disagrees with its plain version at {row['shape']}")
-        rows.append(row)
-        del q, k, v, out, ref, fp, qt, kt, vt
-        torch.cuda.empty_cache()
-    return {"rows": rows, "prepass_rows": prepass_rows, "maxpass_rows": maxpass_rows}
+    q, k, v = (torch.randn(b, s, h, d, device="cuda", generator=gen,
+                           dtype=torch.bfloat16) for _ in range(3))
+    scale = d ** -0.5
+    res = flash_attention_int8_cuda(q, k, v, scale, pv_int8)
+    torch.cuda.synchronize()
+    ref, p_ms = timed_once(lambda: flash_attention_int8_plain(q, k, v, scale, pv_int8))
+    ref = ref.float()
+    fp = flash_attention_plain(q.float(), k.float(), v.float(), scale)
+    err = (res.float() - ref).abs().max().item()
+    # bf16 output rounding and exp2 rounding, as K1; K6 also takes p in
+    # bf16 for p.v, and a K7 p8 at a rounding tie moves by one step
+    # (1/127 of its block's max)
+    tol = 2e-2 * ref.abs().max().item()
+    quant_err = (ref - fp).abs().max().item() / fp.abs().max().item()
+    kernel_fp_err = (res.float() - fp).abs().max().item() / fp.abs().max().item()
+    ok = math.isfinite(err) and err <= tol
+    reps = 3 if s > 20000 else 10
+    k_ms = cuda_ms(lambda: flash_attention_int8_cuda(q, k, v, scale, pv_int8), reps)
+    plain_pre_ms = cuda_ms(lambda: operands_plain(q, k, v), reps)
+    pre_ms = cuda_ms(lambda: operands(q, k, v), reps)
+    out["prepass_rows"].append(check_prepass(tag, level, q, k, v, operands, operands_plain,
+                                             pre_ms))
+    extra = {}
+    if pv_int8:
+        out["maxpass_rows"].append(check_maxpass(level, q, k, v, scale, reps))
+        extra = {"maxpass_ms": out["maxpass_rows"][-1]["ms"],
+                 "maxpass_plain_ms": out["maxpass_rows"][-1]["plain_ms"]}
+    k1_ms = cuda_ms(lambda: flash_attention_cuda(q, k, v, scale), reps)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale), reps)
+    # the kernel's operands cross memory once: q8, k8 (head dim padded
+    # to 32) and v8 (to 16) or v in bf16, the scales, the bf16 output;
+    # q.k^T at the int8 peak, p.v at the int8 (K7) or bf16 (K6) peak
+    dk, dv, bh = -(-d // 32) * 32, -(-d // 16) * 16, b * h
+    n_bytes = (bh * s * dk * 2 + (bh * s * dv if pv_int8 else 2 * v.numel())
+               + 2 * q.numel() + 4 * bh * (s + -(-s // 1024) + (dv if pv_int8 else 0)))
+    prod = 2.0 * bh * s * s * d
+    t_ops = (prod / PEAK_INT8_OPS + prod / (PEAK_INT8_OPS if pv_int8 else PEAK_BF16_FLOPS)) * 1e3
+    t_bytes = n_bytes / PEAK_BYTES * 1e3
+    b_ms, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    row = dict(shape=f"{level} B={b} S={s} H={h} D={d}", max_abs_err=err, tol=tol,
+               quant_rel_err_plain_vs_fp=quant_err, rel_err_kernel_vs_fp=kernel_fp_err,
+               ms=k_ms, prepass_ms=pre_ms, prepass_plain_ms=plain_pre_ms, **extra,
+               plain_ms=p_ms, library_ms=None, k1_ms=k1_ms, sdpa_ms=sdpa_ms, bound_ms=b_ms,
+               bound_by=by)
+    phase(tag, ok=ok, **row)
+    if not ok:
+        raise SystemExit(f"{tag} disagrees with its plain version at {row['shape']}")
+    out["rows"].append(row)
+    del q, k, v, res, ref, fp, qt, kt, vt
+    torch.cuda.empty_cache()
+    return row
 
 
 def check_prepass(tag: str, level: str, q, k, v, kernel, plain, k_ms: float) -> dict:
@@ -2140,6 +2169,326 @@ def run_upsampler() -> dict:
     return stats
 
 
+# ---------------------------------------------------------------- multi-device, Cosmos
+
+DIT_K1_LAUNCH_KEYS = {}  # tag -> K1 launch keys of the Cosmos paths (filled by the phases)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def check_parallel(gen: torch.Generator) -> dict:
+    """[parallel]: the port's collective code in a world of one rank over
+    NCCL on the card (the machine has one H100; the multi-rank semantics
+    are held on CPU gloo worlds in tests/test_torch_parallel.py). Each step
+    runs with the mesh and without a process group, and must agree bit for
+    bit, or within one bf16 step: the parallel denoise step on the tiny
+    UNet in bf16 at 48 x 48 latents (ToMe merges, K1, K2; the round's
+    noises all-gathered, its banks broadcast), `run_exposure_align` and
+    `run_uvt` on 8 frames of 96 x 128 with radius warps (K3) on the banded
+    route (K4), `run_uvt` on turnover ids (K5), one update of each sharded
+    step builder (gradients and losses all-reduced), and the
+    context-parallel DiT forward of `small_dit` (K1; K and V all-gathered
+    before each self-attention). A mesh's collectives run whatever its
+    size, so the mesh run goes through NCCL: the phase counts the
+    all_gather, all_reduce and broadcast calls and fails if one of the
+    three never ran. The launch counts are set to 0 before the mesh runs
+    and read after."""
+    import torch.distributed as dist
+
+    from tclight_torch.models.unet import ToMeSpec, UNet2DCondition, UNetConfig
+    from tclight_torch.ops import kernels
+    from tclight_torch.ops.flow import voxelization
+    from tclight_torch.parallel.mesh import make_mesh
+    from tclight_torch.ops.schedules import expon_lr_schedule
+    from tclight_torch.parallel.sharded import (build_cp_dit_forward,
+                                                build_parallel_denoise_step,
+                                                build_sharded_exposure_step,
+                                                build_sharded_uvt_step, pad_plans_to_rounds)
+    from tclight_torch.pipeline import postopt
+    from tclight_torch.pipeline.chunks import make_chunk_plan
+    from tclight_torch.pipeline.iclight import init_like_flax
+
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh(1, 1)
+        unet = UNet2DCondition(UNetConfig.tiny(in_channels=4, dtype=torch.bfloat16)).cuda()
+        init_like_flax(unet, torch.Generator(device="cuda").manual_seed(0))
+        unet.eval().requires_grad_(False)
+        spec = ToMeSpec(n_frames=4, local_ratio=0.5, merge_global=True)
+        rng = np.random.default_rng(3)
+        n, lat = 8, 48
+        plan = make_chunk_plan(n, 4, rng)
+        plan_idx, plan_valid = pad_plans_to_rounds(plan.indices, plan.valid, 1)
+        randfs = rng.integers(0, 4, size=plan_idx.shape[:2])
+        flips = rng.random(plan_idx.shape[:2]) > 0.5
+        x = torch.randn(n, lat, lat, 4, device="cuda", generator=gen)
+        cc = torch.zeros(n, lat, lat, 0, device="cuda")
+        emb = tuple(torch.randn(1, 77, 32, device="cuda", generator=gen) for _ in range(2))
+        args = (x, cc, emb, 500.0, plan_idx, plan_valid, randfs, flips)
+
+        nf, h, w = 8, 96, 128
+        frames = torch.rand(nf, h, w, 3, device="cuda", generator=gen)
+        flows = 1.5 * torch.randn(nf, h, w, 2, device="cuda", generator=gen)
+        masks = torch.ones(nf, h, w, device="cuda")
+        radius = postopt.flow_radius(flows.cpu().numpy())
+        cfg = postopt.PostOptConfig(epochs_exposure=2, epochs=2, batch_size=4, ms_ssim_levels=2)
+        ids = np.tile(np.arange(h * w, dtype=np.int64), nf)
+        turn = voxelization(turnover_ids(nf, h, w).reshape(-1))
+
+        dit = small_dit(torch.bfloat16, "cuda")
+        dx = torch.randn(1, 8, 32, 32, 16, device="cuda", generator=gen)
+        dctx = torch.randn(1, 16, dit.cfg.context_dim, device="cuda", generator=gen)
+        dcn = torch.tensor([0.4], device="cuda")
+
+        # the palette is made once for both runs: its scatter-mean (an
+        # index_add_) sums in the order the card's atomics take
+        tables, _ = postopt.build_uvt_tables(ids, nf, h, w, h * w, device="cuda")
+        with torch.no_grad():
+            palette = postopt.init_palette(frames, torch.from_numpy(ids).cuda(), h * w)
+
+        def builder_steps(m):
+            """One update of each sharded step builder on a batch of 4
+            frames, one row masked."""
+            idxs = torch.arange(4, device="cuda")
+            bmask = torch.tensor([True, True, True, False], device="cuda")
+            step, make_opt = build_sharded_exposure_step(
+                m, cfg, expon_lr_schedule(0.01, 0.001, max_steps=10), warp_radius=radius)
+            expo = torch.eye(3, 4, device="cuda").expand(nf, 3, 4).clone().requires_grad_(True)
+            exp_loss = step(expo, make_opt(expo), frames, flows, masks[..., None], idxs, bmask)
+            feats = palette.clone().requires_grad_(True)
+            step, make_opt = build_sharded_uvt_step(m, cfg, h, w, warp_radius=radius)
+            uvt_loss = step(feats, make_opt(feats), frames, flows, masks[..., None], tables,
+                            idxs, bmask)
+            return {"step_exposure": expo.detach(), "step_exposure_loss": exp_loss,
+                    "step_uvt": feats.detach(), "step_uvt_loss": uvt_loss}
+
+        def run(m):
+            out = {"noises": build_parallel_denoise_step(unet, 4, 2.0, m, tome_spec=spec)(*args)}
+            with torch.enable_grad():
+                a, e, he, _ = postopt.run_exposure_align(frames, flows, masks, cfg, seed=3,
+                                                         warp_radius=radius, mesh=m)
+                r, hu, _ = postopt.run_uvt(a, flows, masks, ids, h * w, cfg, seed=3,
+                                           warp_radius=radius, mesh=m)
+                r5, h5, _ = postopt.run_uvt(a, flows, masks, turn, int(turn.max()) + 1, cfg,
+                                            seed=3, warp_radius=radius, mesh=m)
+                out.update(builder_steps(m))
+            out.update(exposure=e, aligned=a, exposure_hist=torch.from_numpy(he), uvt=r,
+                       uvt_hist=torch.from_numpy(hu), uvt_turnover=r5,
+                       uvt_turnover_hist=torch.from_numpy(h5))
+            with torch.inference_mode():
+                out["dit"] = build_cp_dit_forward(dit, m)(dx, dcn, dctx)
+            torch.cuda.synchronize()
+            return {k: v.detach().float().cpu() for k, v in out.items()}
+
+        ref = run(None)
+        res = {}
+        calls = dict.fromkeys(("all_gather", "all_reduce", "broadcast"), 0)
+        originals = {name: getattr(dist, name) for name in calls}
+
+        def counted(name):
+            def call(*a, **k):
+                calls[name] += 1
+                return originals[name](*a, **k)
+            return call
+
+        for name in calls:
+            setattr(dist, name, counted(name))
+        try:
+            stats, wall, peak = run_entry("parallel", lambda: res.update(got=run(mesh)))
+        finally:
+            for name, fn in originals.items():
+                setattr(dist, name, fn)
+        got = res["got"]
+    finally:
+        dist.destroy_process_group()
+    diffs = {k: float((got[k] - ref[k]).abs().max()) for k in ref}
+    exact = {k: bool(torch.equal(got[k], ref[k])) for k in ref}
+    # the mesh's runs do the same arithmetic: bit for bit, or (a kernel
+    # whose sums the scheduler may order differently) one bf16 step of the
+    # result's scale
+    limits = {k: 2.0 ** -8 * float(ref[k].abs().max()) for k in ref}
+    launched = {k: stats[k][0] for k in ("flash_attention", "online_argmax_scores",
+                                         "window_warp", "banded_gather", "banded_gather_multi")}
+    finite = all(bool(torch.isfinite(v).all()) for v in got.values())
+    ok = (finite and all(diffs[k] <= limits[k] for k in ref) and min(launched.values()) > 0
+          and min(calls.values()) > 0)
+    phase("parallel", ok=ok, world="1 rank, NCCL", mesh={"data": 1, "model": 1},
+          collectives=calls, bit_equal=exact, max_abs_diff=diffs, launches=launched, wall_s=wall,
+          peak_mem_gb=peak, phase_s=time.perf_counter() - t0)
+    if not ok:
+        raise SystemExit("[parallel] failed")
+    return stats
+
+
+def small_dit_config(dtype=torch.float32):
+    """[cosmos-small]'s DiT: 2 blocks, 256 wide, 2 heads of 128."""
+    from tclight_torch.cosmos.dit import DiTConfig
+
+    return DiTConfig(in_channels=16, out_channels=16, model_channels=256, num_blocks=2,
+                     num_heads=2, context_dim=128, adaln_lora_dim=64, max_frames=16,
+                     max_img_h=64, max_img_w=64, dtype=dtype)
+
+
+def small_dit(dtype, device, state_dict=None):
+    """`small_dit_config`'s DiT on `device`: weights drawn on the CPU in
+    f32 from seed 0 (adaLN gates non-zero), or `state_dict`, cast."""
+    from tclight_torch.cosmos.dit import GeneralDIT, init_dit_
+
+    if state_dict is None:
+        model = GeneralDIT(small_dit_config())
+        init_dit_(model, torch.Generator().manual_seed(0))
+        state_dict = model.state_dict()
+    model = GeneralDIT(small_dit_config(dtype))
+    model.load_state_dict(state_dict)
+    return model.to(device).eval().requires_grad_(False)
+
+
+def check_cosmos_small() -> dict:
+    """[cosmos-small]: `small_dit` over 8 x 16 x 16 = 2,048 tokens (its
+    self-attention takes K1 on the card, the plain version on the CPU) on
+    the card in bf16 against the CPU in f32; the CPU in bf16 measures what
+    bf16 costs. The card may differ from the f32 reference by 1.5 times
+    the CPU's bf16 error (relative RMS), and that limit must be at most
+    half of what zeroing every self-attention's output moves the f32
+    prediction."""
+    from tclight_torch.ops import kernels
+
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn(1, 8, 32, 32, 16, generator=gen)
+    ctx = torch.randn(1, 16, 128, generator=gen)
+    cn = torch.tensor([0.4])
+    ref_model = small_dit(torch.float32, "cpu")
+    sd = ref_model.state_dict()
+    with torch.inference_mode():
+        ref = ref_model(x, cn, ctx)
+        cpu_bf16 = small_dit(torch.bfloat16, "cpu", sd)(x, cn, ctx)
+        kernels.reset_stats()
+        card = small_dit(torch.bfloat16, "cuda", sd)(x.cuda(), cn.cuda(), ctx.cuda()).cpu()
+        launches = kernels.STATS["flash_attention"].launches
+        for blk in ref_model.blocks.values():
+            blk.blocks[0].block.attn.to_out[0].weight.zero_()
+        no_attn = ref_model(x, cn, ctx)
+    cpu_err, card_err = rel_rms(cpu_bf16, ref), rel_rms(card, ref)
+    tol, fault = 1.5 * cpu_err, rel_rms(no_attn, ref)
+    ok = (bool(torch.isfinite(card).all()) and card_err <= tol and fault >= 2 * tol
+          and launches > 0)
+    return dict(cosmos_small_ok=ok, tokens=8 * 16 * 16, card_rel_rms=card_err,
+                cpu_bf16_rel_rms=cpu_err, tol=tol, no_attention_rel_rms=fault,
+                k1_launches=launches)
+
+
+T2W_ARGS = ["--model_size", "7b", "--num_video_frames", "121", "--height", "352", "--width",
+            "640", "--num_steps", "2", "--prompt", "a robot arm stacks wooden blocks on a table"]
+
+
+def run_world_model(tag: str, tmp: Path) -> dict:
+    """[t2w] / [v2w]: `python -m tclight_torch.cosmos.text2world` (or
+    video2world) as its main runs it, at --model_size 7b: the 7B DiT (4096
+    wide, 28 blocks, 32 heads; video2world 17 input channels and the
+    augment-sigma embedder) built on the card in bf16 from a seed, the
+    CV8x8x8 tokenizer at its published widths in bf16; 121 frames at 352 x
+    640 (one causal chunk, 16 latent frames, 14,080 DiT tokens), 2 Heun
+    steps (3 x0 evaluations of cond and uncond). video2world conditions
+    on a 121-frame rolling video made here, which feeds the DiT the
+    condition mask (C10). Then one DiT forward at the run's latents, and
+    one denoiser evaluation at the CLI's default 704 x 1280 (56,320
+    tokens) with K1's share of it. The launch counts are set to 0 before
+    the entry point and read after; the mp4 must hold 121 finite frames."""
+    from tclight_torch.cosmos import inference_cli, text2world, video2world
+    from tclight_torch.cosmos.dit import make_edm_denoiser
+    from tclight_torch.ops import kernels
+
+    v2w = tag == "v2w"
+    argv = T2W_ARGS + ["--video_save_folder", str(tmp / tag), "--checkpoint_dir",
+                       str(tmp / "no-checkpoints")]
+    if v2w:
+        make_video(tmp / "cond", 121, 352, 640)
+        argv += ["--input_image_or_video_path", str(tmp / "cond")]
+    entry = video2world if v2w else text2world
+    held = {}
+
+    def main():
+        args = entry.parse_arguments(argv)
+        t0 = time.perf_counter()
+        pipe, tok = inference_cli.build_pipeline(args, video2world=v2w)
+        torch.cuda.synchronize()
+        held.update(pipe=pipe, tok=tok, build_s=time.perf_counter() - t0)
+        cond = (video2world.load_condition(args.input_image_or_video_path, args.height,
+                                           args.width, tok.pixel_chunk_duration) if v2w else None)
+        return inference_cli.run_generation(args, pipe, tok, condition_video=cond)
+
+    stats, wall, peak = run_entry(tag, main)
+    pipe = held["pipe"]
+    model = pipe.dit.module
+    n_frames, shape = read_mp4(tmp / tag / "output.mp4")
+    params = sum(p.numel() for p in model.parameters())
+    # one DiT forward at the run's latent shape, and one denoiser evaluation
+    # at the CLI's default 704 x 1280 (a run of 121 frames there)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    ctx = torch.randn(1, 32, model.cfg.context_dim, device="cuda", generator=g)
+    extra = {}
+    if v2w:
+        from tclight_torch.cosmos.pipelines import condition_mask
+
+        extra = {"condition_video_input_mask": condition_mask(pipe.latent_shape, 1, "cuda")}
+    x = torch.randn(pipe.latent_shape, device="cuda", generator=g)
+    cn = torch.tensor([0.5], device="cuda")
+    with torch.inference_mode():
+        fwd_ms = cuda_ms(lambda: model(x, cn, ctx, **extra), 2)
+        big = (1, 16, 88, 160, 16)
+        kernels.reset_stats()
+        x0_fn = make_edm_denoiser(model, ctx, **({"condition_video_input_mask": condition_mask(
+            big, 1, "cuda")} if v2w else {}))
+        xb = torch.randn(big, device="cuda", generator=g)
+        big_out, big_ms = timed_once(lambda: x0_fn(xb, 1.3))
+        big_keys = dict(kernels.STATS["flash_attention"].shapes)
+    finite_big = bool(torch.isfinite(big_out).all())
+    del big_out, xb
+    DIT_K1_LAUNCH_KEYS[tag] = {**stats["flash_attention"][1], **big_keys}
+    steps = pipe.stage_times.get("step_seconds", [])
+    k1 = stats["flash_attention"][0]
+    ok = (n_frames == 121 and shape == (352, 640, 3) and k1 > 0 and finite_big
+          and len(steps) == 2 and (not v2w or model.cfg.in_channels == 17))
+    res = dict(ok=ok, params_b=params / 1e9, dit_gb=params * 2 / 1e9, build_s=held["build_s"],
+               wall_s=wall, sample_s=pipe.stage_times["sample"], step_s=steps,
+               decode_s=pipe.stage_times["decode"], dit_forward_ms=fwd_ms,
+               tokens=int(np.prod(pipe.latent_shape[1:4]) // 4), peak_mem_gb=peak,
+               mp4_frames=n_frames, mp4_shape=shape, k1_launches=k1,
+               k1_keys={str(k): v for k, v in stats["flash_attention"][1].items()},
+               denoiser_704x1280_ms=big_ms, tokens_704x1280=16 * 44 * 80,
+               in_channels=model.cfg.in_channels)
+    del pipe, model, held
+    torch.cuda.empty_cache()
+    return {"stats": stats, "result": res}
+
+
+def report_world_model(tag: str, res: dict, k1_rows: dict) -> None:
+    """The [t2w] / [v2w] line, with K1's share of the 704 x 1280 denoiser
+    evaluation (one forward: 28 K1 launches at 56,320 tokens) and of the
+    forward at the run's 14,080 tokens, from K1's held rows."""
+    r = dict(res)
+    big = k1_rows.get((1, 56320, 56320, 32, 128))
+    if big is not None:
+        r["k1_56320_ms"] = big["ms"]
+        r["k1_share_704x1280"] = 28 * big["ms"] / r["denoiser_704x1280_ms"]
+    small = k1_rows.get((1, 14080, 14080, 32, 128))
+    if small is not None:
+        r["k1_14080_ms"] = small["ms"]
+        r["k1_share_forward"] = 28 * small["ms"] / r["dit_forward_ms"]
+    ok = r.pop("ok")
+    phase(tag, ok=ok, **r)
+    if not ok:
+        raise SystemExit(f"[{tag}] failed")
+
+
 def kernel_entry(name, source, replaces, launches, rows, path="main") -> dict:
     head = rows[0]
     entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -2251,6 +2600,28 @@ def main() -> int:
     # softmax, as JAX's is (checked in the phase)
     stats = run_upsampler()
     by_path["upsampler"] = {k: stats[k][0] for k in path_rows}
+    # multi-device (a world of one on the card) and the Cosmos world models
+    stats = check_parallel(gen)
+    by_path["parallel"] = {k: stats[k][0] for k in path_rows}
+    hold("parallel", {k: stats[k][1] for k in path_rows})
+    small = check_cosmos_small()
+    small_ok = small.pop("cosmos_small_ok")
+    phase("cosmos-small", ok=small_ok, **small)
+    if not small_ok:
+        raise SystemExit("[cosmos-small] failed")
+    with tempfile.TemporaryDirectory(dir=OUT) as tmp:
+        worlds = {tag: run_world_model(tag, Path(tmp)) for tag in ("t2w", "v2w")}
+    for tag, world in worlds.items():
+        by_path[tag] = {k: world["stats"][k][0] for k in path_rows}
+        hold(tag, {"flash_attention": DIT_K1_LAUNCH_KEYS[tag], "online_argmax_scores": {}})
+    k1_rows = {key: row for (name, key), row in held.items() if name == "flash_attention"}
+    for tag, world in worlds.items():
+        report_world_model(tag, world["result"], k1_rows)
+    # K6 and K7 at the DiT's self-attention (the t2w run's 14,080 tokens),
+    # where its attn_backend "int8" / "int8pv" sends it
+    dit_int8 = {pv: {"rows": [], "prepass_rows": [], "maxpass_rows": []} for pv in (False, True)}
+    for pv in (False, True):
+        int8_row("dit t2w", 1, 14080, 32, 128, gen, pv, dit_int8[pv])
     phase("launches", **{f"{tag}": counts for tag, counts in by_path.items()})
 
     k1 = kernel_entry("flash_attention", "tclight_torch/csrc/flash_attention.cu",
@@ -2280,26 +2651,28 @@ def main() -> int:
                      turnover["rows"][1:], path="run_uvt on turnover-heavy ids (the adjoint)"),
         kernel_entry("flash_attention_int8", "tclight_torch/csrc/flash_attention_qk_int8.cu",
                      "tclight_tpu/ops/attention.py:180", launches["flash_attention_int8"],
-                     int8[False]["rows"],
+                     int8[False]["rows"] + dit_int8[False]["rows"],
                      path=f"yt-int8: navsim settings, {YT_FRAMES} frames, alpha_t 0.4, "
                           "attn_qk_int8"),
         kernel_entry("flash_attention_int8:prepass",
                      "tclight_torch/csrc/flash_attention_qk_int8.cu",
                      "tclight_tpu/ops/attention.py:180", launches["flash_attention_int8_prepass"],
-                     int8[False]["prepass_rows"],
+                     int8[False]["prepass_rows"] + dit_int8[False]["prepass_rows"],
                      path="yt-int8 (K6's quantization pre-pass, two kernels a launch)"),
         kernel_entry("flash_attention_int8pv", "tclight_torch/csrc/flash_attention_int8.cu",
                      "tclight_tpu/ops/attention.py:227", launches["flash_attention_int8pv"],
-                     int8[True]["rows"],
+                     int8[True]["rows"] + dit_int8[True]["rows"],
                      path=f"int8pv: main config, {FRAMES} frames, attn_qk_int8 + attn_pv_int8"),
         kernel_entry("flash_attention_int8pv:prepass",
                      "tclight_torch/csrc/flash_attention_qk_int8.cu",
                      "tclight_tpu/ops/attention.py:227",
-                     launches["flash_attention_int8pv_prepass"], int8[True]["prepass_rows"],
+                     launches["flash_attention_int8pv_prepass"],
+                     int8[True]["prepass_rows"] + dit_int8[True]["prepass_rows"],
                      path="int8pv (K7's quantization pre-pass, two kernels a launch)"),
         kernel_entry("flash_attention_int8pv:maxpass", "tclight_torch/csrc/flash_attention_int8.cu",
                      "tclight_tpu/ops/attention.py:227",
-                     launches["flash_attention_int8pv_maxpass"], int8[True]["maxpass_rows"],
+                     launches["flash_attention_int8pv_maxpass"],
+                     int8[True]["maxpass_rows"] + dit_int8[True]["maxpass_rows"],
                      path="int8pv (K7's max pass: each (row, P block)'s logit max)"),
     ]}), flush=True)
     print(f"nvidia-smi: {smi}", flush=True)

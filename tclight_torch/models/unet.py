@@ -11,6 +11,12 @@ cond] batch) and ControlNet's residuals (`down_residuals`, `mid_residual`).
 
 Layout: NHWC at `forward`'s boundary, (B*F, H, W, C) with B the CFG batch
 and F the frames of a chunk; NCHW inside.
+
+With a `mesh` (parallel/mesh.py), `x` is this rank's share of the batch
+(`mesh.split_rows`): the resnets and convolutions run on the share, and
+each Transformer2D gathers the batch before its block, whose token
+merging mixes frames, and splits it again after. The output is the
+share; the banks are whole on every rank.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from tclight_torch.models.layers import (Downsample2D, FeedForward,
                                          ResnetBlock2D, TimestepEmbedding,
                                          Upsample2D, timestep_embedding)
 from tclight_torch.ops import tome
+from tclight_torch.parallel.mesh import gather_rows, split_rows
 from tclight_torch.ops.attention import dot_product_attention, flash_attention
 
 
@@ -180,7 +187,8 @@ class Transformer2D(nn.Module):
 
     def forward(self, x, context, tome_spec, merge_active, randf, flip, bank,
                 use_global, dup_after_attn1: bool = False,
-                attn_backend: Optional[str] = None, pnp_attn: bool = False):
+                attn_backend: Optional[str] = None, pnp_attn: bool = False, mesh=None):
+        x = gather_rows(x, mesh)
         b, c, hh, ww = x.shape
         residual = x
         z = self.proj_in(self.norm(x))
@@ -195,7 +203,7 @@ class Transformer2D(nn.Module):
         if dup_after_attn1:
             residual = torch.cat([residual, residual], dim=0)
         z = z.reshape(residual.shape[0], hh, ww, c).permute(0, 3, 1, 2)
-        return self.proj_out(z) + residual, new_bank
+        return split_rows(self.proj_out(z) + residual, mesh), new_bank
 
 
 class UNet2DCondition(nn.Module):
@@ -271,7 +279,7 @@ class UNet2DCondition(nn.Module):
                 flip: bool = False, banks: Optional[dict] = None,
                 use_global: bool = False, cfg_dedup: bool = False,
                 attn_backend: Optional[str] = None, pnp_attn: bool = False, pnp_conv: bool = False,
-                down_residuals=None, mid_residual=None):
+                down_residuals=None, mid_residual=None, mesh=None):
         cfg = self.config
         ch = cfg.block_out_channels
         n = len(ch)
@@ -279,12 +287,16 @@ class UNet2DCondition(nn.Module):
         # [uncond | cond] pair, `context` the full CFG batch; the first
         # attention block duplicates its tokens and bank before its
         # cross-attention (see BasicTransformerBlock)
-        if cfg_dedup and (context.shape[0] != 2 * x.shape[0] or n < 2):
+        rows = x.shape[0] * (1 if mesh is None else mesh.shape["data"])
+        if cfg_dedup and (context.shape[0] != 2 * rows or n < 2):
             raise ValueError("cfg_dedup: x is the shared half, context the "
                              "full batch, and the UNet needs an attention level")
         if cfg_dedup and (pnp_attn or pnp_conv or down_residuals is not None
                           or mid_residual is not None):
             raise ValueError("cfg_dedup excludes PnP and ControlNet residuals")
+        if mesh is not None and (pnp_attn or pnp_conv or down_residuals is not None
+                                 or mid_residual is not None):
+            raise ValueError("a data-split batch excludes PnP and ControlNet residuals")
         x = x.permute(0, 3, 1, 2)
         h0, w0 = x.shape[-2:]
         timesteps = torch.as_tensor(timesteps, dtype=torch.float32,
@@ -304,13 +316,13 @@ class UNet2DCondition(nn.Module):
                                         h0, w0)
             h, nb = getattr(self, key)(h, context, tome_spec, active, randf,
                                        flip, banks.get(key), use_global, dup,
-                                       attn_backend, inject)
+                                       attn_backend, inject, mesh)
             if nb is not None:
                 new_banks[key] = nb
             return h
 
         h = self.conv_in(x)
-        skips = [torch.cat([h, h]) if cfg_dedup else h]
+        skips = [split_rows(torch.cat([gather_rows(h, mesh)] * 2), mesh) if cfg_dedup else h]
         for lvl in range(n):
             for blk in range(cfg.layers_per_block):
                 h = getattr(self, f"down_{lvl}_res_{blk}")(

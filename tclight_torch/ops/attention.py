@@ -69,11 +69,16 @@ def _ceil_to(x: int, m: int) -> int:
 
 
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          scale: float | None = None) -> torch.Tensor:
-    """q: (B, Sq, H, D), k/v: (B, Skv, H, D); logits and softmax in f32."""
+                          scale: float | None = None,
+                          mask: torch.Tensor | None = None) -> torch.Tensor:
+    """q: (B, Sq, H, D), k/v: (B, Skv, H, D); logits and softmax in f32.
+    `mask` is boolean, broadcastable to (B, H, Sq, Skv): False keys get a
+    logit of -1e30, as in JAX."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if mask is not None:
+        logits = torch.where(mask, logits, torch.full((), -1e30, device=logits.device))
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 

@@ -54,6 +54,15 @@ maps of the frames at latent size as its fifth channel (`prepare_depth`,
 from `generation.depth_ckpt`, cached under the output directory in JAX's
 file, or from an injected `depth_fn`).
 
+`parallel: {n_devices, model_parallel}` with n_devices > 1 runs one
+process per device over torch.distributed (launched by torchrun, which
+the config's world size must match; parallel/mesh.py): the UNet's
+column-parallel Linear and Conv modules split over the model ranks for
+sampling, each chunk's UNet batch over the data ranks (gathered again
+wherever frames mix), and the post-optimization's batches
+over the data ranks. Every rank ends with the same frames; rank 0 writes
+the files.
+
 A missing prompt is written by the Pixtral prompt upsampler of
 `generation.prompt_upsampler_ckpt` from the last frame when that directory
 exists (models/pixtral.py), else it takes JAX's generic fallback prompt,
@@ -69,11 +78,14 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from tclight_torch.config import ConfigDict, save_config
 from tclight_torch.data.controlnet_utils import CONTROLNET_DICT, control_preprocess
 from tclight_torch.models.unet import ToMeSpec
 from tclight_torch.ops.color import adaptive_instance_normalization
+from tclight_torch.parallel.mesh import (gather_rows, make_mesh, shard_params, split_rows,
+                                         unshard_params)
 from tclight_torch.pipeline import chunks as chunklib
 from tclight_torch.pipeline.iclight import ICLightModels, encode_prompt, encode_prompt_pair
 from tclight_torch.pipeline.invert import check_latent_exists, load_latent
@@ -170,6 +182,19 @@ class Generator:
         self.scheduler = dataclasses.replace(
             models.scheduler, num_inference_steps=self.n_timesteps)
         self.data_parser = data_parser
+        # the multi-device mesh (`parallel: {n_devices, model_parallel}`)
+        par = config.get("parallel", {}) or {}
+        n_dev = int(_cfg_get(par, "n_devices", 0) or 0)
+        self.mesh = None
+        self._params_on_mesh = False
+        if n_dev > 1:
+            world = dist.get_world_size() if dist.is_initialized() else None
+            if world != n_dev:
+                found = "no process group" if world is None else f"a world of {world}"
+                raise ValueError(
+                    f"parallel.n_devices={n_dev} runs one process per device: launch "
+                    f"{n_dev} ranks (torchrun --nproc_per_node {n_dev}); found {found}")
+            self.mesh = make_mesh(n_dev, int(_cfg_get(par, "model_parallel", 1)))
         self._vae_batch = 8
         self.stage_times: dict = {}
         self._last_step_times: list[float] = []
@@ -235,11 +260,14 @@ class Generator:
         else:
             inp = torch.cat([torch.cat([x_c, x_c]), torch.cat([cc_c, cc_c])],
                             dim=-1).to(dtype)
+        # JAX's _shard_batch: this data rank's share of the batch (which
+        # must split evenly over the data ranks)
+        inp = split_rows(inp, self.mesh)
         eps, banks = unet(inp, t, ctx, tome_spec=models.tome_spec,
                           randf=randf, flip=flip, banks=banks,
                           use_global=use_global, cfg_dedup=self.cfg_dedup,
-                          attn_backend=models.attn_backend)
-        eps_u, eps_c = eps.chunk(2)
+                          attn_backend=models.attn_backend, mesh=self.mesh)
+        eps_u, eps_c = gather_rows(eps, self.mesh).chunk(2)
         return eps_u + self.guidance_scale * (eps_c - eps_u), banks
 
     def _pred_chunk_pnp(self, x_c, src_c, cc_c, embeds3, t, randf, flip, banks,
@@ -396,6 +424,9 @@ class Generator:
         if self.alpha_t > 0 and embeds_t is None and not editing:
             raise ValueError("alpha_t > 0: the yt pass needs embeds_t")
         seed = self.seed if seed is None else seed
+        if self.mesh is not None and not self._params_on_mesh:
+            shard_params(self.models.unet, self.mesh)
+            self._params_on_mesh = True
         n = x.shape[0]
         sched = self.scheduler
         plan_rng = np.random.default_rng(seed)
@@ -547,8 +578,8 @@ class Generator:
         optimize = self.apply_opt and self.data_parser is not None
         if optimize:
             t_s = time.perf_counter()
-            _, _, _, _, past_flows, mask_bwds = self.data_parser.load_data(
-                frame_ids, device=self.device)
+            _, _, _, _, past_flows, mask_bwds = self._rank0_first(
+                lambda: self.data_parser.load_data(frame_ids, device=self.device))
             self.stage_times["flow_data"] = time.perf_counter() - t_s
 
         results = {}
@@ -565,6 +596,9 @@ class Generator:
                                             embeds_t=(uncond_t, cond_t),
                                             step_noises=step_noises)
             self.stage_times["sampling"] = time.perf_counter() - t_s
+            if self._params_on_mesh:  # whole again for the next user of the UNet
+                unshard_params(self.models.unet, self.mesh)
+                self._params_on_mesh = False
             if not torch.isfinite(clean_latent).all():
                 raise FloatingPointError("sampling produced non-finite latents")
             self.stage_times["step_times"] = list(self._last_step_times)
@@ -578,6 +612,9 @@ class Generator:
                 clean_frames, losses_exposure, losses_uvt = self._post_optimize(
                     clean_frames, past_flows, mask_bwds)
             clean_frames = clean_frames.cpu().numpy()
+            results[edit_name] = clean_frames
+            if self.mesh is not None and self.mesh.rank != 0:
+                continue  # rank 0 writes the files
 
             t_s = time.perf_counter()
             save_name = (f"lmr_{self.tome_spec.local_ratio}_gmr_"
@@ -598,10 +635,20 @@ class Generator:
                 np.save(out_dir / "loss_exposure.npy", losses_exposure)
                 np.save(out_dir / "loss_unique_tensor.npy", losses_uvt)
                 self._save_loss_curves(out_dir, losses_exposure, losses_uvt)
-            results[edit_name] = clean_frames
             log.info("done [%s]: %.1fs total, %.2fs/frame", edit_name,
                      cost["total_time"], cost["sec_per_frame"])
         return results
+
+    def _rank0_first(self, fn):
+        """fn() on rank 0 before the other ranks (which then read what it
+        cached on disk, the flows); fn() alone without a mesh."""
+        first = self.mesh is None or self.mesh.rank == 0
+        if not first:
+            dist.barrier()
+        out = fn()
+        if self.mesh is not None and first:
+            dist.barrier()
+        return out
 
     def composite_background(self, frames: np.ndarray) -> np.ndarray:
         """Background conditioning: BriaRMBG's alpha mattes of the frames
@@ -717,7 +764,8 @@ class Generator:
             log.info("exposure alignment (%d epochs)...", cfg.epochs_exposure)
             t_s = time.perf_counter()
             frames, _, losses_exposure, exp_times = run_exposure_align(
-                frames, flows, masks, cfg, seed=self.seed, warp_radius=radius)
+                frames, flows, masks, cfg, seed=self.seed, warp_radius=radius,
+                mesh=self.mesh)
             self._sync()
             self.stage_times["exposure"] = time.perf_counter() - t_s
             self.stage_times["exposure_epochs"] = exp_times.tolist()
@@ -725,7 +773,8 @@ class Generator:
             t_s = time.perf_counter()
             frames, losses_uvt, uvt_times = run_uvt(
                 frames, flows, masks, self.data_parser.unq_inv,
-                self.data_parser.n_unique, cfg, seed=self.seed, warp_radius=radius)
+                self.data_parser.n_unique, cfg, seed=self.seed, warp_radius=radius,
+                mesh=self.mesh)
             self._sync()
             self.stage_times["uvt"] = time.perf_counter() - t_s
             self.stage_times["uvt_epochs"] = uvt_times.tolist()

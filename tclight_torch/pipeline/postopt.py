@@ -1,5 +1,5 @@
 """The two-stage test-time post-optimization (counterpart of
-tclight_tpu/pipeline/postopt.py, without its multi-chip mesh hooks).
+tclight_tpu/pipeline/postopt.py).
 
 Stage 1, exposure alignment: one learnable 3x4 affine colour matrix per
 frame, optimized against (1-lf)[(1-ld) L1 + ld (1 - relaxed MS-SSIM)] + lf
@@ -20,6 +20,12 @@ banded route (K4/K5 on the card, both ways), the dense inverse map, and
 the sorted CSR. None of them is a scatter with reassociated sums of
 near-zero gradients: under Adam's eps=1e-15 a sign flip in such a
 gradient becomes a full-lr step.
+
+With a mesh (parallel/mesh.py) each data rank computes the per-sample
+terms of its share of the batch, `_batch_constraint`'s counterpart; every
+masked mean divides by the count over the whole batch, so the ranks'
+shares sum to the single-device loss. The shares' gradients (and losses)
+are summed over the data group before the same Adam step on every rank.
 """
 
 from __future__ import annotations
@@ -31,15 +37,17 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from tclight_torch.ops import banded_gather as banded
 from tclight_torch.ops.color import C0, RGB2SH
 from tclight_torch.ops.flow import flow_radius, warp_flow
 from tclight_torch.ops.losses import MS_SSIM_WEIGHTS, relaxed_ms_ssim
 from tclight_torch.ops.schedules import expon_lr_schedule
+from tclight_torch.parallel.mesh import data_rows
 from tclight_torch.utils.logging import get_logger
 
-__all__ = ["PostOptConfig", "flow_radius", "exposure_loss", "run_exposure_align",
+__all__ = ["PostOptConfig", "flow_radius", "exposure_loss", "run_exposure_align", "train_step",
            "palette_pixel_index", "init_palette", "render_palette",
            "kinematic_relabel", "build_uvt_tables", "uvt_gather", "uvt_render",
            "uvt_loss", "run_uvt"]
@@ -94,9 +102,13 @@ def _ms_ssim_per_sample(a, b, cfg: PostOptConfig):
                            size_average=False, weights=MS_SSIM_WEIGHTS[: cfg.ms_ssim_levels])
 
 
-def _masked_mean(x_per_sample: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+def _masked_mean(x_per_sample: torch.Tensor, weight: torch.Tensor,
+                 rows: slice = slice(None)) -> torch.Tensor:
+    """The masked mean over the batch of the per-sample terms of `rows`
+    (the whole batch by default): their weighted sum over the batch's
+    total weight, which a rank's share must divide by too."""
     w = weight.float()
-    return (x_per_sample * w).sum() / torch.clamp(w.sum(), min=1.0)
+    return (x_per_sample * w[rows]).sum() / torch.clamp(w.sum(), min=1.0)
 
 
 def _apply_exposure(frames: torch.Tensor, exposure: torch.Tensor) -> torch.Tensor:
@@ -113,20 +125,23 @@ def _apply_exposure(frames: torch.Tensor, exposure: torch.Tensor) -> torch.Tenso
 
 
 def exposure_loss(exposure, frames, past_flows, masks_bwd, idxs, bmask,
-                  cfg: PostOptConfig, warp_radius=None):
-    """The stage-1 loss of one batch; idxs (B,) long, bmask (B,) bool."""
-    edited = frames[idxs]
-    pre_idx = torch.clamp(idxs - 1, min=0)
-    images = _apply_exposure(edited, exposure[idxs])
+                  cfg: PostOptConfig, warp_radius=None, mesh=None):
+    """The stage-1 loss of one batch; idxs (B,) long, bmask (B,) bool.
+    With a mesh, this data rank's share of it."""
+    rows = data_rows(idxs.shape[0], mesh)
+    ids = idxs[rows]
+    edited = frames[ids]
+    pre_idx = torch.clamp(ids - 1, min=0)
+    images = _apply_exposure(edited, exposure[ids])
     pre_images = _apply_exposure(frames[pre_idx], exposure[pre_idx])
     l1_per = _abs(images - edited).mean(dim=(1, 2, 3))
     dssim_per = 1.0 - _ms_ssim_per_sample(images, edited, cfg)
-    loss_photo = (_masked_mean(l1_per, bmask) * (1 - cfg.lambda_dssim)
-                  + _masked_mean(dssim_per, bmask) * cfg.lambda_dssim)
-    warped = warp_flow(pre_images, past_flows[idxs].float(), radius=warp_radius)
-    m = masks_bwd[idxs].float()
+    loss_photo = (_masked_mean(l1_per, bmask, rows) * (1 - cfg.lambda_dssim)
+                  + _masked_mean(dssim_per, bmask, rows) * cfg.lambda_dssim)
+    warped = warp_flow(pre_images, past_flows[ids].float(), radius=warp_radius)
+    m = masks_bwd[ids].float()
     flow_per = _abs(warped * m - images * m).mean(dim=(1, 2, 3))
-    loss_flow = _masked_mean(flow_per, bmask & (idxs > 0))
+    loss_flow = _masked_mean(flow_per, bmask & (idxs > 0), rows)
     return (1 - cfg.lambda_flow) * loss_photo + cfg.lambda_flow * loss_flow
 
 
@@ -146,7 +161,25 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _optimize(param, loss_fn, opt, lr_fn, n, cfg, epochs, seed):
+def train_step(param, opt, lr: float, loss_fn, idxs, bmask, mesh=None) -> torch.Tensor:
+    """One Adam update of `param` at `lr` on the batch's loss. With a mesh,
+    `loss_fn` gives this data rank's share, and the shares' gradients and
+    losses are summed over the data group before the update. Returns the
+    batch's loss."""
+    for group in opt.param_groups:
+        group["lr"] = lr
+    opt.zero_grad(set_to_none=True)
+    loss = loss_fn(idxs, bmask)
+    loss.backward()
+    loss = loss.detach().clone()
+    if mesh is not None:
+        dist.all_reduce(param.grad, group=mesh.data_group)
+        dist.all_reduce(loss, group=mesh.data_group)
+    opt.step()
+    return loss
+
+
+def _optimize(param, loss_fn, opt, lr_fn, n, cfg, epochs, seed, mesh=None):
     """Adam over `epochs` shuffled epochs; update i runs at lr_fn(i).
     Returns (loss history, per-epoch wall seconds)."""
     dev = param.device
@@ -156,14 +189,9 @@ def _optimize(param, loss_fn, opt, lr_fn, n, cfg, epochs, seed):
         t0 = time.perf_counter()
         idxs_all, masks_all = _epoch_batches(n, cfg.batch_size, rng)
         for idxs, bmask in zip(idxs_all, masks_all):
-            for group in opt.param_groups:
-                group["lr"] = lr_fn(step)
-            opt.zero_grad(set_to_none=True)
-            loss = loss_fn(torch.from_numpy(idxs).long().to(dev),
-                           torch.from_numpy(bmask).to(dev))
-            loss.backward()
-            opt.step()
-            history.append(loss.detach())
+            history.append(train_step(param, opt, lr_fn(step), loss_fn,
+                                      torch.from_numpy(idxs).long().to(dev),
+                                      torch.from_numpy(bmask).to(dev), mesh))
             step += 1
         _sync(dev)
         epoch_times.append(time.perf_counter() - t0)
@@ -173,9 +201,10 @@ def _optimize(param, loss_fn, opt, lr_fn, n, cfg, epochs, seed):
 
 def run_exposure_align(frames: torch.Tensor, past_flows: torch.Tensor,
                        masks_bwd: torch.Tensor, cfg: PostOptConfig, seed: int = 0,
-                       warp_radius: int | None = None):
+                       warp_radius: int | None = None, mesh=None):
     """Optimize per-frame affine exposure and bake it in. Returns (aligned
-    frames, exposure (N, 3, 4), loss history, per-epoch wall seconds)."""
+    frames, exposure (N, 3, 4), loss history, per-epoch wall seconds).
+    With `mesh`, the frame batch is split over its data ranks."""
     n = frames.shape[0]
     if masks_bwd.dim() == 3:
         masks_bwd = masks_bwd[..., None]
@@ -189,10 +218,10 @@ def run_exposure_align(frames: torch.Tensor, past_flows: torch.Tensor,
 
     def loss_fn(idxs, bmask):
         return exposure_loss(exposure, frames, past_flows, masks_bwd, idxs, bmask,
-                             cfg, warp_radius)
+                             cfg, warp_radius, mesh)
 
     hist, times = _optimize(exposure, loss_fn, opt, lr_fn, n, cfg,
-                            cfg.epochs_exposure, seed)
+                            cfg.epochs_exposure, seed, mesh)
     with torch.no_grad():
         aligned = _apply_exposure(frames, exposure)
     return aligned, exposure.detach(), hist, times
@@ -532,32 +561,37 @@ def uvt_render(features, tables, idx, h: int, w: int) -> torch.Tensor:
 
 
 def uvt_loss(features, frames, past_flows, masks_bwd, tables, idxs, bmask,
-             cfg: PostOptConfig, warp_radius, h: int, w: int):
-    """The stage-2 loss of one batch."""
-    pre_idx = torch.clamp(idxs - 1, min=0)
-    images = uvt_render(features, tables, idxs, h, w)
+             cfg: PostOptConfig, warp_radius, h: int, w: int, mesh=None):
+    """The stage-2 loss of one batch. With a mesh, this data rank's share
+    of it."""
+    rows = data_rows(idxs.shape[0], mesh)
+    ids = idxs[rows]
+    pre_idx = torch.clamp(ids - 1, min=0)
+    images = uvt_render(features, tables, ids, h, w)
     pre_images = uvt_render(features, tables, pre_idx, h, w)
-    edited = frames[idxs]
-    warped = warp_flow(pre_images, past_flows[idxs].float(), radius=warp_radius)
-    m = masks_bwd[idxs].float()
+    edited = frames[ids]
+    warped = warp_flow(pre_images, past_flows[ids].float(), radius=warp_radius)
+    m = masks_bwd[ids].float()
     flow_per = _abs(warped * m - images * m).mean(dim=(1, 2, 3))
-    loss_flow = _masked_mean(flow_per, bmask & (idxs > 0))
+    loss_flow = _masked_mean(flow_per, bmask & (idxs > 0), rows)
     dssim_per = 1.0 - _ms_ssim_per_sample(images, edited, cfg)
-    loss_photo = _masked_mean(dssim_per, bmask) * cfg.lambda_dssim
+    loss_photo = _masked_mean(dssim_per, bmask, rows) * cfg.lambda_dssim
     # per-sample TV, masked mean over the real batch rows
     c = images.shape[-1]
     h_tv = ((images[:, 1:] - images[:, :-1]) ** 2).sum(dim=(1, 2, 3))
     w_tv = ((images[:, :, 1:] - images[:, :, :-1]) ** 2).sum(dim=(1, 2, 3))
     tv_per = 2.0 * (h_tv / (c * (h - 1) * w) + w_tv / (c * h * (w - 1)))
-    tv = cfg.lambda_tv * _masked_mean(tv_per, bmask)
+    tv = cfg.lambda_tv * _masked_mean(tv_per, bmask, rows)
     return (1 - cfg.lambda_flow) * loss_photo + cfg.lambda_flow * loss_flow + tv
 
 
 def run_uvt(frames: torch.Tensor, past_flows: torch.Tensor, masks_bwd: torch.Tensor,
             unq_inv: np.ndarray, n_unique: int, cfg: PostOptConfig, seed: int = 0,
-            warp_radius: int | None = None, allow_banded: bool | None = None):
+            warp_radius: int | None = None, allow_banded: bool | None = None,
+            mesh=None):
     """Unique-Video-Tensor optimization. Returns (rendered frames, loss
-    history, per-epoch wall seconds)."""
+    history, per-epoch wall seconds). With `mesh`, the frame batch is
+    split over its data ranks."""
     if cfg.epochs <= 0:
         return frames, np.zeros(0), np.zeros(0)
     n, h, w, _ = frames.shape
@@ -588,10 +622,10 @@ def run_uvt(frames: torch.Tensor, past_flows: torch.Tensor, masks_bwd: torch.Ten
 
     def loss_fn(idxs, bmask):
         return uvt_loss(features, frames, past_flows, masks_bwd, tables, idxs, bmask,
-                        cfg, warp_radius, h, w)
+                        cfg, warp_radius, h, w, mesh)
 
     hist, times = _optimize(features, loss_fn, opt, lambda _: feature_lr, n, cfg,
-                            cfg.epochs, seed)
+                            cfg.epochs, seed, mesh)
     with torch.no_grad():
         rendered = torch.cat([
             uvt_render(features, tables, torch.arange(c0, min(c0 + init_bs, n), device=dev),

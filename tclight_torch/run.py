@@ -30,6 +30,12 @@ model-backed type reads `generation.annotator_ckpt`, depth the DPT of
 `generation.control` says. `sd_version: depth` is the sd-depth stack: a
 5-channel UNet whose fifth channel is the frames' DPT depth maps
 (`generation.depth_ckpt`, a transformers DPT checkpoint).
+
+`parallel.n_devices=N` (N > 1) runs on N processes, one per card:
+launched by `torchrun --nproc_per_node N -m tclight_torch.run ...`, each
+rank joins the process group from torchrun's environment (NCCL on the
+card of its LOCAL_RANK, gloo on the CPU) before the Generator builds its
+mesh (pipeline/generator.py); rank 0 writes the outputs.
 """
 
 from __future__ import annotations
@@ -61,6 +67,10 @@ def main(argv=None, device: str = "cuda") -> int:
     log = get_logger()
     config = load_config(rest)
     dev = resolve_device(device)
+    if int(config.get_path("parallel.n_devices", 0) or 0) > 1 and "WORLD_SIZE" in os.environ:
+        from tclight_torch.parallel.mesh import init_distributed
+
+        init_distributed(device=dev)
 
     sd_version = str(config.get("sd_version", "iclight"))
     editing = sd_version != "iclight"
