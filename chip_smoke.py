@@ -133,8 +133,26 @@ Phases, one line each:
      at 704 x 1280 (56,320 tokens) and K1's share of it; K1 held at every
      new shape (14,080 and 56,320 tokens, head dim 128), K6 and K7 at
      14,080;
- 19. one JSON line with every kernel's launches, error and times (K1's and
-     K2's launches also by path, their rows of phases 14-18 among their
+ 19. ar-v2w: the port's `ARVideo2WorldPipeline` on the cosmos-4b AR
+     (`create_video2world_model_config("5b")`, bf16) and the DV8x16x16
+     tokenizer at its widths (bf16) through an adapter (its encode returns
+     three values; ROADMAP C12): a 9-frame 320 x 512 context (1,280
+     tokens), 3 latent frames generated (1,920 tokens), 33 frames decoded;
+ 20. dd: `diffusion_decoder_process_tokens` on that token grid (one
+     57-frame window: 8 latent frames at 40 x 64, 5,120 DiT tokens) with
+     the 7B decoder DiT (bf16), T5-11B's context (f32, 512 ids) and the
+     CV8x8x8 tokenizer, 2 RES steps; K1 held at the decoder's shape;
+ 21. guardrails: LlamaGuard-7B + a LoRA adapter (f32) loaded from an
+     HF-layout checkpoint written here, SigLIP-so400m and the safety head
+     on 8 frames at 384, RetinaFace-R50 on 8 frames at 720 x 960, each
+     through its checker's loader;
+ 22. ar-small: the card against the CPU: a 2-layer AR at the cosmos-4b
+     widths (bf16 within 1.5x the CPU's bf16 error; the same sampled
+     tokens in f32 with injected draws), a 2-block decoder DiT (K1), the
+     tiny DV tokenizer's indices, T5, SigLIP and RetinaFace at tiny
+     widths;
+ 23. one JSON line with every kernel's launches, error and times (K1's and
+     K2's launches also by path, their rows of phases 14-20 among their
      shapes).
 The last line is {"ok": true, "device": {...}}. Any failed phase exits
 nonzero. Needs the repository around it and a CUDA device.
@@ -2489,6 +2507,599 @@ def report_world_model(tag: str, res: dict, k1_rows: dict) -> None:
         raise SystemExit(f"[{tag}] failed")
 
 
+# ---------------------------------------------------------------- the AR world stack, guardrails
+
+AR_CONTEXT = (9, 320, 512)  # frames, height, width of [ar-v2w]'s context video
+# latent frames [ar-v2w] generates: 9 + 24 = 33 frames, Cosmos's video2world
+# output. A grid of at least 5 latent frames is what [dd]'s 8-frame window
+# can reflect-pad (split_with_overlap pads by at most T - 1 frames)
+AR_GEN_FRAMES = 3
+DD_STEPS = 3        # rho ladder length: 2 RES 2ab steps and the clean evaluation
+LLAMAGUARD_LAYERS = 32
+
+
+class DVPipelineAdapter(torch.nn.Module):
+    """The DV8x16x16 tokenizer as `ARVideo2WorldPipeline`'s tokenizer: the
+    pipeline unpacks (indices, codes) from `encode`, the DV tokenizer's
+    `encode` returns (indices, codes, loss) (ROADMAP C12)."""
+
+    def __init__(self, dv):
+        super().__init__()
+        self.dv = dv
+
+    def encode(self, video):
+        idx, codes, _ = self.dv.encode(video)
+        return idx, codes
+
+    def decode_indices(self, idx):
+        return self.dv.decode_indices(idx)
+
+
+class WordTokenizer:
+    """A token-id stand-in for LlamaGuard's tokenizer (the card has no
+    transformers): a word's md5 as its id; decode writes "safe", or
+    "unsafe" and an O-code, from the first id."""
+
+    eos_token_id = 2
+
+    def __init__(self, vocab: int):
+        import hashlib
+
+        self.vocab, self._md5 = vocab, hashlib.md5
+
+    def __call__(self, text, add_special_tokens=False):
+        return {"input_ids": [3 + int(self._md5(w.encode()).hexdigest(), 16) % (self.vocab - 3)
+                              for w in text.split()]}
+
+    def decode(self, ids, skip_special_tokens=True):
+        if not ids or ids[0] % 2 == 0:
+            return "safe"
+        return f"unsafe\nO{1 + ids[0] % 12}"
+
+
+def _release() -> None:
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _ar_model(cfg, seed: int, device):
+    """`Transformer(cfg)` on `device` with flax-scaled random weights."""
+    from tclight_torch.models.ar_transformer import Transformer
+    from tclight_torch.pipeline.iclight import init_like_flax
+
+    with torch.device(device):
+        model = Transformer(cfg)
+    with torch.no_grad():
+        init_like_flax(model, torch.Generator(device=device).manual_seed(seed))
+    return model.eval().requires_grad_(False)
+
+
+def run_ar_v2w() -> dict:
+    """[ar-v2w]: the port's `ARVideo2WorldPipeline` on
+    `create_video2world_model_config("5b")` (the cosmos-4b widths: dim
+    3072, 16 layers, 32 / 8 heads, FFN 8192, vocab 64064, 12,864 cache
+    slots) in bf16 and the DV8x16x16 tokenizer at `DVTokenizerConfig()`'s
+    widths in bf16 through `DVPipelineAdapter`, random weights from seeds:
+    a 9-frame 320 x 512 context (2 latent frames of 20 x 32: 1,280 prompt
+    tokens), AR_GEN_FRAMES latent frames generated (1,920 tokens, top-p 0.9
+    at temperature 1), 33 frames decoded. The spatial size is cut from
+    640 x 1024; the widths are not. Prints the parameter count, prefill ms,
+    decode ms a token beside its byte bound (every weight but the
+    embedding table, one row of it, and the KV cache's slots, which the
+    attention reads), DV encode / decode ms, the peak."""
+    import dataclasses
+
+    from tclight_torch.cosmos.dv_tokenizer import CausalDiscreteVideoTokenizer, DVTokenizerConfig
+    from tclight_torch.cosmos.inference_cli import random_tokenizer_
+    from tclight_torch.cosmos.pipelines import ARVideo2WorldPipeline
+    from tclight_torch.models.ar_configs import create_video2world_model_config
+    from tclight_torch.models.ar_transformer import ARGenerator
+
+    _release()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(create_video2world_model_config("5b"), dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    model = _ar_model(cfg, 0, "cuda")
+    with torch.device("cuda"):
+        dv = CausalDiscreteVideoTokenizer(dataclasses.replace(DVTokenizerConfig(),
+                                                              dtype=torch.bfloat16))
+    with torch.no_grad():
+        random_tokenizer_(dv, torch.Generator(device="cuda").manual_seed(1))
+    dv.eval().requires_grad_(False)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n, h, w = AR_CONTEXT
+    video = flow_frames(n, h, w, 5)[None] * 2.0 - 1.0
+    tokens_per_frame = (h // 16) * (w // 16)
+    pipe = ARVideo2WorldPipeline(ARGenerator(model), DVPipelineAdapter(dv),
+                                 max_gen_tokens=AR_GEN_FRAMES * tokens_per_frame)
+    out = {}
+    stats, wall, peak = run_entry("ar-v2w", lambda: out.update(video=pipe(video, seed=0)))
+    st = pipe.stage_times
+    frames = out["video"]
+    params = sum(p.numel() for p in model.parameters())
+    emb = model.tok_embeddings.weight
+    kv_bytes = 2 * cfg.n_layers * cfg.max_seq_len * cfg.n_kv_heads * cfg.hd * emb.element_size()
+    step_bytes = (params - emb.numel() + cfg.dim) * emb.element_size() + kv_bytes
+    decode_ms = st["decode_s"] / st["decode_steps"] * 1e3
+    decode_bound, decode_by = bound_ms(step_bytes, 2.0 * (params - emb.numel()))
+    t_lat = 1 + (n - 1) // 8 + AR_GEN_FRAMES
+    ok = (frames is not None and frames.shape == (1, 1 + (t_lat - 1) * 8, h, w, 3)
+          and bool(np.isfinite(frames).all()) and pipe.tokens.shape == (1, t_lat, h // 16, w // 16)
+          and stats["flash_attention"][0] == 0)
+    res = dict(ok=ok, params_b=params / 1e9, param_gb=params * 2 / 1e9, build_s=build_s,
+               context=f"{n}x{h}x{w}", prompt_tokens=(1 + (n - 1) // 8) * tokens_per_frame,
+               tokens_out=AR_GEN_FRAMES * tokens_per_frame,
+               token_grid=list(pipe.tokens.shape), frames_out=None if frames is None else
+               list(frames.shape), dv_encode_ms=st["encode"] * 1e3,
+               prefill_ms=st["prefill_s"] * 1e3, decode_ms_per_token=decode_ms,
+               decode_bound_ms=decode_bound, decode_bound_by=decode_by,
+               dv_decode_ms=st["decode"] * 1e3, wall_s=wall, peak_mem_gb=peak,
+               k1_launches=stats["flash_attention"][0])
+    # a random AR samples the whole vocabulary: ids past the DV codebook
+    # (the text and special ids) are folded into it for [dd]'s token table
+    tokens = pipe.tokens[0] % 64000
+    res["ids_past_codebook"] = int((pipe.tokens >= 64000).sum())
+    del pipe, model, dv, out
+    _release()
+    phase("ar-v2w", **res)
+    if not ok:
+        raise SystemExit("[ar-v2w] failed")
+    return {"stats": stats, "tokens": tokens}
+
+
+def run_dd(tokens: np.ndarray) -> dict:
+    """[dd]: `diffusion_decoder_process_tokens` on [ar-v2w]'s token grid
+    (5 x 20 x 32): the 7B decoder DiT (`DiTConfig.faditv2_7b()` with
+    `DiffusionDecoderGeneralDIT`'s token embedder: 16 + 32 + 1 input
+    channels) in bf16, the context from the T5-11B encoder
+    (`T5Config.t5_11b()`, f32, 512 ids, 40 of them a prompt) and the port's
+    CV8x8x8 tokenizer (bf16) for `decode_fn`, random weights from seeds.
+    One 57-frame window: 8 latent frames at 40 x 64 (the grid reflect-padded
+    from 5), 5,120 DiT tokens; DD_STEPS = 3 (2 RES 2ab steps and the clean
+    evaluation, 6 DiT forwards with CFG) instead of 15. Prints the T5 ms,
+    ms a decoder forward, the wall and the peak; K1's rows and share
+    follow (`report_dd`)."""
+    from tclight_torch.cosmos.cv_tokenizer import CausalContinuousVideoTokenizer, cv_config_8x8x8
+    from tclight_torch.cosmos.diffusion_decoder import (DiffusionDecoderGeneralDIT,
+                                                        LatentDiffusionDecoder,
+                                                        diffusion_decoder_process_tokens)
+    from tclight_torch.cosmos.dit import DiTConfig, init_dit_
+    from tclight_torch.cosmos.inference_cli import random_tokenizer_
+    from tclight_torch.models.t5_encoder import T5Config, T5Encoder
+    from tclight_torch.pipeline.iclight import init_like_flax
+
+    _release()
+    torch.cuda.reset_peak_memory_stats()
+    g = torch.Generator(device="cuda").manual_seed(3)
+    t5cfg = T5Config.t5_11b()
+    t0 = time.perf_counter()
+    with torch.device("cuda"):
+        t5 = T5Encoder(t5cfg)
+    with torch.no_grad():
+        init_like_flax(t5, g)
+    t5.eval().requires_grad_(False)
+    torch.cuda.synchronize()
+    t5_build_s = time.perf_counter() - t0
+    t5_params = sum(p.numel() for p in t5.parameters())
+    ids = torch.randint(0, t5cfg.vocab_size, (1, 512), device="cuda", generator=g)
+    mask = torch.zeros((1, 512), dtype=torch.long, device="cuda")
+    mask[:, :40] = 1
+    with torch.inference_mode():
+        emb, t5_ms = timed_once(lambda: t5(ids, mask))
+        t5_ms_again = cuda_ms(lambda: t5(ids, mask), 1)
+    t5_peak = torch.cuda.max_memory_allocated() / 2**30
+    t5_ok = bool(torch.isfinite(emb).all()) and bool((emb[0, 40:] == 0).all())
+    emb = emb[0].float()
+    del t5
+    _release()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.device("meta"):
+        net = DiffusionDecoderGeneralDIT(DiTConfig.faditv2_7b(dtype=torch.bfloat16))
+    net = net.to_empty(device="cuda")
+    with torch.no_grad():
+        init_dit_(net, g)
+        net.token_embedder.weight.normal_(0.0, 1.0, generator=g)
+    net.eval().requires_grad_(False)
+    with torch.device("meta"):
+        cv = CausalContinuousVideoTokenizer(cv_config_8x8x8(dtype=torch.bfloat16))
+    cv = cv.to_empty(device="cuda")
+    with torch.no_grad():
+        random_tokenizer_(cv, g)
+    cv.eval().requires_grad_(False)
+    torch.cuda.synchronize()
+    dit_build_s = time.perf_counter() - t0
+    params = sum(p.numel() for p in net.parameters())
+    decoder = LatentDiffusionDecoder(net, n_steps=DD_STEPS)
+    h, w = AR_CONTEXT[1:]
+
+    @torch.inference_mode()
+    def decode_fn(z):
+        return cv.decode(z).permute(0, 4, 1, 2, 3).float()
+
+    out = {}
+    stats, wall, peak = run_entry("dd", lambda: out.update(videos=diffusion_decoder_process_tokens(
+        decoder, [tokens], decode_fn, h, w, t5_emb_batch=[emb], context_dim=1024, seed=1)))
+    vid = out["videos"][0]
+    x = torch.randn((1, 8, h // 8, w // 8, 16), device="cuda", generator=g)
+    toks = torch.as_tensor(np.concatenate([tokens, tokens[1:4][::-1]])[None], device="cuda")
+    with torch.inference_mode():
+        fwd_ms = cuda_ms(lambda: net(x, torch.tensor([0.5], device="cuda"), emb[None],
+                                     latent_condition=toks), 2)
+    ok = (t5_ok and vid.shape == (3, 57, h, w) and bool(np.isfinite(vid).all())
+          and 0.0 <= vid.min() and vid.max() <= 1.0
+          and stats["flash_attention"][0] == 28 * 2 * DD_STEPS)
+    res = dict(ok=ok, t5_params_b=t5_params / 1e9, t5_gb=t5_params * 4 / 1e9,
+               t5_build_s=t5_build_s, t5_ms=t5_ms, t5_ms_again=t5_ms_again, t5_peak_gb=t5_peak,
+               dit_params_b=params / 1e9, dit_gb=params * 2 / 1e9, dit_build_s=dit_build_s,
+               in_channels=net.cfg.in_channels, token_grid=list(tokens.shape),
+               latent=f"8x{h // 8}x{w // 8}x16", dit_tokens=8 * (h // 16) * (w // 16),
+               res_steps=DD_STEPS - 1, video=list(vid.shape), wall_s=wall,
+               decoder_forward_ms=fwd_ms, peak_mem_gb=peak,
+               k1_launches=stats["flash_attention"][0],
+               k1_keys={str(k): v for k, v in stats["flash_attention"][1].items()})
+    del net, cv, decoder, out, x
+    _release()
+    return {"stats": stats, "result": res}
+
+
+def report_dd(res: dict, k1_rows: dict) -> None:
+    """The [dd] line, with K1's share of a decoder forward (28 launches at
+    5,120 tokens)."""
+    r = dict(res)
+    row = k1_rows.get((1, 5120, 5120, 32, 128))
+    if row is not None:
+        r["k1_5120_ms"] = row["ms"]
+        r["k1_share_forward"] = 28 * row["ms"] / r["decoder_forward_ms"]
+    ok = r.pop("ok") and row is not None
+    phase("dd", ok=ok, **r)
+    if not ok:
+        raise SystemExit("[dd] failed")
+
+
+def write_llamaguard(d: Path, n_layers: int, gen: torch.Generator) -> dict:
+    """LlamaGuard-7B's HF layout (bf16 safetensors, a shard per 8 layers),
+    its config.json, and a LoRA adapter (r 16 on every q_proj / v_proj) in
+    a subdirectory; random from `gen`, drawn on the card. -> sizes."""
+    from tclight_torch.models.convert import write_safetensors
+
+    d.mkdir(parents=True)
+    dim, ffn, vocab, heads = 4096, 11008, 32000, 32
+
+    def rnd(*shape, std=None):
+        std = shape[-1] ** -0.5 if std is None else std
+        return (torch.randn(shape, device="cuda", generator=gen) * std).bfloat16().cpu()
+
+    def ones(n):
+        return torch.ones(n, dtype=torch.bfloat16)
+
+    nbytes = 0
+    shard = {"model.embed_tokens.weight": rnd(vocab, dim, std=dim ** -0.5),
+             "model.norm.weight": ones(dim), "lm_head.weight": rnd(vocab, dim)}
+    for i in range(n_layers):
+        p = f"model.layers.{i}."
+        for n in ("q_proj", "k_proj", "v_proj", "o_proj"):
+            shard[p + f"self_attn.{n}.weight"] = rnd(dim, dim)
+        shard[p + "mlp.gate_proj.weight"] = rnd(ffn, dim)
+        shard[p + "mlp.up_proj.weight"] = rnd(ffn, dim)
+        shard[p + "mlp.down_proj.weight"] = rnd(dim, ffn)
+        shard[p + "input_layernorm.weight"] = ones(dim)
+        shard[p + "post_attention_layernorm.weight"] = ones(dim)
+        if i % 8 == 7 or i == n_layers - 1:
+            nbytes += sum(t.numel() * 2 for t in shard.values())
+            write_safetensors(shard, d / f"model-{i // 8:05d}.safetensors")
+            shard = {}
+    adapter = {}
+    for i in range(n_layers):
+        for proj in ("q_proj", "v_proj"):
+            pre = f"base_model.model.model.layers.{i}.self_attn.{proj}"
+            adapter[f"{pre}.lora_A.weight"] = rnd(16, dim).float()
+            adapter[f"{pre}.lora_B.weight"] = rnd(dim, 16, std=0.01).float()
+    (d / "aegis").mkdir()
+    write_safetensors(adapter, d / "aegis" / "adapter_model.safetensors")
+    (d / "aegis" / "adapter_config.json").write_text(json.dumps({"lora_alpha": 32, "r": 16}))
+    (d / "config.json").write_text(json.dumps({
+        "vocab_size": vocab, "hidden_size": dim, "num_hidden_layers": n_layers,
+        "num_attention_heads": heads, "num_key_value_heads": heads, "intermediate_size": ffn,
+        "rms_norm_eps": 1e-5, "rope_theta": 10000.0}))
+    return {"base_gb": nbytes / 1e9}
+
+
+def write_siglip(d: Path, gen: torch.Generator) -> None:
+    """siglip_vision.safetensors (transformers' SiglipVisionModel keys,
+    so400m widths) and safety_filter.pt (the Cosmos head, BN statistics
+    drawn), random from `gen`."""
+    from tclight_torch.models.convert import write_safetensors
+    from tclight_torch.models.siglip import SiglipVisionConfig
+
+    c = SiglipVisionConfig.so400m()
+    dm, f, p = c.hidden_size, c.intermediate_size, c.patch_size
+
+    def rnd(*shape, std=None):
+        fan = int(np.prod(shape[1:])) if len(shape) > 1 else shape[0]
+        return torch.randn(shape, device="cuda", generator=gen).mul_(
+            fan ** -0.5 if std is None else std).cpu()
+
+    sd = {"vision_model.embeddings.patch_embedding.weight": rnd(dm, 3, p, p),
+          "vision_model.embeddings.patch_embedding.bias": torch.zeros(dm),
+          "vision_model.embeddings.position_embedding.weight": rnd(
+              (c.image_size // p) ** 2, dm, std=0.02),
+          "vision_model.post_layernorm.weight": torch.ones(dm),
+          "vision_model.post_layernorm.bias": torch.zeros(dm),
+          "vision_model.head.probe": rnd(1, 1, dm, std=1.0),
+          "vision_model.head.attention.in_proj_weight": rnd(3 * dm, dm),
+          "vision_model.head.attention.in_proj_bias": torch.zeros(3 * dm),
+          "vision_model.head.attention.out_proj.weight": rnd(dm, dm),
+          "vision_model.head.attention.out_proj.bias": torch.zeros(dm),
+          "vision_model.head.layernorm.weight": torch.ones(dm),
+          "vision_model.head.layernorm.bias": torch.zeros(dm),
+          "vision_model.head.mlp.fc1.weight": rnd(f, dm), "vision_model.head.mlp.fc1.bias":
+              torch.zeros(f),
+          "vision_model.head.mlp.fc2.weight": rnd(dm, f), "vision_model.head.mlp.fc2.bias":
+              torch.zeros(dm)}
+    for i in range(c.num_layers):
+        r = f"vision_model.encoder.layers.{i}."
+        for n in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            sd[r + f"self_attn.{n}.weight"], sd[r + f"self_attn.{n}.bias"] = rnd(dm, dm), \
+                torch.zeros(dm)
+        sd[r + "mlp.fc1.weight"], sd[r + "mlp.fc1.bias"] = rnd(f, dm), torch.zeros(f)
+        sd[r + "mlp.fc2.weight"], sd[r + "mlp.fc2.bias"] = rnd(dm, f), torch.zeros(dm)
+        for n in ("layer_norm1", "layer_norm2"):
+            sd[r + f"{n}.weight"], sd[r + f"{n}.bias"] = torch.ones(dm), torch.zeros(dm)
+    write_safetensors(sd, d / "siglip_vision.safetensors")
+    head = {}
+    for i, (n_in, n_out) in ((0, (dm, 512)), (3, (512, 256)), (6, (256, 7))):
+        head[f"network.layers.{i}.weight"] = rnd(n_out, n_in)
+        head[f"network.layers.{i}.bias"] = 0.1 * rnd(n_out, std=1.0)
+        if i < 6:
+            bn = f"network.layers.{i + 1}."
+            head[bn + "weight"] = 1.0 + 0.1 * rnd(n_out, std=1.0)
+            head[bn + "bias"] = 0.1 * rnd(n_out, std=1.0)
+            head[bn + "running_mean"] = 0.1 * rnd(n_out, std=1.0)
+            head[bn + "running_var"] = 0.5 + torch.rand(n_out)
+            head[bn + "num_batches_tracked"] = torch.zeros((), dtype=torch.long)
+    torch.save(head, d / "safety_filter.pt")
+
+
+def run_guardrails(tmp: Path) -> dict:
+    """[guardrails] at full widths, random weights from seeds, each model
+    freed before the next:
+    - `AegisLlamaGuard` (f32, as JAX builds it: ~27 GB) loaded from
+      LlamaGuard-7B's HF layout in bf16 shards plus a LoRA adapter written
+      to a temp directory (from_hf_llama, merge_lora), with a token-id
+      stand-in tokenizer: a moderation of one prompt (prefill of the
+      template, 100 greedy steps); prefill ms, ms a decoded token, the
+      decision parsed;
+    - `VideoContentSafetyChecker` (SigLIP-so400m and the 7-class head,
+      from siglip_vision.safetensors and safety_filter.pt) on 8 frames at
+      384 (ms a frame) and its 2 fps gate on 30 frames;
+    - `FaceBlurFilter` (RetinaFace-R50 from a Resnet50_Final.pth) on 8
+      frames at 720 x 960 (ms a frame, the host's decode and NMS included).
+    The peak of each is printed."""
+    import shutil
+
+    from tclight_torch.cosmos.aegis import AegisLlamaGuard, moderation_prompt, parse_block_message
+    from tclight_torch.cosmos.guardrails import FaceBlurFilter, VideoContentSafetyChecker
+    from tclight_torch.models.retinaface import random_reference_state_dict
+    from tclight_torch.models.siglip import preprocess_siglip
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    res = {}
+    _release()
+    # the bf16 shards take 0.40 GB a layer and 0.52 GB besides; fewer layers
+    # (printed) if the disk holds less than twice that
+    free = shutil.disk_usage(tmp).free
+    layers = max(1, min(LLAMAGUARD_LAYERS, int((free / 2 - 0.6e9) / 0.41e9)))
+    t0 = time.perf_counter()
+    sizes = write_llamaguard(tmp / "llamaguard", layers, g)
+    res["aegis_write_s"] = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    guard = AegisLlamaGuard(tmp / "llamaguard", tokenizer=WordTokenizer(32000), device="cuda")
+    torch.cuda.synchronize()
+    res["aegis_load_s"] = time.perf_counter() - t0
+    params = sum(p.numel() for p in guard.model.parameters())
+    t0 = time.perf_counter()
+    safe, msg = guard.is_safe("a robot arm stacks wooden blocks on a table")
+    res["aegis_moderate_s"] = time.perf_counter() - t0
+    times = guard.generator.last_times
+    out_text = guard.moderate("a robot arm stacks wooden blocks on a table")
+    parsed = isinstance(safe, bool) and (safe == ("unsafe" not in out_text)) and (
+        safe or msg == parse_block_message(out_text))
+    res.update(aegis_params_b=params / 1e9, aegis_gb=params * 4 / 1e9, aegis_layers=layers,
+               disk_free_gb=free / 1e9,
+               aegis_file_gb=sizes["base_gb"], aegis_prompt_tokens=len(guard.tokenizer(
+                   moderation_prompt("a robot arm stacks wooden blocks on a table"))["input_ids"]),
+               aegis_prefill_ms=times["prefill_s"] * 1e3,
+               aegis_decode_ms_per_token=times["decode_s"] / times["decode_steps"] * 1e3,
+               aegis_decode_bound_ms=bound_ms(params * 4, 2.0 * params, PEAK_F32_FLOPS)[0],
+               aegis_decision=("safe" if safe else msg), aegis_parsed=parsed,
+               aegis_peak_gb=torch.cuda.max_memory_allocated() / 2**30)
+    del guard
+    _release()
+    # SigLIP-so400m and the head
+    (tmp / "siglip").mkdir()
+    write_siglip(tmp / "siglip", g)
+    torch.cuda.reset_peak_memory_stats()
+    checker = VideoContentSafetyChecker(tmp / "siglip", device="cuda")
+    frames = flow_frames(30, 720, 960, 6)
+    verdict = checker(frames)
+    pre = preprocess_siglip(frames[:8], checker._image_size)
+    sig_ms = cuda_ms(lambda: checker._fn(pre), 3) / 8
+    logits = checker._fn(pre)
+    res.update(siglip_ms_per_frame=sig_ms, siglip_logits_finite=bool(np.isfinite(logits).all()),
+               siglip_verdict=f"{verdict.is_safe} {verdict.message}".strip(),
+               siglip_peak_gb=torch.cuda.max_memory_allocated() / 2**30)
+    del checker
+    _release()
+    # RetinaFace-R50
+    (tmp / "retinaface").mkdir()
+    sd = random_reference_state_dict(seed=8)
+    for i in range(3):  # a class bias that finds some faces at 0.7 (~14 a frame)
+        sd[f"ClassHead.{i}.conv1x1.bias"][1::2] += 0.5
+    torch.save({f"module.{k}": v for k, v in sd.items()}, tmp / "retinaface" / "Resnet50_Final.pth")
+    torch.cuda.reset_peak_memory_stats()
+    blur = FaceBlurFilter(tmp / "retinaface", device="cuda")
+    blurred = blur.process(frames[:8])
+    t0 = time.perf_counter()
+    boxes = blur._detector.detect(frames[:8])
+    rf_ms = (time.perf_counter() - t0) / 8 * 1e3
+    x = torch.from_numpy(np.ascontiguousarray(frames[:4] * 255.0 - 110.0)).cuda()
+    with torch.inference_mode():
+        rf_net_ms = cuda_ms(lambda: blur._detector.model(x), 3) / 4
+    res.update(retinaface_ms_per_frame=rf_ms, retinaface_net_ms_per_frame=rf_net_ms,
+               retinaface_boxes=[len(b) for b in boxes],
+               retinaface_changed=bool(not np.array_equal(blurred, frames[:8])),
+               retinaface_peak_gb=torch.cuda.max_memory_allocated() / 2**30)
+    del blur
+    _release()
+    ok = (parsed and res["siglip_logits_finite"] and sum(res["retinaface_boxes"]) > 0
+          and res["retinaface_changed"])
+    phase("guardrails", ok=ok, **res)
+    if not ok:
+        raise SystemExit("[guardrails] failed")
+    return res
+
+
+def check_ar_small() -> dict:
+    """[ar-small]: the card against the CPU in f32 (full f32 on both):
+    - a 2-layer AR at the cosmos-4b widths: prompt logits of the bf16 model
+      on the card within 1.5x the CPU's own bf16 error (relative RMS), a
+      limit at most half of what zeroing every attention output moves the
+      f32 logits; 16 sampled tokens (temperature 1, top-p 0.9) of the f32
+      model equal on both with the same injected Gumbel draws;
+    - a 2-block decoder DiT (256 wide, 2 heads of 128, 2,048 tokens: K1 on
+      the card) in bf16 against the f32 CPU, the same 1.5x rule, zeroing the
+      self-attention moving it at least 2x the limit;
+    - the DV tokenizer at tiny(): indices equal wherever the pre-round value
+      is more than 1e-3 from a rounding boundary, the decode within 1e-4;
+    - T5, SigLIP and RetinaFace at tiny widths: within 1e-4 of max |CPU|."""
+    import dataclasses
+
+    from tclight_torch.cosmos import dv_tokenizer as dvt
+    from tclight_torch.cosmos.diffusion_decoder import DiffusionDecoderGeneralDIT
+    from tclight_torch.cosmos.dit import init_dit_
+    from tclight_torch.models import retinaface, siglip, t5_encoder
+    from tclight_torch.models.ar_configs import create_video2world_model_config
+    from tclight_torch.models.ar_transformer import ARGenerator, Transformer
+    from tclight_torch.ops import kernels
+    from tclight_torch.pipeline.iclight import init_like_flax
+    from tclight_torch.utils.device import full_f32
+
+    out = {}
+    with full_f32(), torch.inference_mode():
+        # the AR at full width, 2 layers
+        cfg = dataclasses.replace(create_video2world_model_config("5b"), n_layers=2,
+                                  max_seq_len=256)
+        ref_model = _ar_model(cfg, 0, "cpu")
+        sd = ref_model.state_dict()
+
+        def ar(dtype, device):
+            with torch.device(device):
+                m = Transformer(dataclasses.replace(cfg, dtype=dtype))
+            m.load_state_dict(sd)
+            return m.eval()
+
+        ids = torch.randint(0, 64000, (1, 64), generator=torch.Generator().manual_seed(0))
+        ref = ref_model(tokens=ids)[0]
+        cpu_err = rel_rms(ar(torch.bfloat16, "cpu")(tokens=ids)[0], ref)
+        card_err = rel_rms(ar(torch.bfloat16, "cuda")(tokens=ids.cuda())[0].cpu(), ref)
+        gumbel = [-torch.log(-torch.log(torch.rand(1, cfg.vocab_size, generator=torch.Generator(
+        ).manual_seed(100 + i)).clamp_min(1e-30))) for i in range(16)]
+        toks = ARGenerator(ar(torch.float32, "cuda")).generate(
+            ids, max_gen_len=16, temperature=1.0, gumbel=[g.cuda() for g in gumbel])
+        ref_toks = ARGenerator(ref_model).generate(ids, max_gen_len=16, temperature=1.0,
+                                                   gumbel=gumbel)
+        for i in range(cfg.n_layers):
+            getattr(ref_model, f"layers_{i}").attention.wo.weight.zero_()
+        fault = rel_rms(ref_model(tokens=ids)[0], ref)
+        tol = 1.5 * cpu_err
+        out["ar_ok"] = card_err <= tol and fault >= 2 * tol and np.array_equal(toks, ref_toks)
+        out.update(ar_card_rel_rms=card_err, ar_cpu_bf16_rel_rms=cpu_err, ar_tol=tol,
+                   ar_no_attention_rel_rms=fault, ar_tokens_equal=bool(np.array_equal(toks,
+                                                                                     ref_toks)))
+        del ref_model, sd
+        # the decoder DiT, 2 blocks
+        dcfg = dataclasses.replace(small_dit_config(), in_channels=16)
+        net = DiffusionDecoderGeneralDIT(dcfg, token_vocab=1000)
+        gen = torch.Generator().manual_seed(4)
+        init_dit_(net, gen)
+        net.token_embedder.weight.normal_(0.0, 1.0, generator=gen)
+        dsd = net.state_dict()
+
+        def dd(dtype, device):
+            m = DiffusionDecoderGeneralDIT(dataclasses.replace(dcfg, dtype=dtype),
+                                           token_vocab=1000)
+            m.load_state_dict(dsd)
+            return m.to(device).eval()
+
+        x = torch.randn(1, 8, 32, 32, 16, generator=gen)
+        ctx = torch.randn(1, 16, 128, generator=gen)
+        tk = torch.randint(0, 1000, (1, 8, 16, 16), generator=gen)
+        cn = torch.tensor([0.4])
+        dref = net.eval()(x, cn, ctx, latent_condition=tk)
+        dcpu = rel_rms(dd(torch.bfloat16, "cpu")(x, cn, ctx, latent_condition=tk), dref)
+        kernels.reset_stats()
+        dcard = rel_rms(dd(torch.bfloat16, "cuda")(x.cuda(), cn.cuda(), ctx.cuda(),
+                                                   latent_condition=tk.cuda()).cpu(), dref)
+        k1 = kernels.STATS["flash_attention"].launches
+        for blk in net.blocks.values():
+            blk.blocks[0].block.attn.to_out[0].weight.zero_()
+        dfault = rel_rms(net(x, cn, ctx, latent_condition=tk), dref)
+        dtol = 1.5 * dcpu
+        out["dd_ok"] = dcard <= dtol and dfault >= 2 * dtol and k1 > 0
+        out.update(dd_card_rel_rms=dcard, dd_cpu_bf16_rel_rms=dcpu, dd_tol=dtol,
+                   dd_no_attention_rel_rms=dfault, dd_k1_launches=k1)
+        # the DV tokenizer, tiny
+        dv = dvt.CausalDiscreteVideoTokenizer(dvt.DVTokenizerConfig.tiny())
+        with torch.no_grad():
+            for name, p in dv.named_parameters():
+                p.normal_(0.05 if name.endswith("bias") else 1.0 if p.dim() == 1 else 0.0,
+                          0.05 if name.endswith("bias") else 0.1 if p.dim() == 1
+                          else p[0].numel() ** -0.5, generator=gen)
+        video = torch.rand(1, 9, 32, 32, 3, generator=gen) * 2 - 1
+        idx, _, _ = dv.eval().encode(video)
+        zb = dv.quantizer.bound(dv.quant_conv(dv.encoder(video)).permute(0, 2, 3, 4, 1)).numpy()
+        keep = (np.abs(np.abs(zb - np.floor(zb)) - 0.5) > 1e-3).all(-1)
+        rec = dv.decode_indices(idx)
+        dv_card = dv.cuda()
+        cidx = dv_card.encode(video.cuda())[0].cpu()
+        crec = dv_card.decode_indices(idx.cuda()).cpu()
+        out["dv_ok"] = (bool((cidx.numpy()[keep] == idx.numpy()[keep]).all())
+                        and float((crec - rec).abs().max()) <= 1e-4 * float(rec.abs().max()))
+        out.update(dv_tie_free_share=float(keep.mean()),
+                   dv_decode_max_abs_err=float((crec - rec).abs().max()))
+
+        # T5, SigLIP and RetinaFace at tiny widths
+        def small(name, module, *args):
+            init_like_flax(module, gen)
+            for prm in module.parameters():  # norms, biases, probe and positions drawn too
+                if prm.dim() == 1 or float(prm.abs().max()) == 0.0:
+                    prm.add_(0.1 * torch.randn(prm.shape, generator=gen))
+            ref_out = module.eval()(*args)
+            card_out = module.cuda()(*(a.cuda() for a in args))
+            ref_out = ref_out if isinstance(ref_out, tuple) else (ref_out,)
+            card_out = card_out if isinstance(card_out, tuple) else (card_out,)
+            err = max(float((c.cpu() - r).abs().max() / r.abs().max())
+                      for c, r in zip(card_out, ref_out))
+            out[f"{name}_rel_max_err"] = err
+            return err <= 1e-4
+
+        t5_ok = small("t5", t5_encoder.T5Encoder(t5_encoder.T5Config.tiny()),
+                      torch.randint(0, 128, (2, 40), generator=gen),
+                      torch.ones(2, 40, dtype=torch.long))
+        sig_ok = small("siglip", siglip.SiglipVisionTower(siglip.SiglipVisionConfig.tiny()),
+                       torch.rand(2, 28, 28, 3, generator=gen) * 2 - 1)
+        rf_ok = small("retinaface", retinaface.RetinaFace(retinaface.RetinaFaceConfig.tiny()),
+                      torch.rand(2, 72, 88, 3, generator=gen) * 200 - 100)
+        out["small_models_ok"] = t5_ok and sig_ok and rf_ok
+    out["ar_small_ok"] = out["ar_ok"] and out["dd_ok"] and out["dv_ok"] and out["small_models_ok"]
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, rows, path="main") -> dict:
     head = rows[0]
     entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -2622,6 +3233,22 @@ def main() -> int:
     dit_int8 = {pv: {"rows": [], "prepass_rows": [], "maxpass_rows": []} for pv in (False, True)}
     for pv in (False, True):
         int8_row("dit t2w", 1, 14080, 32, 128, gen, pv, dit_int8[pv])
+    # the AR world stack: [ar-v2w]'s token grid feeds [dd]; then the
+    # guardrail models and the card-against-CPU checks
+    ar = run_ar_v2w()
+    by_path["ar-v2w"] = {k: ar["stats"][k][0] for k in path_rows}
+    dd = run_dd(ar["tokens"])
+    by_path["dd"] = {k: dd["stats"][k][0] for k in path_rows}
+    hold("dd", {"flash_attention": dd["stats"]["flash_attention"][1], "online_argmax_scores": {}})
+    report_dd(dd["result"], {key: row for (name, key), row in held.items()
+                             if name == "flash_attention"})
+    with tempfile.TemporaryDirectory(dir=OUT) as tmp:
+        run_guardrails(Path(tmp))
+    small = check_ar_small()
+    small_ok = small.pop("ar_small_ok")
+    phase("ar-small", ok=small_ok, **small)
+    if not small_ok:
+        raise SystemExit("[ar-small] failed")
     phase("launches", **{f"{tag}": counts for tag, counts in by_path.items()})
 
     k1 = kernel_entry("flash_attention", "tclight_torch/csrc/flash_attention.cu",

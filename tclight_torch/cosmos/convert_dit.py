@@ -37,7 +37,8 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["convert_general_dit", "reference_state_dict", "from_flax"]
+__all__ = ["convert_general_dit", "convert_diffusion_decoder_dit", "reference_state_dict",
+           "from_flax"]
 
 _SKIP = re.compile(
     r"^(pos_embedder\.|accum_|.*\.seq$|.*dim_spatial_range$|.*dim_temporal_range$)")
@@ -74,6 +75,16 @@ def convert_general_dit(sd: Mapping[str, Any], model: nn.Module | None = None
             raise ValueError(f"unconverted GeneralDIT keys: {unknown[:8]}"
                              f"{'...' if len(unknown) > 8 else ''}")
     return out
+
+
+def convert_diffusion_decoder_dit(sd: Mapping[str, Any], model: nn.Module | None = None
+                                  ) -> dict[str, torch.Tensor]:
+    """A reference DiffusionDecoderGeneralDIT state dict (a GeneralDIT's keys
+    and `token_embedder.weight`) -> the port's `DiffusionDecoderGeneralDIT`
+    state dict: the port's decoder is a GeneralDIT with the token embedder
+    beside its modules, so the keys are the reference's (JAX nests the DiT
+    under `dit`)."""
+    return convert_general_dit(sd, model)
 
 
 def reference_state_dict(model: nn.Module) -> dict[str, np.ndarray]:

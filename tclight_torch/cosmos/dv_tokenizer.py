@@ -3,8 +3,9 @@ tclight_tpu/cosmos/dv_tokenizer.py that the continuous tokenizer builds
 on): the causal 3D Haar wavelet patching, `CausalConv3d`, the per-frame
 norm, the hybrid down / up samplers, the factorized resnet block, the
 spatial and causal temporal attention blocks, `DVTokenizerConfig`,
-`EncoderFactorized` and `DecoderFactorized`. The FSQ quantizer and the
-discrete tokenizer are not ported yet.
+`EncoderFactorized` and `DecoderFactorized`; the FSQ quantizer (eps
+1e-3 bound, codes in [-1, 1]), `CausalDiscreteVideoTokenizer` (encode ->
+(indices, codes, loss)) and the chunked `DiscreteVideoFSQTokenizer`.
 
 The modules carry the reference's names (tokenizer/modules.py), so their
 state dicts have the Cosmos checkpoint's keys (`convert_dv.py`). Inside,
@@ -20,26 +21,93 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["patcher3d", "unpatcher3d", "CausalConv3d", "CausalNormalize",
+__all__ = ["FSQuantizer", "patcher3d", "unpatcher3d", "CausalConv3d", "CausalNormalize",
            "CausalHybridDownsample3d", "CausalHybridUpsample3d", "CausalResnetBlockFactorized3d",
            "CausalAttnBlock", "CausalTemporalAttnBlock", "DVTokenizerConfig",
-           "EncoderFactorized", "DecoderFactorized"]
+           "EncoderFactorized", "DecoderFactorized", "CausalDiscreteVideoTokenizer",
+           "DiscreteVideoFSQTokenizer"]
+
+# ---------------------------------------------------------------- FSQ
+
+
+class FSQuantizer:
+    """Finite scalar quantization over the last axis, parameter-free when
+    the latent width equals len(levels) (the Cosmos DV config: 6 channels,
+    levels (8, 8, 8, 5, 5, 5), 64,000 codes)."""
+
+    def __init__(self, levels: Sequence[int] = (8, 8, 8, 5, 5, 5)):
+        self.levels = np.asarray(levels, np.int32)
+        self.dim = len(levels)
+        self.basis = np.concatenate([[1], np.cumprod(self.levels[:-1])]).astype(np.int32)
+        self.codebook_size = int(np.prod(self.levels.astype(np.int64)))
+        assert self.codebook_size < 2 ** 31, "codebook must fit int32"
+
+    def bound(self, z: torch.Tensor, eps: float = 1e-3) -> torch.Tensor:
+        """tanh into [-half_l, half_l], shifted by arctanh(offset / half_l)
+        so that even levels sit between integers (the shift in f64, then
+        f32, as JAX takes it from numpy)."""
+        lv = self.levels.astype(np.float32)
+        half_l = (lv - 1) * (1 + eps) / 2
+        offset = np.where(lv % 2 == 0, 0.5, 0.0)
+        shift = np.arctanh(offset / half_l)
+
+        def t(a):
+            return torch.as_tensor(np.asarray(a, np.float32), device=z.device)
+
+        return torch.tanh(z + t(shift)) * t(half_l) - t(offset)
+
+    def _half_width(self, device) -> torch.Tensor:
+        return torch.as_tensor((self.levels // 2).astype(np.float32), device=device)
+
+    def quantize(self, z: torch.Tensor) -> torch.Tensor:
+        """Round (straight through), then renormalise to [-1, 1]."""
+        zb = self.bound(z)
+        q = zb + (torch.round(zb) - zb).detach()
+        return q / self._half_width(z.device)
+
+    def codes_to_indices(self, zhat: torch.Tensor) -> torch.Tensor:
+        hw = self._half_width(zhat.device)
+        digits = zhat * hw + hw
+        basis = torch.as_tensor(self.basis, device=zhat.device)
+        return (digits.to(torch.int32) * basis).sum(-1, dtype=torch.int32)
+
+    def indices_to_codes(self, indices: torch.Tensor) -> torch.Tensor:
+        hw = self._half_width(indices.device)
+        basis = torch.as_tensor(self.basis, device=indices.device)
+        lv = torch.as_tensor(self.levels, device=indices.device)
+        digits = (indices.to(torch.int32)[..., None] // basis) % lv
+        return (digits.float() - hw) / hw
+
+    def __call__(self, z: torch.Tensor):
+        """z (..., dim) -> (indices, quantized, a zero loss)."""
+        q = self.quantize(z)
+        loss = torch.zeros(z.shape[:1] + (1,) * (z.dim() - 1), dtype=z.dtype, device=z.device)
+        return self.codes_to_indices(q), q, loss
+
 
 _H = 1.0 / math.sqrt(2.0)
 
 # ---------------------------------------------------------------- Haar patching
 
 
+def _reflect_tail(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """x with one more element along `dim`, the reflection of the last but
+    one (F.pad(..., (0, 1), mode='reflect') along `dim`)."""
+    return torch.cat([x, x.narrow(dim, x.shape[dim] - 2, 1)], dim=dim)
+
+
 def _dwt1d(x: torch.Tensor, dim: int):
     """One causal Haar analysis step along `dim`: (lo, hi), each of length
     ceil(L / 2); an odd length is first reflect-padded by one."""
     if x.shape[dim] % 2:
-        x = torch.cat([x, x.narrow(dim, x.shape[dim] - 2, 1)], dim=dim)
+        x = _reflect_tail(x, dim)
     n = x.shape[dim] // 2
     pair = x.unflatten(dim, (n, 2))
     even, odd = pair.select(dim + 1, 0), pair.select(dim + 1, 1)
@@ -408,3 +476,99 @@ class DecoderFactorized(nn.Module):
                 h = level.upsample(h)
         h = self.conv_out(F.silu(self.norm_out(h)))
         return unpatcher3d(h, cfg.patch_size, cfg.patch_method).permute(0, 2, 3, 4, 1)
+
+
+# ---------------------------------------------------------------- the discrete tokenizer
+
+
+class CausalDiscreteVideoTokenizer(nn.Module):
+    """encode: (B, T, H, W, 3) -> (indices (B, t, h, w), quantized codes
+    (B, t, h, w, embedding_dim), a zero loss); decode(codes) and
+    decode_indices(indices) -> (B, T, H, W, 3)."""
+
+    def __init__(self, cfg: DVTokenizerConfig):
+        super().__init__()
+        if cfg.embedding_dim != len(cfg.levels):
+            raise ValueError("FSQ projections are only needed when embedding_dim != "
+                             "len(levels); the Cosmos DV configs never use them")
+        self.cfg = cfg
+        zc = cfg.z_factor * cfg.z_channels
+        self.encoder = EncoderFactorized(cfg, zc)
+        self.decoder = DecoderFactorized(cfg, cfg.z_channels)
+        self.quant_conv = CausalConv3d(zc, cfg.embedding_dim, (1, 1, 1), padding=0)
+        self.post_quant_conv = CausalConv3d(cfg.embedding_dim, cfg.z_channels, (1, 1, 1),
+                                            padding=0)
+        self.quantizer = FSQuantizer(cfg.levels)
+        self.to(cfg.dtype)
+
+    def _dtype(self):
+        return self.quant_conv.conv3d.weight.dtype
+
+    def encode(self, x: torch.Tensor):
+        h = self.quant_conv(self.encoder(x.to(self._dtype())))
+        return self.quantizer(h.permute(0, 2, 3, 4, 1).float())
+
+    def decode(self, quant: torch.Tensor) -> torch.Tensor:
+        return self.decoder(self.post_quant_conv(quant.to(self._dtype()).permute(0, 4, 1, 2, 3)))
+
+    def decode_indices(self, indices: torch.Tensor) -> torch.Tensor:
+        return self.decode(self.quantizer.indices_to_codes(indices))
+
+    def forward(self, x):
+        indices, quant, loss = self.encode(x)
+        return self.decode(quant), indices, loss
+
+
+class DiscreteVideoFSQTokenizer:
+    """Pixel-chunked encode / decode around the tokenizer: T splits into
+    `pixel_chunk_duration`-frame causal chunks, each encoded on its own
+    (the reference's streaming contract), the batch of chunks capped at
+    max_enc / max_dec_batch_size."""
+
+    def __init__(self, module: CausalDiscreteVideoTokenizer, pixel_chunk_duration: int = 33,
+                 compression_ratio: Sequence[int] = (8, 16, 16), max_enc_batch_size: int = 8,
+                 max_dec_batch_size: int = 4):
+        self.module = module
+        self.pixel_chunk_duration = pixel_chunk_duration
+        self.compress_ratio = tuple(compression_ratio)
+        self.max_enc_batch_size = max_enc_batch_size
+        self.max_dec_batch_size = max_dec_batch_size
+        self.latent_ch = module.cfg.embedding_dim
+
+    def _latent_duration(self, pixel_chunk_duration: int) -> int:
+        return 1 + (pixel_chunk_duration - 1) // self.compress_ratio[0]
+
+    @torch.inference_mode()
+    def encode(self, video: torch.Tensor, pixel_chunk_duration: int | None = None):
+        """(B, T, H, W, 3) -> (codes (B, t, h, w, C), indices (B, t, h, w));
+        T must divide into pixel chunks."""
+        b, t, h, w, c = video.shape
+        pcd = pixel_chunk_duration or self.pixel_chunk_duration
+        assert t % pcd == 0, f"T={t} not divisible by chunk {pcd}"
+        n = t // pcd
+        chunks = video.reshape(b * n, pcd, h, w, c)
+        quants, idxs = [], []
+        for i in range(0, b * n, self.max_enc_batch_size):
+            idx, q, _ = self.module.encode(chunks[i:i + self.max_enc_batch_size])
+            quants.append(q)
+            idxs.append(idx)
+        q, idx = torch.cat(quants), torch.cat(idxs)
+        lcd = self._latent_duration(pcd)
+        assert q.shape[1] == lcd, (q.shape, lcd)
+        return (q.reshape(b, n * lcd, *q.shape[2:]), idx.reshape(b, n * lcd, *idx.shape[2:]))
+
+    @torch.inference_mode()
+    def decode(self, indices: torch.Tensor, pixel_chunk_duration: int | None = None
+               ) -> torch.Tensor:
+        """(B, t, h, w) -> (B, T, H, W, 3)."""
+        b, t = indices.shape[:2]
+        pcd = pixel_chunk_duration or self.pixel_chunk_duration
+        lcd = self._latent_duration(pcd)
+        assert t % lcd == 0, f"latent T={t} not divisible by chunk {lcd}"
+        n = t // lcd
+        chunks = indices.reshape(b * n, lcd, *indices.shape[2:])
+        outs = [self.module.decode_indices(chunks[i:i + self.max_dec_batch_size])
+                for i in range(0, b * n, self.max_dec_batch_size)]
+        out = torch.cat(outs)
+        assert out.shape[1] == pcd
+        return out.reshape(b, n * pcd, *out.shape[2:])

@@ -191,7 +191,7 @@ def build_pipeline(args, video2world: bool = False, device="cuda", mesh=None):
     pipeline = DiffusionText2WorldPipeline(
         dit=HostParams(dit, offload=policy.network, device=dev, name="dit"),
         encode_text=encode_text, decode_fn=_ChunkedDecode(tokenizer, policy.tokenizer),
-        text_guardrail=None if args.disable_guardrail else presets_text(),
+        text_guardrail=None if args.disable_guardrail else presets_text(device=dev),
         guidance=args.guidance, n_steps=args.num_steps, latent_shape=latent_shape,
         offload=policy, device=dev, mesh=mesh)
     return pipeline, tokenizer

@@ -13,6 +13,15 @@ VideoExtendGeneralDIT concatenates (general_dit_video_conditioned.py:
 100-104). The JAX package leaves that mask out, so its widened DiT fails
 at the first call (ROADMAP C10); a DiT of the latent's width gets no mask,
 as in JAX.
+
+`ARVideo2WorldPipeline` is the autoregressive world model: the context
+video's tokens (the video tokenizer's `encode` unpacks to (indices,
+codes), as `cosmos/fsq.py`'s tokenizer gives them) prefill an
+`ARGenerator`, which samples at temperature 1.0 and top-p 0.9; the new
+tokens, cut to whole latent frames, are appended to the context's and
+decoded; an optional `diffusion_decoder` then maps the decoded pixels.
+The checkpoint-faithful DV tokenizer's `encode` returns three values, so
+it needs an adapter to be handed in (ROADMAP C12).
 """
 
 from __future__ import annotations
@@ -31,7 +40,8 @@ from tclight_torch.cosmos.guardrails import GuardrailRunner
 from tclight_torch.cosmos.offload import HostParams, OffloadPolicy, offload_component
 from tclight_torch.utils.logging import get_logger
 
-__all__ = ["DiffusionText2WorldPipeline", "draw_noise", "condition_mask"]
+__all__ = ["DiffusionText2WorldPipeline", "ARVideo2WorldPipeline", "draw_noise",
+           "condition_mask"]
 
 log = get_logger()
 
@@ -157,3 +167,76 @@ class DiffusionText2WorldPipeline:
                     return None
                 frames = gr.postprocess(frames)
         return frames
+
+
+@dataclasses.dataclass
+class ARVideo2WorldPipeline:
+    """Video tokens -> prefill -> decode -> detokenize. `generator` is an
+    `ARGenerator`; `video_tokenizer` a module whose `encode(video)` gives
+    (indices (B, t, h, w), codes) and whose `decode_indices` gives
+    (B, T, H, W, 3). `stage_times` holds the last call's encode,
+    generate (with the generator's prefill and decode) and decode
+    seconds."""
+
+    generator: Any
+    video_tokenizer: Any
+    text_guardrail: Optional[GuardrailRunner] = None
+    diffusion_decoder: Optional[Callable] = None
+    max_gen_tokens: int = 256
+
+    def __post_init__(self):
+        self.stage_times: dict = {}
+
+    def _device(self) -> torch.device:
+        return next(self.video_tokenizer.parameters()).device
+
+    def _clock(self) -> float:
+        if self._device().type == "cuda":
+            torch.cuda.synchronize(self._device())
+        return time.perf_counter()
+
+    @torch.inference_mode()
+    def encode_video(self, video: np.ndarray) -> np.ndarray:
+        idx, _ = self.video_tokenizer.encode(torch.as_tensor(np.asarray(video),
+                                                             device=self._device()))
+        return idx.cpu().numpy()
+
+    @torch.inference_mode()
+    def __call__(self, context_video: np.ndarray, prompt: str = "", seed: int = 0,
+                 gumbel=None) -> np.ndarray | None:
+        """`gumbel[i]` (B, vocab), when given, is decode step i's noise (JAX
+        draws it from PRNGKey(seed)); else a generator seeded with `seed`
+        draws it."""
+        if prompt and self.text_guardrail is not None:
+            res = self.text_guardrail.is_safe(prompt)
+            if not res.is_safe:
+                log.warning("prompt rejected: %s", res.message)
+                return None
+        device = self._device()
+        t0 = self._clock()
+        idx = self.encode_video(context_video)
+        t1 = self._clock()
+        b = idx.shape[0]
+        gen = torch.Generator(device=device).manual_seed(seed)
+        gen_tokens = self.generator.generate(
+            prompt_tokens=idx.reshape(b, -1), max_gen_len=self.max_gen_tokens,
+            temperature=1.0, top_p=0.9, generator=gen, gumbel=gumbel)
+        t2 = self._clock()
+        self.stage_times = {"encode": t1 - t0, "generate": t2 - t1,
+                            **self.generator.last_times}
+        # the new tokens as whole latent frames, after the context's
+        t, h, w = idx.shape[1:]
+        n_new = gen_tokens.shape[1] // (h * w)
+        if n_new == 0:
+            log.warning("generated fewer tokens than one latent frame")
+            return None
+        new_idx = gen_tokens[:, : n_new * h * w].reshape(b, n_new, h, w)
+        self.tokens = np.concatenate([idx, new_idx], axis=1)
+        video = self.video_tokenizer.decode_indices(
+            torch.as_tensor(self.tokens, device=device))
+        self.stage_times["decode"] = self._clock() - t2
+        if self.diffusion_decoder is not None:
+            video = self.diffusion_decoder(video)
+        if isinstance(video, torch.Tensor):
+            video = video.float().cpu().numpy()
+        return np.asarray(video)

@@ -60,6 +60,10 @@ class ARConfig:
     rope_theta: float = 500000.0
     norm_eps: float = 1e-5
     dtype: torch.dtype = torch.float32
+    # the video2world variant's cross-attention hooks: as in JAX, no
+    # module reads them, so the decoder has no cross-attention (ROADMAP C12)
+    cross_attn_layers: tuple = ()
+    cross_dim: int = 0
     # None keeps the default v1 1D RoPE at (rope_theta, max_seq_len)
     rope_spec: Optional[RopeSpec] = None
 

@@ -30,6 +30,8 @@ __all__ = ["flax_to_state_dict", "unet_state_dict", "vae_state_dict",
            "memflow_state_dict", "clip_vision_state_dict", "vgg16_state_dict",
            "controlnet_state_dict", "rmbg_state_dict", "vlm_state_dicts",
            "dpt_state_dict", "hed_state_dict", "lineart_state_dict", "bodypose_state_dict",
+           "t5_encoder_state_dict", "siglip_state_dict", "safety_classifier_state_dict",
+           "retinaface_state_dict", "diffusion_decoder_state_dict",
            "module_to_flax"]
 
 
@@ -179,6 +181,43 @@ def bodypose_state_dict(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     """`BodyPoseNet` parameters (tclight_tpu/models/openpose.py;
     `convert_bodypose`'s tree, one entry per named conv)."""
     return flax_to_state_dict(params)
+
+
+def t5_encoder_state_dict(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """`T5Encoder` parameters (tclight_tpu/models/t5_encoder.py)."""
+    return flax_to_state_dict(params)
+
+
+def siglip_state_dict(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """`SiglipVisionTower` parameters (tclight_tpu/models/siglip.py;
+    `convert_siglip_vision`'s tree)."""
+    return flax_to_state_dict(params)
+
+
+def safety_classifier_state_dict(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """`SafetyClassifier` parameters (the BN-folded scale / bias as they are)."""
+    return flax_to_state_dict(params)
+
+
+def retinaface_state_dict(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """`RetinaFace` parameters (tclight_tpu/models/retinaface.py;
+    `convert_retinaface`'s tree, BN folded)."""
+    return flax_to_state_dict(params)
+
+
+def diffusion_decoder_state_dict(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """`DiffusionDecoderGeneralDIT` (tclight_tpu/cosmos/diffusion_decoder.py):
+    the GeneralDIT under `dit` through `cosmos.convert_dit.from_flax`, the
+    token table beside it."""
+    from tclight_torch.cosmos.convert_dit import from_flax
+
+    if "params" in params:
+        params = params["params"]
+    out = from_flax(params["dit"])
+    if "token_embedder" in params:
+        out["token_embedder.weight"] = torch.from_numpy(
+            np.array(params["token_embedder"]["embedding"], dtype=np.float32))
+    return out
 
 
 def module_to_flax(module: nn.Module) -> dict[str, Any]:

@@ -23,18 +23,27 @@ state dict, ``convert_pixtral_vit`` the ViT's onto `PixtralViT`'s,
 values pass through as they are (numpy arrays or torch tensors, any
 dtype), so a 12B checkpoint is never copied whole: `pixtral.load_vlm`
 casts and moves them one by one. `reference_state_dict` writes a VLM back
-in either layout. `from_hf_llama`, `merge_lora` and `expand_vocab` serve
-the guardrails of the Cosmos tree and are not here.
+in either layout.
+
+For the Aegis guardrail (LlamaGuard-7B and its LoRA adapter):
+`from_hf_llama` maps a HF LlamaForCausalLM state dict onto the
+cosmos-native keys (q / k rows un-permuted), `merge_lora` folds a PEFT
+adapter into the base weights in f32 numpy (as JAX does it, so the
+merged values are JAX's), and `expand_vocab` widens the embedding (and
+the output layer) with Gaussian rows drawn from numpy's generator in
+JAX's order.
 """
 
 from __future__ import annotations
 
 from typing import Mapping
 
+import numpy as np
 import torch
 
 __all__ = ["convert_ar_llm", "convert_pixtral_vit", "convert_mm_projector",
-           "convert_vlm_checkpoint", "from_hf_pixtral", "reference_state_dict"]
+           "convert_vlm_checkpoint", "from_hf_pixtral", "from_hf_llama", "merge_lora",
+           "expand_vocab", "reference_state_dict"]
 
 _LLM_LEAVES = ("attention.wq", "attention.wk", "attention.wv", "attention.wo",
                "feed_forward.w1", "feed_forward.w2", "feed_forward.w3",
@@ -157,6 +166,71 @@ def from_hf_pixtral(sd: Mapping, llm_heads: int, llm_kv_heads: int, vit_heads: i
             k2 = k.split("multi_modal_projector.", 1)[1]
             out["mm_projector." + k2.replace("linear_1", "projector.0")
                 .replace("linear_2", "projector.2")] = v
+    return out
+
+
+def from_hf_llama(sd: Mapping, n_heads: int, n_kv_heads: int) -> dict:
+    """A HF LlamaForCausalLM state dict (LlamaGuard-7b's layout:
+    ``model.layers.{i}.self_attn.q_proj.weight`` ...) -> the cosmos-native
+    flat layout that `convert_ar_llm` reads, q / k rows un-permuted."""
+    out: dict = {}
+    for k, v in sd.items():
+        k2 = _rename(k.removeprefix("model."), _HF_LLM)
+        if ".wq." in k2:
+            v = _unpermute_rotary(v, n_heads)
+        elif ".wk." in k2:
+            v = _unpermute_rotary(v, n_kv_heads)
+        out[k2] = v
+    return out
+
+
+def _np(v) -> np.ndarray:
+    if isinstance(v, torch.Tensor):
+        v = v.detach().cpu()
+        return (v.float() if v.dtype == torch.bfloat16 else v).numpy()
+    return np.asarray(v)
+
+
+def merge_lora(base_sd: Mapping, adapter_sd: Mapping, lora_alpha: float, r: int,
+               use_rslora: bool = False) -> dict:
+    """Merge a PEFT LoRA adapter into a base HF state dict: W' = W + scale
+    * B @ A, scale = lora_alpha / r (rsLoRA: lora_alpha / sqrt(r)), in f32
+    numpy. Adapter keys are ``base_model.model.<module>.lora_A.weight`` /
+    ``.lora_B.weight``, the target ``<module>.weight``; other base keys
+    pass through as they are."""
+    scale = lora_alpha / (np.sqrt(r) if use_rslora else r)
+    merged = dict(base_sd)
+    for k, a in adapter_sd.items():
+        if ".lora_A." not in k:
+            continue
+        module = k.split(".lora_A.")[0].removeprefix("base_model.model.")
+        target = module + ".weight"
+        if target not in merged:
+            raise KeyError(f"LoRA adapter targets missing base key {target}")
+        a_w = _np(a).astype(np.float32)                                       # (r, in)
+        b_w = _np(adapter_sd[k.replace(".lora_A.", ".lora_B.")]).astype(np.float32)  # (out, r)
+        merged[target] = _np(merged[target]).astype(np.float32) + scale * (b_w @ a_w)
+    return merged
+
+
+def expand_vocab(llm_sd: Mapping, new_vocab: int, expand_output_layer: bool = True,
+                 seed: int = 0, std: float = 0.02) -> dict:
+    """Widen `Transformer`'s state dict to `new_vocab` tokens: Gaussian rows
+    (numpy's generator from `seed`; the embedding's draw first, then the
+    output layer's, as JAX draws its (dim, vocab) kernel) appended to the
+    embedding and, with `expand_output_layer`, to the output layer."""
+    rng = np.random.default_rng(seed)
+    emb = _np(llm_sd["tok_embeddings.weight"])
+    v0, d = emb.shape
+    if new_vocab <= v0:
+        return dict(llm_sd)
+    out = dict(llm_sd)
+    extra = rng.normal(0.0, std, (new_vocab - v0, d)).astype(emb.dtype)
+    out["tok_embeddings.weight"] = torch.from_numpy(np.concatenate([emb, extra], axis=0))
+    if expand_output_layer:
+        w = _np(llm_sd["output.weight"])                                       # (vocab, dim)
+        extra_o = rng.normal(0.0, std, (d, new_vocab - v0)).astype(w.dtype)
+        out["output.weight"] = torch.from_numpy(np.concatenate([w, extra_o.T], axis=0))
     return out
 
 

@@ -2,8 +2,10 @@
 post-optimization's, the checkpoint loaders', the flow networks', the
 evaluation's, the editing path's, the background and single-image
 relighting's, the demos', the prompt upsampler's (RoPE, the AR decoder,
-its converters, Pixtral) and the annotators' (DPT, HED, lineart,
-OpenPose) included) loads neither
+its converters, Pixtral), the annotators' (DPT, HED, lineart, OpenPose)
+and the AR world stack's and guardrail models' (the FSQ tokenizer, T5,
+the diffusion decoder, Aegis, SigLIP, RetinaFace, the lazy config)
+included) loads neither
 JAX, optax nor the JAX package, nor `safetensors` (which the card's
 machine lacks: the port reads the files itself) or `transformers` (only a
 tokenizer directory needs it), and its entry points refuse to run on the
@@ -59,6 +61,12 @@ assert "gradio" not in sys.modules
 slice10 = {"tclight_torch.models." + m for m in (
     "rope", "ar_transformer", "convert_ar", "pixtral", "dpt", "hed", "lineart", "openpose")}
 assert slice10 <= set(names), sorted(slice10 - set(names))
+# the AR world stack, the guardrail models and the lazy config
+slice12 = {"tclight_torch.cosmos." + m for m in (
+    "fsq", "t5", "diffusion_decoder", "aegis", "aegis_data")}
+slice12 |= {"tclight_torch.models." + m for m in (
+    "ar_configs", "t5_encoder", "siglip", "retinaface")} | {"tclight_torch.config_lazy"}
+assert slice12 <= set(names), sorted(slice12 - set(names))
 """
 
 
