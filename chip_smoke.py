@@ -28,7 +28,8 @@ Phases, one line each:
      (35 exposure + 70 UVT epochs); checks the mp4, that the path launched
      K1-K4, finite loss histories, the banded UVT route, and that the
      output's warp L1 under the known roll flow is below the same path's
-     with the post-optimization off; then K1 and K2 against their plain
+     with the post-optimization off, output_gt.mp4 beside the mp4 and the
+     output stage's output_fetch / output_save; then K1 and K2 against their plain
      versions at each shape the run launched them at that phases 3 and 4
      did not hold (the CFG dedup's batches of one), as in phase 14;
   8. K3 window warp (forward and adjoint) against its plain version at the
@@ -41,6 +42,9 @@ Phases, one line each:
   9. K5: the K-window gather against its plain version on synthetic
      turnover-heavy track ids (K = 2 plans, both directions), and its own
      path: `run_uvt` on those ids, its launches counted by direction;
+  9b. exports: the ported JAX exports that no path calls (the ToMe "mean"
+     merge and the three unmerges at the main path's level-0 shapes, the
+     bilinear and bicubic samplers at 720 x 960), card against CPU;
  10. yt-int8: `tclight_torch.run.main` on configs/examples/tclight_navsim.yaml's
      settings (alpha_t 0.4, 30 frames at 960x720, of the synthetic video)
      with generation.attn_qk_int8=true, 4 steps, post-optimization off:
@@ -681,6 +685,7 @@ def run_main_path() -> tuple[dict, dict]:
         raise SystemExit(f"expected one output.mp4, found {mp4s}")
     out_dir = mp4s[0].parent
     n, shape = read_mp4(mp4s[0])
+    n_gt, shape_gt = read_mp4(out_dir / "output_gt.mp4")
     cfg = yaml.safe_load((out_dir / "config.yaml").read_text())
     st = cfg["stage_times"]
     losses = {k: np.load(out_dir / f"loss_{k}.npy") for k in ("exposure", "unique_tensor")}
@@ -704,7 +709,8 @@ def run_main_path() -> tuple[dict, dict]:
     warp_off = warp_l1(next(work_off.rglob("output.mp4")).parent / "frames")
 
     finite = all(h.size and np.isfinite(h).all() for h in losses.values())
-    ok = (n == FRAMES and shape == (HEIGHT, WIDTH, 3) and flash[0] > 0
+    ok = (n == FRAMES and shape == (HEIGHT, WIDTH, 3) and (n_gt, shape_gt) == (n, shape)
+          and flash[0] > 0
           and {40, 80, 160} <= set(flash_dims) and match[0] > 0
           and merges == {"global", "local"} and warp[0] > 0 and band[0] > 0
           and wf != wb and directions["render"] > 0 and directions["adjoint"] > 0
@@ -718,7 +724,8 @@ def run_main_path() -> tuple[dict, dict]:
           exposure_epoch_steady_s=steady(st["exposure_epochs"]),
           uvt_s=st["uvt"], uvt_epochs=len(st["uvt_epochs"]),
           uvt_epoch_first_s=st["uvt_epochs"][0], uvt_epoch_steady_s=steady(st["uvt_epochs"]),
-          output_save_s=st["output_save"], peak_mem_gb=peak,
+          output_fetch_s=st["output_fetch"], output_save_s=st["output_save"],
+          gt_frames=n_gt, peak_mem_gb=peak,
           flash_launches=flash[0], flash_head_dims=flash_dims,
           match_launches=match[0], match_merges=sorted(merges),
           match_shapes=sorted(match[1].items()),
@@ -855,6 +862,70 @@ def run_int8_variants() -> dict:
         launches[name] = stats[name]
         launches.update({k: stats[k] for k in parts})
     return launches
+
+
+def check_exports(gen: torch.Generator) -> None:
+    """[exports]: the JAX exports that no path calls, on the card against
+    the CPU. The ToMe "mean" merge (f32; index_add_ sums in another order:
+    1e-5) and the three unmerges (gathers: exact) at the main path's level
+    0 (2 x 4 frames of 90 x 120 tokens, C = 320, then the merged chunk
+    against a bank of its length), the merge indices found on the card (K2
+    on a bf16 metric, as the UNet does) and handed to both sides; the
+    bilinear and bicubic samplers (1e-5) on two 720 x 960 frames at
+    coordinates up to 4 px off the roll flow's and past the edges."""
+    from tclight_torch.ops import resample, tome
+
+    t0 = time.perf_counter()
+
+    def cpu(mi):
+        return tome.MergeIndices(*(t.cpu() for t in mi[:5]), mi.n_total)
+
+    def err(a, b) -> float:
+        return float((a.cpu() - b).abs().max())
+
+    tnum, c = (HEIGHT // 8) * (WIDTH // 8), 320
+    x = torch.randn(2, CHUNK * tnum, c, generator=gen, device="cuda")
+    spec = tome.plan_local_levels(CHUNK, tnum, LOCAL_RATIO)[0]
+    mi = tome.compute_local_merge(x.bfloat16(), spec, 1)
+    local = tome.tome_merge(x, mi, "mean")
+    bank = torch.randn(local.shape, generator=gen, device="cuda")
+    merged, mi_g, flip = tome.global_merge(local, bank, local.bfloat16(), bank.bfloat16(),
+                                           GLOBAL_RATIO, True, mode="mean")
+    x_cpu, local_cpu, merged_cpu = x.cpu(), local.cpu(), merged.cpu()
+    y = torch.randn(local.shape, generator=gen, device="cuda")
+    errs = {
+        "mean_local": err(local, tome.tome_merge(x_cpu, cpu(mi), "mean")),
+        "mean_global": err(merged, tome.tome_merge(torch.cat([bank.cpu(), local_cpu], 1),
+                                                    cpu(mi_g), "mean")),
+        "tome_unmerge": err(tome.tome_unmerge(y, mi), tome.tome_unmerge(y.cpu(), cpu(mi))),
+        "local_unmerge": err(tome.local_unmerge_sequence(y, [mi]),
+                             tome.local_unmerge_sequence(y.cpu(), [cpu(mi)])),
+        "global_unmerge": err(tome.global_unmerge(merged, mi_g, flip, local.shape[1]),
+                              tome.global_unmerge(merged_cpu, cpu(mi_g), flip,
+                                                  local.shape[1])),
+    }
+    ms = {"mean_local": cuda_ms(lambda: tome.tome_merge(x, mi, "mean"), 20),
+          "mean_global": cuda_ms(lambda: tome.tome_merge(torch.cat([bank, local], 1), mi_g,
+                                                         "mean"), 20),
+          "local_unmerge": cuda_ms(lambda: tome.local_unmerge_sequence(y, [mi]), 20),
+          "global_unmerge": cuda_ms(lambda: tome.global_unmerge(merged, mi_g, flip,
+                                                                local.shape[1]), 20)}
+    images = torch.rand(2, HEIGHT, WIDTH, 3, generator=gen, device="cuda")
+    grid = resample.identity_grid(HEIGHT, WIDTH, device="cuda")
+    jitter = 8 * torch.rand(2, HEIGHT, WIDTH, 2, generator=gen, device="cuda") - 4
+    coords = grid + torch.tensor([4.0, 0.0], device="cuda") + jitter
+    for name in ("bilinear_sample", "bicubic_sample"):
+        fn = getattr(resample, name)
+        errs[name] = err(fn(images, coords), fn(images.cpu(), coords.cpu()))
+        ms[name] = cuda_ms(lambda: fn(images, coords), 20)
+    exact = ("tome_unmerge", "local_unmerge", "global_unmerge")
+    ok = all(errs[k] == 0.0 for k in exact) and all(
+        v <= 1e-5 for k, v in errs.items() if k not in exact)
+    phase("exports", ok=ok, tol="exact (unmerges), 1e-5 (mean merges, samplers)",
+          tokens=tuple(x.shape), merged=tuple(merged.shape), n_merged=mi.src_idx.shape[1],
+          max_abs_err=errs, ms=ms, seconds=time.perf_counter() - t0)
+    if not ok:
+        raise SystemExit("[exports] the card disagrees with the CPU")
 
 
 def post_batch() -> np.ndarray:
@@ -3168,6 +3239,7 @@ def main() -> int:
     warp = check_warp(gen)
     banded = check_banded(gen)
     turnover = check_turnover(gen)
+    check_exports(gen)
     shapes, yt_launches = run_yt_int8()
     hold("yt-int8", shapes)
     launches.update(yt_launches)

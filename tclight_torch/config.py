@@ -22,7 +22,7 @@ import datetime
 import os
 import re
 from pathlib import Path
-from typing import Any, Mapping
+from typing import Any, Iterator, Mapping
 
 import yaml
 
@@ -34,6 +34,7 @@ __all__ = [
     "load_config",
     "save_config",
     "default_config_path",
+    "iter_leaves",
 ]
 
 _INTERP_RE = re.compile(r"\$\{([a-zA-Z0-9_.]+)\}")
@@ -297,3 +298,12 @@ def save_config(cfg: ConfigDict, path: str | os.PathLike) -> None:
     with open(path, "w") as f:
         yaml.safe_dump(out.to_dict(), f, sort_keys=False)
 
+
+def iter_leaves(cfg: Mapping, prefix: str = "") -> Iterator[tuple[str, Any]]:
+    """(dotted key, value) of every leaf of a nested config, in order."""
+    for k, v in cfg.items():
+        key = f"{prefix}.{k}" if prefix else str(k)
+        if isinstance(v, Mapping):
+            yield from iter_leaves(v, key)
+        else:
+            yield key, v

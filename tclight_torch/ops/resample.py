@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["identity_grid", "grid_sample_2d"]
+__all__ = ["identity_grid", "grid_sample_2d", "bilinear_sample", "bicubic_sample"]
 
 
 def identity_grid(height: int, width: int, dtype=torch.float32,
@@ -73,3 +73,11 @@ def grid_sample_2d(images: torch.Tensor, coords: torch.Tensor,
         contrib = row * wyj[..., None]
         out = contrib if out is None else out + contrib
     return out
+
+
+def bilinear_sample(images: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+    return grid_sample_2d(images, coords, mode="bilinear")
+
+
+def bicubic_sample(images: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+    return grid_sample_2d(images, coords, mode="bicubic")

@@ -26,9 +26,10 @@ from tclight_torch.ops.match_kernel import online_argmax_scores
 __all__ = [
     "MergeIndices", "LocalLevelSpec", "plan_local_levels",
     "compute_local_merge", "compute_split_merge", "tome_merge",
-    "unmerge_rows", "compose_rows", "gather_rows", "join_frame",
-    "split_frame", "local_merge_sequence", "local_unmerge_rows",
-    "global_merge", "global_unmerge_rows",
+    "tome_unmerge", "unmerge_rows", "compose_rows", "gather_rows",
+    "join_frame", "split_frame", "local_merge_sequence", "local_unmerge_rows",
+    "local_unmerge_sequence", "global_merge", "global_unmerge_rows",
+    "global_unmerge",
 ]
 
 
@@ -161,13 +162,39 @@ def gather_rows(y: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     return torch.gather(y, 1, idx[..., None].expand(b, idx.shape[1], c))
 
 
-def tome_merge(x: torch.Tensor, mi: MergeIndices) -> torch.Tensor:
-    """(B, N, C) -> (B, n_unm + n_dst, C) = [unm | dst]; merged src tokens
-    are dropped (dst wins): the "replace" mode, TC-Light's default and the
-    only one ported."""
-    comp = torch.cat([mi.a_idx[mi.unm_idx],
-                      mi.b_idx[None].expand(mi.unm_idx.shape[0], -1)], dim=1)
-    return gather_rows(x, comp)
+def tome_merge(x: torch.Tensor, mi: MergeIndices, mode: str = "replace"
+               ) -> torch.Tensor:
+    """(B, N, C) -> (B, n_unm + n_dst, C) = [unm | dst].
+
+    "replace": merged src tokens are dropped (dst wins), TC-Light's
+    default. "mean": each dst row becomes the mean of itself and the src
+    rows merged into it (torch scatter_reduce "mean", include_self)."""
+    if mode == "replace":
+        # one composed gather: the unmerged src rows sit at a_idx[unm_idx]
+        comp = torch.cat([mi.a_idx[mi.unm_idx],
+                          mi.b_idx[None].expand(mi.unm_idx.shape[0], -1)], dim=1)
+        return gather_rows(x, comp)
+    if mode != "mean":
+        raise ValueError(f"unknown merge mode {mode!r}")
+    b, _, c = x.shape
+    src, dst = x[:, mi.a_idx], x[:, mi.b_idx]
+    n_dst = dst.shape[1]
+    src_sel = gather_rows(src, mi.src_idx).reshape(-1, c)
+    # flat (batch, dst slot) rows, so one index_add_ serves the whole batch
+    rows = (_bcast_rows(mi.dst_idx, b)
+            + n_dst * torch.arange(b, device=x.device)[:, None]).reshape(-1)
+    sums = torch.zeros((b * n_dst, c), dtype=x.dtype, device=x.device)
+    sums.index_add_(0, rows, src_sel)
+    counts = torch.zeros(b * n_dst, dtype=x.dtype, device=x.device)
+    counts.index_add_(0, rows, torch.ones_like(rows, dtype=x.dtype))
+    dst = (dst + sums.reshape(b, n_dst, c)) / (1.0 + counts.reshape(b, n_dst, 1))
+    return torch.cat([gather_rows(src, mi.unm_idx), dst], dim=1)
+
+
+def tome_unmerge(y: torch.Tensor, mi: MergeIndices) -> torch.Tensor:
+    """Invert `tome_merge`: (B, n_unm + n_dst, C) -> (B, N, C); a merged
+    src token takes its dst token's value."""
+    return gather_rows(y, unmerge_rows(mi))
 
 
 def unmerge_rows(mi: MergeIndices) -> torch.Tensor:
@@ -195,15 +222,15 @@ def compose_rows(outer: torch.Tensor, inner: torch.Tensor) -> torch.Tensor:
 
 def local_merge_sequence(x: torch.Tensor, metric: torch.Tensor,
                          levels: Sequence[LocalLevelSpec], randf: int,
-                         align_batch: bool = True
+                         align_batch: bool = True, mode: str = "replace"
                          ) -> tuple[torch.Tensor, list[MergeIndices]]:
     """The full local merge chain on a joined sequence (B, F*T, C); the
     same `randf` drives every level."""
     infos: list[MergeIndices] = []
     for spec in levels:
         mi = compute_local_merge(metric, spec, randf % spec.stride, align_batch)
-        x = tome_merge(x, mi)
-        metric = tome_merge(metric, mi)
+        x = tome_merge(x, mi, mode)
+        metric = tome_merge(metric, mi, mode)
         infos.append(mi)
     return x, infos
 
@@ -216,10 +243,16 @@ def local_unmerge_rows(infos: Sequence[MergeIndices]) -> torch.Tensor:
     return rows
 
 
+def local_unmerge_sequence(y: torch.Tensor, infos: Sequence[MergeIndices]
+                           ) -> torch.Tensor:
+    """Invert the whole local chain in one gather."""
+    return gather_rows(y, local_unmerge_rows(infos))
+
+
 def global_merge(local_tokens: torch.Tensor, global_tokens: torch.Tensor,
                  metric_local: torch.Tensor, metric_global: torch.Tensor,
-                 ratio: float, flip: bool, align_batch: bool = True
-                 ) -> tuple[torch.Tensor, MergeIndices, bool]:
+                 ratio: float, flip: bool, align_batch: bool = True,
+                 mode: str = "replace") -> tuple[torch.Tensor, MergeIndices, bool]:
     """Merge local tokens against the carried global token bank; `flip`
     picks which side is src."""
     if local_tokens.shape != global_tokens.shape:
@@ -232,7 +265,7 @@ def global_merge(local_tokens: torch.Tensor, global_tokens: torch.Tensor,
     tokens = _order(local_tokens, global_tokens)
     metric = _order(metric_local, metric_global)
     mi = compute_split_merge(metric, src_len, ratio, align_batch)
-    return tome_merge(tokens, mi), mi, flip
+    return tome_merge(tokens, mi, mode), mi, flip
 
 
 def global_unmerge_rows(mi: MergeIndices, flip: bool, src_len: int
@@ -240,3 +273,9 @@ def global_unmerge_rows(mi: MergeIndices, flip: bool, src_len: int
     """Row map restoring the local half of a global merge."""
     rows = unmerge_rows(mi)
     return rows[:, src_len:] if flip else rows[:, :src_len]
+
+
+def global_unmerge(y: torch.Tensor, mi: MergeIndices, flip: bool, src_len: int
+                   ) -> torch.Tensor:
+    """Invert `global_merge`, returning the restored local chunk."""
+    return gather_rows(y, global_unmerge_rows(mi, flip, src_len))

@@ -18,7 +18,7 @@ import dataclasses
 
 import numpy as np
 
-__all__ = ["ChunkPlan", "make_chunk_plan"]
+__all__ = ["ChunkPlan", "make_chunk_plan", "make_step_plans"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,3 +96,22 @@ def make_chunk_plan(
     # empty slots keep index 0 / valid False
     return ChunkPlan(indices=indices, valid=valid)
 
+
+def make_step_plans(
+    n_steps: int,
+    n_frames: int,
+    chunk_size: int,
+    seed: int,
+    chunk_ord: str = "mix-4",
+    merge_global: bool = True,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Plans for all denoising steps, stacked: (T, n_slots, chunk_size) x2."""
+    rng = np.random.default_rng(seed)
+    plans = [
+        make_chunk_plan(n_frames, chunk_size, rng, chunk_ord, merge_global)
+        for _ in range(n_steps)
+    ]
+    return (
+        np.stack([p.indices for p in plans]),
+        np.stack([p.valid for p in plans]),
+    )

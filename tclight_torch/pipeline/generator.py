@@ -6,7 +6,12 @@ masks and pixel tracks (`load_data`); VAE-encode the frames as IC-Light
 concat conditions, CLIP-encode the prompts, run the DPM++ (SDE) steps over
 random chunk plans with VidToMe token merging, VAE-decode; then the
 exposure alignment and the UVT refinement (pipeline/postopt.py); write the
-mp4s.
+mp4s, as the JAX package's non-TPU branch does: `output_gt.mp4` is encoded
+on a thread while the output is fetched to the host and encoded (their
+wall is `stage_times["output_fetch"]`, the host-only tail after it
+`output_save`). JAX's TPU output branches (the on-device uint8 quantize
+and streamed fetch, the uint8 and f16 uploads) are left out: the frames
+stay exact f32.
 
 Each step runs its chunk slots in order in a Python loop that carries the
 global token banks from slot to slot, as `_slot0_core` / `_group_core` do
@@ -74,6 +79,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -611,30 +617,40 @@ class Generator:
             if optimize:
                 clean_frames, losses_exposure, losses_uvt = self._post_optimize(
                     clean_frames, past_flows, mask_bwds)
-            clean_frames = clean_frames.cpu().numpy()
-            results[edit_name] = clean_frames
             if self.mesh is not None and self.mesh.rank != 0:
+                results[edit_name] = clean_frames.cpu().numpy()
                 continue  # rank 0 writes the files
 
-            t_s = time.perf_counter()
+            t_out = time.perf_counter()
             save_name = (f"lmr_{self.tome_spec.local_ratio}_gmr_"
                          f"{self.tome_spec.global_ratio}_alpha_t_{self.alpha_t}"
                          f"_opt_{edit_name}")
             out_dir = Path(output_path) / save_name
             out_dir.mkdir(parents=True, exist_ok=True)
             fps = getattr(self.data_parser, "fps", 25)
-            save_video(clean_frames, out_dir / "output.mp4", fps=fps)
-            save_video(frames, out_dir / "output_gt.mp4", fps=fps)
+            # the GT encode needs only the host's input frames: it runs on a
+            # thread while the output is fetched and encoded (the copy to the
+            # host and cv2's encode release the GIL)
+            with ThreadPoolExecutor(1, thread_name_prefix="gt-mp4") as pool:
+                gt_saved = pool.submit(save_video, frames, out_dir / "output_gt.mp4", fps=fps)
+                clean_frames = clean_frames.cpu().numpy()
+                save_video(clean_frames, out_dir / "output.mp4", fps=fps)
+                # the fetch and both encodes overlap: their wall is
+                # output_fetch, the host-only tail after it output_save
+                self.stage_times["output_fetch"] = time.perf_counter() - t_out
+                gt_saved.result()
+            results[edit_name] = clean_frames
             if self.save_frame:
                 save_frames(clean_frames, out_dir / "frames")
-            self.stage_times["output_save"] = time.perf_counter() - t_s
-            cost = tracker.finish(n, h, w)
-            self._save_run_config(out_dir, cost, edit_name, edit_prompt)
             self.last_postopt_losses = {"exposure": losses_exposure, "uvt": losses_uvt}
             if optimize:  # the loss curves, as arrays and as plots
                 np.save(out_dir / "loss_exposure.npy", losses_exposure)
                 np.save(out_dir / "loss_unique_tensor.npy", losses_uvt)
                 self._save_loss_curves(out_dir, losses_exposure, losses_uvt)
+            self.stage_times["output_save"] = (time.perf_counter() - t_out
+                                               - self.stage_times["output_fetch"])
+            cost = tracker.finish(n, h, w)
+            self._save_run_config(out_dir, cost, edit_name, edit_prompt)
             log.info("done [%s]: %.1fs total, %.2fs/frame", edit_name,
                      cost["total_time"], cost["sec_per_frame"])
         return results

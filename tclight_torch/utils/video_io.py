@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import os
 from pathlib import Path
-from typing import Sequence
+from typing import Iterable, Sequence
 
 import numpy as np
 
@@ -134,6 +134,14 @@ def _open_mp4_writer(path: Path, fps: int, w: int, h: int):
     raise IOError(f"no usable mp4 encoder for {path}")
 
 
+def _to_uint8(frames) -> np.ndarray:
+    """Float [0, 1] frames rounded to uint8; uint8 frames as they are."""
+    frames = np.asarray(frames)
+    if frames.dtype != np.uint8:
+        frames = (np.clip(frames, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+    return frames
+
+
 def save_video(
     frames: np.ndarray,
     path: str | os.PathLike,
@@ -143,9 +151,7 @@ def save_video(
     imageio-ffmpeg) or gif by extension."""
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
-    frames = np.asarray(frames)
-    if frames.dtype != np.uint8:
-        frames = (np.clip(frames, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+    frames = _to_uint8(frames)
     if path.suffix.lower() == ".gif":
         import imageio.v2 as imageio
 
@@ -162,6 +168,55 @@ def save_video(
             writer.release()
 
 
+def save_video_stream(
+    chunks: Iterable, path: str | os.PathLike, fps: int = 25
+) -> None:
+    """Save an iterable of (n_i, H, W, 3) frame chunks (float [0, 1] or
+    uint8) to mp4, encoding on a writer thread while the caller produces
+    the next chunks. The writer opens on the first chunk; an error on the
+    writer thread is raised again here."""
+    import queue
+    import threading
+
+    import cv2
+
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    buf: queue.Queue = queue.Queue(maxsize=2)
+    errs: list[Exception] = []
+
+    def _write() -> None:
+        writer = None
+        try:
+            while (chunk := buf.get()) is not None:
+                if errs:
+                    continue  # drain, so that the producer never blocks on a full queue
+                try:
+                    chunk = _to_uint8(chunk)
+                    if writer is None:
+                        writer = _open_mp4_writer(path, fps, chunk.shape[2], chunk.shape[1])
+                    for f in chunk:
+                        writer.write(cv2.cvtColor(f, cv2.COLOR_RGB2BGR))
+                except Exception as e:  # noqa: BLE001 — raised again on the caller
+                    errs.append(e)
+        finally:
+            if writer is not None:
+                writer.release()
+
+    thread = threading.Thread(target=_write, name="mp4-writer")
+    thread.start()
+    try:
+        for chunk in chunks:
+            if errs:
+                break
+            buf.put(chunk)
+    finally:
+        buf.put(None)
+        thread.join()
+    if errs:
+        raise errs[0]
+
+
 def save_frames(
     frames: np.ndarray, out_dir: str | os.PathLike, ext: str = "png"
 ) -> list[Path]:
@@ -170,9 +225,7 @@ def save_frames(
 
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
-    frames = np.asarray(frames)
-    if frames.dtype != np.uint8:
-        frames = (np.clip(frames, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+    frames = _to_uint8(frames)
     paths = []
     for i, f in enumerate(frames):
         p = out_dir / f"{i:05d}.{ext}"

@@ -4,8 +4,8 @@ evaluation's, the editing path's, the background and single-image
 relighting's, the demos', the prompt upsampler's (RoPE, the AR decoder,
 its converters, Pixtral), the annotators' (DPT, HED, lineart, OpenPose)
 and the AR world stack's and guardrail models' (the FSQ tokenizer, T5,
-the diffusion decoder, Aegis, SigLIP, RetinaFace, the lazy config)
-included) loads neither
+the diffusion decoder, Aegis, SigLIP, RetinaFace, the lazy config) and
+the host tools included) loads neither
 JAX, optax nor the JAX package, nor `safetensors` (which the card's
 machine lacks: the port reads the files itself) or `transformers` (only a
 tokenizer directory needs it), and its entry points refuse to run on the
@@ -67,6 +67,10 @@ slice12 = {"tclight_torch.cosmos." + m for m in (
 slice12 |= {"tclight_torch.models." + m for m in (
     "ar_configs", "t5_encoder", "siglip", "retinaface")} | {"tclight_torch.config_lazy"}
 assert slice12 <= set(names), sorted(slice12 - set(names))
+# the host tools
+slice13 = {"tclight_torch.tools", "tclight_torch.tools.img2video",
+           "tclight_torch.tools.video2img"}
+assert slice13 <= set(names), sorted(slice13 - set(names))
 """
 
 
