@@ -266,9 +266,11 @@ def flash_row(label: str, b: int, sq: int, skv: int, h: int, d: int,
     """K1 against its plain version on random bf16 q, k, v of one shape,
     beside SDPA, the byte and tensor-core bound and the exponentials'
     bound. `tiled`: Q and K are the first third's, repeated three times
-    (contiguous copies), as PnP's injection makes them."""
-    from tclight_torch.ops.attention import (flash_attention_cuda,
-                                             flash_attention_plain)
+    (contiguous copies), as PnP's injection makes them. At head dim 128
+    the kernel reads k and v in place (`kv_in_place`): no chunk-major
+    copy."""
+    from tclight_torch.ops.attention import (flash_attention_cuda, flash_attention_plain,
+                                             flash_kv_operands)
 
     q = torch.randn(b, sq, h, d, device="cuda", generator=gen, dtype=torch.bfloat16)
     k, v = (torch.randn(b, skv, h, d, device="cuda", generator=gen, dtype=torch.bfloat16)
@@ -282,7 +284,8 @@ def flash_row(label: str, b: int, sq: int, skv: int, h: int, d: int,
     err = (out.float() - ref).abs().max().item()
     # bf16 output rounding (2^-8 relative) plus bf16 p in the p.v product
     tol = 2e-2 * ref.abs().max().item()
-    ok = math.isfinite(err) and err <= tol
+    in_place = flash_kv_operands(k, v)[0] is k
+    ok = math.isfinite(err) and err <= tol and in_place == (d == 128)
     reps = 3 if max(sq, skv) > 20000 else 10
     k_ms = cuda_ms(lambda: flash_attention_cuda(q, k, v, scale), reps)
     p_ms = cuda_ms(lambda: flash_attention_plain(q.float(), k.float(), v.float(), scale), 1)
@@ -296,7 +299,7 @@ def flash_row(label: str, b: int, sq: int, skv: int, h: int, d: int,
     shape = f"B={b} S={sq} H={h} D={d}" if sq == skv else f"B={b} Sq={sq} Skv={skv} H={h} D={d}"
     row = dict(shape=f"{label} {shape}" + (" QK tiled" if tiled else ""), max_abs_err=err,
                tol=tol, ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=by,
-               exp_bound_ms=exp_ms)
+               exp_bound_ms=exp_ms, kv_in_place=in_place)
     phase("K1", ok=ok, **row)
     if not ok:
         raise SystemExit(f"K1 disagrees with its plain version at {row['shape']}")

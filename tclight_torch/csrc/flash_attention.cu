@@ -55,8 +55,22 @@
 //   tokens past S and q rows past Sq lie outside the tensor maps, and TMA
 //   fills them with zeros: no padded copy, nothing of the next head read.
 //
+// - Head dim 128 (the Cosmos DiTs' self-attention) has a layout of its own
+//   (SW = true). There the chunk-major tiles cost more than they saved: a
+//   box 16 bytes wide moves a 32 KB tile as 2,048 rows of 16 bytes, and
+//   with the k/v loads taken out the kernel ran 2.5x faster (PERF.md, the
+//   head-dim-128 ablation). A 256-byte row is two 128-byte swizzle rows, so
+//   q, k and v are read in place from (B, S, H, D), each tile as two boxes
+//   of 64 dims (128 bytes) x its rows, in the 128-byte swizzle that wgmma
+//   reads directly (hopper.cuh): K-major q and k for q.k^T, MN-major v for
+//   p.v; the wrapper makes no copy. One 64-row q block per consumer
+//   warpgroup, 128-key tiles, 3 stages: 176- or 192-key tiles in 2 stages
+//   and 128 in 2 were slower. Every other head dim, the UNet's 40 / 80 /
+//   160 and the 120 next to 128 included, keeps the chunk-major layout.
+//
 // Shared memory per block: (q rows + 2 * NST * kv rows) * DP * 2 bytes,
-// 204,800 at D = 160 and 73,728 at D = 40.
+// 204,800 at D = 160 and 73,728 at D = 40; 229,376 (+ barriers and the
+// 1,024-byte alignment) at D = 128.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -89,6 +103,16 @@ __host__ __device__ constexpr size_t smem_bytes(int dp) {
          8 * (1 + 2 * n_stages(dp)) + 128;
 }
 
+// D = 128 reads q, k and v in place in the 128-byte swizzle: 128 q rows (one
+// 64-row block per consumer warpgroup), SW_BK-key tiles in a ring of SW_NST
+// stages; tiles aligned to 1,024 bytes
+constexpr int SW_D = 128;
+constexpr int SW_BQ = 128;
+constexpr int SW_BK = 128;
+constexpr int SW_NST = 3;
+constexpr size_t SW_SMEM = (size_t)(SW_BQ + 2 * SW_NST * SW_BK) * SW_D * 2 +
+                           8 * (1 + 2 * SW_NST) + 1024;
+
 __device__ __forceinline__ float fast_exp2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
@@ -100,22 +124,24 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-template <int DP>
+template <int DP, bool SW>
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv,
                        __nv_bfloat16* __restrict__ o, int H, int Sq, int Skv, int D,
                        float scale_log2) {
-  constexpr int MB = row_blocks(DP);
-  constexpr int BQ = q_rows(DP);
-  constexpr int BK = kv_rows(DP);
-  constexpr int CH = DP / 8;  // 16-byte head-dim chunks of a row
-  constexpr int NST = n_stages(DP);
+  static_assert(!SW || DP == SW_D, "the swizzled path is D = 128's");
+  constexpr int MB = SW ? 1 : row_blocks(DP);
+  constexpr int BQ = SW ? SW_BQ : q_rows(DP);
+  constexpr int BK = SW ? SW_BK : kv_rows(DP);
+  constexpr int BOX = SW ? 64 : 8;  // head dims of one TMA box: a 128-byte slab, or a chunk
+  constexpr int NST = SW ? SW_NST : n_stages(DP);
   constexpr int TILE = BK * DP;  // elements of one k or v tile
+  constexpr uintptr_t ALIGN = SW ? 1024 : 128;
   extern __shared__ unsigned char smem_raw[];
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~uintptr_t(127));
+      (reinterpret_cast<uintptr_t>(smem_raw) + ALIGN - 1) & ~(ALIGN - 1));
   __nv_bfloat16* sK = sQ + BQ * DP;       // NST tiles
   __nv_bfloat16* sV = sK + NST * TILE;    // NST tiles
   uint64_t* qbar = reinterpret_cast<uint64_t*>(sV + NST * TILE);
@@ -144,14 +170,25 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     // ---------------------------------------------------------- producer
     setmaxnreg_dec<24>();
     if (threadIdx.x == 0) {
+      // k or v tile j into stage st: in place, one box per 64-dim slab, or
+      // the chunk-major copy's one box
+      auto load_kv = [&](__nv_bfloat16* ring, const CUtensorMap* map, int st, int j) {
+        if constexpr (SW) {
+          for (int c = 0; c < DP / BOX; ++c)
+            tma_load_4d(ring + st * TILE + c * BK * BOX, map, &full[st], c * BOX, h, j * BK, b);
+        } else {
+          tma_load_4d(ring + st * TILE, map, &full[st], 0, j * BK, 0, blockIdx.y);
+        }
+      };
       mbar_expect_tx(qbar, BQ * DP * 2);
-      for (int c = 0; c < CH; ++c) tma_load_4d(sQ + c * BQ * 8, &tq, qbar, c * 8, h, q0, b);
+      for (int c = 0; c < DP / BOX; ++c)
+        tma_load_4d(sQ + c * BQ * BOX, &tq, qbar, c * BOX, h, q0, b);
       for (int j = 0; j < n_tiles; ++j) {
         const int st = j % NST;
         if (j >= NST) mbar_wait(&empty[st], ((j / NST) - 1) & 1);
         mbar_expect_tx(&full[st], 2 * TILE * 2);
-        tma_load_4d(sK + st * TILE, &tk, &full[st], 0, j * BK, 0, blockIdx.y);
-        tma_load_4d(sV + st * TILE, &tv, &full[st], 0, j * BK, 0, blockIdx.y);
+        load_kv(sK, &tk, st, j);
+        load_kv(sV, &tv, st, j);
       }
     }
   } else {
@@ -192,22 +229,40 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int kk = 0; kk < DP / 16; ++kk)
 #pragma unroll
-        for (int mb = 0; mb < MB; ++mb)
-          WgmmaSS<BK>::run(s[mb],
-                           wgmma_desc(sQ + (cw * MB + mb) * 64 * 8 + kk * 2 * BQ * 8, BQ * 16,
-                                      128),
-                           wgmma_desc(tK + kk * 2 * BK * 8, BK * 16, 128), kk > 0 ? 1 : 0);
+        for (int mb = 0; mb < MB; ++mb) {
+          if constexpr (SW) {
+            // slab kk / 4 (rows of 128 bytes), 32 bytes a step within it;
+            // this warpgroup's 64 q rows start 8 KB into the slab
+            WgmmaSS<BK>::run(
+                s[mb], wgmma_desc_sw128(sQ + (kk / 4) * BQ * 64 + (cw * MB + mb) * 64 * 64 +
+                                            (kk % 4) * 16,
+                                        16, 1024),
+                wgmma_desc_sw128(tK + (kk / 4) * BK * 64 + (kk % 4) * 16, 16, 1024),
+                kk > 0 ? 1 : 0);
+          } else {
+            WgmmaSS<BK>::run(s[mb],
+                             wgmma_desc(sQ + (cw * MB + mb) * 64 * 8 + kk * 2 * BQ * 8, BQ * 16,
+                                        128),
+                             wgmma_desc(tK + kk * 2 * BK * 8, BK * 16, 128), kk > 0 ? 1 : 0);
+          }
+        }
       wgmma_commit();
     };
-    // O += p v of tile j: v MN-major, next 8 keys 128 bytes on, next 8
-    // dims BK * 16
+    // O += p v of tile j: v MN-major. Chunk-major: next 8 keys 128 bytes
+    // on, next 8 dims BK * 16. Swizzled: 16 keys a step (2 KB), next 8 keys
+    // 1,024 bytes on, next 64 dims one slab (BK * 128 bytes) on.
     auto issue_pv = [&](int j) {
       const __nv_bfloat16* tV = sV + (j % NST) * TILE;
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
-        for (int mb = 0; mb < MB; ++mb)
-          WgmmaRS<DP>::run(acc[mb], pa[mb][kk], wgmma_desc(tV + kk * 16 * 8, 128, BK * 16), 1);
+        for (int mb = 0; mb < MB; ++mb) {
+          if constexpr (SW)
+            WgmmaRS<DP>::run(acc[mb], pa[mb][kk],
+                             wgmma_desc_sw128(tV + kk * 16 * 64, BK * 128, 1024), 1);
+          else
+            WgmmaRS<DP>::run(acc[mb], pa[mb][kk], wgmma_desc(tV + kk * 16 * 8, 128, BK * 16), 1);
+        }
       wgmma_commit();
     };
     // online softmax of tile j in s: the exponentials in place, the row
@@ -392,34 +447,52 @@ bool make_kv_map(CUtensorMap* map, const void* kv, int BH, int S, int D, int DP,
   return tensor_map_4d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, kv, dims, strides, box);
 }
 
-template <int DP>
+// q, k or v (B, S, H, D) as it lies, D = 128, as 4-d (D, H, S, B) in the
+// 128-byte swizzle: boxes of 64 dims (128 bytes) x `rows` tokens of one
+// head, two per row of D; tokens past S read as zeros
+bool make_sw128_map(CUtensorMap* map, const void* x, int B, int S, int H, int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)SW_D, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)SW_D * 2, (cuuint64_t)H * SW_D * 2,
+                                 (cuuint64_t)S * H * SW_D * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  return tensor_map_4d_sw128(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, dims, strides, box);
+}
+
+template <int DP, bool SW>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int Sq,
            int Skv, int D, float scale, cudaStream_t stream) {
-  const size_t bytes = smem_bytes(DP);
+  const size_t bytes = SW ? SW_SMEM : smem_bytes(DP);
   static bool attr_set = false;  // once per kernel instance, not per launch
   if (!attr_set) {
-    cudaError_t err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<DP>,
+    cudaError_t err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<DP, SW>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)bytes);
     if (err != cudaSuccess) return (int)err;
     attr_set = true;
   }
   CUtensorMap tq, tk, tv;
-  if (!make_q_map(&tq, q, B, Sq, H, D, q_rows(DP)) ||
-      !make_kv_map(&tk, k, B * H, Skv, D, DP, kv_rows(DP)) ||
-      !make_kv_map(&tv, v, B * H, Skv, D, DP, kv_rows(DP)))
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid((Sq + q_rows(DP) - 1) / q_rows(DP), B * H);
-  flash_fwd_wgmma_kernel<DP><<<grid, NTHREADS, bytes, stream>>>(
+  bool mapped;
+  if constexpr (SW)
+    mapped = make_sw128_map(&tq, q, B, Sq, H, SW_BQ) && make_sw128_map(&tk, k, B, Skv, H, SW_BK) &&
+             make_sw128_map(&tv, v, B, Skv, H, SW_BK);
+  else
+    mapped = make_q_map(&tq, q, B, Sq, H, D, q_rows(DP)) &&
+             make_kv_map(&tk, k, B * H, Skv, D, DP, kv_rows(DP)) &&
+             make_kv_map(&tv, v, B * H, Skv, D, DP, kv_rows(DP));
+  if (!mapped) return (int)cudaErrorInvalidValue;
+  const int bq = SW ? SW_BQ : q_rows(DP);
+  const dim3 grid((Sq + bq - 1) / bq, B * H);
+  flash_fwd_wgmma_kernel<DP, SW><<<grid, NTHREADS, bytes, stream>>>(
       tq, tk, tv, (__nv_bfloat16*)o, H, Sq, Skv, D, scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q: (B, Sq, H, D); k, v: the chunk-major copies (B * H, D / 8, Skv, 8);
-// o: (B, Sq, H, D); all bf16, contiguous, 16-byte aligned; D % 8 == 0,
-// D <= 160. Returns
+// q: (B, Sq, H, D); k, v: for D = 128 (B, Skv, H, D) as they lie, for
+// every other D the chunk-major copies (B * H, D / 8, Skv, 8); o: (B, Sq,
+// H, D); all bf16, contiguous, 16-byte aligned; D % 8 == 0, D <= 160.
+// Returns
 // cudaGetLastError() after the launch (cudaErrorInvalidValue when the
 // arguments or the tensor maps are refused).
 extern "C" int tclight_flash_attention_bf16(const void* q, const void* k,
@@ -430,16 +503,17 @@ extern "C" int tclight_flash_attention_bf16(const void* q, const void* k,
       D > MAX_D || (long)B * H > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  if (D == SW_D) return launch<SW_D, true>(q, k, v, o, B, H, Sq, Skv, D, scale, s);
   switch ((D + 15) / 16 * 16) {
-    case 16: return launch<16>(q, k, v, o, B, H, Sq, Skv, D, scale, s);
-    case 32: return launch<32>(q, k, v, o, B, H, Sq, Skv, D, scale, s);
-    case 48: return launch<48>(q, k, v, o, B, H, Sq, Skv, D, scale, s);
-    case 64: return launch<64>(q, k, v, o, B, H, Sq, Skv, D, scale, s);
-    case 80: return launch<80>(q, k, v, o, B, H, Sq, Skv, D, scale, s);
-    case 96: return launch<96>(q, k, v, o, B, H, Sq, Skv, D, scale, s);
-    case 112: return launch<112>(q, k, v, o, B, H, Sq, Skv, D, scale, s);
-    case 128: return launch<128>(q, k, v, o, B, H, Sq, Skv, D, scale, s);
-    case 144: return launch<144>(q, k, v, o, B, H, Sq, Skv, D, scale, s);
-    default: return launch<160>(q, k, v, o, B, H, Sq, Skv, D, scale, s);
+    case 16: return launch<16, false>(q, k, v, o, B, H, Sq, Skv, D, scale, s);
+    case 32: return launch<32, false>(q, k, v, o, B, H, Sq, Skv, D, scale, s);
+    case 48: return launch<48, false>(q, k, v, o, B, H, Sq, Skv, D, scale, s);
+    case 64: return launch<64, false>(q, k, v, o, B, H, Sq, Skv, D, scale, s);
+    case 80: return launch<80, false>(q, k, v, o, B, H, Sq, Skv, D, scale, s);
+    case 96: return launch<96, false>(q, k, v, o, B, H, Sq, Skv, D, scale, s);
+    case 112: return launch<112, false>(q, k, v, o, B, H, Sq, Skv, D, scale, s);
+    case 128: return launch<128, false>(q, k, v, o, B, H, Sq, Skv, D, scale, s);  // D = 120
+    case 144: return launch<144, false>(q, k, v, o, B, H, Sq, Skv, D, scale, s);
+    default: return launch<160, false>(q, k, v, o, B, H, Sq, Skv, D, scale, s);
   }
 }

@@ -2,15 +2,27 @@
 // tensor loads, warpgroup MMA (wgmma) descriptors and products, named
 // barriers, and register reallocation between warpgroups.
 //
-// Shared-memory operands of wgmma use the non-swizzled ("interleaved")
-// canonical layout: a core matrix is 8 rows of 16 bytes, stored as 128
-// contiguous bytes. A K-major operand tile loaded as chunks of 8 columns,
-// chunk c holding all R rows of that chunk ([c][row][8] in elements), has
-// its K-adjacent core matrices R * 16 bytes apart (the leading byte offset)
-// and its 8-row groups 128 bytes apart (the stride byte offset). Read as an
+// Shared-memory operands of wgmma use one of two layouts. The non-swizzled
+// ("interleaved") canonical layout: a core matrix is 8 rows of 16 bytes,
+// stored as 128 contiguous bytes. A K-major operand tile loaded as chunks
+// of 8 columns, chunk c holding all R rows of that chunk ([c][row][8] in
+// elements), has its K-adjacent core matrices R * 16 bytes apart (the
+// leading byte offset) and its 8-row groups 128 bytes apart (the stride
+// byte offset). Read as an
 // MN-major operand (the p.v product's V: keys along K, head dims along N),
 // the same [c][key][8] tile has K-adjacent core matrices (the next 8 keys)
 // 128 bytes apart and N-adjacent ones (the next 8 head dims) R * 16 apart.
+//
+// The 128-byte-swizzled layout (wgmma_desc_sw128, tensor_map_4d_sw128)
+// holds a tile as rows of 64 bf16 values (128 bytes), in atoms of 8 rows
+// (1,024 bytes), row r's 16-byte chunk c stored at chunk c ^ (r % 8); a
+// wider row is cut into 64-value slabs, slab after slab. K-major (q and k,
+// head dims along K): the 8-row groups are 1,024 bytes apart (the stride
+// byte offset), the leading byte offset is unused, and k16 step i of a slab
+// starts 32 * i bytes into it. MN-major (the p.v product's V, keys along
+// K, head dims along N, rows of 64 dims): the next 8 keys are 1,024 bytes
+// on (the stride byte offset), the next 64 dims one slab on (the leading
+// byte offset).
 //
 // WgmmaSS<N> / WgmmaRS<N>: d(64 x N, f32) (+)= a(64 x 16) b(16 x N), bf16
 // operands; SS takes a and b from shared memory (both K-major), RS takes a
@@ -101,6 +113,15 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
 __device__ __forceinline__ uint64_t wgmma_desc(const void* p, uint32_t lbo, uint32_t sbo) {
   return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
          ((uint64_t)((sbo >> 4) & 0x3FFF) << 32);
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle (layout type 1; see the
+// top of this file); offsets in bytes. The tile's 1,024-byte swizzle atoms
+// lie on 1,024-byte boundaries, so the base offset is 0, and a start address
+// moved 32 bytes on within an atom's 128-byte rows selects the next k16 step.
+__device__ __forceinline__ uint64_t wgmma_desc_sw128(const void* p, uint32_t lbo,
+                                                     uint32_t sbo) {
+  return wgmma_desc(p, lbo, sbo) | (1ull << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -195,6 +216,76 @@ struct WgmmaSS<128> {
           "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
           "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+// N = 176 and 192: key tiles that `python -m tclight_torch.ablate_flash`
+// times at head dim 128 (the kernel keeps 128)
+template <>
+struct WgmmaSS<176> {
+  __device__ __forceinline__ static void run(float (&d)[88], uint64_t da, uint64_t db,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %90, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n176k16.f32.bf16.bf16 "
+        "{ %0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31,"
+        " %32, %33, %34, %35, %36, %37, %38, %39,"
+        " %40, %41, %42, %43, %44, %45, %46, %47,"
+        " %48, %49, %50, %51, %52, %53, %54, %55,"
+        " %56, %57, %58, %59, %60, %61, %62, %63,"
+        " %64, %65, %66, %67, %68, %69, %70, %71,"
+        " %72, %73, %74, %75, %76, %77, %78, %79,"
+        " %80, %81, %82, %83, %84, %85, %86, %87}, %88, %89, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaSS<192> {
+  __device__ __forceinline__ static void run(float (&d)[96], uint64_t da, uint64_t db,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+        "{ %0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31,"
+        " %32, %33, %34, %35, %36, %37, %38, %39,"
+        " %40, %41, %42, %43, %44, %45, %46, %47,"
+        " %48, %49, %50, %51, %52, %53, %54, %55,"
+        " %56, %57, %58, %59, %60, %61, %62, %63,"
+        " %64, %65, %66, %67, %68, %69, %70, %71,"
+        " %72, %73, %74, %75, %76, %77, %78, %79,"
+        " %80, %81, %82, %83, %84, %85, %86, %87,"
+        " %88, %89, %90, %91, %92, %93, %94, %95}, %96, %97, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+          "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
         : "l"(da), "l"(db), "r"(scale_d));
   }
 };
@@ -707,23 +798,44 @@ typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-// a 4-d tensor map (dims innermost first, strides of dims 1-3 in bytes),
-// non-swizzled, elements outside the tensor read as zeros; encoded by the
-// driver's cuTensorMapEncodeTiled, found with dlopen (no link against
-// libcuda, no runtime-API version dependence)
-inline bool tensor_map_4d(CUtensorMap* map, CUtensorMapDataType type, const void* base,
-                          const cuuint64_t (&dims)[4], const cuuint64_t (&strides)[3],
-                          const cuuint32_t (&box)[4]) {
+// the driver's cuTensorMapEncodeTiled, found with dlopen (no link against
+// libcuda, no runtime-API version dependence); null when there is none
+inline EncodeTiledFn encode_tiled() {
   static EncodeTiledFn fn = nullptr;
   if (!fn) {
     void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
     if (!lib) lib = dlopen("libcuda.so.1", RTLD_NOW);
     if (lib) fn = reinterpret_cast<EncodeTiledFn>(dlsym(lib, "cuTensorMapEncodeTiled"));
   }
+  return fn;
+}
+
+// a 4-d tensor map (dims innermost first, strides of dims 1-3 in bytes),
+// non-swizzled, elements outside the tensor read as zeros
+inline bool tensor_map_4d(CUtensorMap* map, CUtensorMapDataType type, const void* base,
+                          const cuuint64_t (&dims)[4], const cuuint64_t (&strides)[3],
+                          const cuuint32_t (&box)[4]) {
+  const EncodeTiledFn fn = encode_tiled();
   if (!fn) return false;
   const cuuint32_t estr[4] = {1, 1, 1, 1};
   return fn(map, type, 4, const_cast<void*>(base), dims, strides, box, estr,
             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the same, with the 128-byte swizzle: the box's innermost extent is 128
+// bytes, and each 1,024 bytes of shared memory it fills (8 rows of 128
+// bytes) hold row r's 16-byte chunk c at chunk c ^ (r % 8), the layout
+// wgmma_desc_sw128 reads; the destination is 1,024-byte aligned
+inline bool tensor_map_4d_sw128(CUtensorMap* map, CUtensorMapDataType type, const void* base,
+                                const cuuint64_t (&dims)[4], const cuuint64_t (&strides)[3],
+                                const cuuint32_t (&box)[4]) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (!fn) return false;
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  return fn(map, type, 4, const_cast<void*>(base), dims, strides, box, estr,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

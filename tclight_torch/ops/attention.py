@@ -28,7 +28,9 @@ dim 40) is ~3.3 TFLOP of products and ~2e10 exponentials on ~0.1 GB of
 q/k/v/o: the tensor cores and, at head dim 40, the special-function units
 bound it. Its design is warp-specialised: a producer warp feeds a ring of
 k/v tiles by TMA (q read in place, k and v from chunk-major copies the
-wrapper makes; `flash_geometry` gives the tensor maps), two consumer
+wrapper makes; at head dim 128, the Cosmos DiTs', all three read in place
+in the 128-byte swizzle, no copy: `flash_kv_operands`; `flash_geometry`
+gives the tensor maps), two consumer
 warpgroups run both products on wgmma and the softmax in registers, and
 overlap one's softmax with the other's products (details in the source). K6
 replaces `_flash_kernel_qk_int8` in K1's design, with q.k^T on int8 wgmma
@@ -53,9 +55,9 @@ import torch.nn.functional as F
 from tclight_torch.ops import kernels
 
 __all__ = ["dot_product_attention", "flash_attention", "flash_attention_plain",
-           "flash_attention_cuda", "flash_geometry", "flash_attention_int8_plain",
-           "flash_attention_int8_cuda", "quantize_rows", "quantize_blocks",
-           "quantize_channels", "smooth_k", "int8_prepass", "qk_int8_geometry",
+           "flash_attention_cuda", "flash_geometry", "flash_kv_operands",
+           "flash_attention_int8_plain", "flash_attention_int8_cuda", "quantize_rows",
+           "quantize_blocks", "quantize_channels", "smooth_k", "int8_prepass", "qk_int8_geometry",
            "qk_int8_operands", "qk_int8_operands_plain", "chunk_major", "from_chunk_major",
            "int8pv_geometry", "int8pv_operands", "int8pv_operands_plain", "v8_chunks",
            "int8_block_rowmax", "int8_block_rowmax_plain", "BACKENDS"]
@@ -111,6 +113,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 SMEM_PER_BLOCK = 232_448  # dynamic shared memory a block may use on the H100
 # tclight_flash_attention_bf16(q, k, v, o, B, H, Sq, Skv, D, scale, stream)
 K1_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+SW_D = 128  # the head dim K1 reads in place, in the 128-byte swizzle
+SW_KV_ROWS, SW_STAGES = 128, 3  # its key tile and ring depth
 
 
 def flash_geometry(b: int, sq: int, skv: int, h: int, d: int) -> dict:
@@ -121,8 +125,25 @@ def flash_geometry(b: int, sq: int, skv: int, h: int, d: int) -> dict:
     block and the keys per k/v tile that follow, the ring depth, the
     dynamic shared memory, the grid, the bytes each mbarrier expects, and
     the 4-d tensor maps (dims innermost first, strides of dims 1-3 in
-    bytes, box): q's over (B, S, H, D) as it lies, k's and v's over the
-    wrapper's chunk-major copies (B * H, D / 8, S, 8)."""
+    bytes, box, swizzle in bytes): q's over (B, S, H, D) as it lies, k's
+    and v's over the wrapper's chunk-major copies (B * H, D / 8, S, 8)
+    (`kv_copies`). At d = 128 all three are read in place, in boxes of 64
+    dims (one 128-byte swizzle row) by a tile's rows, two per row of D,
+    with one 64-row q block per warpgroup; no copy is made."""
+    if d == SW_D:
+        bq, bk, stages = 128, SW_KV_ROWS, SW_STAGES
+        row = 2 * d
+
+        def inplace(s: int, rows: int) -> dict:
+            return {"dims": (d, h, s, b), "strides": (row, h * row, s * h * row),
+                    "box": (64, 1, rows, 1), "swizzle": 128}
+
+        return {"dp": d, "chunks": d // 8, "zero_chunks": 0, "row_blocks": 1,
+                "q_rows": bq, "kv_rows": bk, "stages": stages, "kv_copies": False,
+                "smem": (bq + 2 * stages * bk) * d * 2 + 8 * (1 + 2 * stages) + 1024,
+                "grid": (-(-sq // bq), b * h), "tx_q": bq * row, "tx_kv": 2 * bk * row,
+                "kv_tiles": -(-skv // bk),
+                "maps": {"q": inplace(sq, bq), "k": inplace(skv, bk), "v": inplace(skv, bk)}}
     dp = _ceil_to(d, 16)
     mb = 2 if dp <= 96 else 1
     bq, bk = 128 * mb, 64 if mb == 2 else 128
@@ -130,16 +151,28 @@ def flash_geometry(b: int, sq: int, skv: int, h: int, d: int) -> dict:
     row = 2 * d  # bytes of one head's row
     # q in place, (D, H, S, B): one box per 16-byte chunk of the q tile
     qmap = {"dims": (d, h, sq, b), "strides": (row, h * row, sq * h * row),
-            "box": (8, 1, bq, 1)}
+            "box": (8, 1, bq, 1), "swizzle": 0}
     # k, v as the chunk-major copies (B * H, D / 8, S, 8), as (8, S, D / 8,
     # B * H): one box per tile
     kvmap = {"dims": (8, skv, d // 8, b * h), "strides": (16, skv * 16, skv * 16 * (d // 8)),
-             "box": (8, bk, dp // 8, 1)}
+             "box": (8, bk, dp // 8, 1), "swizzle": 0}
     return {"dp": dp, "chunks": dp // 8, "zero_chunks": (dp - d) // 8, "row_blocks": mb,
-            "q_rows": bq, "kv_rows": bk, "stages": stages,
+            "q_rows": bq, "kv_rows": bk, "stages": stages, "kv_copies": True,
             "smem": (bq + 2 * stages * bk) * dp * 2 + 8 * (1 + 2 * stages) + 128,
             "grid": (-(-sq // bq), b * h), "tx_q": bq * dp * 2, "tx_kv": 2 * bk * dp * 2,
             "kv_tiles": -(-skv // bk), "maps": {"q": qmap, "k": kvmap, "v": dict(kvmap)}}
+
+
+def flash_kv_operands(k: torch.Tensor, v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The k and v that K1 reads, from (B, S, H, D): at d = 128 the tensors
+    themselves (read in place); at every other d chunk-major copies, (B *
+    H, D / 8, S, 8), so that one TMA box is a whole k or v tile in the
+    layout wgmma reads (see the kernel's source)."""
+    b, skv, h, d = k.shape
+    if not flash_geometry(b, 1, skv, h, d)["kv_copies"]:
+        return k, v
+    return tuple(t.view(b, skv, h, d // 8, 8).permute(0, 2, 3, 1, 4).contiguous()
+                 for t in (k, v))
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -163,10 +196,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if flash_geometry(b, sq, skv, h, d)["grid"][1] > 65535:
         raise ValueError(f"flash_attention kernel: batch * heads = {b * h} is over "
                          "the grid's 65535")
-    # k and v chunk-major, (B * H, D / 8, Skv, 8): one TMA box is a whole
-    # k or v tile, in the layout wgmma reads (see the kernel's source)
-    kc, vc = (t.view(b, skv, h, d // 8, 8).permute(0, 2, 3, 1, 4).contiguous()
-              for t in (k, v))
+    kc, vc = flash_kv_operands(k, v)
     out = torch.empty_like(q)
     fn = kernels.function("flash_attention", "tclight_flash_attention_bf16", K1_ARGTYPES,
                           ctypes.c_int)

@@ -1,9 +1,10 @@
-"""K2 (the ToMe matcher), K6 and K7 (the int8 attentions, their pre-pass
-and max pass included), K3 (the window warp, both directions) and K5 (the
-K-window gather, both directions) of two checkouts of this repository,
-timed in turns on one card at chip_smoke's shapes: this checkout, the
-other, the other, this. Each leg is a process of its own that imports the
-`tclight_torch` of its checkout and calls only the wrappers both have,
+"""K1 (the bf16 flash attention), K2 (the ToMe matcher), K6 and K7 (the
+int8 attentions, their pre-pass and max pass included), K3 (the window
+warp, both directions) and K5 (the K-window gather, both directions) of
+two checkouts of this repository, timed in turns on one card at
+chip_smoke's shapes: this checkout, the other, the other, this. Each leg
+is a process of its own that imports the `tclight_torch` of its checkout
+and calls only the wrappers both have, `flash_attention_cuda`,
 `online_argmax_scores_cuda`, `flash_attention_int8_cuda`,
 `window_warp_cuda` and `banded_gather_multi_cuda`, on the same inputs
 made from a seed; K3's farneback case uses the Farneback flows of
@@ -11,7 +12,11 @@ chip_smoke's 8-frame video (rolling texture, 960x720), and K5 the K = 2
 plans of chip_smoke's turnover ids (8 frames at 960x720, its post-opt
 batch of 16), both computed once by this checkout into build/turns/.
 
-    python -m tclight_torch.turns OTHER_CHECKOUT [K2 K6 K7 K3 K5 K5-path]
+    python -m tclight_torch.turns OTHER_CHECKOUT [K1 K2 K6 K7 K3 K5 K5-path]
+
+K1 runs at the UNet's xy shapes (levels 0-2) and the Cosmos DiTs' (32
+heads of 128: 5,120, 14,080 and 56,320 tokens), the wrapper's k/v copies
+included where it makes them.
 
 K5-path is chip_smoke's K5 path: `run_uvt` on the turnover ids for 5
 epochs; its ms is the median epoch past the first (the first plans and
@@ -34,8 +39,14 @@ from pathlib import Path
 # and its K3 cases (N, H, W, radius, adjoint)
 ATTENTION = [("L0", (2, 35640, 40)), ("L1", (2, 8910, 80)), ("L2", (8, 660, 160)),
              ("yt-L0", (2, 8910, 40)), ("yt-L1", (2, 2228, 80))]
-SHAPES = ([("K2", "global L0", (2, 23760, 23760, 320)), ("K2", "local L0", (2, 32400, 10800, 320)),
-           ("K2", "global L1", (2, 5940, 5940, 640)), ("K2", "local L1", (2, 8100, 2700, 640))]
+# K1's (B, S, H, D): the UNet's xy levels and the DiTs' self-attention
+K1_SHAPES = [("L0", (2, 35640, 8, 40)), ("L1", (2, 8910, 8, 80)), ("L2", (8, 660, 8, 160)),
+             ("dd", (1, 5120, 32, 128)), ("t2w", (1, 14080, 32, 128)),
+             ("t2w-704", (1, 56320, 32, 128))]
+SHAPES = ([("K1", label, shape) for label, shape in K1_SHAPES]
+          + [("K2", "global L0", (2, 23760, 23760, 320)),
+             ("K2", "local L0", (2, 32400, 10800, 320)),
+             ("K2", "global L1", (2, 5940, 5940, 640)), ("K2", "local L1", (2, 8100, 2700, 640))]
           + [("K6", label, shape) for label, shape in ATTENTION]
           + [("K7", label, shape) for label, shape in ATTENTION]
           + [("K3", f"{d} {case}", (16, 720, 960, r, d == "adjoint"))
@@ -95,7 +106,7 @@ def leg(shapes, flows_path, plans_path) -> None:
     import torch
     import torch.nn.functional as F
 
-    from tclight_torch.ops.attention import flash_attention_int8_cuda
+    from tclight_torch.ops.attention import flash_attention_cuda, flash_attention_int8_cuda
     from tclight_torch.ops.banded_gather import banded_gather_multi_cuda
     from tclight_torch.ops.match_kernel import online_argmax_scores_cuda
     from tclight_torch.ops.warp_kernel import window_warp_cuda
@@ -113,7 +124,12 @@ def leg(shapes, flows_path, plans_path) -> None:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     for kernel, label, shape in shapes:
-        if kernel == "K2":
+        if kernel == "K1":
+            b, s, h, d = shape
+            q, k, v = (torch.randn(b, s, h, d, device="cuda", generator=gen, dtype=torch.bfloat16)
+                       for _ in range(3))
+            t = ms(lambda: flash_attention_cuda(q, k, v, d ** -0.5), 3 if s > 20000 else 10)
+        elif kernel == "K2":
             b, s, d, c = shape
             a = F.normalize(torch.randn(b, s, c, device="cuda", generator=gen), dim=-1).bfloat16()
             bt = F.normalize(torch.randn(b, d, c, device="cuda", generator=gen), dim=-1).bfloat16()
@@ -156,7 +172,7 @@ def leg(shapes, flows_path, plans_path) -> None:
 
 
 def main(argv: list[str]) -> int:
-    every = {"K2", "K6", "K7", "K3", "K5", "K5-path"}
+    every = {"K1", "K2", "K6", "K7", "K3", "K5", "K5-path"}
     kernels = set(argv[1:]) or every
     if not argv or not kernels <= every:
         print(__doc__, file=sys.stderr)

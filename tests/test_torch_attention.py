@@ -88,7 +88,10 @@ def test_flash_geometry_tensor_maps(d):
     the chunk-major copies, one box a tile; strides TMA takes (multiples of
     16, rising); the q.k^T depth padded to 16 by chunks that lie past the
     maps' chunk extent (zero-filled, never the next head); a ring that fits
-    the block's shared memory; two q row blocks per warpgroup up to dp 96."""
+    the block's shared memory; two q row blocks per warpgroup up to dp 96.
+    At d = 128, q, k and v all in place in the 128-byte swizzle: boxes of
+    64 dims (128 bytes) by a tile's rows, two per row, 128-key tiles in 3
+    stages, one 64-row q block per warpgroup, no copies."""
     b, sq, skv, h = 2, 35640, 1031, 8
     g = tattn.flash_geometry(b, sq, skv, h, d)
     assert g["dp"] % 16 == 0 and d <= g["dp"] < d + 16
@@ -97,7 +100,26 @@ def test_flash_geometry_tensor_maps(d):
     assert g["row_blocks"] == (2 if g["dp"] <= 96 else 1)
     assert g["q_rows"] == 2 * 64 * g["row_blocks"]  # two consumer warpgroups
     assert g["kv_rows"] in (64, 128)
+    assert g["stages"] >= 2 and g["smem"] <= tattn.SMEM_PER_BLOCK
+    assert g["grid"] == (-(-sq // g["q_rows"]), b * h)
+    assert g["kv_tiles"] == -(-skv // g["kv_rows"])
+    assert g["tx_q"] == g["chunks"] * 16 * g["q_rows"]
+    assert g["tx_kv"] == 2 * g["chunks"] * 16 * g["kv_rows"]
+    assert g["kv_copies"] == (d != 128)
+    if d == 128:
+        assert (g["q_rows"], g["kv_rows"], g["stages"]) == (128, 128, 3)
+        for name, s, rows in (("q", sq, 128), ("k", skv, 128), ("v", skv, 128)):
+            m = g["maps"][name]
+            assert m["dims"] == (d, h, s, b) and m["box"] == (64, 1, rows, 1)
+            assert m["box"][0] * 2 == m["swizzle"] == 128  # one swizzle row a box row
+            assert g["dp"] // m["box"][0] == 2  # two boxes a row of D
+            assert m["strides"] == (2 * d, 2 * d * h, 2 * d * h * s)
+            assert all(st % 16 == 0 for st in m["strides"])
+        # 1,024-byte swizzle atoms: the q tile and each k/v slab a whole number of them
+        assert (g["q_rows"] * 128) % 1024 == 0 and (g["kv_rows"] * 128) % 1024 == 0
+        return
     q, k = g["maps"]["q"], g["maps"]["k"]
+    assert q["swizzle"] == k["swizzle"] == 0
     assert q["dims"] == (d, h, sq, b) and q["box"] == (8, 1, g["q_rows"], 1)
     assert q["strides"][0] == 2 * d  # the next head starts past dim 0
     assert k == g["maps"]["v"]
@@ -108,11 +130,6 @@ def test_flash_geometry_tensor_maps(d):
         assert max(m["box"]) <= 256
         assert all(st % 16 == 0 for st in m["strides"])
         assert list(m["strides"]) == sorted(m["strides"])
-    assert g["tx_q"] == g["chunks"] * 16 * g["q_rows"]
-    assert g["tx_kv"] == 2 * g["chunks"] * 16 * g["kv_rows"]
-    assert g["stages"] >= 2 and g["smem"] <= tattn.SMEM_PER_BLOCK
-    assert g["grid"] == (-(-sq // g["q_rows"]), b * h)
-    assert g["kv_tiles"] == -(-skv // g["kv_rows"])
 
 
 def test_flash_kv_copies_are_chunk_major():
@@ -142,8 +159,45 @@ def test_flash_geometry_matches_the_kernel_source():
                  "const cuuint32_t box[4] = {8, 1, (cuuint32_t)rows, 1};",
                  "const cuuint32_t box[4] = {8, (cuuint32_t)rows, (cuuint32_t)(DP / 8), 1};"):
         assert rule in src, rule
-    for d, stages in ((16, 4), (96, 4), (112, 3), (128, 3), (144, 2)):
+    for d, stages in ((16, 4), (96, 4), (112, 3), (120, 3), (144, 2)):
         assert tattn.flash_geometry(1, 1, 1, 1, d)["stages"] == stages
+    # head dim 128: in place, swizzled, its own geometry
+    for rule in ("constexpr int SW_D = 128;", "constexpr int SW_BQ = 128;",
+                 f"constexpr int SW_BK = {tattn.SW_KV_ROWS};",
+                 f"constexpr int SW_NST = {tattn.SW_STAGES};",
+                 "constexpr size_t SW_SMEM = (size_t)(SW_BQ + 2 * SW_NST * SW_BK) * SW_D * 2 +\n"
+                 "                           8 * (1 + 2 * SW_NST) + 1024;",
+                 "const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};",
+                 "return tensor_map_4d_sw128(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, dims, "
+                 "strides, box);",
+                 "if (D == SW_D) return launch<SW_D, true>("):
+        assert rule in src, rule
+    g = tattn.flash_geometry(1, 1, 1, 1, 128)
+    assert (g["q_rows"], g["kv_rows"], g["stages"]) == (128, tattn.SW_KV_ROWS, tattn.SW_STAGES)
+    assert g["smem"] == (128 + 2 * 3 * 128) * 128 * 2 + 8 * (1 + 2 * 3) + 1024
+    hopper = (Path(tattn.__file__).resolve().parent.parent / "csrc" / "hopper.cuh").read_text()
+    assert "CU_TENSOR_MAP_SWIZZLE_128B" in hopper and "(1ull << 62)" in hopper
+
+
+@pytest.mark.parametrize("d", [40, 80, 112, 120, 128, 160])
+def test_flash_kv_operands_copy_all_but_head_dim_128(d):
+    """The wrapper hands K1 k and v as they lie at d = 128 (no copy) and as
+    chunk-major copies at every other head dim, the UNet's 40 / 80 / 160
+    and the 112 / 120 next to 128 included."""
+    import inspect
+
+    assert "kc, vc = flash_kv_operands(k, v)" in inspect.getsource(tattn.flash_attention_cuda)
+    b, s, h = 2, 7, 3
+    k = torch.arange(b * s * h * d, dtype=torch.float32).reshape(b, s, h, d)
+    v = -k
+    kc, vc = tattn.flash_kv_operands(k, v)
+    if d == 128:
+        assert kc is k and vc is v
+        return
+    assert kc.data_ptr() != k.data_ptr() and vc.data_ptr() != v.data_ptr()
+    assert kc.shape == (b, h, d // 8, s, 8) and kc.is_contiguous()
+    assert torch.equal(kc, k.view(b, s, h, d // 8, 8).permute(0, 2, 3, 1, 4))
+    assert torch.equal(vc, -kc)
 
 
 def test_k1_argtypes_match_the_c_entry_point():

@@ -2,7 +2,9 @@
 card, at small and ragged shapes: head dims that need padding to the MMA
 depth, kv and q lengths that end inside a tile, dst counts that end inside
 a tile, channel counts on every shared-memory path of the matcher, exact
-ties; for the window warp (K3) frames that end inside a tile, flows that
+ties; K1 at head dim 128 (read in place, swizzled) with ragged lengths,
+Sq != Skv, B > 1, 32 heads and a masked kv tail, beside D = 120 and 112
+(chunk-major); for the window warp (K3) frames that end inside a tile, flows that
 leave the frame, flow ranges up to 100 px, every channel count and both
 kernels; for the banded gathers (K4, K5) masked entries, int16 and int32 offsets, windows that run
 past the table's end and K = 2, 3 windows; K4 on render-like and
@@ -103,7 +105,35 @@ def test_flash_kernel_many_heads(cuda):
     assert (out.float() - ref).abs().max().item() <= 2e-2 * ref.abs().max().item()
 
 
-@pytest.mark.parametrize("d,skv", [(40, 130), (80, 1031), (160, 65)])
+@pytest.mark.parametrize("b,sq,skv,h,d", [
+    (1, 200, 333, 2, 128),    # both lengths end inside a tile
+    (2, 129, 1031, 2, 128),   # B > 1; one q row past a block, an odd kv length
+    (1, 300, 2500, 2, 128),   # Sq != Skv: the context-parallel DiT's gathered k, v
+    (1, 2500, 300, 2, 128),
+    (2, 257, 700, 32, 128),   # the DiTs' 32 heads
+    (1, 260, 700, 2, 120),    # D = 120 and 112 keep the chunk-major copies
+    (1, 260, 700, 2, 112),
+])
+def test_flash_kernel_head_dim_128(cuda, b, sq, skv, h, d):
+    """Head dim 128 reads q, k and v in place in the 128-byte swizzle; the
+    head dims next to it keep the chunk-major path. Both against the plain
+    version, with the launch counted once and its shape key recorded."""
+    q = torch.randn(b, sq, h, d, device="cuda", generator=cuda).bfloat16()
+    k = torch.randn(b, skv, h, d, device="cuda", generator=cuda).bfloat16()
+    v = torch.randn(b, skv, h, d, device="cuda", generator=cuda).bfloat16()
+    scale = d ** -0.5
+    stats = kernels.STATS["flash_attention"]
+    before, keyed = stats.launches, stats.shapes[(b, sq, skv, h, d)]
+    out = attention.flash_attention(q, k, v, scale=scale)
+    torch.cuda.synchronize()
+    assert stats.launches == before + 1 and stats.shapes[(b, sq, skv, h, d)] == keyed + 1
+    assert attention.flash_geometry(b, sq, skv, h, d)["kv_copies"] == (d != 128)
+    ref = attention.flash_attention_plain(q.float(), k.float(), v.float(), scale)
+    err = (out.float() - ref).abs().max().item()
+    assert err <= 2e-2 * ref.abs().max().item(), err
+
+
+@pytest.mark.parametrize("d,skv", [(40, 130), (80, 1031), (160, 65), (128, 130), (128, 1031)])
 def test_flash_kernel_masks_the_kv_tail_before_the_max(cuda, d, skv):
     """Logits of large magnitude, all far below zero, with a ragged kv
     tail: a zero-filled key that joined the row max as a zero logit would
