@@ -134,9 +134,13 @@ Phases, one line each:
      the CV8x8x8 tokenizer, 121 frames at 352 x 640 (14,080 DiT tokens),
      2 Heun steps; wall, seconds per solver step, one DiT forward, the
      decode, peak memory, the mp4's 121 frames; one denoiser evaluation
-     at 704 x 1280 (56,320 tokens) and K1's share of it; K1 held at every
+     at 704 x 1280 (56,320 tokens) and K1's share of it; t2w's forward
+     also with attn_backend "int8" and "int8pv" (K6 / K7 at its 28 blocks:
+     ms, launches, relative RMS against the bf16 forward); K1 held at every
      new shape (14,080 and 56,320 tokens, head dim 128), K6 and K7 at
-     14,080;
+     5,120, 14,080 and 56,320 (each row also says whether the kernel read
+     its operands in place, in the head-dim-128 layout, and fails if that
+     is not so exactly at head dim 128);
  19. ar-v2w: the port's `ARVideo2WorldPipeline` on the cosmos-4b AR
      (`create_video2world_model_config("5b")`, bf16) and the DV8x16x16
      tokenizer at its widths (bf16) through an adapter (its encode returns
@@ -327,7 +331,7 @@ def check_int8(gen: torch.Generator, pv_int8: bool) -> dict:
 
 
 def int8_row(level: str, b: int, s: int, h: int, d: int, gen: torch.Generator,
-             pv_int8: bool, out: dict) -> dict:
+             pv_int8: bool, out: dict, plain_heads: int | None = None) -> dict:
     """K6 (pv_int8 False) or K7 against the plain int8 version on random
     bf16 inputs of one shape. `ms` is the wrapper's (the quantization
     pre-pass and the kernel; for K7 its max pass too), `prepass_ms` the
@@ -339,7 +343,13 @@ def int8_row(level: str, b: int, s: int, h: int, d: int, gen: torch.Generator,
     the fp attention. Appends the row to out["rows"], the pre-pass
     kernels' row against the plain pre-pass, in the kernel's operand
     layout, to out["prepass_rows"], and for K7 the max pass's against its
-    plain version to out["maxpass_rows"]."""
+    plain version to out["maxpass_rows"]. `operands_in_place`: the kernel
+    read q8 and k8 row-major and v in place (K6) or a channel-major v8 and
+    no bf16 copies (K7), the head-dim-128 layout; the row fails if that is
+    not so exactly at d = 128. `plain_heads`: the plain attention (and the
+    fp attention beside it) held on the first so many heads only, where
+    the whole call's would take too long; each head is quantized on its
+    own, so their outputs are the kernel's on those heads.""" 
     from tclight_torch.ops.attention import (flash_attention_cuda,
                                              flash_attention_int8_cuda,
                                              flash_attention_int8_plain,
@@ -355,17 +365,26 @@ def int8_row(level: str, b: int, s: int, h: int, d: int, gen: torch.Generator,
     scale = d ** -0.5
     res = flash_attention_int8_cuda(q, k, v, scale, pv_int8)
     torch.cuda.synchronize()
-    ref, p_ms = timed_once(lambda: flash_attention_int8_plain(q, k, v, scale, pv_int8))
+    ops = operands(q, k, v)
+    in_place = ops["q8"].dim() == 3 and (("qb" not in ops and ops["v8"].dim() == 3) if pv_int8
+                                         else ops["v"] is v)
+    del ops
+    hp = slice(0, plain_heads)
+    qp, kp, vp = (t[:, :, hp].contiguous() for t in (q, k, v))
+    ref, p_ms = timed_once(lambda: flash_attention_int8_plain(qp, kp, vp, scale, pv_int8))
     ref = ref.float()
-    fp = flash_attention_plain(q.float(), k.float(), v.float(), scale)
-    err = (res.float() - ref).abs().max().item()
+    fp = flash_attention_plain(qp.float(), kp.float(), vp.float(), scale)
+    del qp, kp, vp
+    res_p = res[:, :, hp].float()
+    err = (res_p - ref).abs().max().item()
     # bf16 output rounding and exp2 rounding, as K1; K6 also takes p in
     # bf16 for p.v, and a K7 p8 at a rounding tie moves by one step
     # (1/127 of its block's max)
     tol = 2e-2 * ref.abs().max().item()
     quant_err = (ref - fp).abs().max().item() / fp.abs().max().item()
-    kernel_fp_err = (res.float() - fp).abs().max().item() / fp.abs().max().item()
-    ok = math.isfinite(err) and err <= tol
+    kernel_fp_err = (res_p - fp).abs().max().item() / fp.abs().max().item()
+    del res_p
+    ok = math.isfinite(err) and err <= tol and in_place == (d == 128)
     reps = 3 if s > 20000 else 10
     k_ms = cuda_ms(lambda: flash_attention_int8_cuda(q, k, v, scale, pv_int8), reps)
     plain_pre_ms = cuda_ms(lambda: operands_plain(q, k, v), reps)
@@ -391,13 +410,15 @@ def int8_row(level: str, b: int, s: int, h: int, d: int, gen: torch.Generator,
     t_bytes = n_bytes / PEAK_BYTES * 1e3
     b_ms, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
     row = dict(shape=f"{level} B={b} S={s} H={h} D={d}", max_abs_err=err, tol=tol,
+               plain_heads=plain_heads or h, operands_in_place=in_place,
                quant_rel_err_plain_vs_fp=quant_err, rel_err_kernel_vs_fp=kernel_fp_err,
                ms=k_ms, prepass_ms=pre_ms, prepass_plain_ms=plain_pre_ms, **extra,
                plain_ms=p_ms, library_ms=None, k1_ms=k1_ms, sdpa_ms=sdpa_ms, bound_ms=b_ms,
                bound_by=by)
     phase(tag, ok=ok, **row)
     if not ok:
-        raise SystemExit(f"{tag} disagrees with its plain version at {row['shape']}")
+        raise SystemExit(f"{tag} disagrees with its plain version, or its operands' layout "
+                         f"is not its head dim's, at {row['shape']}")
     out["rows"].append(row)
     del q, k, v, res, ref, fp, qt, kt, vt
     torch.cuda.empty_cache()
@@ -415,16 +436,20 @@ def check_prepass(tag: str, level: str, q, k, v, kernel, plain, k_ms: float) -> 
     ops = kernel(q, k, v)
     torch.cuda.synchronize()
     ref, p_ms = timed_once(lambda: plain(q, k, v))
-    exact_names = ("q8", "sq", "v8", "sv", "qb") if tag == "K7" else ("q8", "sq", "v")
+    exact_names = (("q8", "sq", "v8", "sv") + (("qb",) if "qb" in ops else ()) if tag == "K7"
+                   else ("q8", "sq", "v"))
     exact = all(torch.equal(ops[n], ref[n]) for n in exact_names)
     dk8 = (ops["k8"].int() - ref["k8"].int()).abs()
     sk_ok = bool(((ops["sk"] - ref["sk"]).abs() <= ref["sk"] * 2.0 ** -7).all())
     err, share = float(dk8.max().item()), float((dk8 > 0).float().mean().item())
     ok = exact and err <= 1 and share <= 0.01 and sk_ok
     # K7's bf16 copies qb / kb serve only its max pass's design: the
-    # function's bound leaves them out
-    n_bytes = 2 * 3 * q.numel() + sum(ops[n].numel() * ops[n].element_size()
-                                      for n in ("k8", "sk") + exact_names if n != "qb")
+    # function's bound leaves them out; K6's v is read in place at d = 128
+    # (then K6 reads q and k only)
+    in_place_v = tag == "K6" and ops["v"] is v
+    n_bytes = 2 * (2 if in_place_v else 3) * q.numel() + sum(
+        ops[n].numel() * ops[n].element_size() for n in ("k8", "sk") + exact_names
+        if n != "qb" and not (n == "v" and in_place_v))
     b_ms, by = bound_ms(n_bytes, 0.0)
     b, s, h, d = q.shape
     row = dict(shape=f"{level} B={b} S={s} H={h} D={d}", max_abs_err=err, tol=1.0,
@@ -442,8 +467,8 @@ def check_maxpass(level: str, q, k, v, scale: float, reps: int) -> dict:
     but for f32 rounding (held at 1e-6 relative). Bound: that of the
     function, an int8 q.k^T times scales and a max: the larger of q8, k8
     and their scales read once with the block maxes written once, and
-    q.k^T at the int8 peak (the kernel runs it on bf16 copies, which the
-    bound does not price)."""
+    q.k^T at the int8 peak (off head dim 128 the kernel runs it on bf16
+    copies, which the bound does not price)."""
     from tclight_torch.ops.attention import int8_block_rowmax, int8_block_rowmax_plain, int8pv_operands
 
     b, s, h, d = q.shape
@@ -2499,6 +2524,7 @@ def run_world_model(tag: str, tmp: Path) -> dict:
     from tclight_torch.ops import kernels
 
     v2w = tag == "v2w"
+    extra_res = {}  # t2w: the forward with attn_backend "int8" and "int8pv"
     argv = T2W_ARGS + ["--video_save_folder", str(tmp / tag), "--checkpoint_dir",
                        str(tmp / "no-checkpoints")]
     if v2w:
@@ -2535,6 +2561,23 @@ def run_world_model(tag: str, tmp: Path) -> dict:
     cn = torch.tensor([0.5], device="cuda")
     with torch.inference_mode():
         fwd_ms = cuda_ms(lambda: model(x, cn, ctx, **extra), 2)
+        if not v2w:
+            # the same forward with the DiT's int8 attentions: K6, then K7,
+            # at each block's self-attention (28 launches), against bf16
+            ref = model(x, cn, ctx, **extra).float()
+            for backend, name in (("int8", "flash_attention_int8"),
+                                  ("int8pv", "flash_attention_int8pv")):
+                model.attn_backend = backend
+                kernels.reset_stats()
+                out_q = model(x, cn, ctx, **extra).float()
+                torch.cuda.synchronize()
+                extra_res[f"{backend}_launches"] = kernels.STATS[name].launches
+                extra_res[f"{backend}_rel_rms_vs_bf16"] = float(
+                    ((out_q - ref).pow(2).mean() / ref.pow(2).mean()).sqrt())
+                extra_res[f"{backend}_finite"] = bool(torch.isfinite(out_q).all())
+                extra_res[f"{backend}_forward_ms"] = cuda_ms(lambda: model(x, cn, ctx, **extra), 2)
+                model.attn_backend = None
+            del ref, out_q
         big = (1, 16, 88, 160, 16)
         kernels.reset_stats()
         x0_fn = make_edm_denoiser(model, ctx, **({"condition_video_input_mask": condition_mask(
@@ -2547,7 +2590,13 @@ def run_world_model(tag: str, tmp: Path) -> dict:
     DIT_K1_LAUNCH_KEYS[tag] = {**stats["flash_attention"][1], **big_keys}
     steps = pipe.stage_times.get("step_seconds", [])
     k1 = stats["flash_attention"][0]
-    ok = (n_frames == 121 and shape == (352, 640, 3) and k1 > 0 and finite_big
+    # the int8 forwards: K6 / K7 at all 28 blocks, finite, and within 0.1
+    # of the bf16 forward's RMS (the kernels are held tightly in their own
+    # rows; this guards the path: a wrong layout or a missed launch)
+    int8_ok = v2w or all(extra_res[f"{bk}_launches"] == 28 and extra_res[f"{bk}_finite"]
+                         and extra_res[f"{bk}_rel_rms_vs_bf16"] <= 0.1
+                         for bk in ("int8", "int8pv"))
+    ok = (n_frames == 121 and shape == (352, 640, 3) and k1 > 0 and finite_big and int8_ok
           and len(steps) == 2 and (not v2w or model.cfg.in_channels == 17))
     res = dict(ok=ok, params_b=params / 1e9, dit_gb=params * 2 / 1e9, build_s=held["build_s"],
                wall_s=wall, sample_s=pipe.stage_times["sample"], step_s=steps,
@@ -2556,7 +2605,7 @@ def run_world_model(tag: str, tmp: Path) -> dict:
                mp4_frames=n_frames, mp4_shape=shape, k1_launches=k1,
                k1_keys={str(k): v for k, v in stats["flash_attention"][1].items()},
                denoiser_704x1280_ms=big_ms, tokens_704x1280=16 * 44 * 80,
-               in_channels=model.cfg.in_channels)
+               in_channels=model.cfg.in_channels, **extra_res)
     del pipe, model, held
     torch.cuda.empty_cache()
     return {"stats": stats, "result": res}
@@ -3303,11 +3352,15 @@ def main() -> int:
     k1_rows = {key: row for (name, key), row in held.items() if name == "flash_attention"}
     for tag, world in worlds.items():
         report_world_model(tag, world["result"], k1_rows)
-    # K6 and K7 at the DiT's self-attention (the t2w run's 14,080 tokens),
-    # where its attn_backend "int8" / "int8pv" sends it
+    # K6 and K7 at the DiTs' self-attention, where their attn_backend "int8"
+    # / "int8pv" sends it: the decoder's 5,120 tokens, the t2w run's 14,080
+    # and the CLI's default 704 x 1280 (56,320; the plain version held on 8
+    # of the 32 heads there: the whole call's takes ~5 s and ~40 GB)
     dit_int8 = {pv: {"rows": [], "prepass_rows": [], "maxpass_rows": []} for pv in (False, True)}
     for pv in (False, True):
-        int8_row("dit t2w", 1, 14080, 32, 128, gen, pv, dit_int8[pv])
+        for label, s, heads in (("dit dd", 5120, None), ("dit t2w", 14080, None),
+                                ("dit t2w-704", 56320, 8)):
+            int8_row(label, 1, s, 32, 128, gen, pv, dit_int8[pv], plain_heads=heads)
     # the AR world stack: [ar-v2w]'s token grid feeds [dd]; then the
     # guardrail models and the card-against-CPU checks
     ar = run_ar_v2w()

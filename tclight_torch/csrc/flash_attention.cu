@@ -447,17 +447,6 @@ bool make_kv_map(CUtensorMap* map, const void* kv, int BH, int S, int D, int DP,
   return tensor_map_4d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, kv, dims, strides, box);
 }
 
-// q, k or v (B, S, H, D) as it lies, D = 128, as 4-d (D, H, S, B) in the
-// 128-byte swizzle: boxes of 64 dims (128 bytes) x `rows` tokens of one
-// head, two per row of D; tokens past S read as zeros
-bool make_sw128_map(CUtensorMap* map, const void* x, int B, int S, int H, int rows) {
-  const cuuint64_t dims[4] = {(cuuint64_t)SW_D, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)SW_D * 2, (cuuint64_t)H * SW_D * 2,
-                                 (cuuint64_t)S * H * SW_D * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
-  return tensor_map_4d_sw128(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, dims, strides, box);
-}
-
 template <int DP, bool SW>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int Sq,
            int Skv, int D, float scale, cudaStream_t stream) {
@@ -473,8 +462,9 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H, i
   CUtensorMap tq, tk, tv;
   bool mapped;
   if constexpr (SW)
-    mapped = make_sw128_map(&tq, q, B, Sq, H, SW_BQ) && make_sw128_map(&tk, k, B, Skv, H, SW_BK) &&
-             make_sw128_map(&tv, v, B, Skv, H, SW_BK);
+    mapped = tensor_map_bshd_sw128(&tq, q, B, Sq, H, SW_BQ) &&
+             tensor_map_bshd_sw128(&tk, k, B, Skv, H, SW_BK) &&
+             tensor_map_bshd_sw128(&tv, v, B, Skv, H, SW_BK);
   else
     mapped = make_q_map(&tq, q, B, Sq, H, D, q_rows(DP)) &&
              make_kv_map(&tk, k, B * H, Skv, D, DP, kv_rows(DP)) &&

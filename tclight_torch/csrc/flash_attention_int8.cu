@@ -24,6 +24,8 @@
 // (BH, ceil16(Skv) / 16, D, 16) int8, each 16 bytes the 16 keys of one
 // channel in the permuted order that the score fragment packs into (see
 // there); sv (BH, D) f32.
+// At D = 128: q8 (BH, Sq, 128), k8 (BH, Skv, 128) row-major, v8 (BH, 128,
+// ceil128(Skv)) channel-major in the same key order (see below).
 //
 // What bounds it on the H100: at the level-0 UNet self-attention (S ~
 // 35.6k tokens, 8 heads, head dim 40) each product is 2*B*H*S^2*D ~ 0.8 T
@@ -65,7 +67,7 @@
 //   * sq (the same as the max of the products, since rounding is monotone;
 //   c <= 0 takes the product first). Each consumer warpgroup keeps two
 //   score buffers: tile j + 1's q.k^T runs on the tensor cores while it
-//   reduces tile j.
+//   reduces tile j (one at D = 128, where it measured faster).
 // - Attention (`flash_int8pv_wgmma_kernel`): p = exp2(fma(s * sk, c, -bm))
 //   (the padded keys' p set to 0), l += sp * sum(p) per tile, p8 = the low
 //   byte of fma(127, p, 1.5 * 2^23) (round half to even without a
@@ -80,17 +82,36 @@
 //   flight; the two consumer warpgroups take turns to issue (named-barrier
 //   ping-pong). No wgmma is issued under a condition.
 // - out = acc * sv / max(l, 1e-30), written in bf16.
+// - Head dim 128 (the Cosmos DiTs' attn_backend "int8pv") has a layout of
+//   its own (SW = true), as K1's and K6's: the 16-byte-wide boxes of the
+//   chunk-major tiles held the kernels back (PERF.md, the head-dim-128
+//   ablation). q8 and k8 are K6's row-major (BH, S, 128), v8 is
+//   channel-major (BH, 128, ceil128(Skv)); each q8 or k8 tile is one box
+//   of 128-byte rows, each v8 tile one box of 128 channels x 128 keys (a
+//   channel's keys are one 128-byte row), all in the 128-byte swizzle that
+//   the s8 wgmma reads through K-major descriptors (32 bytes a k32 step).
+//   v8's keys keep their order within each 16, so p8 still goes to wgmma
+//   as it lies in the A fragment. 128 q rows (one 64-row block per
+//   consumer warpgroup), 128-key tiles (the live registers: 64 scores, 64
+//   int32 p.v sums, the 64-value accumulator and 16 of p8 a thread, under
+//   the consumers' 240), 3 stages. The max pass runs its q.k^T on s8
+//   wgmma over the same in-place q8 / k8 tiles, exact as the bf16 product
+//   (|q8 . k8| <= 128 * 127^2 < 2^24), for one conversion a score, and the
+//   pre-pass writes no bf16 copies. Every other head dim keeps its layout.
 //
 // Shared memory per block: the attention BQ * DK + NST * BK * (DK + DP + 4)
-// bytes (46,080 at D = 40, 104,448 at D = 80, 103,424 at D = 160), the max
-// pass BQ * 2 DP + NST * BK * (2 DP + 4) (50,176 at D = 40), and the
-// barriers.
+// bytes (46,080 at D = 40, 104,448 at D = 80, 103,424 at D = 160; 116,224
+// at D = 128, 3 stages), the max pass BQ * 2 DP + NST * BK * (2 DP + 4)
+// (50,176 at D = 40; at D = 128 on q8 / k8 BQ * 128 + 3 * BK * 132,
+// 67,072), the barriers, and at D = 128 the 1,024-byte alignment.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -120,6 +141,22 @@ __host__ __device__ constexpr size_t smem_bytes_maxpass(int dp) {
          8 * (1 + 2 * NST) + 128;
 }
 
+// D = 128 reads its operands in place in the 128-byte swizzle: q8 and k8
+// (one int8 row is one swizzle row), v8 channel-major (a channel's 128
+// keys of a tile are one swizzle row); 128 q rows (one 64-row block per
+// consumer warpgroup), SW_BK-key tiles, SW_NST stages (the max pass ran
+// faster on 3 than on 4, the attention as fast), tiles aligned to 1,024
+// bytes. The max pass runs its q.k^T on s8 wgmma over q8 and k8 (on bf16
+// copies in the same swizzle it was slower, PERF.md).
+constexpr int SW_D = 128;
+constexpr int SW_BQ = 128;
+constexpr int SW_BK = 128;
+constexpr int SW_NST = 3;
+constexpr size_t SW_SMEM = (size_t)SW_BQ * SW_D + (size_t)SW_NST * SW_BK * (2 * SW_D + 4) +
+                           8 * (1 + 2 * SW_NST) + 1024;
+constexpr size_t SW_SMEM_MAXPASS = (size_t)SW_BQ * SW_D + (size_t)SW_NST * SW_BK * (SW_D + 4) +
+                                   8 * (1 + 2 * SW_NST) + 1024;
+
 __device__ __forceinline__ float fast_exp2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
@@ -130,6 +167,10 @@ __device__ __forceinline__ float fast_exp2(float x) {
 __device__ __forceinline__ float s32_to_f32(uint32_t x) { return (float)(int)x; }
 
 constexpr float ROUND_MAGIC = 12582912.f;  // 1.5 * 2^23: its low bits round to an integer
+
+// a max-pass score as f32: the bf16 product's f32 sum, or the s8 one's int32
+__device__ __forceinline__ float score_f32(float x) { return x; }
+__device__ __forceinline__ float score_f32(uint32_t x) { return s32_to_f32(x); }
 
 // the low bytes of four words, in order
 __device__ __forceinline__ uint32_t pack_low_bytes(uint32_t a, uint32_t b, uint32_t c,
@@ -144,8 +185,8 @@ __device__ __forceinline__ uint32_t pack_low_bytes(uint32_t a, uint32_t b, uint3
 // row block, keys 8n + 2t, +1. TAIL masks the keys past Skv (lim: Skv less
 // the tile's first key and 2t); FOLD (c > 0) leaves the multiply by c to
 // the block's end.
-template <int MB, int BK, bool TAIL, bool FOLD>
-__device__ __forceinline__ void reduce_tile(const float (&s)[MB][BK / 2], float (&bmax)[MB][2],
+template <int MB, int BK, bool TAIL, bool FOLD, class T>
+__device__ __forceinline__ void reduce_tile(const T (&s)[MB][BK / 2], float (&bmax)[MB][2],
                                             const float* tS, int t, int lim, float c_row) {
 #pragma unroll
   for (int n = 0; n < BK / 8; ++n) {
@@ -154,7 +195,7 @@ __device__ __forceinline__ void reduce_tile(const float (&s)[MB][BK / 2], float 
     for (int mb = 0; mb < MB; ++mb)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float u = s[mb][4 * n + e] * ((e & 1) ? skv.y : skv.x);
+        float u = score_f32(s[mb][4 * n + e]) * ((e & 1) ? skv.y : skv.x);
         if constexpr (!FOLD) u *= c_row;
         if constexpr (TAIL) u = n * 8 + (e & 1) < lim ? u : -INFINITY;
         bmax[mb][e >> 1] = fmaxf(bmax[mb][e >> 1], u);
@@ -164,26 +205,33 @@ __device__ __forceinline__ void reduce_tile(const float (&s)[MB][BK / 2], float 
 
 // The max pass, on q8's and k8's values in bf16 (exact): the bf16 product
 // with f32 sums gives the exact dot already as f32 (|dot| < 2^22), so a
-// score costs a multiply and a max.
-template <int DP>
+// score costs a multiply and a max. SW (D = 128): on q8 and k8 in place
+// by s8 wgmma (the int32 dot converts to f32 exactly, |dot| <= 128 *
+// 127^2 < 2^24), half the operand bytes and tensor-core time of the bf16
+// product for one conversion a score.
+template <int DP, bool SW>
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_int8_blockmax_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
                            const float* __restrict__ sq, const float* __restrict__ sk,
                            float* __restrict__ blockmax, int Sq, int Skv, int n_qb, int bq,
                            int skv_pad, int tiles_per_block, int n_kb, float scale_log2) {
-  constexpr int MB = row_blocks(DP);
-  constexpr int BQ = q_rows(DP);
-  constexpr int BK = kv_rows(DP);
-  constexpr int ROW = DP * 2;  // bytes of a bf16 row
+  static_assert(!SW || DP == SW_D, "the swizzled path is D = 128's");
+  constexpr int MB = SW ? 1 : row_blocks(DP);
+  constexpr int BQ = SW ? SW_BQ : q_rows(DP);
+  constexpr int BK = SW ? SW_BK : kv_rows(DP);
+  constexpr int NS = SW ? SW_NST : NST;  // ring stages
+  constexpr int ROW = SW ? SW_D : DP * 2;  // bytes of a q or k row: int8, or bf16
+  constexpr uintptr_t ALIGN = SW ? 1024 : 128;
+  using Score = typename std::conditional<SW, uint32_t, float>::type;  // s32 or f32 sums
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sQ = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~uintptr_t(127));
+      (reinterpret_cast<uintptr_t>(smem_raw) + ALIGN - 1) & ~(ALIGN - 1));
   unsigned char* sK = sQ + BQ * ROW;
-  float* sS = reinterpret_cast<float*>(sK + NST * BK * ROW);
-  uint64_t* qbar = reinterpret_cast<uint64_t*>(sS + NST * BK);
+  float* sS = reinterpret_cast<float*>(sK + NS * BK * ROW);
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(sS + NS * BK);
   uint64_t* full = qbar + 1;
-  uint64_t* empty = full + NST;
+  uint64_t* empty = full + NS;
 
   const int q0 = blockIdx.x * BQ;
   const int bh = blockIdx.y;
@@ -192,7 +240,7 @@ flash_int8_blockmax_kernel(const __grid_constant__ CUtensorMap tq,
 
   if (threadIdx.x == 0) {
     mbar_init(qbar, 1);
-    for (int s = 0; s < NST; ++s) {
+    for (int s = 0; s < NS; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 2 * 4);  // one arrive per consumer warp
     }
@@ -204,12 +252,14 @@ flash_int8_blockmax_kernel(const __grid_constant__ CUtensorMap tq,
     setmaxnreg_dec<24>();
     if (threadIdx.x == 0) {
       mbar_expect_tx(qbar, BQ * ROW);
-      tma_load_4d(sQ, &tq, qbar, 0, q0, 0, bh);
+      if constexpr (SW) tma_load_4d(sQ, &tq, qbar, 0, q0, bh, 0);
+      else tma_load_4d(sQ, &tq, qbar, 0, q0, 0, bh);
       for (int j = 0; j < n_tiles; ++j) {
-        const int st = j % NST;
-        if (j >= NST) mbar_wait(&empty[st], ((j / NST) - 1) & 1);
+        const int st = j % NS;
+        if (j >= NS) mbar_wait(&empty[st], ((j / NS) - 1) & 1);
         mbar_expect_tx(&full[st], BK * ROW + BK * 4);
-        tma_load_4d(sK + st * BK * ROW, &tk, &full[st], 0, j * BK, 0, bh);
+        if constexpr (SW) tma_load_4d(sK + st * BK * ROW, &tk, &full[st], 0, j * BK, bh, 0);
+        else tma_load_4d(sK + st * BK * ROW, &tk, &full[st], 0, j * BK, 0, bh);
         bulk_load(sS + st * BK, sk + (long)bh * skv_pad + j * BK, BK * 4, &full[st]);
       }
     }
@@ -224,37 +274,45 @@ flash_int8_blockmax_kernel(const __grid_constant__ CUtensorMap tq,
     const bool fold = c_row > 0.f;  // max(u) * c == max(u * c): rounding is monotone
 
     // two score buffers: tile j + 1's q.k^T runs on the tensor cores while
-    // this warpgroup reduces tile j
-    float sa[MB][BK / 2], sb[MB][BK / 2];
+    // this warpgroup reduces tile j (SW: one, see below)
+    Score sa[MB][BK / 2], sb[MB][BK / 2];
     float bmax[MB][2];
 #pragma unroll
     for (int mb = 0; mb < MB; ++mb) {
 #pragma unroll
-      for (int i = 0; i < BK / 2; ++i) sa[mb][i] = sb[mb][i] = 0.f;
+      for (int i = 0; i < BK / 2; ++i) sa[mb][i] = sb[mb][i] = 0;
       bmax[mb][0] = bmax[mb][1] = -INFINITY;
     }
     // q k^T of tile j into sc: per row block, 64 rows x BK keys in DP / 16
-    // steps of depth 16 (two 16-byte chunks), both operands K-major
-    auto issue = [&](float (&sc)[MB][BK / 2], int j) {
-      mbar_wait(&full[j % NST], (j / NST) & 1);
+    // steps of depth 16 (two 16-byte chunks), both operands K-major. SW: s8,
+    // 32 bytes a k32 step within the 128-byte rows, this warpgroup's 64 rows
+    // 8 KB into the tile
+    auto issue = [&](Score (&sc)[MB][BK / 2], int j) {
+      mbar_wait(&full[j % NS], (j / NS) & 1);
 #pragma unroll
       for (int mb = 0; mb < MB; ++mb) fence_regs(sc[mb]);
       wgmma_fence();
-      const unsigned char* tK = sK + (j % NST) * BK * ROW;
+      const unsigned char* tK = sK + (j % NS) * BK * ROW;
 #pragma unroll
-      for (int kk = 0; kk < DP / 16; ++kk)
+      for (int kk = 0; kk < ROW / 32; ++kk)
 #pragma unroll
-        for (int mb = 0; mb < MB; ++mb)
-          WgmmaSS<BK>::run(sc[mb],
-                           wgmma_desc(sQ + (cw * MB + mb) * 64 * 16 + kk * 2 * BQ * 16, BQ * 16,
-                                      128),
-                           wgmma_desc(tK + kk * 2 * BK * 16, BK * 16, 128), kk > 0 ? 1 : 0);
+        for (int mb = 0; mb < MB; ++mb) {
+          if constexpr (SW)
+            WgmmaS8<BK>::run(sc[mb], wgmma_desc_sw128(sQ + (cw * MB + mb) * 64 * ROW + kk * 32, 16,
+                                                      1024),
+                             wgmma_desc_sw128(tK + kk * 32, 16, 1024), kk > 0 ? 1 : 0);
+          else
+            WgmmaSS<BK>::run(sc[mb],
+                             wgmma_desc(sQ + (cw * MB + mb) * 64 * 16 + kk * 2 * BQ * 16, BQ * 16,
+                                        128),
+                             wgmma_desc(tK + kk * 2 * BK * 16, BK * 16, 128), kk > 0 ? 1 : 0);
+        }
       wgmma_commit();
     };
-    auto finish = [&](float (&sc)[MB][BK / 2], int j) {
+    auto finish = [&](Score (&sc)[MB][BK / 2], int j) {
 #pragma unroll
       for (int mb = 0; mb < MB; ++mb) fence_regs(sc[mb]);
-      const float* tS = sS + (j % NST) * BK;
+      const float* tS = sS + (j % NS) * BK;
       const int lim = Skv - j * BK - 2 * t;  // this thread's keys 8n + 2t + e' < Skv
       if ((j + 1) * BK > Skv) {
         if (fold) reduce_tile<MB, BK, true, true>(sc, bmax, tS, t, lim, c_row);
@@ -264,7 +322,7 @@ flash_int8_blockmax_kernel(const __grid_constant__ CUtensorMap tq,
         else reduce_tile<MB, BK, false, false>(sc, bmax, tS, t, lim, c_row);
       }
       __syncwarp();
-      if (lane == 0) mbar_arrive(&empty[j % NST]);
+      if (lane == 0) mbar_arrive(&empty[j % NS]);
       if ((j + 1) % tiles_per_block == 0 || j + 1 == n_tiles) {
         const int kb = j / tiles_per_block;
 #pragma unroll
@@ -282,32 +340,42 @@ flash_int8_blockmax_kernel(const __grid_constant__ CUtensorMap tq,
       }
     };
     mbar_wait(qbar, 0);
-    issue(sa, 0);
-    int j = 0;
-    for (; j + 2 < n_tiles; j += 2) {  // tile j is in flight in sa
-      issue(sb, j + 1);
-      wgmma_wait<1>();
-      finish(sa, j);
-      issue(sa, j + 2);
-      wgmma_wait<1>();
-      finish(sb, j + 1);
-    }
-    if (j + 1 < n_tiles) {  // two tiles left
-      issue(sb, j + 1);
-      wgmma_wait<1>();
-      finish(sa, j);
-      wgmma_wait<0>();
-      finish(sb, j + 1);
+    if constexpr (SW) {
+      // one score buffer: with two, ptxas waited for the tile in flight
+      // anyway (C7517) and the pass ran 3-4% slower (PERF.md)
+      for (int j = 0; j < n_tiles; ++j) {
+        issue(sa, j);
+        wgmma_wait<0>();
+        finish(sa, j);
+      }
     } else {
-      wgmma_wait<0>();
-      finish(sa, j);
+      issue(sa, 0);
+      int j = 0;
+      for (; j + 2 < n_tiles; j += 2) {  // tile j is in flight in sa
+        issue(sb, j + 1);
+        wgmma_wait<1>();
+        finish(sa, j);
+        issue(sa, j + 2);
+        wgmma_wait<1>();
+        finish(sb, j + 1);
+      }
+      if (j + 1 < n_tiles) {  // two tiles left
+        issue(sb, j + 1);
+        wgmma_wait<1>();
+        finish(sa, j);
+        wgmma_wait<0>();
+        finish(sb, j + 1);
+      } else {
+        wgmma_wait<0>();
+        finish(sa, j);
+      }
     }
   }
 }
 
 // -------------------------------------------------------------- attention
 
-template <int DK, int DP>
+template <int DK, int DP, bool SW>
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_int8pv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
@@ -316,18 +384,22 @@ flash_int8pv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                           const float* __restrict__ sv, const float* __restrict__ blockmax,
                           __nv_bfloat16* __restrict__ o, int H, int Sq, int Skv, int D, int n_qb,
                           int bq, int skv_pad, int tiles_per_block, int n_kb, float scale_log2) {
-  constexpr int MB = row_blocks(DP);
-  constexpr int BQ = q_rows(DP);
-  constexpr int BK = kv_rows(DP);
+  static_assert(!SW || (DK == SW_D && DP == SW_D), "the swizzled path is D = 128's");
+  constexpr int MB = SW ? 1 : row_blocks(DP);
+  constexpr int BQ = SW ? SW_BQ : q_rows(DP);
+  constexpr int BK = SW ? SW_BK : kv_rows(DP);
+  constexpr int NS = SW ? SW_NST : NST;  // ring stages
+  constexpr uintptr_t ALIGN = SW ? 1024 : 128;
   extern __shared__ unsigned char smem_raw[];
   int8_t* sQ = reinterpret_cast<int8_t*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~uintptr_t(127));
-  int8_t* sK = sQ + BQ * DK;                  // NST k8 tiles
-  int8_t* sV = sK + NST * BK * DK;            // NST v8 tiles, [16-key chunk][channel][16]
-  float* sS = reinterpret_cast<float*>(sV + NST * BK * DP);  // NST tiles of K scales
-  uint64_t* qbar = reinterpret_cast<uint64_t*>(sS + NST * BK);
+      (reinterpret_cast<uintptr_t>(smem_raw) + ALIGN - 1) & ~(ALIGN - 1));
+  int8_t* sK = sQ + BQ * DK;                  // NS k8 tiles
+  // NS v8 tiles, [16-key chunk][channel][16]; SW [channel][key], swizzled
+  int8_t* sV = sK + NS * BK * DK;
+  float* sS = reinterpret_cast<float*>(sV + NS * BK * DP);  // NS tiles of K scales
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(sS + NS * BK);
   uint64_t* full = qbar + 1;
-  uint64_t* empty = full + NST;
+  uint64_t* empty = full + NS;
 
   const int q0 = blockIdx.x * BQ;
   const int bh = blockIdx.y;
@@ -340,7 +412,7 @@ flash_int8pv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
   if (threadIdx.x == 0) {
     mbar_init(qbar, 1);
-    for (int s = 0; s < NST; ++s) {
+    for (int s = 0; s < NS; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 2 * 4);  // one arrive per consumer warp
     }
@@ -353,13 +425,19 @@ flash_int8pv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     setmaxnreg_dec<24>();
     if (threadIdx.x == 0) {
       mbar_expect_tx(qbar, BQ * DK);
-      tma_load_4d(sQ, &tq, qbar, 0, q0, 0, bh);
+      if constexpr (SW) tma_load_4d(sQ, &tq, qbar, 0, q0, bh, 0);
+      else tma_load_4d(sQ, &tq, qbar, 0, q0, 0, bh);
       for (int j = 0; j < n_tiles; ++j) {
-        const int st = j % NST;
-        if (j >= NST) mbar_wait(&empty[st], ((j / NST) - 1) & 1);
+        const int st = j % NS;
+        if (j >= NS) mbar_wait(&empty[st], ((j / NS) - 1) & 1);
         mbar_expect_tx(&full[st], BK * DK + BK * DP + BK * 4);
-        tma_load_4d(sK + st * BK * DK, &tk, &full[st], 0, j * BK, 0, bh);
-        tma_load_4d(sV + st * BK * DP, &tv, &full[st], 0, 0, j * (BK / 16), bh);
+        if constexpr (SW) {
+          tma_load_4d(sK + st * BK * DK, &tk, &full[st], 0, j * BK, bh, 0);
+          tma_load_4d(sV + st * BK * DP, &tv, &full[st], j * BK, 0, bh, 0);
+        } else {
+          tma_load_4d(sK + st * BK * DK, &tk, &full[st], 0, j * BK, 0, bh);
+          tma_load_4d(sV + st * BK * DP, &tv, &full[st], 0, 0, j * (BK / 16), bh);
+        }
         bulk_load(sS + st * BK, sk + (long)bh * skv_pad + j * BK, BK * 4, &full[st]);
       }
     }
@@ -420,29 +498,43 @@ flash_int8pv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       }
     };
 
+    // q8 k8^T as K6's (swizzled: 32 bytes a k32 step within the 128-byte
+    // rows, this warpgroup's 64 q rows 8 KB into the tile)
     auto issue_qk = [&](int j) {
-      const int8_t* tK = sK + (j % NST) * BK * DK;
+      const int8_t* tK = sK + (j % NS) * BK * DK;
 #pragma unroll
       for (int kk = 0; kk < DK / 32; ++kk)
 #pragma unroll
-        for (int mb = 0; mb < MB; ++mb)
-          WgmmaS8<BK>::run(s[mb],
-                           wgmma_desc(sQ + (cw * MB + mb) * 64 * 16 + kk * 2 * BQ * 16, BQ * 16,
-                                      128),
-                           wgmma_desc(tK + kk * 2 * BK * 16, BK * 16, 128), kk > 0 ? 1 : 0);
+        for (int mb = 0; mb < MB; ++mb) {
+          if constexpr (SW)
+            WgmmaS8<BK>::run(s[mb], wgmma_desc_sw128(sQ + (cw * MB + mb) * 64 * DK + kk * 32, 16, 1024),
+                             wgmma_desc_sw128(tK + kk * 32, 16, 1024), kk > 0 ? 1 : 0);
+          else
+            WgmmaS8<BK>::run(s[mb],
+                             wgmma_desc(sQ + (cw * MB + mb) * 64 * 16 + kk * 2 * BQ * 16, BQ * 16,
+                                        128),
+                             wgmma_desc(tK + kk * 2 * BK * 16, BK * 16, 128), kk > 0 ? 1 : 0);
+        }
       wgmma_commit();
     };
     // pv (+)= p8 v8 of tile j; v8 K-major: the next 16 keys DP * 16 bytes
-    // on, the next 8 channels 128; the first tile of a P block overwrites
+    // on, the next 8 channels 128 (swizzled: 32 keys a step, 32 bytes
+    // within a channel's 128-byte row, the next 8 channels 1,024 bytes on);
+    // the first tile of a P block overwrites
     auto issue_pv = [&](int j) {
-      const int8_t* tV = sV + (j % NST) * BK * DP;
+      const int8_t* tV = sV + (j % NS) * BK * DP;
       const int keep = j % tiles_per_block != 0;
 #pragma unroll
       for (int kk = 0; kk < BK / 32; ++kk)
 #pragma unroll
-        for (int mb = 0; mb < MB; ++mb)
-          WgmmaS8RS<DP>::run(pv[mb], pa[mb][kk], wgmma_desc(tV + kk * 2 * DP * 16, DP * 16, 128),
-                             kk > 0 ? 1 : keep);
+        for (int mb = 0; mb < MB; ++mb) {
+          if constexpr (SW)
+            WgmmaS8RS<DP>::run(pv[mb], pa[mb][kk], wgmma_desc_sw128(tV + kk * 32, 16, 1024),
+                               kk > 0 ? 1 : keep);
+          else
+            WgmmaS8RS<DP>::run(pv[mb], pa[mb][kk],
+                               wgmma_desc(tV + kk * 2 * DP * 16, DP * 16, 128), kk > 0 ? 1 : keep);
+        }
       wgmma_commit();
     };
     // the softmax of tile j: p = exp2(w - bm), l += sp * sum(p), and p8 in
@@ -461,7 +553,7 @@ flash_int8pv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
           }
       }
       const int kv0 = j * BK;
-      const float* tS = sS + (j % NST) * BK;
+      const float* tS = sS + (j % NS) * BK;
       const bool tail = kv0 + BK > Skv;
 #pragma unroll
       for (int mb = 0; mb < MB; ++mb) {
@@ -533,7 +625,7 @@ flash_int8pv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     for (int j = 0; j + 1 < n_tiles; ++j) {
 #pragma unroll
       for (int mb = 0; mb < MB; ++mb) sp_pv[mb][0] = sp_cur[mb][0], sp_pv[mb][1] = sp_cur[mb][1];
-      mbar_wait(&full[(j + 1) % NST], ((j + 1) / NST) & 1);
+      mbar_wait(&full[(j + 1) % NS], ((j + 1) / NS) & 1);
       take_turn();
       fence_all();
       wgmma_fence();
@@ -549,7 +641,7 @@ flash_int8pv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       pack_p();
       // this warp is done with stage j: one arrive for its 32 threads
       __syncwarp();
-      if (lane == 0) mbar_arrive(&empty[j % NST]);
+      if (lane == 0) mbar_arrive(&empty[j % NS]);
     }
 #pragma unroll
     for (int mb = 0; mb < MB; ++mb) sp_pv[mb][0] = sp_cur[mb][0], sp_pv[mb][1] = sp_cur[mb][1];
@@ -632,52 +724,66 @@ bool make_bf16_map(CUtensorMap* map, const void* x, int BH, int S, int DP, int r
   return tensor_map_4d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, dims, strides, box);
 }
 
-template <int DP>
+template <int DP, bool SW>
 int launch_blockmax(const void* qb, const void* kb, const void* sq, const void* sk,
                     void* blockmax, int B, int H, int Sq, int Skv, int bq, float scale,
                     cudaStream_t stream) {
-  const size_t bytes = smem_bytes_maxpass(DP);
+  const size_t bytes = SW ? SW_SMEM_MAXPASS : smem_bytes_maxpass(DP);
   static bool attr_set = false;  // once per kernel instance, not per launch
   if (!attr_set) {
-    const int err = set_smem(flash_int8_blockmax_kernel<DP>, bytes);
+    const int err = set_smem(flash_int8_blockmax_kernel<DP, SW>, bytes);
     if (err) return err;
     attr_set = true;
   }
+  const int bq_rows = SW ? SW_BQ : q_rows(DP), bk = SW ? SW_BK : kv_rows(DP);
   CUtensorMap tq, tk;
-  if (!make_bf16_map(&tq, qb, B * H, Sq, DP, q_rows(DP)) ||
-      !make_bf16_map(&tk, kb, B * H, Skv, DP, kv_rows(DP)))
-    return (int)cudaErrorInvalidValue;
+  bool mapped;
+  if constexpr (SW)
+    mapped = tensor_map_rows_sw128(&tq, qb, B * H, Sq, SW_D, bq_rows) &&
+             tensor_map_rows_sw128(&tk, kb, B * H, Skv, SW_D, bk);
+  else
+    mapped = make_bf16_map(&tq, qb, B * H, Sq, DP, bq_rows) &&
+             make_bf16_map(&tk, kb, B * H, Skv, DP, bk);
+  if (!mapped) return (int)cudaErrorInvalidValue;
   const int pb = p_block(Skv);
-  const dim3 grid((Sq + q_rows(DP) - 1) / q_rows(DP), B * H);
-  flash_int8_blockmax_kernel<DP><<<grid, NTHREADS, bytes, stream>>>(
+  const dim3 grid((Sq + bq_rows - 1) / bq_rows, B * H);
+  flash_int8_blockmax_kernel<DP, SW><<<grid, NTHREADS, bytes, stream>>>(
       tq, tk, (const float*)sq, (const float*)sk, (float*)blockmax, Sq, Skv, (Sq + bq - 1) / bq,
-      bq, (Skv + 127) / 128 * 128, pb / kv_rows(DP), (Skv + pb - 1) / pb,
-      scale * 1.4426950408889634f);
+      bq, (Skv + 127) / 128 * 128, pb / bk, (Skv + pb - 1) / pb, scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
 
-template <int DK, int DP>
+template <int DK, int DP, bool SW>
 int launch(const void* q8, const void* k8, const void* v8, const void* sq, const void* sk,
            const void* sv, const void* blockmax, void* o, int B, int H, int Sq, int Skv, int D,
            int bq, float scale, cudaStream_t stream) {
-  const size_t bytes = smem_bytes(DK, DP);
+  const size_t bytes = SW ? SW_SMEM : smem_bytes(DK, DP);
   static bool attr_set = false;
   if (!attr_set) {
-    const int err = set_smem(flash_int8pv_wgmma_kernel<DK, DP>, bytes);
+    const int err = set_smem(flash_int8pv_wgmma_kernel<DK, DP, SW>, bytes);
     if (err) return err;
     attr_set = true;
   }
+  const int bq_rows = SW ? SW_BQ : q_rows(DP), bk = SW ? SW_BK : kv_rows(DP);
+  const int skv_pad = (Skv + 127) / 128 * 128;
   CUtensorMap tq, tk, tv;
-  if (!make_s8_map(&tq, q8, B * H, Sq, DK, q_rows(DP)) ||
-      !make_s8_map(&tk, k8, B * H, Skv, DK, kv_rows(DP)) ||
-      !make_v8_map(&tv, v8, B * H, Skv, D, DP, kv_rows(DP)))
-    return (int)cudaErrorInvalidValue;
+  bool mapped;
+  if constexpr (SW)
+    // q8, k8 (BH, S, 128); v8 (BH, 128 channels, skv_pad keys)
+    mapped = tensor_map_rows_sw128(&tq, q8, B * H, Sq, SW_D, bq_rows) &&
+             tensor_map_rows_sw128(&tk, k8, B * H, Skv, SW_D, bk) &&
+             tensor_map_rows_sw128(&tv, v8, B * H, SW_D, skv_pad, SW_D);
+  else
+    mapped = make_s8_map(&tq, q8, B * H, Sq, DK, bq_rows) &&
+             make_s8_map(&tk, k8, B * H, Skv, DK, bk) &&
+             make_v8_map(&tv, v8, B * H, Skv, D, DP, bk);
+  if (!mapped) return (int)cudaErrorInvalidValue;
   const int pb = p_block(Skv);
-  const dim3 grid((Sq + q_rows(DP) - 1) / q_rows(DP), B * H);
-  flash_int8pv_wgmma_kernel<DK, DP><<<grid, NTHREADS, bytes, stream>>>(
+  const dim3 grid((Sq + bq_rows - 1) / bq_rows, B * H);
+  flash_int8pv_wgmma_kernel<DK, DP, SW><<<grid, NTHREADS, bytes, stream>>>(
       tq, tk, tv, (const float*)sq, (const float*)sk, (const float*)sv, (const float*)blockmax,
-      (__nv_bfloat16*)o, H, Sq, Skv, D, (Sq + bq - 1) / bq, bq, (Skv + 127) / 128 * 128,
-      pb / kv_rows(DP), (Skv + pb - 1) / pb, scale * 1.4426950408889634f);
+      (__nv_bfloat16*)o, H, Sq, Skv, D, (Sq + bq - 1) / bq, bq, skv_pad, pb / bk,
+      (Skv + pb - 1) / pb, scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
 
@@ -693,8 +799,8 @@ bool bad_shape(int B, int H, int Sq, int Skv, int D, int bq) {
   CALL(32, 16) CALL(32, 32) CALL(64, 48) CALL(64, 64) CALL(96, 80) CALL(96, 96) \
   CALL(128, 112) CALL(128, 128) CALL(160, 144) CALL(160, 160)
 
-// The max pass. qb, kb (q8's and k8's values in bf16), sq, sk as the PV
-// pre-pass writes them; blockmax (B*H, Sq, n_kb) f32, n_kb = ceil(Skv / PB), PB = min(1024, ceil128(Skv)): each
+// The max pass. qb, kb (q8's and k8's values in bf16; at D = 128 q8 and
+// k8 themselves), sq, sk as the PV pre-pass writes them; blockmax (B*H, Sq, n_kb) f32, n_kb = ceil(Skv / PB), PB = min(1024, ceil128(Skv)): each
 // (row, P block)'s max of w (log2 units), the keys past Skv left out. D % 8
 // == 0, D <= 160; bq = min(1024, ceil128(Sq)). Returns cudaGetLastError()
 // after the launch (cudaErrorInvalidValue when the arguments or the tensor
@@ -704,9 +810,11 @@ extern "C" int tclight_int8pv_blockmax(const void* qb, const void* kb, const voi
                                        int Skv, int D, int bq, float scale, void* stream) {
   if (bad_shape(B, H, Sq, Skv, D, bq)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  if (D == SW_D)
+    return launch_blockmax<SW_D, true>(qb, kb, sq, sk, blockmax, B, H, Sq, Skv, bq, scale, s);
 #define TCLIGHT_CASE(DK_, DP_)                                                            \
   if ((D + 15) / 16 * 16 == DP_)                                                          \
-    return launch_blockmax<DP_>(qb, kb, sq, sk, blockmax, B, H, Sq, Skv, bq, scale, s);
+    return launch_blockmax<DP_, false>(qb, kb, sq, sk, blockmax, B, H, Sq, Skv, bq, scale, s);
   TCLIGHT_INT8PV_CASES(TCLIGHT_CASE)
 #undef TCLIGHT_CASE
   return (int)cudaErrorInvalidValue;
@@ -721,10 +829,13 @@ extern "C" int tclight_flash_attention_int8pv(const void* q8, const void* k8, co
                                               void* stream) {
   if (bad_shape(B, H, Sq, Skv, D, bq)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  if (D == SW_D)
+    return launch<SW_D, SW_D, true>(q8, k8, v8, sq, sk, sv, blockmax, o, B, H, Sq, Skv, D, bq,
+                                    scale, s);
 #define TCLIGHT_CASE(DK_, DP_)                                                              \
   if ((D + 31) / 32 * 32 == DK_ && (D + 15) / 16 * 16 == DP_)                               \
-    return launch<DK_, DP_>(q8, k8, v8, sq, sk, sv, blockmax, o, B, H, Sq, Skv, D, bq, scale, \
-                            s);
+    return launch<DK_, DP_, false>(q8, k8, v8, sq, sk, sv, blockmax, o, B, H, Sq, Skv, D, bq, \
+                                   scale, s);
   TCLIGHT_INT8PV_CASES(TCLIGHT_CASE)
 #undef TCLIGHT_CASE
   return (int)cudaErrorInvalidValue;

@@ -33,7 +33,9 @@
 // zero-padded to DK = ceil32(D); v (BH, D / 8, Skv, 8) bf16, chunk-major
 // as K1's wrapper copies it; sq (BH, n_qb) and sk (BH, ceil128(Skv)) f32,
 // the padded keys' scales 0. It reads q twice and k twice (the second
-// reads mostly from L2) and v once, and writes ~0.16 GB at level 0.
+// reads mostly from L2) and v once, and writes ~0.16 GB at level 0. At D =
+// 128 it writes q8 (BH, Sq, 128) and k8 (BH, Skv, 128) row-major and no v
+// copy (see the main kernel's head-dim-128 layout below).
 //
 // The same two kernels with PV = true are the pre-pass of K7
 // (csrc/flash_attention_int8.cu, int8 p.v; entry tclight_int8pv_prepass;
@@ -51,7 +53,11 @@
 // stores them as one contiguous span. It also writes q8's and k8's values
 // as bf16 (exact), chunk-major in 8-value chunks with the head dim padded to
 // ceil16(D), for K7's max pass: a bf16 product with f32 sums gives the
-// exact dot already converted (|dot| < 2^22).
+// exact dot already converted (|dot| < 2^22). At D = 128 v8 is
+// channel-major instead, (BH, 128, ceil128(Skv)), each channel's keys
+// contiguous in the same order within each 16 (K7 reads a 128-key tile of
+// a channel as one 128-byte swizzle row), and there are no bf16 copies:
+// K7's max pass reads q8 and k8 by s8 wgmma.
 //
 // Design of the main kernel: K1's (csrc/flash_attention.cu), the
 // FlashAttention-3 shape. One block of three warpgroups per (q tile,
@@ -80,8 +86,24 @@
 //   flight; the two consumer warpgroups take turns to issue (named-barrier
 //   ping-pong). No wgmma is issued under a condition.
 //
+// - Head dim 128 (the Cosmos DiTs' attn_backend "int8") has a layout of
+//   its own (SW = true), as K1's: there the chunk-major tiles moved as
+//   16-byte-wide TMA boxes, 3,072 rows of 16 bytes a 128-key tile, and
+//   with the k8 and v loads taken out the kernel ran twice as fast
+//   (PERF.md, the head-dim-128 ablation). An int8 row of 128 dims is one
+//   128-byte swizzle row, so the pre-pass writes q8 and k8 row-major,
+//   (BH, S, 128), and the kernel reads each q8 or k8 tile as one box of
+//   128-byte rows in the 128-byte swizzle, which the s8 wgmma reads through
+//   K-major descriptors (32 bytes a k32 step within the rows, as K1's bf16
+//   k16 steps); v is read in place from (B, S, H, D) as K1's D = 128 path
+//   reads it (two boxes of 64 dims, MN-major), so the pre-pass writes no v
+//   copy. 128 q rows (one 64-row block per consumer warpgroup), 128-key
+//   tiles, 3 stages, K1's choice at D = 128. Every other head dim, 120
+//   next to it included, keeps the chunk-major layout.
+//
 // Shared memory per block: BQ * DK + NST * BK * (DK + 2 * DP + 4) bytes
-// and the barriers: 58,368 + 72 at D = 40, 144,384 + 40 at D = 160.
+// and the barriers: 58,368 + 72 at D = 40, 144,384 + 40 at D = 160;
+// 165,376 + 56 (and the 1,024-byte alignment) at D = 128.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -111,6 +133,17 @@ __host__ __device__ constexpr size_t smem_bytes(int dk, int dp) {
   return (size_t)q_rows(dp) * dk + (size_t)n_stages(dp) * kv_rows(dp) * (dk + 2 * dp + 4) +
          8 * (1 + 2 * n_stages(dp)) + 128;
 }
+
+// D = 128 reads its operands in place in the 128-byte swizzle (an int8 row
+// of q8 or k8 is one swizzle row): 128 q rows (one 64-row block per
+// consumer warpgroup), SW_BK-key tiles in a ring of SW_NST stages; tiles
+// aligned to 1,024 bytes
+constexpr int SW_D = 128;
+constexpr int SW_BQ = 128;
+constexpr int SW_BK = 128;
+constexpr int SW_NST = 3;
+constexpr size_t SW_SMEM = (size_t)SW_BQ * SW_D + (size_t)SW_NST * SW_BK * (3 * SW_D + 4) +
+                           8 * (1 + 2 * SW_NST) + 1024;
 
 __device__ __forceinline__ float fast_exp2(float x) {
   float y;
@@ -306,7 +339,9 @@ flash_int8_prepass_stats_kernel(const __nv_bfloat16* __restrict__ q,
 // slices' amax) and writes that scale once; a k slice smooths its keys by
 // the token mean (rounded to bf16), quantizes each key with its own scale
 // and copies v chunk-major (PV: writes v8, staged in shared memory).
-template <int CH, bool PV>
+// SW (D = 128): q8 and k8 row-major, one 128-byte row a token; no v copy;
+// PV: v8 channel-major, no bf16 copies.
+template <int CH, bool PV, bool SW>
 __global__ void __launch_bounds__(PRE_THREADS)
 flash_int8_prepass_quant_kernel(const __nv_bfloat16* __restrict__ q,
                                 const __nv_bfloat16* __restrict__ k,
@@ -326,6 +361,10 @@ flash_int8_prepass_quant_kernel(const __nv_bfloat16* __restrict__ q,
   // x 16 keys)
   __shared__ float svs[PV ? D : 1];
   __shared__ __align__(16) int8_t v8s[PV ? SLICE * D : 16];
+  // where 16-byte chunk c16 of row r of q8 or k8 (S rows) goes
+  auto at8 = [&](int bh, int c16, int S, int r) {
+    return SW ? ((long)bh * S + r) * CH8 + c16 : ((long)bh * CH8 + c16) * S + r;
+  };
   const int bh = blockIdx.x / (n_qs + n_ks), sl = blockIdx.x % (n_qs + n_ks);
   const int b = bh / H, h = bh % H;
   if (sl < n_qs) {
@@ -346,9 +385,8 @@ flash_int8_prepass_quant_kernel(const __nv_bfloat16* __restrict__ q,
     };
 #pragma unroll
     for (int c16 = 0; c16 < CH8; ++c16)
-      *reinterpret_cast<uint4*>(q8 + (((long)bh * CH8 + c16) * Sq + r) * 16) =
-          quantize_chunk<CH>(c16, value, s);
-    if constexpr (PV) {
+      *reinterpret_cast<uint4*>(q8 + at8(bh, c16, Sq, r) * 16) = quantize_chunk<CH>(c16, value, s);
+    if constexpr (PV && !SW) {
 #pragma unroll
       for (int c8 = 0; c8 < CHB; ++c8)
         *reinterpret_cast<uint4*>(q_bf + (((long)bh * CHB + c8) * Sq + r) * 8) =
@@ -363,9 +401,12 @@ flash_int8_prepass_quant_kernel(const __nv_bfloat16* __restrict__ q,
   }
   __syncthreads();
   if constexpr (PV) {
-    // byte 4t + 2a + c of a 16-key chunk holds key 8a + 2t + c
+    // byte 4t + 2a + c of a 16-key chunk holds key 8a + 2t + c; staged as
+    // [chunk][channel][16], or SW [channel][key]
     const int kp = threadIdx.x % 16;
-    int8_t* dst = v8s + (threadIdx.x / 16) * D * 16 + 4 * ((kp % 8) / 2) + 2 * (kp / 8) + kp % 2;
+    const int perm = 4 * ((kp % 8) / 2) + 2 * (kp / 8) + kp % 2;
+    constexpr int CSTEP = SW ? SLICE : 16;  // bytes from one channel to the next
+    int8_t* dst = v8s + (threadIdx.x / 16) * (SW ? 16 : D * 16) + perm;
     if (r < Skv) {
       uint4 u[CH];
       load_row<CH>(v + (((long)b * Skv + r) * H + h) * D, u);
@@ -375,18 +416,29 @@ flash_int8_prepass_quant_kernel(const __nv_bfloat16* __restrict__ q,
         unpack8(u[c], f);
 #pragma unroll
         for (int e = 0; e < 8; ++e)
-          dst[(c * 8 + e) * 16] = (int8_t)__float2int_rn(f[e] / svs[c * 8 + e]);
+          dst[(c * 8 + e) * CSTEP] = (int8_t)__float2int_rn(f[e] / svs[c * 8 + e]);
       }
     } else {
-      for (int c = 0; c < D; ++c) dst[c * 16] = 0;
+      for (int c = 0; c < D; ++c) dst[c * CSTEP] = 0;
     }
     __syncthreads();
-    // the slice's whole chunks below ceil16(Skv) are one contiguous span
-    const int n_vc = (Skv + 15) / 16, c0 = (sl - n_qs) * (SLICE / 16);
-    const int n_chunks = min(SLICE / 16, n_vc - c0);
-    uint4* out = reinterpret_cast<uint4*>(v8 + ((long)bh * n_vc + c0) * D * 16);
-    for (int i = threadIdx.x; i < n_chunks * D; i += PRE_THREADS)
-      out[i] = reinterpret_cast<const uint4*>(v8s)[i];
+    if constexpr (SW) {
+      // (BH, D, skv_pad): each channel's keys of the slice below skv_pad
+      // (a multiple of 128) are one contiguous run
+      const int k0 = (sl - n_qs) * SLICE, n16 = min(SLICE, skv_pad - k0) / 16;
+      for (int i = threadIdx.x; i < n16 * D; i += PRE_THREADS) {
+        const int c = i / n16, u = i % n16;
+        reinterpret_cast<uint4*>(v8 + ((long)bh * D + c) * skv_pad + k0)[u] =
+            reinterpret_cast<const uint4*>(v8s + c * SLICE)[u];
+      }
+    } else {
+      // the slice's whole chunks below ceil16(Skv) are one contiguous span
+      const int n_vc = (Skv + 15) / 16, c0 = (sl - n_qs) * (SLICE / 16);
+      const int n_chunks = min(SLICE / 16, n_vc - c0);
+      uint4* out = reinterpret_cast<uint4*>(v8 + ((long)bh * n_vc + c0) * D * 16);
+      for (int i = threadIdx.x; i < n_chunks * D; i += PRE_THREADS)
+        out[i] = reinterpret_cast<const uint4*>(v8s)[i];
+    }
   }
   if (r >= Skv) {
     if (r < skv_pad) sk[(long)bh * skv_pad + r] = 0.f;
@@ -414,14 +466,13 @@ flash_int8_prepass_quant_kernel(const __nv_bfloat16* __restrict__ q,
   auto value = [&](int c, int e) { return ks[c * 8 + e]; };
 #pragma unroll
   for (int c16 = 0; c16 < CH8; ++c16)
-    *reinterpret_cast<uint4*>(k8 + (((long)bh * CH8 + c16) * Skv + r) * 16) =
-        quantize_chunk<CH>(c16, value, s);
-  if constexpr (PV) {
+    *reinterpret_cast<uint4*>(k8 + at8(bh, c16, Skv, r) * 16) = quantize_chunk<CH>(c16, value, s);
+  if constexpr (PV && !SW) {
 #pragma unroll
     for (int c8 = 0; c8 < CHB; ++c8)
       *reinterpret_cast<uint4*>(k_bf + (((long)bh * CHB + c8) * Skv + r) * 8) =
           quantize_chunk_bf16<CH>(c8, value, s);
-  } else {
+  } else if constexpr (!PV && !SW) {
     uint4 u[CH];
     load_row<CH>(v + (((long)b * Skv + r) * H + h) * D, u);
 #pragma unroll
@@ -432,7 +483,7 @@ flash_int8_prepass_quant_kernel(const __nv_bfloat16* __restrict__ q,
 
 // ---------------------------------------------------------- main kernel
 
-template <int DK, int DP>
+template <int DK, int DP, bool SW>
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_int8_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                         const __grid_constant__ CUtensorMap tk,
@@ -440,13 +491,15 @@ flash_int8_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                         const float* __restrict__ sq, const float* __restrict__ sk,
                         __nv_bfloat16* __restrict__ o, int H, int Sq, int Skv, int D, int n_qb,
                         int bq, int skv_pad, float scale_log2) {
-  constexpr int MB = row_blocks(DP);
-  constexpr int BQ = q_rows(DP);
-  constexpr int BK = kv_rows(DP);
-  constexpr int NST = n_stages(DP);
+  static_assert(!SW || (DK == SW_D && DP == SW_D), "the swizzled path is D = 128's");
+  constexpr int MB = SW ? 1 : row_blocks(DP);
+  constexpr int BQ = SW ? SW_BQ : q_rows(DP);
+  constexpr int BK = SW ? SW_BK : kv_rows(DP);
+  constexpr int NST = SW ? SW_NST : n_stages(DP);
+  constexpr uintptr_t ALIGN = SW ? 1024 : 128;
   extern __shared__ unsigned char smem_raw[];
   int8_t* sQ = reinterpret_cast<int8_t*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~uintptr_t(127));
+      (reinterpret_cast<uintptr_t>(smem_raw) + ALIGN - 1) & ~(ALIGN - 1));
   int8_t* sK = sQ + BQ * DK;                                          // NST k8 tiles
   __nv_bfloat16* sV = reinterpret_cast<__nv_bfloat16*>(sK + NST * BK * DK);  // NST v tiles
   float* sS = reinterpret_cast<float*>(sV + NST * BK * DP);           // NST tiles of K scales
@@ -478,13 +531,21 @@ flash_int8_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     setmaxnreg_dec<24>();
     if (threadIdx.x == 0) {
       mbar_expect_tx(qbar, BQ * DK);
-      tma_load_4d(sQ, &tq, qbar, 0, q0, 0, bh);
+      if constexpr (SW) tma_load_4d(sQ, &tq, qbar, 0, q0, bh, 0);
+      else tma_load_4d(sQ, &tq, qbar, 0, q0, 0, bh);
       for (int j = 0; j < n_tiles; ++j) {
         const int st = j % NST;
         if (j >= NST) mbar_wait(&empty[st], ((j / NST) - 1) & 1);
         mbar_expect_tx(&full[st], BK * DK + BK * DP * 2 + BK * 4);
-        tma_load_4d(sK + st * BK * DK, &tk, &full[st], 0, j * BK, 0, bh);
-        tma_load_4d(sV + st * BK * DP, &tv, &full[st], 0, j * BK, 0, bh);
+        if constexpr (SW) {
+          // k8 one box of 128-byte rows; v in place, one box per 64-dim slab
+          tma_load_4d(sK + st * BK * DK, &tk, &full[st], 0, j * BK, bh, 0);
+          for (int c = 0; c < DP / 64; ++c)
+            tma_load_4d(sV + st * BK * DP + c * BK * 64, &tv, &full[st], c * 64, h, j * BK, b);
+        } else {
+          tma_load_4d(sK + st * BK * DK, &tk, &full[st], 0, j * BK, 0, bh);
+          tma_load_4d(sV + st * BK * DP, &tv, &full[st], 0, j * BK, 0, bh);
+        }
         bulk_load(sS + st * BK, sk + (long)bh * skv_pad + j * BK, BK * 4, &full[st]);
       }
     }
@@ -523,28 +584,40 @@ flash_int8_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
     // int32 q8 k8^T of tile j into s: per row block, 64 rows x BK keys in
     // DK / 32 steps of depth 32 (two 16-byte chunks), both operands
-    // K-major in shared memory
+    // K-major in shared memory; swizzled, 32 bytes a step within the
+    // 128-byte rows, this warpgroup's 64 q rows 8 KB into the tile
     auto issue_qk = [&](int j) {
       const int8_t* tK = sK + (j % NST) * BK * DK;
 #pragma unroll
       for (int kk = 0; kk < DK / 32; ++kk)
 #pragma unroll
-        for (int mb = 0; mb < MB; ++mb)
-          WgmmaS8<BK>::run(s[mb],
-                           wgmma_desc(sQ + (cw * MB + mb) * 64 * 16 + kk * 2 * BQ * 16, BQ * 16,
-                                      128),
-                           wgmma_desc(tK + kk * 2 * BK * 16, BK * 16, 128), kk > 0 ? 1 : 0);
+        for (int mb = 0; mb < MB; ++mb) {
+          if constexpr (SW)
+            WgmmaS8<BK>::run(s[mb], wgmma_desc_sw128(sQ + (cw * MB + mb) * 64 * DK + kk * 32, 16, 1024),
+                             wgmma_desc_sw128(tK + kk * 32, 16, 1024), kk > 0 ? 1 : 0);
+          else
+            WgmmaS8<BK>::run(s[mb],
+                             wgmma_desc(sQ + (cw * MB + mb) * 64 * 16 + kk * 2 * BQ * 16, BQ * 16,
+                                        128),
+                             wgmma_desc(tK + kk * 2 * BK * 16, BK * 16, 128), kk > 0 ? 1 : 0);
+        }
       wgmma_commit();
     };
-    // O += p v of tile j: v MN-major, next 8 keys 128 bytes on, next 8
-    // dims BK * 16
+    // O += p v of tile j: v MN-major. Chunk-major: next 8 keys 128 bytes
+    // on, next 8 dims BK * 16. Swizzled (K1's): 16 keys a step (2 KB),
+    // next 8 keys 1,024 bytes on, next 64 dims one slab (BK * 128 bytes) on.
     auto issue_pv = [&](int j) {
       const __nv_bfloat16* tV = sV + (j % NST) * BK * DP;
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
-        for (int mb = 0; mb < MB; ++mb)
-          WgmmaRS<DP>::run(acc[mb], pa[mb][kk], wgmma_desc(tV + kk * 16 * 8, 128, BK * 16), 1);
+        for (int mb = 0; mb < MB; ++mb) {
+          if constexpr (SW)
+            WgmmaRS<DP>::run(acc[mb], pa[mb][kk],
+                             wgmma_desc_sw128(tV + kk * 16 * 64, BK * 128, 1024), 1);
+          else
+            WgmmaRS<DP>::run(acc[mb], pa[mb][kk], wgmma_desc(tV + kk * 16 * 8, 128, BK * 16), 1);
+        }
       wgmma_commit();
     };
     // online softmax of tile j: the sums to f32 times their key's scale,
@@ -725,26 +798,33 @@ bool make_v_map(CUtensorMap* map, const void* x, int BH, int S, int D, int DP, i
   return tensor_map_4d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, dims, strides, box);
 }
 
-template <int DK, int DP>
+template <int DK, int DP, bool SW>
 int launch(const void* q8, const void* k8, const void* vc, const void* sq, const void* sk,
            void* o, int B, int H, int Sq, int Skv, int D, int bq, float scale,
            cudaStream_t stream) {
-  const size_t bytes = smem_bytes(DK, DP);
+  const size_t bytes = SW ? SW_SMEM : smem_bytes(DK, DP);
   static bool attr_set = false;  // once per kernel instance, not per launch
   if (!attr_set) {
-    cudaError_t err = cudaFuncSetAttribute(flash_int8_wgmma_kernel<DK, DP>,
+    cudaError_t err = cudaFuncSetAttribute(flash_int8_wgmma_kernel<DK, DP, SW>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)bytes);
     if (err != cudaSuccess) return (int)err;
     attr_set = true;
   }
   CUtensorMap tq, tk, tv;
-  if (!make_s8_map(&tq, q8, B * H, Sq, DK, q_rows(DP)) ||
-      !make_s8_map(&tk, k8, B * H, Skv, DK, kv_rows(DP)) ||
-      !make_v_map(&tv, vc, B * H, Skv, D, DP, kv_rows(DP)))
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid((Sq + q_rows(DP) - 1) / q_rows(DP), B * H);
-  flash_int8_wgmma_kernel<DK, DP><<<grid, NTHREADS, bytes, stream>>>(
+  bool mapped;
+  if constexpr (SW)
+    mapped = tensor_map_rows_sw128(&tq, q8, B * H, Sq, SW_D, SW_BQ) &&
+             tensor_map_rows_sw128(&tk, k8, B * H, Skv, SW_D, SW_BK) &&
+             tensor_map_bshd_sw128(&tv, vc, B, Skv, H, SW_BK);
+  else
+    mapped = make_s8_map(&tq, q8, B * H, Sq, DK, q_rows(DP)) &&
+             make_s8_map(&tk, k8, B * H, Skv, DK, kv_rows(DP)) &&
+             make_v_map(&tv, vc, B * H, Skv, D, DP, kv_rows(DP));
+  if (!mapped) return (int)cudaErrorInvalidValue;
+  const int bq_rows = SW ? SW_BQ : q_rows(DP);
+  const dim3 grid((Sq + bq_rows - 1) / bq_rows, B * H);
+  flash_int8_wgmma_kernel<DK, DP, SW><<<grid, NTHREADS, bytes, stream>>>(
       tq, tk, tv, (const float*)sq, (const float*)sk, (__nv_bfloat16*)o, H, Sq, Skv, D,
       (Sq + bq - 1) / bq, bq, (Skv + 127) / 128 * 128, scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
@@ -759,7 +839,7 @@ bool bad_shape(int B, int H, int Sq, int Skv, int D, int bq) {
 
 // scratch: qmax (BH * n_qs), part (BH * n_ks * D), with PV vpart (BH *
 // n_ks * D), kmean (BH * D), count (BH)
-template <int CH, bool PV>
+template <int CH, bool PV, bool SW>
 int launch_prepass(const void* q, const void* k, const void* v, void* q8, void* k8, void* vc,
                    void* v8, void* qb, void* kb, void* sq, void* sk, void* sv, void* scratch,
                    int B, int H, int Sq, int Skv, int bq, cudaStream_t s) {
@@ -777,7 +857,7 @@ int launch_prepass(const void* q, const void* k, const void* v, void* q8, void* 
       vpart, kmean, (float*)sv, count, H, Sq, Skv, n_qs, n_ks);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  flash_int8_prepass_quant_kernel<CH, PV><<<BH * (n_qs + n_ks), PRE_THREADS, 0, s>>>(
+  flash_int8_prepass_quant_kernel<CH, PV, SW><<<BH * (n_qs + n_ks), PRE_THREADS, 0, s>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v, qmax, kmean,
       (const float*)sv, (int8_t*)q8, (int8_t*)k8, (__nv_bfloat16*)vc, (int8_t*)v8,
       (__nv_bfloat16*)qb, (__nv_bfloat16*)kb, (float*)sq, (float*)sk, H, Sq, Skv, bq,
@@ -790,6 +870,8 @@ int launch_prepass(const void* q, const void* k, const void* v, void* q8, void* 
 // The pre-pass. q (B, Sq, H, D), k and v (B, Skv, H, D) bf16; writes q8
 // (B*H, DK/16, Sq, 16) and k8 (B*H, DK/16, Skv, 16) int8, vc (B*H, D/8,
 // Skv, 8) bf16, sq (B*H, ceil(Sq / bq)) and sk (B*H, ceil128(Skv)) f32;
+// at D = 128 q8 (B*H, Sq, 128) and k8 (B*H, Skv, 128) and no vc (the
+// kernel reads v in place; vc is not written);
 // scratch: B*H * (n_qs + n_ks * D + D + 1) f32, n_qs = ceil(Sq / 256), n_ks
 // = ceil(Skv / 256). DK = ceil32(D), D % 8 == 0, D <= 160; bq =
 // min(1024, ceil128(Sq)). All contiguous and 16-byte aligned. Returns
@@ -800,10 +882,13 @@ extern "C" int tclight_qk_int8_prepass(const void* q, const void* k, const void*
                                        void* stream) {
   if (bad_shape(B, H, Sq, Skv, D, bq)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  if (D == SW_D)
+    return launch_prepass<SW_D / 8, false, true>(q, k, v, q8, k8, vc, nullptr, nullptr, nullptr,
+                                                 sq, sk, nullptr, scratch, B, H, Sq, Skv, bq, s);
   switch (D / 8) {
 #define TCLIGHT_PREPASS_CASE(CH_)                                                             \
   case CH_:                                                                                  \
-    return launch_prepass<CH_, false>(q, k, v, q8, k8, vc, nullptr, nullptr, nullptr, sq, sk, \
+    return launch_prepass<CH_, false, false>(q, k, v, q8, k8, vc, nullptr, nullptr, nullptr, sq, sk, \
                                       nullptr, scratch, B, H, Sq, Skv, bq, s);
     TCLIGHT_PREPASS_CASE(1) TCLIGHT_PREPASS_CASE(2) TCLIGHT_PREPASS_CASE(3)
     TCLIGHT_PREPASS_CASE(4) TCLIGHT_PREPASS_CASE(5) TCLIGHT_PREPASS_CASE(6)
@@ -820,17 +905,23 @@ extern "C" int tclight_qk_int8_prepass(const void* q, const void* k, const void*
 // K7's pre-pass: as above, but v8 (B*H, ceil16(Skv) / 16, D, 16) int8 in
 // the place of vc, sv (B*H, D) f32, and q8's and k8's values also in bf16
 // for the max pass, qb (B*H, DB / 8, Sq, 8) and kb (B*H, DB / 8, Skv, 8),
-// DB = ceil16(D); scratch: B*H * (n_qs + 2 * n_ks * D + D + 1) f32.
+// DB = ceil16(D); scratch: B*H * (n_qs + 2 * n_ks * D + D + 1) f32. At D =
+// 128: q8 and k8 row-major as K6's, v8 channel-major (B*H, 128,
+// ceil128(Skv)), each channel's keys permuted within each 16 as above,
+// and no qb / kb (the max pass reads q8 and k8).
 extern "C" int tclight_int8pv_prepass(const void* q, const void* k, const void* v, void* q8,
                                       void* k8, void* v8, void* qb, void* kb, void* sq,
                                       void* sk, void* sv, void* scratch, int B, int H, int Sq,
                                       int Skv, int D, int bq, void* stream) {
   if (bad_shape(B, H, Sq, Skv, D, bq)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  if (D == SW_D)
+    return launch_prepass<SW_D / 8, true, true>(q, k, v, q8, k8, nullptr, v8, nullptr, nullptr, sq,
+                                                sk, sv, scratch, B, H, Sq, Skv, bq, s);
   switch (D / 8) {
 #define TCLIGHT_PREPASS_CASE(CH_)                                                             \
   case CH_:                                                                                  \
-    return launch_prepass<CH_, true>(q, k, v, q8, k8, nullptr, v8, qb, kb, sq, sk, sv, scratch, \
+    return launch_prepass<CH_, true, false>(q, k, v, q8, k8, nullptr, v8, qb, kb, sq, sk, sv, scratch, \
                                      B, H, Sq, Skv, bq, s);
     TCLIGHT_PREPASS_CASE(1) TCLIGHT_PREPASS_CASE(2) TCLIGHT_PREPASS_CASE(3)
     TCLIGHT_PREPASS_CASE(4) TCLIGHT_PREPASS_CASE(5) TCLIGHT_PREPASS_CASE(6)
@@ -844,18 +935,21 @@ extern "C" int tclight_int8pv_prepass(const void* q, const void* k, const void* 
   }
 }
 
-// K6 on the pre-pass's operands; o (B, Sq, H, D) bf16. Returns
-// cudaGetLastError() after the launch (cudaErrorInvalidValue when the
-// arguments or the tensor maps are refused).
+// K6 on the pre-pass's operands (at D = 128 vc is v (B, Skv, H, D) as it
+// lies); o (B, Sq, H, D) bf16. Returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue when the arguments or the tensor maps are
+// refused).
 extern "C" int tclight_flash_attention_qk_int8(const void* q8, const void* k8, const void* vc,
                                                const void* sq, const void* sk, void* o, int B,
                                                int H, int Sq, int Skv, int D, int bq,
                                                float scale, void* stream) {
   if (bad_shape(B, H, Sq, Skv, D, bq)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  if (D == SW_D)
+    return launch<SW_D, SW_D, true>(q8, k8, vc, sq, sk, o, B, H, Sq, Skv, D, bq, scale, s);
 #define TCLIGHT_QK_INT8_CASE(DK_, DP_)                                                    \
   if ((D + 31) / 32 * 32 == DK_ && (D + 15) / 16 * 16 == DP_)                             \
-    return launch<DK_, DP_>(q8, k8, vc, sq, sk, o, B, H, Sq, Skv, D, bq, scale, s);
+    return launch<DK_, DP_, false>(q8, k8, vc, sq, sk, o, B, H, Sq, Skv, D, bq, scale, s);
   TCLIGHT_QK_INT8_CASE(32, 16)
   TCLIGHT_QK_INT8_CASE(32, 32)
   TCLIGHT_QK_INT8_CASE(64, 48)
@@ -863,7 +957,7 @@ extern "C" int tclight_flash_attention_qk_int8(const void* q8, const void* k8, c
   TCLIGHT_QK_INT8_CASE(96, 80)
   TCLIGHT_QK_INT8_CASE(96, 96)
   TCLIGHT_QK_INT8_CASE(128, 112)
-  TCLIGHT_QK_INT8_CASE(128, 128)
+  TCLIGHT_QK_INT8_CASE(128, 128)  // D = 120
   TCLIGHT_QK_INT8_CASE(160, 144)
   TCLIGHT_QK_INT8_CASE(160, 160)
 #undef TCLIGHT_QK_INT8_CASE

@@ -14,12 +14,12 @@
 // 128 bytes apart and N-adjacent ones (the next 8 head dims) R * 16 apart.
 //
 // The 128-byte-swizzled layout (wgmma_desc_sw128, tensor_map_4d_sw128)
-// holds a tile as rows of 64 bf16 values (128 bytes), in atoms of 8 rows
-// (1,024 bytes), row r's 16-byte chunk c stored at chunk c ^ (r % 8); a
-// wider row is cut into 64-value slabs, slab after slab. K-major (q and k,
-// head dims along K): the 8-row groups are 1,024 bytes apart (the stride
-// byte offset), the leading byte offset is unused, and k16 step i of a slab
-// starts 32 * i bytes into it. MN-major (the p.v product's V, keys along
+// holds a tile as rows of 128 bytes (64 bf16 or 128 int8 values), in atoms
+// of 8 rows (1,024 bytes), row r's 16-byte chunk c stored at chunk c ^ (r %
+// 8); a wider row is cut into 128-byte slabs, slab after slab. K-major (q
+// and k, head dims along K): the 8-row groups are 1,024 bytes apart (the
+// stride byte offset), the leading byte offset is unused, and k16 step i
+// of a bf16 slab (k32 step i of an int8 one) starts 32 * i bytes into it. MN-major (the p.v product's V, keys along
 // K, head dims along N, rows of 64 dims): the next 8 keys are 1,024 bytes
 // on (the stride byte offset), the next 64 dims one slab on (the leading
 // byte offset).
@@ -825,7 +825,7 @@ inline bool tensor_map_4d(CUtensorMap* map, CUtensorMapDataType type, const void
 }
 
 // the same, with the 128-byte swizzle: the box's innermost extent is 128
-// bytes, and each 1,024 bytes of shared memory it fills (8 rows of 128
+// bytes (an int8 row of 128 values, or 64 bf16 values), and each 1,024 bytes of shared memory it fills (8 rows of 128
 // bytes) hold row r's 16-byte chunk c at chunk c ^ (r % 8), the layout
 // wgmma_desc_sw128 reads; the destination is 1,024-byte aligned
 inline bool tensor_map_4d_sw128(CUtensorMap* map, CUtensorMapDataType type, const void* base,
@@ -838,6 +838,29 @@ inline bool tensor_map_4d_sw128(CUtensorMap* map, CUtensorMapDataType type, cons
             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// (B, S, H, D) bf16 with D = 128 as it lies, as 4-d (D, H, S, B) in the
+// 128-byte swizzle: boxes of 64 dims (128 bytes) x `rows` tokens of one
+// head, two per row of D (a tile is two slabs of 64 dims, slab after
+// slab); tokens past S read as zeros
+inline bool tensor_map_bshd_sw128(CUtensorMap* map, const void* x, int B, int S, int H,
+                                  int rows) {
+  const cuuint64_t dims[4] = {128, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {256, (cuuint64_t)H * 256, (cuuint64_t)S * H * 256};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  return tensor_map_4d_sw128(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, dims, strides, box);
+}
+
+// a row-major (N, R, C) int8 tensor, C a multiple of 16, as 4-d (C, R, N,
+// 1) in the 128-byte swizzle: boxes of 128 values of C x `rows` rows of one
+// n, each box row one swizzle row; everything outside reads as zeros
+inline bool tensor_map_rows_sw128(CUtensorMap* map, const void* x, int N, int R, int C,
+                                  int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)R, (cuuint64_t)N, 1};
+  const cuuint64_t strides[3] = {(cuuint64_t)C, (cuuint64_t)C * R, (cuuint64_t)C * R * N};
+  const cuuint32_t box[4] = {128, (cuuint32_t)rows, 1, 1};
+  return tensor_map_4d_sw128(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, x, dims, strides, box);
 }
 
 }  // namespace hopper

@@ -38,6 +38,10 @@ and operands that its pre-pass kernels write in the layout its TMA boxes
 read (`qk_int8_geometry`); K7 replaces `_flash_kernel_int8_full` in the
 same design, p.v on int8 wgmma too, after a max pass in that design that
 writes the P blocks' maxes (`int8pv_geometry`; details in their sources).
+At head dim 128 K6 and K7 read q8 and k8 row-major (one int8 row is one
+128-byte swizzle row), K6 reads v in place and K7 a channel-major v8, all
+in the 128-byte swizzle; the wrappers make no v copy and no bf16 copies
+there (`v_copy`, `bf16_copies`).
 
 The int8 products of the plain version are f32 matmuls of integer-valued
 tensors: exact, since |dot| <= 127^2 * 160 < 2^24, as long as TF32 is off
@@ -60,7 +64,8 @@ __all__ = ["dot_product_attention", "flash_attention", "flash_attention_plain",
            "quantize_blocks", "quantize_channels", "smooth_k", "int8_prepass", "qk_int8_geometry",
            "qk_int8_operands", "qk_int8_operands_plain", "chunk_major", "from_chunk_major",
            "int8pv_geometry", "int8pv_operands", "int8pv_operands_plain", "v8_chunks",
-           "int8_block_rowmax", "int8_block_rowmax_plain", "BACKENDS"]
+           "v8_channels", "operand_rows", "int8_block_rowmax", "int8_block_rowmax_plain",
+           "BACKENDS"]
 
 BACKENDS = (None, "int8", "int8pv")
 QBLOCK = 1024  # rows of a Q scale block, and keys of a K7 P-scale block
@@ -113,7 +118,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 SMEM_PER_BLOCK = 232_448  # dynamic shared memory a block may use on the H100
 # tclight_flash_attention_bf16(q, k, v, o, B, H, Sq, Skv, D, scale, stream)
 K1_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
-SW_D = 128  # the head dim K1 reads in place, in the 128-byte swizzle
+SW_D = 128  # the head dim K1, K6 and K7 read in the 128-byte swizzle, with no copy
 SW_KV_ROWS, SW_STAGES = 128, 3  # its key tile and ring depth
 
 
@@ -357,6 +362,14 @@ def from_chunk_major(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(n, s, nc * w)
 
 
+def _rows_sw128(n: int, r: int, c: int, rows: int) -> dict:
+    """The tensor map of a row-major (N, R, C) int8 operand in the 128-byte
+    swizzle (`tensor_map_rows_sw128` of csrc/hopper.cuh): dims innermost
+    first, strides in bytes, boxes of 128 values of a row by `rows` rows."""
+    return {"dims": (c, r, n, 1), "strides": (c, c * r, c * r * n), "box": (128, rows, 1, 1),
+            "swizzle": 128}
+
+
 def qk_int8_geometry(b: int, sq: int, skv: int, h: int, d: int) -> dict:
     """The layout of K6's operands, as its pre-pass writes them and its TMA
     boxes read them (`csrc/flash_attention_qk_int8.cu`): the q.k^T depth
@@ -366,31 +379,57 @@ def qk_int8_geometry(b: int, sq: int, skv: int, h: int, d: int) -> dict:
     slices of 256 queries and 256 keys, and its f32 scratch (per batch *
     head: each q slice's amax, each k slice's channel sums, the token mean
     and a counter); each operand's shape; the q rows, keys and stages of
-    K1's design, which K6 keeps."""
+    K1's design, which K6 keeps. q8 and k8 are chunk-major in 16-byte
+    chunks and v a chunk-major copy (`v_copy`), except at d = 128: q8 and
+    k8 row-major (BH, S, 128), v read in place from (B, S, H, D), all three
+    in the 128-byte swizzle (`maps`, as `flash_geometry`'s)."""
     dk, dp = _ceil_to(d, 32), _ceil_to(d, 16)
     bq = min(QBLOCK, _ceil_to(sq, 128))
     bh = b * h
     mb = 2 if dp <= 96 else 1
     n_qs, n_ks = -(-sq // 256), -(-skv // 256)
-    return {"dk": dk, "dp": dp, "bq": bq, "n_qb": -(-sq // bq), "skv_pad": _ceil_to(skv, 128),
-            "q_slices": n_qs, "k_slices": n_ks, "row_blocks": mb, "q_rows": 128 * mb,
-            "kv_rows": 64 if mb == 2 else 128, "stages": 4 if mb == 2 else (3 if dp <= 128 else 2),
-            "shapes": {"q8": (bh, dk // 16, sq, 16), "k8": (bh, dk // 16, skv, 16),
-                       "v": (bh, d // 8, skv, 8), "sq": (bh, -(-sq // bq)),
-                       "sk": (bh, _ceil_to(skv, 128)), "scratch": (bh, n_qs + n_ks * d + d + 1)}}
+    g = {"dk": dk, "dp": dp, "bq": bq, "n_qb": -(-sq // bq), "skv_pad": _ceil_to(skv, 128),
+         "q_slices": n_qs, "k_slices": n_ks, "row_blocks": mb, "q_rows": 128 * mb,
+         "kv_rows": 64 if mb == 2 else 128, "stages": 4 if mb == 2 else (3 if dp <= 128 else 2),
+         "v_copy": d != SW_D, "swizzle": 0,
+         "shapes": {"q8": (bh, dk // 16, sq, 16), "k8": (bh, dk // 16, skv, 16),
+                    "v": (bh, d // 8, skv, 8), "sq": (bh, -(-sq // bq)),
+                    "sk": (bh, _ceil_to(skv, 128)), "scratch": (bh, n_qs + n_ks * d + d + 1)}}
+    if d == SW_D:
+        g["shapes"].update(q8=(bh, sq, d), k8=(bh, skv, d), v=(b, skv, h, d))
+        g.update(swizzle=128, smem=128 * d + 3 * 128 * (3 * d + 4) + 8 * 7 + 1024,
+                 maps={"q8": _rows_sw128(bh, sq, d, 128), "k8": _rows_sw128(bh, skv, d, 128),
+                       "v": flash_geometry(b, sq, skv, h, d)["maps"]["v"]})
+    return g
+
+
+def _int8_rows_layout(x: torch.Tensor, s: int, d: int) -> torch.Tensor:
+    """q8 or k8 (BH, S_pad, DK) of the plain pre-pass in the kernels'
+    layout: its S real rows, chunk-major in 16-byte chunks, or row-major at
+    d = 128."""
+    x = x[:, :s]
+    return x.contiguous() if d == SW_D else chunk_major(x, 16)
+
+
+def operand_rows(x: torch.Tensor) -> torch.Tensor:
+    """q8, k8 (or their bf16 copies) as (BH, S, DK), from either layout of
+    the kernels' operands: row-major (d = 128) as it is, chunk-major by
+    `from_chunk_major`."""
+    return x if x.dim() == 3 else from_chunk_major(x)
 
 
 def qk_int8_operands_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> dict:
     """K6's operands from the plain pre-pass `int8_prepass`, in the layout
     of `qk_int8_geometry` (the plain version of the pre-pass kernels):
-    q8 and k8 chunk-major in 16-byte chunks, only the real rows; v
-    chunk-major in 8-element chunks; the K scales of the padded keys 0."""
+    q8 and k8 chunk-major in 16-byte chunks (row-major at d = 128), only
+    the real rows; v chunk-major in 8-element chunks (at d = 128 v itself,
+    read in place); the K scales of the padded keys 0."""
     b, sq, h, d = q.shape
     skv = k.shape[1]
     g = qk_int8_geometry(b, sq, skv, h, d)
     ops = int8_prepass(q, k, v, pv_int8=False)
-    return {"q8": chunk_major(ops["q8"][:, :sq], 16), "k8": chunk_major(ops["k8"][:, :skv], 16),
-            "v": chunk_major(_heads_first(v), 8), "sq": ops["sq"],
+    return {"q8": _int8_rows_layout(ops["q8"], sq, d), "k8": _int8_rows_layout(ops["k8"], skv, d),
+            "v": chunk_major(_heads_first(v), 8) if g["v_copy"] else v, "sq": ops["sq"],
             "sk": F.pad(ops["sk"][:, :skv], (0, g["skv_pad"] - skv)), "bq": g["bq"]}
 
 
@@ -408,33 +447,64 @@ def v8_chunks(v8: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 1, 5, 3, 2, 4).reshape(bh, n_vc, d, 16).contiguous()
 
 
+def v8_channels(v8: torch.Tensor) -> torch.Tensor:
+    """K7's v8 layout at d = 128 from a plain (BH, Skv, D) int8: (BH, D,
+    ceil128(Skv)), each channel's keys contiguous (a channel's 128 keys of a
+    tile are one 128-byte swizzle row, K-major for the s8 wgmma), keys past
+    Skv zero, and within each 16 keys the order of `v8_chunks` (byte 4t + 2a
+    + c holds key 8a + 2t + c), which is the k32 A fragment's as well: its
+    bytes 4t..4t+3 of each 16 are a thread's keys 2t, 2t + 1, 8 + 2t, 9 + 2t."""
+    bh, skv, d = v8.shape
+    n16 = _ceil_to(skv, 128) // 16
+    x = F.pad(v8, (0, 0, 0, 16 * n16 - skv)).reshape(bh, n16, 2, 4, 2, d)
+    # (bh, chunk, a, t, c, d) -> (bh, d, chunk, t, a, c)
+    return x.permute(0, 5, 1, 3, 2, 4).reshape(bh, d, 16 * n16).contiguous()
+
+
 def int8pv_geometry(b: int, sq: int, skv: int, h: int, d: int) -> dict:
     """The layout of K7's operands and tiles, as its pre-pass, max pass and
     attention (`csrc/flash_attention_int8.cu`) lay them out: K6's q8, k8,
     sq and sk; v8 (`v8_chunks`) and sv; qb and kb, q8's and k8's values in
     bf16 for the max pass, chunk-major in 8-value chunks with the head dim
-    padded to dp = ceil16(D); the P block `pb` (min(1024,
+    padded to dp = ceil16(D) (`bf16_copies`); the P block `pb` (min(1024,
     ceil128(Skv)) keys) and its count; the block maxes (BH, Sq, n_kb); the
     q rows per block (two 64-row blocks per consumer warpgroup up to DP =
     ceil16(D) = 48, one above), the keys per tile (64, 128 for 48 < DP <=
     96), its 4 stages and the tiles per P block; the pre-pass's f32
     scratch; the dynamic shared memory of the attention and the max
-    pass."""
+    pass. At d = 128: K6's row-major q8 and k8, v8 channel-major
+    (`v8_channels`), all read in the 128-byte swizzle (`maps`), one 64-row
+    block per consumer warpgroup with 128-key tiles in 3 stages, and no
+    bf16 copies: the max pass reads q8 and k8."""
     g6 = qk_int8_geometry(b, sq, skv, h, d)
     dk, dp, bh = g6["dk"], g6["dp"], b * h
-    mb = 2 if dp <= 48 else 1
-    bk = 64 if (mb == 2 or dp > 96) else 128
     pb = min(QBLOCK, _ceil_to(skv, 128))
     n_kb = -(-skv // pb)
-    bars = 8 * (1 + 2 * 4) + 128
     shapes = {n: g6["shapes"][n] for n in ("q8", "k8", "sq", "sk")}
-    shapes.update(v8=(bh, -(-skv // 16), d, 16), sv=(bh, d), qb=(bh, dp // 8, sq, 8),
-                  kb=(bh, dp // 8, skv, 8), blockmax=(bh, sq, n_kb),
+    shapes.update(sv=(bh, d), blockmax=(bh, sq, n_kb),
                   scratch=(bh * (g6["q_slices"] + 2 * g6["k_slices"] * d + d + 1),))
+    if d == SW_D:
+        # q8, k8 row-major, v8 channel-major, 128-key tiles; the max pass on
+        # q8 and k8 by s8 wgmma: no bf16 copies
+        bk, stages, skv_pad = 128, 3, g6["skv_pad"]
+        bars = 8 * (1 + 2 * stages) + 1024
+        shapes.update(v8=(bh, d, skv_pad))
+        return {"dk": dk, "dp": dp, "bq": g6["bq"], "n_qb": g6["n_qb"], "pb": pb, "n_kb": n_kb,
+                "row_blocks": 1, "q_rows": 128, "kv_rows": bk, "stages": stages,
+                "tiles_per_block": pb // bk, "skv_pad": skv_pad, "bf16_copies": False,
+                "swizzle": 128, "smem": 128 * dk + stages * bk * (dk + dp + 4) + bars,
+                "smem_maxpass": 128 * dk + stages * bk * (dk + 4) + bars, "shapes": shapes,
+                "maps": {"q8": g6["maps"]["q8"], "k8": g6["maps"]["k8"],
+                         "v8": _rows_sw128(bh, d, skv_pad, 128)}}
+    mb = 2 if dp <= 48 else 1
+    bk = 64 if (mb == 2 or dp > 96) else 128
+    bars = 8 * (1 + 2 * 4) + 128
+    shapes.update(v8=(bh, -(-skv // 16), d, 16), qb=(bh, dp // 8, sq, 8),
+                  kb=(bh, dp // 8, skv, 8))
     return {"dk": dk, "dp": dp, "bq": g6["bq"], "n_qb": g6["n_qb"], "pb": pb, "n_kb": n_kb,
             "row_blocks": mb, "q_rows": 128 * mb, "kv_rows": bk, "stages": 4,
-            "tiles_per_block": pb // bk, "skv_pad": g6["skv_pad"],
-            "smem": 128 * mb * dk + 4 * bk * (dk + dp + 4) + bars,
+            "tiles_per_block": pb // bk, "skv_pad": g6["skv_pad"], "bf16_copies": True,
+            "swizzle": 0, "smem": 128 * mb * dk + 4 * bk * (dk + dp + 4) + bars,
             "smem_maxpass": 128 * mb * 2 * dp + 4 * bk * (2 * dp + 4) + bars, "shapes": shapes}
 
 
@@ -442,17 +512,19 @@ def int8pv_operands_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> 
     """K7's operands from the plain pre-pass `int8_prepass`, in the layout
     of `int8pv_geometry` (the plain version of the PV pre-pass kernels):
     K6's q8, k8, sq and sk, v8 by `v8_chunks`, sv, and q8's and k8's values
-    in bf16 (qb, kb)."""
+    in bf16 (qb, kb); at d = 128 v8 by `v8_channels` and no qb, kb."""
     ops = int8_prepass(q, k, v, pv_int8=True)
     b, sq, h, d = q.shape
     skv = k.shape[1]
     g = int8pv_geometry(b, sq, skv, h, d)
+    out = {"q8": _int8_rows_layout(ops["q8"], sq, d), "k8": _int8_rows_layout(ops["k8"], skv, d),
+           "sq": ops["sq"], "sk": F.pad(ops["sk"][:, :skv], (0, g["skv_pad"] - skv)),
+           "sv": ops["sv"], "bq": g["bq"]}
+    if not g["bf16_copies"]:
+        return out | {"v8": v8_channels(ops["v8"])}
     q8, k8 = ops["q8"][:, :sq], ops["k8"][:, :skv]
-    return {"q8": chunk_major(q8, 16), "k8": chunk_major(k8, 16),
-            "sq": ops["sq"], "sk": F.pad(ops["sk"][:, :skv], (0, g["skv_pad"] - skv)),
-            "v8": v8_chunks(ops["v8"]), "sv": ops["sv"],
-            "qb": chunk_major(q8[..., :g["dp"]].bfloat16(), 8),
-            "kb": chunk_major(k8[..., :g["dp"]].bfloat16(), 8), "bq": g["bq"]}
+    return out | {"v8": v8_chunks(ops["v8"]), "qb": chunk_major(q8[..., :g["dp"]].bfloat16(), 8),
+                  "kb": chunk_major(k8[..., :g["dp"]].bfloat16(), 8)}
 
 
 def int8_block_rowmax_plain(ops: dict, sq: int, skv: int, scale: float) -> torch.Tensor:
@@ -463,7 +535,7 @@ def int8_block_rowmax_plain(ops: dict, sq: int, skv: int, scale: float) -> torch
     For c > 0 the max is taken before the multiply by c (the same value:
     rounding is monotone), as the kernel does. One Q-scale block of
     queries at a time."""
-    q8, k8 = from_chunk_major(ops["q8"]).float(), from_chunk_major(ops["k8"]).float()
+    q8, k8 = operand_rows(ops["q8"]).float(), operand_rows(ops["k8"]).float()
     bq = ops["bq"]
     pb = min(QBLOCK, _ceil_to(skv, 128))
     n_kb = -(-skv // pb)
@@ -532,7 +604,9 @@ def qk_int8_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> dict:
     sh = g["shapes"]
     ops = {name: torch.empty(sh[name], dtype=dt, device=q.device) for name, dt in (
         ("q8", torch.int8), ("k8", torch.int8), ("v", torch.bfloat16), ("sq", torch.float32),
-        ("sk", torch.float32), ("scratch", torch.float32))}
+        ("sk", torch.float32), ("scratch", torch.float32)) if name != "v" or g["v_copy"]}
+    if not g["v_copy"]:
+        ops["v"] = v  # read in place; the pre-pass writes no copy
     fn = kernels.function("flash_attention_qk_int8", "tclight_qk_int8_prepass",
                           PREPASS_ARGTYPES, ctypes.c_int)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), ops["q8"].data_ptr(),
@@ -557,15 +631,16 @@ def int8pv_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> dict:
     skv = k.shape[1]
     g = int8pv_geometry(b, sq, skv, h, d)
     sh = g["shapes"]
+    # at d = 128 there are no bf16 copies (qb, kb): the max pass reads q8, k8
     ops = {name: torch.empty(sh[name], dtype=dt, device=q.device) for name, dt in (
         ("q8", torch.int8), ("k8", torch.int8), ("v8", torch.int8), ("qb", torch.bfloat16),
         ("kb", torch.bfloat16), ("sq", torch.float32), ("sk", torch.float32),
-        ("sv", torch.float32), ("scratch", torch.float32))}
+        ("sv", torch.float32), ("scratch", torch.float32)) if name in sh}
     fn = kernels.function("flash_attention_qk_int8", "tclight_int8pv_prepass",
                           PV_PREPASS_ARGTYPES, ctypes.c_int)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            *(ops[n].data_ptr() for n in ("q8", "k8", "v8", "qb", "kb", "sq", "sk", "sv",
-                                          "scratch")),
+            *(ops[n].data_ptr() if n in ops else None
+              for n in ("q8", "k8", "v8", "qb", "kb", "sq", "sk", "sv", "scratch")),
             b, h, sq, skv, d, g["bq"], torch.cuda.current_stream(q.device).cuda_stream)
     kernels.check_launch(rc, "flash_attention_int8pv pre-pass")
     kernels.STATS["flash_attention_int8pv_prepass"].record((sq, skv, d))
@@ -577,14 +652,16 @@ def int8pv_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> dict:
 def int8_block_rowmax(ops: dict, b: int, h: int, sq: int, skv: int, d: int,
                       scale: float) -> torch.Tensor:
     """K7's max pass on the operands of `int8pv_operands`: on CUDA tensors
-    the kernel, on CPU tensors `int8_block_rowmax_plain`."""
+    the kernel (on the bf16 copies qb and kb, at d = 128 on q8 and k8), on
+    CPU tensors `int8_block_rowmax_plain`."""
     if not ops["q8"].is_cuda:
         return int8_block_rowmax_plain(ops, sq, skv, scale)
     g = int8pv_geometry(b, sq, skv, h, d)
     bm = torch.empty(g["shapes"]["blockmax"], dtype=torch.float32, device=ops["q8"].device)
     fn = kernels.function("flash_attention_int8", "tclight_int8pv_blockmax", MAXPASS_ARGTYPES,
                           ctypes.c_int)
-    rc = fn(ops["qb"].data_ptr(), ops["kb"].data_ptr(), ops["sq"].data_ptr(),
+    qb, kb = (ops["qb"], ops["kb"]) if g["bf16_copies"] else (ops["q8"], ops["k8"])
+    rc = fn(qb.data_ptr(), kb.data_ptr(), ops["sq"].data_ptr(),
             ops["sk"].data_ptr(), bm.data_ptr(), b, h, sq, skv, d, ops["bq"], float(scale),
             torch.cuda.current_stream(bm.device).cuda_stream)
     kernels.check_launch(rc, "flash_attention_int8pv max pass")

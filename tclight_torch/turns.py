@@ -16,7 +16,9 @@ batch of 16), both computed once by this checkout into build/turns/.
 
 K1 runs at the UNet's xy shapes (levels 0-2) and the Cosmos DiTs' (32
 heads of 128: 5,120, 14,080 and 56,320 tokens), the wrapper's k/v copies
-included where it makes them.
+included where it makes them; K6 and K7 at the UNet's xy levels 0-2 and
+yt levels 0-1 and at the same DiT shapes (`attn_backend="int8"` /
+`"int8pv"`).
 
 K5-path is chip_smoke's K5 path: `run_uvt` on the turnover ids for 5
 epochs; its ms is the median epoch past the first (the first plans and
@@ -35,20 +37,21 @@ import sys
 from pathlib import Path
 
 # (kernel, shape label, shape): chip_smoke's K2 merges at levels 0 and 1,
-# its K6 / K7 attention shapes (xy levels 0-2, the yt pass's levels 0, 1)
-# and its K3 cases (N, H, W, radius, adjoint)
-ATTENTION = [("L0", (2, 35640, 40)), ("L1", (2, 8910, 80)), ("L2", (8, 660, 160)),
-             ("yt-L0", (2, 8910, 40)), ("yt-L1", (2, 2228, 80))]
+# its K6 / K7 attention shapes (B, S, H, D: xy levels 0-2, the yt pass's
+# levels 0, 1, and the DiTs' self-attention) and its K3 cases (N, H, W,
+# radius, adjoint)
+ATTENTION = [("L0", (2, 35640, 8, 40)), ("L1", (2, 8910, 8, 80)), ("L2", (8, 660, 8, 160)),
+             ("yt-L0", (2, 8910, 8, 40)), ("yt-L1", (2, 2228, 8, 80))]
+DIT = [("dd", (1, 5120, 32, 128)), ("t2w", (1, 14080, 32, 128)),
+       ("t2w-704", (1, 56320, 32, 128))]
 # K1's (B, S, H, D): the UNet's xy levels and the DiTs' self-attention
-K1_SHAPES = [("L0", (2, 35640, 8, 40)), ("L1", (2, 8910, 8, 80)), ("L2", (8, 660, 8, 160)),
-             ("dd", (1, 5120, 32, 128)), ("t2w", (1, 14080, 32, 128)),
-             ("t2w-704", (1, 56320, 32, 128))]
+K1_SHAPES = ATTENTION[:3] + DIT
 SHAPES = ([("K1", label, shape) for label, shape in K1_SHAPES]
           + [("K2", "global L0", (2, 23760, 23760, 320)),
              ("K2", "local L0", (2, 32400, 10800, 320)),
              ("K2", "global L1", (2, 5940, 5940, 640)), ("K2", "local L1", (2, 8100, 2700, 640))]
-          + [("K6", label, shape) for label, shape in ATTENTION]
-          + [("K7", label, shape) for label, shape in ATTENTION]
+          + [("K6", label, shape) for label, shape in ATTENTION + DIT]
+          + [("K7", label, shape) for label, shape in ATTENTION + DIT]
           + [("K3", f"{d} {case}", (16, 720, 960, r, d == "adjoint"))
              for case, r in (("farneback", 4), ("random", 24)) for d in ("forward", "adjoint")]
           + [("K5", d, d) for d in ("render", "adjoint")]
@@ -163,8 +166,8 @@ def leg(shapes, flows_path, plans_path) -> None:
             t = ms(lambda: window_warp_cuda(x, f, r, adjoint=adjoint), 5 if r < 20 or not adjoint
                    else 2)
         else:
-            b, s, d = shape
-            q, k, v = (torch.randn(b, s, 8, d, device="cuda", generator=gen, dtype=torch.bfloat16)
+            b, s, h, d = shape
+            q, k, v = (torch.randn(b, s, h, d, device="cuda", generator=gen, dtype=torch.bfloat16)
                        for _ in range(3))
             t = ms(lambda: flash_attention_int8_cuda(q, k, v, d ** -0.5, kernel == "K7"),
                    3 if s > 20000 else 10)

@@ -152,8 +152,31 @@ def test_int8_prepass_lays_out_the_kernel_operands():
     assert torch.equal(ops["v8"], v8) and torch.equal(ops["sv"], sv)
 
 
+def test_int8_prepass_lays_out_head_dim_128():
+    """The plain pre-pass at head dim 128 (no head-dim padding: 128 is the
+    int8 MMA depth's multiple) and the kernels' D = 128 layout made from it:
+    q8 and k8 its real rows, row-major (BH, S, 128), one 128-byte row a
+    token; K6's v the input itself; K7's v8 channel-major (`v8_channels`)
+    and no bf16 copies."""
+    q, k, v = (torch.from_numpy(a).bfloat16() for a in _qkv(3, 1, 1030, 200, 2, 128))
+    ops = tattn.int8_prepass(q, k, v, pv_int8=True)
+    assert ops["q8"].shape == (2, 2048, 128) and ops["k8"].shape == (2, 256, 128)
+    assert ops["v8"].shape == (2, 200, 128) and ops["sv"].shape == (2, 128)
+    k6, k7 = tattn.qk_int8_operands_plain(q, k, v), tattn.int8pv_operands_plain(q, k, v)
+    for o in (k6, k7):
+        assert o["q8"].shape == (2, 1030, 128) and o["k8"].shape == (2, 200, 128)
+        assert o["q8"].is_contiguous() and o["k8"].is_contiguous()
+        assert torch.equal(o["q8"], ops["q8"][:, :1030]) and torch.equal(o["k8"], ops["k8"][:, :200])
+    assert k6["v"] is v and "qb" not in k7 and "kb" not in k7
+    assert torch.equal(k7["v8"], tattn.v8_channels(ops["v8"])) and k7["v8"].shape == (2, 128, 256)
+
+
 def _from_v8_chunks(v8c: torch.Tensor, skv: int) -> torch.Tensor:
-    """Inverse of `v8_chunks`: byte 4t + 2a + c of a chunk is key 8a + 2t + c."""
+    """Inverse of `v8_chunks` (and of `v8_channels`, the channel-major
+    layout of head dim 128): byte 4t + 2a + c of a chunk is key 8a + 2t + c."""
+    if v8c.dim() == 3:  # (bh, d, keys) -> (bh, keys / 16, d, 16)
+        bh, d, n = v8c.shape
+        v8c = v8c.reshape(bh, d, n // 16, 16).transpose(1, 2)
     bh, n_vc, d, _ = v8c.shape
     x = v8c.reshape(bh, n_vc, d, 4, 2, 2).permute(0, 1, 4, 3, 5, 2)  # (bh, chunk, a, t, c, d)
     return x.reshape(bh, n_vc * 16, d)[:, :skv], x.reshape(bh, n_vc * 16, d)[:, skv:]
@@ -172,6 +195,23 @@ def test_v8_chunks_key_order():
                 assert c[0, 1, 2, 4 * t + 2 * a + cc] == 16 + 8 * a + 2 * t + cc
     back, pad = _from_v8_chunks(c, 40)
     assert torch.equal(back, keys) and (pad == 0).all()
+
+
+def test_v8_channels_key_order():
+    """Head dim 128's channel-major v8 (BH, D, ceil128(Skv)): each channel's
+    keys contiguous, padded with zeros to 128, in `v8_chunks`' order within
+    each 16, which is the k32 A fragment's: bytes 4t..4t+3 of each 16 keys
+    hold a thread's keys 2t, 2t + 1, 8 + 2t, 9 + 2t (the score fragment's
+    keys of two 8-key blocks, packed as they lie)."""
+    keys = torch.arange(40, dtype=torch.int8)[None, :, None].repeat(1, 1, 3)
+    keys[..., 1] += 50
+    c = tattn.v8_channels(keys)
+    assert c.shape == (1, 3, 128) and c.is_contiguous()
+    for t in range(4):
+        assert c[0, 1, 16 + 4 * t:16 + 4 * t + 4].tolist() == [
+            66 + 2 * t, 67 + 2 * t, 74 + 2 * t, 75 + 2 * t]
+    back, pad = _from_v8_chunks(c, 40)
+    assert torch.equal(back, keys) and (pad == 0).all() and pad.shape[1] == 128 - 40
 
 
 def test_backend_dispatch():
@@ -228,6 +268,8 @@ def test_tiny_unet_with_int8_attention_matches_jax(tiny_unet, backend, monkeypat
     (2, 300, 1100, 1, 80),    # one Q block of 384 rows, a ragged last k slice
     (1, 129, 65, 2, 8),       # the smallest head dim
     (1, 64, 130, 1, 160),     # the largest
+    (1, 1030, 200, 2, 128),   # head dim 128: q8 and k8 row-major, v in place
+    (2, 300, 1100, 1, 128),
 ])
 def test_qk_int8_operands_match_jax_quantizers(b, sq, skv, h, d):
     """K6's operands in the layout its pre-pass kernels write
@@ -235,8 +277,8 @@ def test_qk_int8_operands_match_jax_quantizers(b, sq, skv, h, d):
     (B * H, S, D): q8 and the Q scales equal JAX's `_quantize_blocks` of the
     zero-padded queries, k8 and the K scales JAX's `_quantize_rows` of K
     minus its token mean (bf16 inputs: bit-equal, see
-    `test_k_smoothing_matches`), v the heads-first v; the head dim's
-    padding and the padded keys' scales are zeros."""
+    `test_k_smoothing_matches`), v the heads-first v (at d = 128 v as it
+    lies); the head dim's padding and the padded keys' scales are zeros."""
     q, k, v = _qkv(5, b, sq, skv, h, d)
     jq, tq = _pair(q, "bf16")
     jk, tk = _pair(k, "bf16")
@@ -247,8 +289,8 @@ def test_qk_int8_operands_match_jax_quantizers(b, sq, skv, h, d):
         assert tuple(ops[name].shape) == g["shapes"][name], name
         assert ops[name].is_contiguous()
     assert ops["q8"].dtype == ops["k8"].dtype == torch.int8 and ops["bq"] == g["bq"]
-    q8 = tattn.from_chunk_major(ops["q8"])
-    k8 = tattn.from_chunk_major(ops["k8"])
+    q8 = tattn.operand_rows(ops["q8"])
+    k8 = tattn.operand_rows(ops["k8"])
     assert (q8[:, :, d:] == 0).all() and (k8[:, :, d:] == 0).all()
     bq, sq_pad = g["bq"], g["n_qb"] * g["bq"]
     jqt = jq.transpose(0, 2, 1, 3).reshape(b * h, sq, d)
@@ -260,7 +302,10 @@ def test_qk_int8_operands_match_jax_quantizers(b, sq, skv, h, d):
     np.testing.assert_array_equal(k8[:, :, :d].numpy(), np.asarray(jk8))
     np.testing.assert_array_equal(ops["sk"][:, :skv].numpy(), np.asarray(jsk))
     assert (ops["sk"][:, skv:] == 0).all()
-    assert torch.equal(tattn.from_chunk_major(ops["v"]), tattn._heads_first(tv))
+    if d == 128:
+        assert ops["v"] is tv
+    else:
+        assert torch.equal(tattn.from_chunk_major(ops["v"]), tattn._heads_first(tv))
 
 
 @pytest.mark.parametrize("d", [8, 16, 24, 40, 64, 80, 96, 128, 144, 160])
@@ -289,6 +334,33 @@ def test_qk_int8_geometry_matches_the_kernel_source(d):
                  "constexpr int CH8 = (D + 31) / 32 * 2;",
                  "const cuuint32_t box[4] = {16, (cuuint32_t)rows, (cuuint32_t)(DK / 16), 1};"):
         assert rule in src, rule
+    if d != 128:
+        assert g["v_copy"] and g["swizzle"] == 0
+        return
+    # head dim 128: q8, k8 row-major and v in place, read by 128-byte-swizzled
+    # tensor maps (hopper.cuh's, K1's for v), with K1's D = 128 tiles
+    hopper = (Path(tattn.__file__).resolve().parent.parent / "csrc" / "hopper.cuh").read_text()
+    assert not g["v_copy"] and g["swizzle"] == 128
+    assert g["shapes"]["q8"] == (16, 35640, 128) and g["shapes"]["v"] == (2, 35640, 8, 128)
+    for name in ("q8", "k8"):
+        assert g["maps"][name] == {"dims": (128, 35640, 16, 1),
+                                   "strides": (128, 128 * 35640, 128 * 35640 * 16),
+                                   "box": (128, 128, 1, 1), "swizzle": 128}
+    assert g["maps"]["v"] == k1["maps"]["v"] and k1["maps"]["v"]["swizzle"] == 128
+    assert g["smem"] == 128 * 128 + 3 * 128 * (3 * 128 + 4) + 56 + 1024 <= tattn.SMEM_PER_BLOCK
+    for rule in ("constexpr int SW_D = 128;", "constexpr int SW_BQ = 128;",
+                 "constexpr int SW_BK = 128;", "constexpr int SW_NST = 3;",
+                 "constexpr size_t SW_SMEM = (size_t)SW_BQ * SW_D + (size_t)SW_NST * SW_BK * "
+                 "(3 * SW_D + 4) +\n                           8 * (1 + 2 * SW_NST) + 1024;",
+                 "tensor_map_rows_sw128(&tq, q8, B * H, Sq, SW_D, SW_BQ)",
+                 "tensor_map_bshd_sw128(&tv, vc, B, Skv, H, SW_BK);",
+                 "return launch<SW_D, SW_D, true>(q8, k8, vc, sq, sk, o, B, H, Sq, Skv, D, bq,",
+                 "return SW ? ((long)bh * S + r) * CH8 + c16 : ((long)bh * CH8 + c16) * S + r;"):
+        assert rule in src + hopper, rule
+    for rule in ("const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)R, (cuuint64_t)N, 1};",
+                 "const cuuint32_t box[4] = {128, (cuuint32_t)rows, 1, 1};",
+                 "CU_TENSOR_MAP_SWIZZLE_128B"):
+        assert rule in hopper, rule
 
 
 @pytest.mark.parametrize("b,sq,skv,h,d", [
@@ -296,39 +368,44 @@ def test_qk_int8_geometry_matches_the_kernel_source(d):
     (2, 300, 1100, 1, 80),    # a ragged last k slice and P block
     (1, 129, 65, 2, 8),       # the smallest head dim
     (1, 64, 130, 1, 160),     # the largest
+    (1, 1030, 200, 2, 128),   # head dim 128: v8 channel-major, no bf16 copies
+    (2, 300, 1100, 1, 128),
 ])
 def test_int8pv_operands_match_jax_quantizers(b, sq, skv, h, d):
     """K7's operands in the layout its pre-pass kernels write
     (`int8pv_operands`, the plain version on the CPU), read back: q8, k8
     and their scales as for K6 (`test_qk_int8_operands_match_jax_quantizers`),
     v8 and sv equal to JAX's `_quantize_channels` of the heads-first V
-    (bf16 inputs: bit-equal), the keys past Skv zero."""
+    (bf16 inputs: bit-equal), the keys past Skv zero (at d = 128 the keys
+    up to ceil128(Skv), and there are no bf16 copies)."""
     q, k, v = _qkv(6, b, sq, skv, h, d)
     jq, tq = _pair(q, "bf16")
     jk, tk = _pair(k, "bf16")
     jv, tv = _pair(v, "bf16")
     g = tattn.int8pv_geometry(b, sq, skv, h, d)
     ops = tattn.int8pv_operands(tq, tk, tv)
-    for name in ("q8", "k8", "v8", "qb", "kb", "sq", "sk", "sv"):
+    names = ("q8", "k8", "v8", "sq", "sk", "sv") + (("qb", "kb") if d != 128 else ())
+    assert set(names) | {"bq"} == set(ops)
+    for name in names:
         assert tuple(ops[name].shape) == g["shapes"][name], name
         assert ops[name].is_contiguous()
     assert ops["v8"].dtype == torch.int8 and ops["bq"] == g["bq"]
     # the max pass's bf16 copies hold q8's and k8's values exactly, the head
     # dim padded to 16 with zeros
     dp = g["dp"]
-    assert ops["qb"].dtype == ops["kb"].dtype == torch.bfloat16
-    for bf, i8 in (("qb", "q8"), ("kb", "k8")):
+    for bf, i8 in (("qb", "q8"), ("kb", "k8")) if d != 128 else ():
+        assert ops[bf].dtype == torch.bfloat16
         vals = tattn.from_chunk_major(ops[bf])
         assert torch.equal(vals.float(), tattn.from_chunk_major(ops[i8])[..., :dp].float())
     bq, sq_pad = g["bq"], g["n_qb"] * g["bq"]
     jqt = jq.transpose(0, 2, 1, 3).reshape(b * h, sq, d)
     jq8, jsq = jattn._quantize_blocks(jnp.pad(jqt, ((0, 0), (0, sq_pad - sq), (0, 0))), bq)
-    np.testing.assert_array_equal(tattn.from_chunk_major(ops["q8"])[:, :, :d].numpy(),
+    np.testing.assert_array_equal(tattn.operand_rows(ops["q8"])[:, :, :d].numpy(),
                                   np.asarray(jq8)[:, :sq])
     np.testing.assert_array_equal(ops["sq"].numpy(), np.asarray(jsq))
     jkt = jk.transpose(0, 2, 1, 3).reshape(b * h, skv, d)
     jk8, jsk = jattn._quantize_rows(jkt - jnp.mean(jkt, axis=1, keepdims=True))
-    np.testing.assert_array_equal(tattn.from_chunk_major(ops["k8"])[:, :, :d].numpy(),
+    np.testing.assert_array_equal(tattn.operand_rows(ops["k8"])[:, :, :d].numpy(),
                                   np.asarray(jk8))
     np.testing.assert_array_equal(ops["sk"][:, :skv].numpy(), np.asarray(jsk))
     jv8, jsv = jattn._quantize_channels(jv.transpose(0, 2, 1, 3).reshape(b * h, skv, d))
@@ -342,6 +419,8 @@ def test_int8pv_operands_match_jax_quantizers(b, sq, skv, h, d):
     (1, 1100, 1300, 2, 40),   # two P blocks, the second ragged (276 keys)
     (2, 300, 700, 1, 80),     # one P block of 768 keys, 68 of them padding
     (1, 2100, 1030, 1, 24),   # three Q-scale blocks, a 6-key last P block
+    (1, 1100, 1300, 2, 128),  # head dim 128: q8 and k8 row-major
+    (2, 300, 700, 1, 128),
 ])
 def test_int8_block_rowmax_plain_matches_jax(b, sq, skv, h, d):
     """K7's max pass, plain: each (query, P block)'s logit max, against the
@@ -384,7 +463,7 @@ def _k7_order(q, k, v, scale):
     ops = tattn.int8pv_operands(q, k, v)
     bm = tattn.int8_block_rowmax(ops, b, h, sq, skv, d, scale)
     g = tattn.int8pv_geometry(b, sq, skv, h, d)
-    q8, k8 = tattn.from_chunk_major(ops["q8"]).double(), tattn.from_chunk_major(ops["k8"]).double()
+    q8, k8 = tattn.operand_rows(ops["q8"]).double(), tattn.operand_rows(ops["k8"]).double()
     v8 = _from_v8_chunks(ops["v8"], skv)[0].double()
     c = scale * np.log2(np.e) * ops["sq"].double().repeat_interleave(g["bq"], 1)[:, :sq, None]
     w = torch.matmul(q8, k8.transpose(1, 2)) * ops["sk"][:, None, :skv].double() * c
@@ -405,6 +484,7 @@ def _k7_order(q, k, v, scale):
     (1, 300, 1300, 2, 40),    # a ragged second P block
     (1, 200, 700, 1, 80),     # one P block with padding
     (2, 130, 1030, 1, 24),    # a 6-key last P block
+    (1, 300, 1300, 2, 128),   # head dim 128's layout: channel-major v8
 ])
 def test_k7_order_matches_the_plain_int8pv(b, sq, skv, h, d):
     """The kernel's order (max pass first, alpha 1 throughout, P quantized
@@ -423,7 +503,8 @@ def test_k7_order_matches_the_plain_int8pv(b, sq, skv, h, d):
 @pytest.mark.parametrize("d", [8, 16, 24, 40, 64, 80, 96, 128, 144, 160])
 def test_int8pv_geometry_matches_the_kernel_source(d):
     """K7's tiles: two 64-row blocks per consumer warpgroup up to DP = 48,
-    one above, with 128-key tiles up to DP = 96; 4 stages; a P block a
+    one above, with 128-key tiles up to DP = 96; 4 stages (at D = 128 3,
+    of 128-key tiles); a P block a
     whole number of tiles; the shared memory of both kernels fits a block;
     the rules are those of `csrc/flash_attention_int8.cu` and its pre-pass
     of `csrc/flash_attention_qk_int8.cu`."""
@@ -439,7 +520,9 @@ def test_int8pv_geometry_matches_the_kernel_source(d):
     # registers a consumer thread keeps live: scores, int32 p.v sums, the
     # f32 accumulator and p8's A fragments
     mb, bk, dp = g["row_blocks"], g["kv_rows"], g["dp"]
-    assert mb * (bk // 2 + dp + bk // 8) <= 200
+    # (at head dim 128, 128-key tiles: 208, under 240 less what the rows'
+    # maxes, sums, scales and the loop keep)
+    assert mb * (bk // 2 + dp + bk // 8) <= (208 if d == 128 else 200)
     assert tattn.int8pv_geometry(1, 100, 300, 1, d)["pb"] == 384
     csrc = Path(tattn.__file__).resolve().parent.parent / "csrc"
     src = (csrc / "flash_attention_int8.cu").read_text()
@@ -451,8 +534,51 @@ def test_int8pv_geometry_matches_the_kernel_source(d):
                  "const cuuint64_t dims[4] = {16, (cuuint64_t)D, (cuuint64_t)n_vc, (cuuint64_t)BH};"):
         assert rule in src, rule
     pre = (csrc / "flash_attention_qk_int8.cu").read_text()
-    assert ("int8_t* dst = v8s + (threadIdx.x / 16) * D * 16 + 4 * ((kp % 8) / 2) + 2 * (kp / 8) "
-            "+ kp % 2;") in pre
+    assert "const int perm = 4 * ((kp % 8) / 2) + 2 * (kp / 8) + kp % 2;" in pre
+    if d != 128:
+        assert g["bf16_copies"] and g["swizzle"] == 0 and "qb" in g["shapes"]
+        return
+    # head dim 128: q8 and k8 row-major, v8 channel-major, all in the
+    # 128-byte swizzle; 128-key tiles; the max pass on q8 and k8 by s8 wgmma
+    assert not g["bf16_copies"] and g["swizzle"] == 128 and "qb" not in g["shapes"]
+    assert (g["row_blocks"], g["q_rows"], g["kv_rows"], g["tiles_per_block"]) == (1, 128, 128, 8)
+    assert g["shapes"]["v8"] == (16, 128, 35712)
+    assert g["maps"]["v8"] == {"dims": (35712, 128, 16, 1),
+                               "strides": (35712, 35712 * 128, 35712 * 128 * 16),
+                               "box": (128, 128, 1, 1), "swizzle": 128}
+    assert g["maps"]["q8"]["box"] == (128, 128, 1, 1)
+    assert g["stages"] == 3
+    assert g["smem"] == 128 * 128 + 3 * 128 * 260 + 56 + 1024
+    assert g["smem_maxpass"] == 128 * 128 + 3 * 128 * 132 + 56 + 1024
+    for rule in ("constexpr int SW_D = 128;", "constexpr int SW_BQ = 128;",
+                 "constexpr int SW_BK = 128;", "constexpr int SW_NST = 3;",
+                 "constexpr size_t SW_SMEM = (size_t)SW_BQ * SW_D + (size_t)SW_NST * SW_BK * "
+                 "(2 * SW_D + 4) +",
+                 "constexpr int NS = SW ? SW_NST : NST;",
+                 "tensor_map_rows_sw128(&tv, v8, B * H, SW_D, skv_pad, SW_D);",
+                 "tensor_map_rows_sw128(&tq, qb, B * H, Sq, SW_D, bq_rows)",
+                 "return launch_blockmax<SW_D, true>(qb, kb, sq, sk, blockmax, B, H, Sq, Skv, bq,"):
+        assert rule in src, rule
+    assert "reinterpret_cast<uint4*>(v8 + ((long)bh * D + c) * skv_pad + k0)[u] =" in pre
+
+
+@pytest.mark.parametrize("d", [40, 80, 112, 120, 128, 160])
+def test_int8_wrappers_copy_all_but_head_dim_128(d):
+    """At head dim 128 K6's operands hold v itself (the kernel reads it in
+    place, the pre-pass writes no copy) and K7's hold no bf16 copies of q8
+    and k8 (the max pass reads q8 and k8); at every other head dim, the
+    UNet's 40 / 80 / 160 and 112 / 120 near 128 included, the chunk-major v
+    copy and the bf16 copies are made as before."""
+    q, k, v = (torch.from_numpy(a).bfloat16() for a in _qkv(9, 1, 130, 200, 2, d))
+    g6, g7 = tattn.qk_int8_geometry(1, 130, 200, 2, d), tattn.int8pv_geometry(1, 130, 200, 2, d)
+    ops6, ops7 = tattn.qk_int8_operands(q, k, v), tattn.int8pv_operands(q, k, v)
+    assert g6["v_copy"] == g7["bf16_copies"] == (d != 128)
+    assert (ops6["v"] is v) == (d == 128)
+    assert ("qb" in ops7) == ("kb" in ops7) == (d != 128)
+    assert ops6["q8"].dim() == ops7["q8"].dim() == (3 if d == 128 else 4)
+    if d != 128:
+        assert tuple(ops6["v"].shape) == (2, d // 8, 200, 8)
+        assert ops7["qb"].dtype == torch.bfloat16
 
 
 def test_chunk_major_round_trip():

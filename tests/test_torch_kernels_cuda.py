@@ -4,7 +4,9 @@ depth, kv and q lengths that end inside a tile, dst counts that end inside
 a tile, channel counts on every shared-memory path of the matcher, exact
 ties; K1 at head dim 128 (read in place, swizzled) with ragged lengths,
 Sq != Skv, B > 1, 32 heads and a masked kv tail, beside D = 120 and 112
-(chunk-major); for the window warp (K3) frames that end inside a tile, flows that
+(chunk-major), and K6 and K7 at head dim 128 (q8, k8 row-major, v in
+place / v8 channel-major, all swizzled; K7's max pass on s8 wgmma) with the
+same cases; for the window warp (K3) frames that end inside a tile, flows that
 leave the frame, flow ranges up to 100 px, every channel count and both
 kernels; for the banded gathers (K4, K5) masked entries, int16 and int32 offsets, windows that run
 past the table's end and K = 2, 3 windows; K4 on render-like and
@@ -163,6 +165,13 @@ def test_flash_kernel_masks_the_kv_tail_before_the_max(cuda, d, skv):
     (2, 100, 37, 1, 80),      # fewer keys than one tile
     (1, 257, 129, 2, 160),    # one row past a 128-row tile, one key past a tile
     (1, 1, 1, 1, 40),         # one query, one key
+    (1, 200, 300, 2, 128),    # head dim 128 (swizzled, in place), both lengths ragged
+    (1, 1030, 2100, 3, 128),  # Sq < Skv, two Q-scale blocks, a ragged third P block
+    (2, 1100, 700, 2, 128),   # Sq > Skv, B = 2
+    (1, 300, 1025, 32, 128),  # 32 heads, one key past a whole P block
+    (1, 1, 1, 1, 128),
+    (1, 129, 600, 2, 120),    # next to 128: the chunk-major path
+    (1, 257, 129, 2, 112),
 ])
 def test_int8_flash_kernels_match_plain(cuda, pv_int8, b, sq, skv, h, d):
     """K6 (pv_int8 False) and K7 against the plain version on the same
@@ -190,7 +199,7 @@ def test_int8_flash_kernels_match_plain(cuda, pv_int8, b, sq, skv, h, d):
     assert (ref - fp).abs().max().item() <= 0.1 * fp.abs().max().item()
 
 
-@pytest.mark.parametrize("d", [40, 80, 160])
+@pytest.mark.parametrize("d", [40, 80, 160, 128])
 @pytest.mark.parametrize("sq,skv", [
     (300, 100),     # one P block of 128 keys, 28 of them padding
     (257, 1000),    # Skv < 1024: one P block of 1024 keys, 24 padding
@@ -200,7 +209,8 @@ def test_int8_flash_kernels_match_plain(cuda, pv_int8, b, sq, skv, h, d):
 def test_k7_p_blocks_and_tiles(cuda, d, sq, skv):
     """K7 at the head dims of the three UNet levels (two row blocks and
     64-key tiles at D = 40, one row block with 128-key tiles at D = 80 and
-    64-key tiles at D = 160) with P blocks that end inside a tile, a last
+    64-key tiles at D = 160; at D = 128 128-key tiles of the swizzled
+    path) with P blocks that end inside a tile, a last
     P block shorter than one tile, and Skv below one P block: against the
     plain version, as `test_int8_flash_kernels_match_plain`. The kernel
     also launched its pre-pass and its max pass once each."""
@@ -221,6 +231,8 @@ def test_k7_p_blocks_and_tiles(cuda, d, sq, skv):
     (2, 300, 513, 1, 80),
     (1, 129, 65, 3, 160),
     (1, 64, 3000, 2, 8),
+    (1, 2500, 1030, 2, 128),  # head dim 128: v8 channel-major, the max pass on q8 / k8
+    (2, 300, 513, 32, 128),
 ])
 def test_int8pv_prepass_kernels_and_max_pass_match_plain(cuda, b, sq, skv, h, d):
     """K7's pre-pass kernels (the PV variant of K6's) against the plain
@@ -228,9 +240,11 @@ def test_int8pv_prepass_kernels_and_max_pass_match_plain(cuda, b, sq, skv, h, d)
     each 16, padding zero) and the V scales bit-equal; k8 and the K scales
     as for K6 (`test_int8_prepass_kernels_match_plain`). Then the max pass
     on the kernels' operands against its plain version on the same
-    operands: exact dots (bf16 products of int8 values, f32 sums below 2^22)
+    operands: exact dots (bf16 products of int8 values, f32 sums below 2^22;
+    at D = 128 int32 sums of s8 products, below 2^24, converted exactly)
     and the same two f32 multiplies, so bit-equal but for the order of the
-    multiplies (held at 1e-6 relative)."""
+    multiplies (held at 1e-6 relative). At D = 128 there are no bf16
+    copies."""
     q, k, v = (torch.randn(b, s, h, d, device="cuda", generator=cuda).bfloat16()
                for s in (sq, skv, skv))
     before = kernels.STATS["flash_attention_int8pv_prepass"].launches
@@ -239,16 +253,19 @@ def test_int8pv_prepass_kernels_and_max_pass_match_plain(cuda, b, sq, skv, h, d)
     assert kernels.STATS["flash_attention_int8pv_prepass"].launches == before + 1
     ref = attention.int8pv_operands_plain(q, k, v)
     g = attention.int8pv_geometry(b, sq, skv, h, d)
-    for name in ("q8", "k8", "v8", "qb", "kb", "sq", "sk", "sv"):
+    copies = ("qb", "kb") if g["bf16_copies"] else ()
+    assert set(ops) == set(ref) == {"q8", "k8", "v8", "sq", "sk", "sv", "bq", *copies}
+    for name in ("q8", "k8", "v8", "sq", "sk", "sv") + copies:
         assert tuple(ops[name].shape) == g["shapes"][name] == tuple(ref[name].shape), name
         assert ops[name].dtype == ref[name].dtype, name
-    for name in ("q8", "sq", "v8", "sv", "qb"):
+    for name in ("q8", "sq", "v8", "sv") + copies[:1]:
         assert torch.equal(ops[name], ref[name]), name
     dk8 = (ops["k8"].int() - ref["k8"].int()).abs()
     assert dk8.max().item() <= 1 and (dk8 > 0).float().mean().item() <= 0.01
     # kb holds the kernel's own k8 values
-    assert torch.equal(attention.from_chunk_major(ops["kb"]).float(),
-                       attention.from_chunk_major(ops["k8"])[..., :g["dp"]].float())
+    if copies:
+        assert torch.equal(attention.from_chunk_major(ops["kb"]).float(),
+                           attention.from_chunk_major(ops["k8"])[..., :g["dp"]].float())
     assert ((ops["sk"] - ref["sk"]).abs() <= ref["sk"] * 2.0 ** -7).all()
     scale = d ** -0.5
     before = kernels.STATS["flash_attention_int8pv_maxpass"].launches
@@ -262,7 +279,7 @@ def test_int8pv_prepass_kernels_and_max_pass_match_plain(cuda, b, sq, skv, h, d)
 
 
 @pytest.mark.parametrize("pv_int8", [False, True])
-@pytest.mark.parametrize("d,skv", [(40, 130), (80, 1031), (160, 65)])
+@pytest.mark.parametrize("d,skv", [(40, 130), (80, 1031), (160, 65), (128, 130), (128, 1031)])
 def test_int8_flash_kernel_masks_the_kv_tail_before_the_max(cuda, pv_int8, d, skv):
     """K6 and K7 with logits of large magnitude, all far below zero, and a
     ragged kv tail: a zero-filled key that joined the row max (or K7's
@@ -285,10 +302,13 @@ def test_int8_flash_kernel_masks_the_kv_tail_before_the_max(cuda, pv_int8, d, sk
     (2, 300, 513, 1, 80),     # one Q block of 384 rows
     (1, 129, 65, 3, 160),
     (1, 64, 3000, 2, 8),
+    (1, 2500, 1030, 2, 128),  # head dim 128: q8, k8 row-major, no v copy
+    (2, 300, 513, 32, 128),
 ])
 def test_int8_prepass_kernels_match_plain(cuda, b, sq, skv, h, d):
     """K6's pre-pass kernels against the plain pre-pass on the same bf16
-    inputs, in K6's layout. q8, the Q scales and the v copy are bit-equal.
+    inputs, in K6's layout. q8, the Q scales and the v copy are bit-equal
+    (at D = 128 v is the input itself, not copied).
     k8 and the K scales depend on K's token mean, an f32 sum over the keys
     that the kernel adds in another order than torch: where the f32 means
     differ by an ulp, their bf16 rounding can differ, which moves k - mean
@@ -307,7 +327,7 @@ def test_int8_prepass_kernels_match_plain(cuda, b, sq, skv, h, d):
         assert tuple(ops[name].shape) == g["shapes"][name] == tuple(ref[name].shape), name
         assert ops[name].dtype == ref[name].dtype, name
     assert torch.equal(ops["q8"], ref["q8"]) and torch.equal(ops["sq"], ref["sq"])
-    assert torch.equal(ops["v"], ref["v"])
+    assert torch.equal(ops["v"], ref["v"]) and (ops["v"] is v) == (d == 128)
     dk8 = (ops["k8"].int() - ref["k8"].int()).abs()
     assert dk8.max().item() <= 1 and (dk8 > 0).float().mean().item() <= 0.01
     assert ((ops["sk"] - ref["sk"]).abs() <= ref["sk"] * 2.0 ** -7).all()
