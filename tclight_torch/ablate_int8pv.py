@@ -43,6 +43,7 @@ import sys
 import torch
 
 from tclight_torch.ops import attention, kernels
+from tclight_torch.utils.logging import cuda_event_ms
 
 SRC = kernels.CSRC / "flash_attention_int8.cu"
 OUT = kernels.BUILD_DIR / "ablate_int8pv"
@@ -113,18 +114,6 @@ def build(names) -> dict[str, ctypes.CDLL]:
     return {name: ctypes.CDLL(str(OUT / f"{name}.so")) for name in names}
 
 
-def cuda_ms(fn, reps: int) -> float:
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def prepass_split_ms(fn, reps: int) -> dict[str, float]:
     """Device milliseconds per call of the pre-pass's two kernels (`stats`,
     `quant`) in fn(), from a torch.profiler trace of `reps` calls."""
@@ -179,21 +168,23 @@ def main(argv: list[str]) -> int:
             main_fn = lib.tclight_flash_attention_int8pv
             main_fn.argtypes, main_fn.restype = attention.K7_ARGTYPES, ctypes.c_int
             bm_v = torch.empty_like(bm)
-            times[f"{name}_maxpass"] = cuda_ms(lambda: kernels.check_launch(
+            times[f"{name}_maxpass"] = cuda_event_ms(lambda: kernels.check_launch(
                 mp(mq.data_ptr(), mk.data_ptr(), ops["sq"].data_ptr(),
                    ops["sk"].data_ptr(), bm_v.data_ptr(), b, h, s, s, d, ops["bq"], scale,
-                   stream), name), reps)
+                   stream), name), reps)[0]
             if d == 128 and name in ("base", "mp_addcvt", "nst4", "mp_inplace") \
                     and not torch.equal(bm_v, bm):
                 raise RuntimeError(f"variant {name}: the max pass's block maxes differ")
-            times[f"{name}_attention"] = cuda_ms(lambda: kernels.check_launch(
+            times[f"{name}_attention"] = cuda_event_ms(lambda: kernels.check_launch(
                 main_fn(*(ops[n].data_ptr() for n in ("q8", "k8", "v8", "sq", "sk", "sv")),
                         bm.data_ptr(), o.data_ptr(), b, h, s, s, d, ops["bq"], scale, stream),
-                name), reps)
-        pre_ms = cuda_ms(lambda: attention.int8pv_operands(q, k, v), reps)
+                name), reps)[0]
+        pre_ms = cuda_event_ms(lambda: attention.int8pv_operands(q, k, v), reps)[0]
         split = prepass_split_ms(lambda: attention.int8pv_operands(q, k, v), reps)
-        k7_ms = cuda_ms(lambda: attention.flash_attention_int8_cuda(q, k, v, scale, True), reps)
-        k6_ms = cuda_ms(lambda: attention.flash_attention_int8_cuda(q, k, v, scale, False), reps)
+        k7_ms = cuda_event_ms(lambda: attention.flash_attention_int8_cuda(q, k, v, scale, True),
+                              reps)[0]
+        k6_ms = cuda_event_ms(lambda: attention.flash_attention_int8_cuda(q, k, v, scale, False),
+                              reps)[0]
         print(f"[ablate-k7] {level} B={b} S={s} H={h} D={d} k7_ms={k7_ms:.3f} "
               f"prepass_ms={pre_ms:.3f} prepass_stats_ms={split['stats']:.3f} "
               f"prepass_quant_ms={split['quant']:.3f} "

@@ -38,6 +38,7 @@ import sys
 import torch
 
 from tclight_torch.ops import attention, kernels
+from tclight_torch.utils.logging import cuda_event_ms
 
 SRC = kernels.CSRC / "flash_attention_qk_int8.cu"
 OUT = kernels.BUILD_DIR / "ablate_qk_int8"
@@ -93,18 +94,6 @@ def build(names) -> dict[str, ctypes.CDLL]:
     return {name: ctypes.CDLL(str(OUT / f"{name}.so")) for name in names}
 
 
-def cuda_ms(fn, reps: int) -> float:
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def prepass_split_ms(fn, reps: int) -> dict[str, float]:
     """Device milliseconds per call of the pre-pass's two kernels (`stats`,
     `quant`) in fn(), from a torch.profiler trace of `reps` calls."""
@@ -151,16 +140,16 @@ def main(argv: list[str]) -> int:
         for name, lib in libs.items():
             fn = lib.tclight_flash_attention_qk_int8
             fn.argtypes, fn.restype = attention.K6_ARGTYPES, ctypes.c_int
-            times[name] = cuda_ms(lambda: kernels.check_launch(
+            times[name] = cuda_event_ms(lambda: kernels.check_launch(
                 fn(ops["q8"].data_ptr(), ops["k8"].data_ptr(), ops["v"].data_ptr(),
                    ops["sq"].data_ptr(), ops["sk"].data_ptr(), o.data_ptr(), b, h, s, s, d,
-                   ops["bq"], d ** -0.5, stream), name), reps)
+                   ops["bq"], d ** -0.5, stream), name), reps)[0]
             if base is None:
                 base = o.float()
             diffs[name] = (o.float() - base).abs().max().item()
-        pre_ms = cuda_ms(lambda: attention.qk_int8_operands(q, k, v), reps)
+        pre_ms = cuda_event_ms(lambda: attention.qk_int8_operands(q, k, v), reps)[0]
         split = prepass_split_ms(lambda: attention.qk_int8_operands(q, k, v), reps)
-        k1_ms = cuda_ms(lambda: attention.flash_attention_cuda(q, k, v, d ** -0.5), reps)
+        k1_ms = cuda_event_ms(lambda: attention.flash_attention_cuda(q, k, v, d ** -0.5), reps)[0]
         print(f"[ablate-k6] {level} B={b} S={s} H={h} D={d} "
               + " ".join(f"{n}_ms={t:.3f}" for n, t in times.items())
               + f" prepass_ms={pre_ms:.3f} prepass_stats_ms={split['stats']:.3f}"

@@ -14,63 +14,60 @@
 // function units (~3.9e12 ex2/s), with ~4 more FMA-pipe instructions a
 // score. At D = 40 the softmax, not the tensor cores, sets the floor, so
 // the design keeps the tensor cores and the softmax's pipes busy at once.
+// At head dim 128 (the Cosmos DiTs) the products bind.
 //
 // Design (the FlashAttention-3 shape):
-// - One block of three warpgroups per (q tile, batch * head). Warpgroup 0
-//   is the producer: one thread issues the TMA loads of the q tile (once)
-//   and of the k and v tiles into a ring of NST stages, with full / empty
-//   mbarriers (one empty arrive per consumer warp). It gives up registers
-//   (setmaxnreg 24) to the two consumer warpgroups (240 each).
-// - Each consumer warpgroup owns MB blocks of 64 q rows: two up to DP = 96
-//   (q tiles of 256 rows, k/v tiles of 64 keys, 4 stages), one above (128
-//   rows, 128 keys, 3 stages up to DP = 128, else 2). S = q k^T is a chain
-//   of wgmma.m64nBKk16 per row block with both operands in shared memory;
-//   the softmax runs on the S registers; p is packed to bf16 in registers
-//   as the A operand of O += p v (wgmma.m64nDPk16, V MN-major from shared
-//   memory). Two row blocks halve the k/v tiles streamed per q row and
-//   interleave two independent wgmma chains.
+// - One block per (q tile, batch * head): a producer warpgroup and NWG
+//   consumer warpgroups. One producer thread issues the TMA loads of the q
+//   tile (once) and of the k and v tiles into a ring of NST stages, with
+//   full / empty mbarriers (one empty arrive per consumer warp). It gives
+//   up registers (setmaxnreg 24) to the consumers.
+// - Each consumer warpgroup owns one block of 64 q rows (MB = 1). S = q k^T
+//   is a chain of wgmma.m64nBKk16 with both operands in shared memory; the
+//   softmax runs on the S registers; p is packed to bf16 in registers as
+//   the A operand of O += p v (wgmma.m64nNPVk16, v MN-major from shared
+//   memory).
+// - Geometry by the q.k^T depth dp = ceil16(D) (`consumers`, `kv_rows`,
+//   `n_stages` below). Up to dp = 64 (the UNet's D = 40) three consumer
+//   warpgroups of 160 registers (192 q rows), 128-key tiles in 4 stages:
+//   three warps a scheduler to hide the softmax's latencies, and half the
+//   fixed costs a key of 64-key tiles (a barrier round, the row max's
+//   shuffles, the accumulator's rescale). Up to dp = 128 (D = 80, 128) two
+//   of 240 registers, 128-key tiles in 3 stages; above (D = 160) two,
+//   64-key tiles in 3 stages (128 keys do not fit beside a 128-row q tile).
 // - Overlap. Within a warpgroup, tile j's p.v and tile j + 1's q.k^T are
-//   issued together, and the softmax of tile j + 1 runs while that p.v is
-//   in flight. Across the two warpgroups, a ping-pong on two named
-//   barriers makes them take turns to issue their products, so that one's
-//   softmax runs while the other's products do. No wgmma is issued on a
-//   path ptxas cannot prove warp-uniform: it would serialise them all
-//   (warning C7520).
+//   issued together, and the softmax of tile j + 1 is written to run
+//   while that p.v is in flight; ptxas places most of its exponentials
+//   after the wait on that p.v all the same (a loop that ends on the
+//   softmax keeps them before the wait, and was slower). Across
+//   warpgroups, a ping-pong on named barriers makes them take turns, in a
+//   ring, to issue their products, so that the others' softmax runs while
+//   one's products do. No wgmma is issued on a path ptxas cannot prove
+//   warp-uniform: it would serialise them all (warning C7520).
 // - Softmax. For scale > 0 the row max is taken on the raw scores and the
 //   scale folds into the exponent's argument, one FMA a score; the kv
 //   tail is masked to -inf in a pass of its own, in the last tile only.
-// - Layout. wgmma reads the non-swizzled operand layout (see hopper.cuh),
-//   which takes any multiple of 8 head dims: D = 40 rows are 80 bytes, no
-//   swizzle width, so no swizzled layout fits them without a padded copy.
-//   q is read in place from (B, S, H, D) through a 4-d tensor map
-//   (D, H, S, B), one box of 8 dims x the tile's rows per 16-byte chunk,
-//   once a block. k and v are streamed for every q tile, so the wrapper
-//   makes chunk-major copies of them, (B * H, D / 8, S, 8): a whole tile is
-//   then one TMA box of contiguous runs, laid out [chunk][token][8] as
-//   wgmma reads it. Read in place, the same tile took a 16-byte box per
-//   chunk: 16-byte pieces of 80-byte rows 640 bytes apart, each fetching a
-//   32-byte sector, and those loads alone set the kernel's time at level
-//   0. The copies cost one read and one write of k and v (~0.18 GB at
-//   level 0). Chunks past D / 8 (the q.k^T depth is DP = ceil16(D)),
-//   tokens past S and q rows past Sq lie outside the tensor maps, and TMA
-//   fills them with zeros: no padded copy, nothing of the next head read.
+//   The row max and row sum run in two chains a row up to dp = 96, one
+//   above (head dim 128's code as it was). Where D = dp - 8 up to dp = 64
+//   (the UNet's 40), the tensor cores take the row sums: p.v reads a v
+//   tile whose zero-filled dim D is set to 1 (`SUMCOL`), one FMA-pipe add
+//   a score fewer.
+// - Layout. q, k and v are read in place from (B, S, H, D) through 4-d
+//   tensor maps (D, H, S, B), each tile as ceil(dp / 64) boxes of 64 dims
+//   (one 128-byte row) x its rows, in the 128-byte swizzle that wgmma reads
+//   directly (hopper.cuh): K-major q and k for q.k^T, MN-major v for p.v;
+//   the wrapper makes no copy. A box over a row of D < 64 dims, or over the
+//   last slab of a row, reaches past D: TMA fills those dims with zeros, so
+//   the q.k^T depth dp and the p.v width NPV = dp read zeros there and
+//   nothing of the next head. Tokens past S and q rows past Sq lie outside
+//   the maps too. (The layout before read 16-byte boxes, 8 dims x a
+//   tile's rows, through chunk-major copies of k and v the wrapper made:
+//   the copies cost a read and a write of k and v a launch, and a 16-byte
+//   box moves a tile as that many 16-byte rows.)
 //
-// - Head dim 128 (the Cosmos DiTs' self-attention) has a layout of its own
-//   (SW = true). There the chunk-major tiles cost more than they saved: a
-//   box 16 bytes wide moves a 32 KB tile as 2,048 rows of 16 bytes, and
-//   with the k/v loads taken out the kernel ran 2.5x faster (PERF.md, the
-//   head-dim-128 ablation). A 256-byte row is two 128-byte swizzle rows, so
-//   q, k and v are read in place from (B, S, H, D), each tile as two boxes
-//   of 64 dims (128 bytes) x its rows, in the 128-byte swizzle that wgmma
-//   reads directly (hopper.cuh): K-major q and k for q.k^T, MN-major v for
-//   p.v; the wrapper makes no copy. One 64-row q block per consumer
-//   warpgroup, 128-key tiles, 3 stages: 176- or 192-key tiles in 2 stages
-//   and 128 in 2 were slower. Every other head dim, the UNet's 40 / 80 /
-//   160 and the 120 next to 128 included, keeps the chunk-major layout.
-//
-// Shared memory per block: (q rows + 2 * NST * kv rows) * DP * 2 bytes,
-// 204,800 at D = 160 and 73,728 at D = 40; 229,376 (+ barriers and the
-// 1,024-byte alignment) at D = 128.
+// Shared memory per block: (q rows + 2 * NST * kv rows) * slabs * 128
+// bytes (+ barriers and the 1,024-byte alignment): 155,648 at dp <= 64,
+// 229,376 at dp 80-128, 196,608 at dp 144-160.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -84,34 +81,34 @@ using namespace tclight::hopper;
 
 namespace {
 
-constexpr int NTHREADS = 384;
 constexpr int MAX_D = 160;
+constexpr int SLAB = 64;  // head dims of one TMA box: a 128-byte swizzle row
 
-// 64-row blocks of q per consumer warpgroup: two up to DP = 96, where their
-// registers fit (two score tiles, two accumulators), one above. Two halve
-// the k/v tiles streamed per q row and give each warpgroup two independent
-// chains of wgmma to interleave.
-__host__ __device__ constexpr int row_blocks(int dp) { return dp <= 96 ? 2 : 1; }
-__host__ __device__ constexpr int q_rows(int dp) { return 128 * row_blocks(dp); }
-__host__ __device__ constexpr int kv_rows(int dp) { return row_blocks(dp) == 2 ? 64 : 128; }
-__host__ __device__ constexpr int n_stages(int dp) {
-  return row_blocks(dp) == 2 ? 4 : (dp <= 128 ? 3 : 2);
+// The geometry, by the q.k^T depth dp = ceil16(D)
+__host__ __device__ constexpr int slabs(int dp) { return (dp + SLAB - 1) / SLAB; }
+__host__ __device__ constexpr int consumers(int dp) { return dp <= 64 ? 3 : 2; }
+__host__ __device__ constexpr int row_blocks(int dp) { return 1; }
+__host__ __device__ constexpr int q_rows(int dp) { return 64 * row_blocks(dp) * consumers(dp); }
+__host__ __device__ constexpr int kv_rows(int dp) { return dp <= 128 ? 128 : 64; }
+__host__ __device__ constexpr int n_stages(int dp) { return dp <= 64 ? 4 : 3; }
+// the p.v product's width: dp, a width that stops inside a 64-dim slab
+__host__ __device__ constexpr int pv_width(int dp) { return dp; }
+// where D = dp - 8, p.v also takes the row sums (see `SUMCOL`)
+__host__ __device__ constexpr bool sums_on_tc(int dp) { return dp <= 64; }
+// independent chains a row of the softmax's row max and row sum
+__host__ __device__ constexpr int chains(int dp) { return dp <= 96 ? 2 : 1; }
+constexpr bool PINGPONG = true;
+
+__host__ __device__ constexpr int n_threads(int dp) { return 128 * (1 + consumers(dp)); }
+// a consumer thread's registers: the block's launch share (65,536 over its
+// threads, in 8s) less the producer's 24, over the consumers
+__host__ __device__ constexpr int consumer_regs(int nwg) {
+  return ((65536 / (128 * (nwg + 1))) / 8 * 8 * (nwg + 1) - 24) / nwg / 8 * 8;
 }
-
 __host__ __device__ constexpr size_t smem_bytes(int dp) {
-  return (size_t)(q_rows(dp) + 2 * n_stages(dp) * kv_rows(dp)) * dp * 2 +
-         8 * (1 + 2 * n_stages(dp)) + 128;
+  return (size_t)(q_rows(dp) + 2 * n_stages(dp) * kv_rows(dp)) * slabs(dp) * SLAB * 2 +
+         8 * (1 + 2 * n_stages(dp)) + 1024;
 }
-
-// D = 128 reads q, k and v in place in the 128-byte swizzle: 128 q rows (one
-// 64-row block per consumer warpgroup), SW_BK-key tiles in a ring of SW_NST
-// stages; tiles aligned to 1,024 bytes
-constexpr int SW_D = 128;
-constexpr int SW_BQ = 128;
-constexpr int SW_BK = 128;
-constexpr int SW_NST = 3;
-constexpr size_t SW_SMEM = (size_t)(SW_BQ + 2 * SW_NST * SW_BK) * SW_D * 2 +
-                           8 * (1 + 2 * SW_NST) + 1024;
 
 __device__ __forceinline__ float fast_exp2(float x) {
   float y;
@@ -124,26 +121,35 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-template <int DP, bool SW>
-__global__ void __launch_bounds__(NTHREADS, 1)
+template <int DP, bool SUMCOL>
+__global__ void __launch_bounds__(n_threads(DP), 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv,
                        __nv_bfloat16* __restrict__ o, int H, int Sq, int Skv, int D,
                        float scale_log2) {
-  static_assert(!SW || DP == SW_D, "the swizzled path is D = 128's");
-  constexpr int MB = SW ? 1 : row_blocks(DP);
-  constexpr int BQ = SW ? SW_BQ : q_rows(DP);
-  constexpr int BK = SW ? SW_BK : kv_rows(DP);
-  constexpr int BOX = SW ? 64 : 8;  // head dims of one TMA box: a 128-byte slab, or a chunk
-  constexpr int NST = SW ? SW_NST : n_stages(DP);
-  constexpr int TILE = BK * DP;  // elements of one k or v tile
-  constexpr uintptr_t ALIGN = SW ? 1024 : 128;
+  constexpr int NWG = consumers(DP);
+  constexpr int MB = row_blocks(DP);
+  constexpr int BQ = q_rows(DP);
+  constexpr int BK = kv_rows(DP);
+  constexpr int NST = n_stages(DP);
+  constexpr int NS = slabs(DP);
+  constexpr int NPV = pv_width(DP);
+  constexpr int TILE = BK * NS * SLAB;  // elements of one k or v tile
+  constexpr int REGS = consumer_regs(NWG);  // 240 for two consumers, 160 for three
+  // SUMCOL (D = DP - 8): dim D of every v tile, zero-filled by TMA, is set
+  // to 1 before its p.v, so acc's column D sums each row's p (the bf16 p
+  // the product takes) and is rescaled with the rest; the softmax takes
+  // no row sums, one FMA-pipe add a score fewer
+  constexpr int SUM_DIM = DP - 8;
+  constexpr int CH = chains(DP);
+  static_assert(BQ <= 256 && NPV <= NS * SLAB, "a TMA box holds at most 256 rows");
+  static_assert(!SUMCOL || SUM_DIM < NPV, "the sum column lies in the p.v width");
   extern __shared__ unsigned char smem_raw[];
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + ALIGN - 1) & ~(ALIGN - 1));
-  __nv_bfloat16* sK = sQ + BQ * DP;       // NST tiles
-  __nv_bfloat16* sV = sK + NST * TILE;    // NST tiles
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  __nv_bfloat16* sK = sQ + BQ * NS * SLAB;  // NST tiles
+  __nv_bfloat16* sV = sK + NST * TILE;      // NST tiles
   uint64_t* qbar = reinterpret_cast<uint64_t*>(sV + NST * TILE);
   uint64_t* full = qbar + 1;
   uint64_t* empty = full + NST;
@@ -160,7 +166,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     mbar_init(qbar, 1);
     for (int s = 0; s < NST; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 2 * 4);  // one arrive per consumer warp
+      mbar_init(&empty[s], NWG * 4);  // one arrive per consumer warp
     }
     mbar_fence_init();
   }
@@ -170,19 +176,14 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     // ---------------------------------------------------------- producer
     setmaxnreg_dec<24>();
     if (threadIdx.x == 0) {
-      // k or v tile j into stage st: in place, one box per 64-dim slab, or
-      // the chunk-major copy's one box
+      // k or v tile j into stage st: one box per 64-dim slab
       auto load_kv = [&](__nv_bfloat16* ring, const CUtensorMap* map, int st, int j) {
-        if constexpr (SW) {
-          for (int c = 0; c < DP / BOX; ++c)
-            tma_load_4d(ring + st * TILE + c * BK * BOX, map, &full[st], c * BOX, h, j * BK, b);
-        } else {
-          tma_load_4d(ring + st * TILE, map, &full[st], 0, j * BK, 0, blockIdx.y);
-        }
+        for (int c = 0; c < NS; ++c)
+          tma_load_4d(ring + st * TILE + c * BK * SLAB, map, &full[st], c * SLAB, h, j * BK, b);
       };
-      mbar_expect_tx(qbar, BQ * DP * 2);
-      for (int c = 0; c < DP / BOX; ++c)
-        tma_load_4d(sQ + c * BQ * BOX, &tq, qbar, c * BOX, h, q0, b);
+      mbar_expect_tx(qbar, BQ * NS * SLAB * 2);
+      for (int c = 0; c < NS; ++c)
+        tma_load_4d(sQ + c * BQ * SLAB, &tq, qbar, c * SLAB, h, q0, b);
       for (int j = 0; j < n_tiles; ++j) {
         const int st = j % NST;
         if (j >= NST) mbar_wait(&empty[st], ((j / NST) - 1) & 1);
@@ -193,26 +194,40 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     }
   } else {
     // --------------------------------------------------------- consumers
-    setmaxnreg_inc<240>();
+    setmaxnreg_inc<REGS>();
     const int cw = wg - 1;  // which MB * 64 q rows
     const int warp = (threadIdx.x / 32) % 4;
     const int lane = threadIdx.x % 32;
     const int g = lane >> 2;
     const int t = lane & 3;
 
-    float acc[MB][DP / 2];
+    float acc[MB][NPV / 2];
     float s[MB][BK / 2];
     uint32_t pa[MB][BK / 16][4];  // p of the tile whose p.v is next or in flight
     float m_run[MB][2], l_run[MB][2];  // l: this thread's share of the row sums
 #pragma unroll
     for (int mb = 0; mb < MB; ++mb) {
 #pragma unroll
-      for (int i = 0; i < DP / 2; ++i) acc[mb][i] = 0.f;
+      for (int i = 0; i < NPV / 2; ++i) acc[mb][i] = 0.f;
 #pragma unroll
       for (int i = 0; i < BK / 2; ++i) s[mb][i] = 0.f;
       m_run[mb][0] = m_run[mb][1] = -INFINITY;
       l_run[mb][0] = l_run[mb][1] = 0.f;
     }
+    // dim SUM_DIM of tile j's v rows to 1 (SUMCOL): one key a thread, its
+    // 16-byte chunk in the 128-byte swizzle; every consumer warpgroup writes
+    // the same ones, before its own p.v of the tile, after a barrier
+    auto ones_column = [&](int j) {
+      if constexpr (SUMCOL) {
+        const int r = threadIdx.x % 128;
+        if (r < BK) {
+          __nv_bfloat16* row = sV + (j % NST) * TILE + (SUM_DIM / SLAB) * BK * SLAB + r * SLAB;
+          row[(((SUM_DIM % SLAB) / 8) ^ (r & 7)) * 8] = __float2bfloat16(1.f);
+        }
+        fence_proxy_async();
+        if (!PINGPONG) named_sync(5 + cw, 128);  // else take_turn's barrier orders them
+      }
+    };
     auto fence_all = [&]() {
 #pragma unroll
       for (int mb = 0; mb < MB; ++mb) {
@@ -222,47 +237,34 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     };
 
     // S = q k^T of tile j into s: per row block, 64 rows x BK keys in DP /
-    // 16 steps of depth 16, both operands K-major in shared memory; the row
-    // blocks' independent chains interleave
+    // 16 steps of depth 16, both operands K-major in shared memory: slab
+    // kk / 4 (rows of 128 bytes), 32 bytes a step within it; a 64-row q
+    // block starts 8 KB into its slab
     auto issue_qk = [&](int j) {
       const __nv_bfloat16* tK = sK + (j % NST) * TILE;
 #pragma unroll
       for (int kk = 0; kk < DP / 16; ++kk)
 #pragma unroll
-        for (int mb = 0; mb < MB; ++mb) {
-          if constexpr (SW) {
-            // slab kk / 4 (rows of 128 bytes), 32 bytes a step within it;
-            // this warpgroup's 64 q rows start 8 KB into the slab
-            WgmmaSS<BK>::run(
-                s[mb], wgmma_desc_sw128(sQ + (kk / 4) * BQ * 64 + (cw * MB + mb) * 64 * 64 +
-                                            (kk % 4) * 16,
-                                        16, 1024),
-                wgmma_desc_sw128(tK + (kk / 4) * BK * 64 + (kk % 4) * 16, 16, 1024),
-                kk > 0 ? 1 : 0);
-          } else {
-            WgmmaSS<BK>::run(s[mb],
-                             wgmma_desc(sQ + (cw * MB + mb) * 64 * 8 + kk * 2 * BQ * 8, BQ * 16,
-                                        128),
-                             wgmma_desc(tK + kk * 2 * BK * 8, BK * 16, 128), kk > 0 ? 1 : 0);
-          }
-        }
+        for (int mb = 0; mb < MB; ++mb)
+          WgmmaSS<BK>::run(
+              s[mb], wgmma_desc_sw128(sQ + (kk / 4) * BQ * SLAB + (cw * MB + mb) * 64 * SLAB +
+                                          (kk % 4) * 16,
+                                      16, 1024),
+              wgmma_desc_sw128(tK + (kk / 4) * BK * SLAB + (kk % 4) * 16, 16, 1024),
+              kk > 0 ? 1 : 0);
       wgmma_commit();
     };
-    // O += p v of tile j: v MN-major. Chunk-major: next 8 keys 128 bytes
-    // on, next 8 dims BK * 16. Swizzled: 16 keys a step (2 KB), next 8 keys
-    // 1,024 bytes on, next 64 dims one slab (BK * 128 bytes) on.
+    // O += p v of tile j: v MN-major, 16 keys a step (2 KB), the next 8
+    // keys 1,024 bytes on, the next 64 dims one slab (BK * 128 bytes) on;
+    // a width NPV that stops inside a slab reads its first NPV % 64 dims
     auto issue_pv = [&](int j) {
       const __nv_bfloat16* tV = sV + (j % NST) * TILE;
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
-        for (int mb = 0; mb < MB; ++mb) {
-          if constexpr (SW)
-            WgmmaRS<DP>::run(acc[mb], pa[mb][kk],
-                             wgmma_desc_sw128(tV + kk * 16 * 64, BK * 128, 1024), 1);
-          else
-            WgmmaRS<DP>::run(acc[mb], pa[mb][kk], wgmma_desc(tV + kk * 16 * 8, 128, BK * 16), 1);
-        }
+        for (int mb = 0; mb < MB; ++mb)
+          WgmmaRS<NPV>::run(acc[mb], pa[mb][kk],
+                            wgmma_desc_sw128(tV + kk * 16 * SLAB, BK * 128, 1024), 1);
       wgmma_commit();
     };
     // online softmax of tile j in s: the exponentials in place, the row
@@ -273,6 +275,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     // row max. For scale > 0 the max is taken on the raw scores and the
     // scale folds into the exponent's argument, one FMA a score:
     // exp2(s * c - m * c) with m = max(s); the maxima are kept scaled.
+    // Maxima and sums run in CH chains a row (n % CH).
     const bool fold = scale_log2 > 0.f;
     auto softmax = [&](int j, float (&alpha)[MB][2]) {
       const int kv0 = j * BK;
@@ -285,38 +288,50 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       }
 #pragma unroll
       for (int mb = 0; mb < MB; ++mb) {
-        float tmax[2] = {-INFINITY, -INFINITY};
+        float tmax[2][CH];
+#pragma unroll
+        for (int ch = 0; ch < CH; ++ch) tmax[0][ch] = tmax[1][ch] = -INFINITY;
         if (fold) {
 #pragma unroll
           for (int i = 0; i < BK / 2; ++i)
-            tmax[(i >> 1) & 1] = fmaxf(tmax[(i >> 1) & 1], s[mb][i]);
+            tmax[(i >> 1) & 1][(i >> 2) % CH] = fmaxf(tmax[(i >> 1) & 1][(i >> 2) % CH], s[mb][i]);
         } else {
 #pragma unroll
           for (int i = 0; i < BK / 2; ++i) {
             s[mb][i] *= scale_log2;
-            tmax[(i >> 1) & 1] = fmaxf(tmax[(i >> 1) & 1], s[mb][i]);
+            tmax[(i >> 1) & 1][(i >> 2) % CH] = fmaxf(tmax[(i >> 1) & 1][(i >> 2) % CH], s[mb][i]);
           }
         }
         float neg_m[2];  // -(the new running max), in the exponent's units
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
-          tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 1));
-          tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 2));
-          if (fold) tmax[r] *= scale_log2;
-          const float m_new = fmaxf(m_run[mb][r], tmax[r]);  // finite: a tile has a valid key
+          float mx = tmax[r][0];
+#pragma unroll
+          for (int ch = 1; ch < CH; ++ch) mx = fmaxf(mx, tmax[r][ch]);
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+          if (fold) mx *= scale_log2;
+          const float m_new = fmaxf(m_run[mb][r], mx);  // finite: a tile has a valid key
           alpha[mb][r] = fast_exp2(m_run[mb][r] - m_new);
           m_run[mb][r] = m_new;
           neg_m[r] = -m_new;
         }
         const float c = fold ? scale_log2 : 1.f;
-        float rsum[2] = {0.f, 0.f};
+        float rsum[2][CH] = {};
 #pragma unroll
         for (int i = 0; i < BK / 2; ++i) {
           s[mb][i] = fast_exp2(fmaf(s[mb][i], c, neg_m[(i >> 1) & 1]));
-          rsum[(i >> 1) & 1] += s[mb][i];
+          if constexpr (!SUMCOL) rsum[(i >> 1) & 1][(i >> 2) % CH] += s[mb][i];
         }
-        l_run[mb][0] = l_run[mb][0] * alpha[mb][0] + rsum[0];
-        l_run[mb][1] = l_run[mb][1] * alpha[mb][1] + rsum[1];
+        if constexpr (!SUMCOL) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            float sum = rsum[r][0];
+#pragma unroll
+            for (int ch = 1; ch < CH; ++ch) sum += rsum[r][ch];
+            l_run[mb][r] = l_run[mb][r] * alpha[mb][r] + sum;
+          }
+        }
       }
     };
     // p as bf16 A fragments: keys 16kk..16kk+15 are blocks 2kk, 2kk + 1
@@ -332,20 +347,24 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         }
     };
 
-    // The two consumer warpgroups take turns to issue their products
-    // (named barriers 1 and 2, 256 threads: one's sync meets the other's
-    // arrive), so that one's softmax runs while the other's products do.
-    // The second warpgroup lets the first go first, and leaves out its
-    // last arrive, which no sync would meet.
-    const int my_turn = 1 + cw, other_turn = 2 - cw;
-    if (cw == 1) named_arrive(other_turn, 256);
-    auto take_turn = [&]() { named_sync(my_turn, 256); };
+    // The consumer warpgroups take turns, in a ring, to issue their
+    // products: named barrier 1 + c is warpgroup c's turn, 256 threads (its
+    // sync meets the arrive of the warpgroup before it), so that the
+    // others' softmax runs while one's products do. The last warpgroup
+    // opens warpgroup 0's first turn, and leaves out its last arrive,
+    // which no sync would meet.
+    const int my_turn = 1 + cw, next_turn = NWG == 2 ? 2 - cw : 1 + (cw + 1) % NWG;
+    if (PINGPONG && cw == NWG - 1) named_arrive(next_turn, 256);
+    auto take_turn = [&]() {
+      if (PINGPONG) named_sync(my_turn, 256);
+    };
     auto pass_turn = [&](bool last) {
-      if (cw == 0 || !last) named_arrive(other_turn, 256);
+      if (PINGPONG && (cw != NWG - 1 || !last)) named_arrive(next_turn, 256);
     };
 
     mbar_wait(qbar, 0);
     mbar_wait(&full[0], 0);
+    ones_column(0);
     take_turn();
     fence_all();
     wgmma_fence();
@@ -365,6 +384,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     // divergent path.
     for (int j = 0; j + 1 < n_tiles; ++j) {
       mbar_wait(&full[(j + 1) % NST], ((j + 1) / NST) & 1);
+      ones_column(j + 1);
       take_turn();
       fence_all();
       wgmma_fence();
@@ -380,7 +400,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int mb = 0; mb < MB; ++mb)
 #pragma unroll
-        for (int i = 0; i < DP / 2; ++i) acc[mb][i] *= alpha[mb][(i >> 1) & 1];
+        for (int i = 0; i < NPV / 2; ++i) acc[mb][i] *= alpha[mb][(i >> 1) & 1];
       pack_p();
       // this warp is done with stage j: one arrive for its 32 threads
       __syncwarp();
@@ -401,13 +421,18 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       float inv[2];
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        float l = l_run[mb][r];
-        l += __shfl_xor_sync(0xffffffffu, l, 1);
-        l += __shfl_xor_sync(0xffffffffu, l, 2);
+        float l;
+        if constexpr (SUMCOL) {  // column SUM_DIM: lane 4g's, t = 0
+          l = __shfl_sync(0xffffffffu, acc[mb][4 * (SUM_DIM / 8) + 2 * r], lane & ~3);
+        } else {
+          l = l_run[mb][r];
+          l += __shfl_xor_sync(0xffffffffu, l, 1);
+          l += __shfl_xor_sync(0xffffffffu, l, 2);
+        }
         inv[r] = 1.f / fmaxf(l, 1e-30f);
       }
 #pragma unroll
-      for (int n = 0; n < DP / 8; ++n) {
+      for (int n = 0; n < NPV / 8; ++n) {
         const int col = n * 8 + 2 * t;
         if (col >= D) continue;  // d % 8 == 0: an 8-column block is wholly in or out
 #pragma unroll
@@ -425,66 +450,43 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
 // ------------------------------------------------------------------- host
 
-// q (B, S, H, D) as it lies, as 4-d (D, H, S, B): boxes of 8 dims x BQ
-// tokens of one head, one per 16-byte chunk of the q tile (loaded once a
-// block); everything outside reads as zeros
-bool make_q_map(CUtensorMap* map, const void* q, int B, int S, int H, int D, int rows) {
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,
-                                 (cuuint64_t)S * H * D * 2};
-  const cuuint32_t box[4] = {8, 1, (cuuint32_t)rows, 1};
-  return tensor_map_4d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, q, dims, strides, box);
-}
-
-// k or v as the wrapper's chunk-major copy (B * H, D / 8, S, 8), as 4-d
-// (8, S, D / 8, B * H): one box of 8 x BK tokens x DP / 8 chunks is a whole
-// tile, laid out [chunk][token][8]; chunks past D / 8 and tokens past S
-// read as zeros
-bool make_kv_map(CUtensorMap* map, const void* kv, int BH, int S, int D, int DP, int rows) {
-  const cuuint64_t dims[4] = {8, (cuuint64_t)S, (cuuint64_t)(D / 8), (cuuint64_t)BH};
-  const cuuint64_t strides[3] = {16, (cuuint64_t)S * 16, (cuuint64_t)S * 16 * (D / 8)};
-  const cuuint32_t box[4] = {8, (cuuint32_t)rows, (cuuint32_t)(DP / 8), 1};
-  return tensor_map_4d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, kv, dims, strides, box);
-}
-
-template <int DP, bool SW>
+template <int DP, bool SUMCOL>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int Sq,
            int Skv, int D, float scale, cudaStream_t stream) {
-  const size_t bytes = SW ? SW_SMEM : smem_bytes(DP);
+  const size_t bytes = smem_bytes(DP);
   static bool attr_set = false;  // once per kernel instance, not per launch
   if (!attr_set) {
-    cudaError_t err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<DP, SW>,
+    cudaError_t err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<DP, SUMCOL>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)bytes);
     if (err != cudaSuccess) return (int)err;
     attr_set = true;
   }
   CUtensorMap tq, tk, tv;
-  bool mapped;
-  if constexpr (SW)
-    mapped = tensor_map_bshd_sw128(&tq, q, B, Sq, H, SW_BQ) &&
-             tensor_map_bshd_sw128(&tk, k, B, Skv, H, SW_BK) &&
-             tensor_map_bshd_sw128(&tv, v, B, Skv, H, SW_BK);
-  else
-    mapped = make_q_map(&tq, q, B, Sq, H, D, q_rows(DP)) &&
-             make_kv_map(&tk, k, B * H, Skv, D, DP, kv_rows(DP)) &&
-             make_kv_map(&tv, v, B * H, Skv, D, DP, kv_rows(DP));
-  if (!mapped) return (int)cudaErrorInvalidValue;
-  const int bq = SW ? SW_BQ : q_rows(DP);
-  const dim3 grid((Sq + bq - 1) / bq, B * H);
-  flash_fwd_wgmma_kernel<DP, SW><<<grid, NTHREADS, bytes, stream>>>(
+  if (!(tensor_map_bshd_slabs(&tq, q, B, Sq, H, D, q_rows(DP)) &&
+        tensor_map_bshd_slabs(&tk, k, B, Skv, H, D, kv_rows(DP)) &&
+        tensor_map_bshd_slabs(&tv, v, B, Skv, H, D, kv_rows(DP))))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((Sq + q_rows(DP) - 1) / q_rows(DP), B * H);
+  flash_fwd_wgmma_kernel<DP, SUMCOL><<<grid, n_threads(DP), bytes, stream>>>(
       tq, tk, tv, (__nv_bfloat16*)o, H, Sq, Skv, D, scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
 
+template <int DP>
+int launch_dp(const void* q, const void* k, const void* v, void* o, int B, int H, int Sq,
+              int Skv, int D, float scale, cudaStream_t stream) {
+  if constexpr (sums_on_tc(DP))
+    if (D == DP - 8) return launch<DP, true>(q, k, v, o, B, H, Sq, Skv, D, scale, stream);
+  return launch<DP, false>(q, k, v, o, B, H, Sq, Skv, D, scale, stream);
+}
+
 }  // namespace
 
-// q: (B, Sq, H, D); k, v: for D = 128 (B, Skv, H, D) as they lie, for
-// every other D the chunk-major copies (B * H, D / 8, Skv, 8); o: (B, Sq,
-// H, D); all bf16, contiguous, 16-byte aligned; D % 8 == 0, D <= 160.
-// Returns
-// cudaGetLastError() after the launch (cudaErrorInvalidValue when the
-// arguments or the tensor maps are refused).
+// q: (B, Sq, H, D); k, v: (B, Skv, H, D); o: (B, Sq, H, D); all bf16,
+// contiguous, as they lie; D % 8 == 0, D <= 160. Returns cudaGetLastError()
+// after the launch (cudaErrorInvalidValue when the arguments or the tensor
+// maps are refused).
 extern "C" int tclight_flash_attention_bf16(const void* q, const void* k,
                                             const void* v, void* o, int B,
                                             int H, int Sq, int Skv, int D,
@@ -493,17 +495,16 @@ extern "C" int tclight_flash_attention_bf16(const void* q, const void* k,
       D > MAX_D || (long)B * H > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (D == SW_D) return launch<SW_D, true>(q, k, v, o, B, H, Sq, Skv, D, scale, s);
   switch ((D + 15) / 16 * 16) {
-    case 16: return launch<16, false>(q, k, v, o, B, H, Sq, Skv, D, scale, s);
-    case 32: return launch<32, false>(q, k, v, o, B, H, Sq, Skv, D, scale, s);
-    case 48: return launch<48, false>(q, k, v, o, B, H, Sq, Skv, D, scale, s);
-    case 64: return launch<64, false>(q, k, v, o, B, H, Sq, Skv, D, scale, s);
-    case 80: return launch<80, false>(q, k, v, o, B, H, Sq, Skv, D, scale, s);
-    case 96: return launch<96, false>(q, k, v, o, B, H, Sq, Skv, D, scale, s);
-    case 112: return launch<112, false>(q, k, v, o, B, H, Sq, Skv, D, scale, s);
-    case 128: return launch<128, false>(q, k, v, o, B, H, Sq, Skv, D, scale, s);  // D = 120
-    case 144: return launch<144, false>(q, k, v, o, B, H, Sq, Skv, D, scale, s);
-    default: return launch<160, false>(q, k, v, o, B, H, Sq, Skv, D, scale, s);
+    case 16: return launch_dp<16>(q, k, v, o, B, H, Sq, Skv, D, scale, s);
+    case 32: return launch_dp<32>(q, k, v, o, B, H, Sq, Skv, D, scale, s);
+    case 48: return launch_dp<48>(q, k, v, o, B, H, Sq, Skv, D, scale, s);
+    case 64: return launch_dp<64>(q, k, v, o, B, H, Sq, Skv, D, scale, s);
+    case 80: return launch_dp<80>(q, k, v, o, B, H, Sq, Skv, D, scale, s);
+    case 96: return launch_dp<96>(q, k, v, o, B, H, Sq, Skv, D, scale, s);
+    case 112: return launch_dp<112>(q, k, v, o, B, H, Sq, Skv, D, scale, s);
+    case 128: return launch_dp<128>(q, k, v, o, B, H, Sq, Skv, D, scale, s);
+    case 144: return launch_dp<144>(q, k, v, o, B, H, Sq, Skv, D, scale, s);
+    default: return launch_dp<160>(q, k, v, o, B, H, Sq, Skv, D, scale, s);
   }
 }

@@ -161,6 +161,12 @@ __device__ __forceinline__ void named_arrive(int id, int threads) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// orders this thread's generic-proxy writes to shared memory before the
+// async proxy's reads (wgmma operands, TMA stores) that follow a barrier
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 template <int REGS>
 __device__ __forceinline__ void setmaxnreg_dec() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(REGS));
@@ -513,6 +519,43 @@ struct WgmmaRS<160> {
   }
 };
 
+// N = 192: K1's p.v at head dim 160 widened to whole 64-dim slabs, a
+// width `python -m tclight_torch.ablate_flash` times (the kernel keeps 160)
+template <>
+struct WgmmaRS<192> {
+  __device__ __forceinline__ static void run(float (&d)[96], const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+        "{ %0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31,"
+        " %32, %33, %34, %35, %36, %37, %38, %39,"
+        " %40, %41, %42, %43, %44, %45, %46, %47,"
+        " %48, %49, %50, %51, %52, %53, %54, %55,"
+        " %56, %57, %58, %59, %60, %61, %62, %63,"
+        " %64, %65, %66, %67, %68, %69, %70, %71,"
+        " %72, %73, %74, %75, %76, %77, %78, %79,"
+        " %80, %81, %82, %83, %84, %85, %86, %87,"
+        " %88, %89, %90, %91, %92, %93, %94, %95}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+          "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  }
+};
+
 template <int N>
 struct WgmmaS8;
 
@@ -840,16 +883,24 @@ inline bool tensor_map_4d_sw128(CUtensorMap* map, CUtensorMapDataType type, cons
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// (B, S, H, D) bf16 with D = 128 as it lies, as 4-d (D, H, S, B) in the
-// 128-byte swizzle: boxes of 64 dims (128 bytes) x `rows` tokens of one
-// head, two per row of D (a tile is two slabs of 64 dims, slab after
-// slab); tokens past S read as zeros
-inline bool tensor_map_bshd_sw128(CUtensorMap* map, const void* x, int B, int S, int H,
+// (B, S, H, D) bf16 as it lies, D a multiple of 8, as 4-d (D, H, S, B) in
+// the 128-byte swizzle: boxes of 64 dims (128 bytes) x `rows` tokens of one
+// head, ceil(D / 64) per row of D (a tile is that many slabs of 64 dims,
+// slab after slab); dims past D (a box over D < 64 dims, or the last
+// slab's tail) and tokens past S read as zeros
+inline bool tensor_map_bshd_slabs(CUtensorMap* map, const void* x, int B, int S, int H, int D,
                                   int rows) {
-  const cuuint64_t dims[4] = {128, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {256, (cuuint64_t)H * 256, (cuuint64_t)S * H * 256};
+  const cuuint64_t row = (cuuint64_t)D * 2;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {row, (cuuint64_t)H * row, (cuuint64_t)S * H * row};
   const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
   return tensor_map_4d_sw128(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, dims, strides, box);
+}
+
+// the same at D = 128: two boxes a row
+inline bool tensor_map_bshd_sw128(CUtensorMap* map, const void* x, int B, int S, int H,
+                                  int rows) {
+  return tensor_map_bshd_slabs(map, x, B, S, H, 128, rows);
 }
 
 // a row-major (N, R, C) int8 tensor, C a multiple of 16, as 4-d (C, R, N,

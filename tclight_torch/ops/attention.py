@@ -27,12 +27,12 @@ On the H100 the level-0 UNet self-attention (~35.6k tokens, 8 heads, head
 dim 40) is ~3.3 TFLOP of products and ~2e10 exponentials on ~0.1 GB of
 q/k/v/o: the tensor cores and, at head dim 40, the special-function units
 bound it. Its design is warp-specialised: a producer warp feeds a ring of
-k/v tiles by TMA (q read in place, k and v from chunk-major copies the
-wrapper makes; at head dim 128, the Cosmos DiTs', all three read in place
-in the 128-byte swizzle, no copy: `flash_kv_operands`; `flash_geometry`
-gives the tensor maps), two consumer
-warpgroups run both products on wgmma and the softmax in registers, and
-overlap one's softmax with the other's products (details in the source). K6
+k/v tiles by TMA (q, k and v read in place from (B, S, H, D) at every head
+dim, in 64-dim boxes in the 128-byte swizzle, dims past D zero-filled; the
+wrapper makes no copy: `flash_kv_operands`; `flash_geometry` gives the
+tiles and the tensor maps), two or three consumer warpgroups run both
+products on wgmma and the softmax in registers, and overlap one's softmax
+with the others' products (details in the source). K6
 replaces `_flash_kernel_qk_int8` in K1's design, with q.k^T on int8 wgmma
 and operands that its pre-pass kernels write in the layout its TMA boxes
 read (`qk_int8_geometry`); K7 replaces `_flash_kernel_int8_full` in the
@@ -118,66 +118,56 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 SMEM_PER_BLOCK = 232_448  # dynamic shared memory a block may use on the H100
 # tclight_flash_attention_bf16(q, k, v, o, B, H, Sq, Skv, D, scale, stream)
 K1_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
-SW_D = 128  # the head dim K1, K6 and K7 read in the 128-byte swizzle, with no copy
-SW_KV_ROWS, SW_STAGES = 128, 3  # its key tile and ring depth
+SW_D = 128  # the head dim K6 and K7 read in the 128-byte swizzle, with no copy
+SLAB = 64  # head dims of one of K1's TMA boxes: a 128-byte swizzle row
 
 
 def flash_geometry(b: int, sq: int, skv: int, h: int, d: int) -> dict:
-    """K1's launch geometry, as `csrc/flash_attention.cu` lays it out:
-    the q.k^T depth `dp` (d padded to 16 by TMA's zero fill, no padded
-    copy) and its 16-byte chunks; the 64-row q blocks per consumer
-    warpgroup (two up to dp 96, where their registers fit), the q rows per
-    block and the keys per k/v tile that follow, the ring depth, the
-    dynamic shared memory, the grid, the bytes each mbarrier expects, and
-    the 4-d tensor maps (dims innermost first, strides of dims 1-3 in
-    bytes, box, swizzle in bytes): q's over (B, S, H, D) as it lies, k's
-    and v's over the wrapper's chunk-major copies (B * H, D / 8, S, 8)
-    (`kv_copies`). At d = 128 all three are read in place, in boxes of 64
-    dims (one 128-byte swizzle row) by a tile's rows, two per row of D,
-    with one 64-row q block per warpgroup; no copy is made."""
-    if d == SW_D:
-        bq, bk, stages = 128, SW_KV_ROWS, SW_STAGES
-        row = 2 * d
-
-        def inplace(s: int, rows: int) -> dict:
-            return {"dims": (d, h, s, b), "strides": (row, h * row, s * h * row),
-                    "box": (64, 1, rows, 1), "swizzle": 128}
-
-        return {"dp": d, "chunks": d // 8, "zero_chunks": 0, "row_blocks": 1,
-                "q_rows": bq, "kv_rows": bk, "stages": stages, "kv_copies": False,
-                "smem": (bq + 2 * stages * bk) * d * 2 + 8 * (1 + 2 * stages) + 1024,
-                "grid": (-(-sq // bq), b * h), "tx_q": bq * row, "tx_kv": 2 * bk * row,
-                "kv_tiles": -(-skv // bk),
-                "maps": {"q": inplace(sq, bq), "k": inplace(skv, bk), "v": inplace(skv, bk)}}
+    """K1's launch geometry, as `csrc/flash_attention.cu` lays it out, by
+    the q.k^T depth `dp` (d padded to 16): the 64-dim slabs a row of q, k
+    or v takes (`slabs`, ceil(dp / 64)), the consumer warpgroups (three of
+    160 registers up to dp 64, else two of 240), one 64-row q block each,
+    the q rows per block and the keys per k/v tile that follow (128 keys
+    up to dp 128, 64 above, where 128 do not fit), the ring depth, the p.v
+    width `pv_width` (dp: it stops inside a slab where dp is not a multiple
+    of 64), whether p.v also takes the row sums (`sums_on_tc`: d = dp - 8
+    up to dp 64, through a v column of ones at dim d), the softmax's
+    independent chains a row for the row max and sum, the threads and a
+    consumer's registers, the dynamic shared memory, the grid, the bytes
+    each mbarrier expects, and the 4-d tensor maps (dims innermost first,
+    strides of dims 1-3 in bytes, box, swizzle in bytes): q, k and v read
+    in place from (B, S, H, D), boxes of 64 dims (one 128-byte swizzle
+    row) by a tile's rows, `slabs` of them a row; dims past d are outside
+    the maps and read as zeros (`zero_dims` of the last slab). The wrapper
+    makes no copy (`kv_copies` False)."""
     dp = _ceil_to(d, 16)
-    mb = 2 if dp <= 96 else 1
-    bq, bk = 128 * mb, 64 if mb == 2 else 128
-    stages = 4 if mb == 2 else (3 if dp <= 128 else 2)
+    slabs = -(-dp // SLAB)
+    nwg = 3 if dp <= 64 else 2
+    bq, bk = 64 * nwg, 128 if dp <= 128 else 64
+    stages = 4 if dp <= 64 else 3
     row = 2 * d  # bytes of one head's row
-    # q in place, (D, H, S, B): one box per 16-byte chunk of the q tile
-    qmap = {"dims": (d, h, sq, b), "strides": (row, h * row, sq * h * row),
-            "box": (8, 1, bq, 1), "swizzle": 0}
-    # k, v as the chunk-major copies (B * H, D / 8, S, 8), as (8, S, D / 8,
-    # B * H): one box per tile
-    kvmap = {"dims": (8, skv, d // 8, b * h), "strides": (16, skv * 16, skv * 16 * (d // 8)),
-             "box": (8, bk, dp // 8, 1), "swizzle": 0}
-    return {"dp": dp, "chunks": dp // 8, "zero_chunks": (dp - d) // 8, "row_blocks": mb,
-            "q_rows": bq, "kv_rows": bk, "stages": stages, "kv_copies": True,
-            "smem": (bq + 2 * stages * bk) * dp * 2 + 8 * (1 + 2 * stages) + 128,
-            "grid": (-(-sq // bq), b * h), "tx_q": bq * dp * 2, "tx_kv": 2 * bk * dp * 2,
-            "kv_tiles": -(-skv // bk), "maps": {"q": qmap, "k": kvmap, "v": dict(kvmap)}}
+
+    def inplace(s: int, rows: int) -> dict:
+        return {"dims": (d, h, s, b), "strides": (row, h * row, s * h * row),
+                "box": (SLAB, 1, rows, 1), "swizzle": 128}
+
+    # a consumer thread's registers: the block's launch share less the
+    # producer's 24, over the consumers
+    regs = ((65536 // (128 * (nwg + 1))) // 8 * 8 * (nwg + 1) - 24) // nwg // 8 * 8
+    return {"dp": dp, "slabs": slabs, "zero_dims": slabs * SLAB - d, "consumers": nwg,
+            "row_blocks": 1, "q_rows": bq, "kv_rows": bk, "stages": stages, "pv_width": dp,
+            "sums_on_tc": d == dp - 8 and dp <= 64, "chains": 2 if dp <= 96 else 1,
+            "threads": 128 * (1 + nwg), "registers": regs, "kv_copies": False,
+            "smem": (bq + 2 * stages * bk) * slabs * SLAB * 2 + 8 * (1 + 2 * stages) + 1024,
+            "grid": (-(-sq // bq), b * h), "tx_q": bq * slabs * SLAB * 2,
+            "tx_kv": 2 * bk * slabs * SLAB * 2, "kv_tiles": -(-skv // bk),
+            "maps": {"q": inplace(sq, bq), "k": inplace(skv, bk), "v": inplace(skv, bk)}}
 
 
 def flash_kv_operands(k: torch.Tensor, v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """The k and v that K1 reads, from (B, S, H, D): at d = 128 the tensors
-    themselves (read in place); at every other d chunk-major copies, (B *
-    H, D / 8, S, 8), so that one TMA box is a whole k or v tile in the
-    layout wgmma reads (see the kernel's source)."""
-    b, skv, h, d = k.shape
-    if not flash_geometry(b, 1, skv, h, d)["kv_copies"]:
-        return k, v
-    return tuple(t.view(b, skv, h, d // 8, 8).permute(0, 2, 3, 1, 4).contiguous()
-                 for t in (k, v))
+    """The k and v that K1 reads: the (B, S, H, D) tensors themselves, at
+    every head dim (`flash_geometry`'s maps read them in place)."""
+    return k, v
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -379,10 +369,12 @@ def qk_int8_geometry(b: int, sq: int, skv: int, h: int, d: int) -> dict:
     slices of 256 queries and 256 keys, and its f32 scratch (per batch *
     head: each q slice's amax, each k slice's channel sums, the token mean
     and a counter); each operand's shape; the q rows, keys and stages of
-    K1's design, which K6 keeps. q8 and k8 are chunk-major in 16-byte
-    chunks and v a chunk-major copy (`v_copy`), except at d = 128: q8 and
-    k8 row-major (BH, S, 128), v read in place from (B, S, H, D), all three
-    in the 128-byte swizzle (`maps`, as `flash_geometry`'s)."""
+    K1's design before it read every head dim in place (two 64-row q
+    blocks a warpgroup up to dp 96), which K6 keeps. q8 and k8 are
+    chunk-major in 16-byte chunks and v a chunk-major copy (`v_copy`),
+    except at d = 128: q8 and k8 row-major (BH, S, 128), v read in place
+    from (B, S, H, D), all three in the 128-byte swizzle (`maps`, as
+    `flash_geometry`'s)."""
     dk, dp = _ceil_to(d, 32), _ceil_to(d, 16)
     bq = min(QBLOCK, _ceil_to(sq, 128))
     bh = b * h

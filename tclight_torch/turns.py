@@ -14,18 +14,19 @@ batch of 16), both computed once by this checkout into build/turns/.
 
     python -m tclight_torch.turns OTHER_CHECKOUT [K1 K2 K6 K7 K3 K5 K5-path]
 
-K1 runs at the UNet's xy shapes (levels 0-2) and the Cosmos DiTs' (32
-heads of 128: 5,120, 14,080 and 56,320 tokens), the wrapper's k/v copies
-included where it makes them; K6 and K7 at the UNet's xy levels 0-2 and
-yt levels 0-1 and at the same DiT shapes (`attn_backend="int8"` /
-`"int8pv"`).
+K1, K6 and K7 run at the UNet's xy levels 0-2 and yt levels 0-1 and at
+the Cosmos DiTs' self-attention (32 heads of 128: 5,120, 14,080 and 56,320
+tokens); K1 through `flash_attention_cuda` (the wrapper's k/v copies
+included where a checkout makes them), K6 and K7 through
+`flash_attention_int8_cuda` (`attn_backend="int8"` / `"int8pv"`).
 
 K5-path is chip_smoke's K5 path: `run_uvt` on the turnover ids for 5
 epochs; its ms is the median epoch past the first (the first plans and
 warms up).
 
 Prints the card's name and power limit, then one line per leg and shape:
-milliseconds (CUDA events over a few calls, after a warm-up). Needs a
+milliseconds (`cuda_event_ms`: CUDA events over a few calls, after a
+warm-up; K1's the median of three such runs, with their spread). Needs a
 CUDA card and nvcc; each checkout builds its kernels into its own build/.
 """
 
@@ -36,6 +37,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+from tclight_torch.utils.logging import cuda_event_ms
+
 # (kernel, shape label, shape): chip_smoke's K2 merges at levels 0 and 1,
 # its K6 / K7 attention shapes (B, S, H, D: xy levels 0-2, the yt pass's
 # levels 0, 1, and the DiTs' self-attention) and its K3 cases (N, H, W,
@@ -44,8 +47,8 @@ ATTENTION = [("L0", (2, 35640, 8, 40)), ("L1", (2, 8910, 8, 80)), ("L2", (8, 660
              ("yt-L0", (2, 8910, 8, 40)), ("yt-L1", (2, 2228, 8, 80))]
 DIT = [("dd", (1, 5120, 32, 128)), ("t2w", (1, 14080, 32, 128)),
        ("t2w-704", (1, 56320, 32, 128))]
-# K1's (B, S, H, D): the UNet's xy levels and the DiTs' self-attention
-K1_SHAPES = ATTENTION[:3] + DIT
+# K1's (B, S, H, D): the UNet's xy and yt levels and the DiTs' self-attention
+K1_SHAPES = ATTENTION + DIT
 SHAPES = ([("K1", label, shape) for label, shape in K1_SHAPES]
           + [("K2", "global L0", (2, 23760, 23760, 320)),
              ("K2", "local L0", (2, 32400, 10800, 320)),
@@ -115,15 +118,7 @@ def leg(shapes, flows_path, plans_path) -> None:
     from tclight_torch.ops.warp_kernel import window_warp_cuda
 
     def ms(fn, reps):
-        fn()
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / reps
+        return cuda_event_ms(fn, reps)[0]
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     for kernel, label, shape in shapes:
@@ -131,7 +126,9 @@ def leg(shapes, flows_path, plans_path) -> None:
             b, s, h, d = shape
             q, k, v = (torch.randn(b, s, h, d, device="cuda", generator=gen, dtype=torch.bfloat16)
                        for _ in range(3))
-            t = ms(lambda: flash_attention_cuda(q, k, v, d ** -0.5), 3 if s > 20000 else 10)
+            t, spread = cuda_event_ms(lambda: flash_attention_cuda(q, k, v, d ** -0.5),
+                                      3 if s > 20000 else 10, 3)
+            label += f" spread_ms={spread:.4f}"
         elif kernel == "K2":
             b, s, d, c = shape
             a = F.normalize(torch.randn(b, s, c, device="cuda", generator=gen), dim=-1).bfloat16()
@@ -174,6 +171,16 @@ def leg(shapes, flows_path, plans_path) -> None:
         print(f"{kernel} {label} {shape} ms={t:.4f}", flush=True)
 
 
+def leg_code(root, shapes, flows_path, plans_path) -> str:
+    """The program of one leg: `leg` with the checkout at `root` first on
+    sys.path, and this checkout's timer beside it (the other may lack it)."""
+    return ("from __future__ import annotations\n"
+            f"import sys; sys.path.insert(0, {str(root)!r})\n"
+            "from typing import Any, Callable\nimport torch\n"
+            + inspect.getsource(cuda_event_ms) + inspect.getsource(leg)
+            + f"\nleg({shapes!r}, {str(flows_path)!r}, {str(plans_path)!r})\n")
+
+
 def main(argv: list[str]) -> int:
     every = {"K1", "K2", "K6", "K7", "K3", "K5", "K5-path"}
     kernels = set(argv[1:]) or every
@@ -195,12 +202,10 @@ def main(argv: list[str]) -> int:
         sys.path.insert(0, str(here))
         k5_plans(plans_path)
     shapes = [sh for sh in SHAPES if sh[0] in kernels]
-    code = (inspect.getsource(leg)
-            + f"\nleg({shapes!r}, {str(flows_path)!r}, {str(plans_path)!r})\n")
     for name, root in (("this", here), ("other", other), ("other", other), ("this", here)):
         print(f"[turn] {name} {root}", flush=True)
-        r = subprocess.run([sys.executable, "-c", f"import sys; sys.path.insert(0, {str(root)!r})\n"
-                            + code], cwd=root, text=True)
+        r = subprocess.run([sys.executable, "-c", leg_code(root, shapes, flows_path, plans_path)],
+                           cwd=root, text=True)
         if r.returncode != 0:
             return r.returncode
     return 0

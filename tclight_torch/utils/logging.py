@@ -2,7 +2,8 @@
 tclight_tpu/utils/logging.py): one stdlib logger; `timer`, a context
 manager and decorator (cosmos1/utils/misc.py:139-183); device memory under
 the JAX package's keys; a torch.profiler trace; a call timed to the end of
-its device work; and the wall-time + device-memory record that the run
+its device work; a call timed on the card by CUDA events
+(`cuda_event_ms`); and the wall-time + device-memory record that the run
 config keeps (generate.py:577-611 of the reference)."""
 
 from __future__ import annotations
@@ -115,6 +116,30 @@ def block_and_time(fn: Callable[..., Any]) -> Callable[..., tuple[Any, float]]:
         return out, time.perf_counter() - t0
 
     return wrapped
+
+
+def cuda_event_ms(fn: Callable[[], Any], reps: int, repeats: int = 1) -> tuple[float, float]:
+    """Milliseconds a call of fn() takes on the card: a warm-up call, then
+    `repeats` times `reps` calls between two CUDA events, each divided by
+    `reps`. Returns the median of the repeats and their spread (max - min,
+    0 for one). Raises without a card: a device time comes only from one."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("cuda_event_ms: no CUDA device")
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    times.sort()
+    mid = len(times) // 2
+    median = times[mid] if len(times) % 2 else (times[mid - 1] + times[mid]) / 2
+    return median, times[-1] - times[0]
 
 
 class CostTracker:

@@ -310,16 +310,23 @@ def test_qk_int8_operands_match_jax_quantizers(b, sq, skv, h, d):
 
 @pytest.mark.parametrize("d", [8, 16, 24, 40, 64, 80, 96, 128, 144, 160])
 def test_qk_int8_geometry_matches_the_kernel_source(d):
-    """K6 keeps K1's tiles (q rows, keys, stages) for the p.v width dp; its
-    q.k^T depth dk is d padded to 32; its shared memory fits a block; the
-    rules are those of `csrc/flash_attention_qk_int8.cu`."""
+    """K6 keeps the tiles (q rows, keys, stages) of K1's design before K1
+    read every head dim in place, for the p.v width dp: two 64-row q blocks
+    a warpgroup and 64-key tiles in 4 stages up to dp 96, else one block
+    and 128 keys in 3 stages up to dp 128, 2 above; at d = 128 they are
+    K1's; its q.k^T depth dk is d padded to 32; its shared memory fits a
+    block; the rules are those of `csrc/flash_attention_qk_int8.cu`."""
     from pathlib import Path
 
     g = tattn.qk_int8_geometry(2, 35640, 35640, 8, d)
     k1 = tattn.flash_geometry(2, 35640, 35640, 8, d)
     assert g["dk"] % 32 == 0 and d <= g["dk"] < d + 32 and g["dp"] == k1["dp"]
-    for key in ("row_blocks", "q_rows", "kv_rows", "stages"):
-        assert g[key] == k1[key], key
+    mb = 2 if g["dp"] <= 96 else 1
+    assert (g["row_blocks"], g["q_rows"], g["kv_rows"], g["stages"]) == (
+        mb, 128 * mb, 64 if mb == 2 else 128, 4 if mb == 2 else (3 if g["dp"] <= 128 else 2))
+    if d == 128:
+        for key in ("row_blocks", "q_rows", "kv_rows", "stages"):
+            assert g[key] == k1[key], key
     smem = (g["q_rows"] * g["dk"] + g["stages"] * g["kv_rows"] * (g["dk"] + 2 * g["dp"] + 4)
             + 8 * (1 + 2 * g["stages"]) + 128)
     assert smem <= tattn.SMEM_PER_BLOCK

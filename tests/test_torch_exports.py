@@ -240,6 +240,37 @@ def test_profile_trace_and_block_and_time(tmp_path):
     np.testing.assert_array_equal(out["y"][1][0].numpy(), [2.0, 2.0, 2.0])
 
 
+def test_cuda_event_ms_times_only_on_a_card(monkeypatch):
+    """The CUDA-event timer raises where there is no card (a device time
+    comes only from one), and calls nothing before it does."""
+    calls = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tlogging.cuda_event_ms(lambda: calls.append(1), 5, 3)
+    assert calls == []
+
+
+def test_turns_legs_carry_this_checkouts_timer(tmp_path):
+    """`python -m tclight_torch.turns` runs each leg as a program of its
+    own with the other checkout first on sys.path: the program compiles,
+    puts that checkout first, and defines this checkout's timer, which the
+    other checkout may lack, before the leg that calls it; K1 is timed at
+    every UNet shape."""
+    from tclight_torch import turns
+
+    shapes = [sh for sh in turns.SHAPES if sh[0] == "K1"]
+    assert [sh[1] for sh in shapes] == ["L0", "L1", "L2", "yt-L0", "yt-L1", "dd", "t2w",
+                                        "t2w-704"]
+    code = turns.leg_code(tmp_path, shapes, tmp_path / "f.npy", tmp_path / "p.pt")
+    tree = ast.parse(code)
+    assert isinstance(tree.body[0], ast.ImportFrom) and tree.body[0].module == "__future__"
+    assert f"sys.path.insert(0, {str(tmp_path)!r})" in code
+    defs = [n.name for n in tree.body if isinstance(n, ast.FunctionDef)]
+    assert defs == ["cuda_event_ms", "leg"]
+    call = tree.body[-1].value
+    assert call.func.id == "leg" and ast.literal_eval(call.args[0]) == shapes
+
+
 # --- the host tools and the scripts -------------------------------------
 
 

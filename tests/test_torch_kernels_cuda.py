@@ -2,9 +2,13 @@
 card, at small and ragged shapes: head dims that need padding to the MMA
 depth, kv and q lengths that end inside a tile, dst counts that end inside
 a tile, channel counts on every shared-memory path of the matcher, exact
-ties; K1 at head dim 128 (read in place, swizzled) with ragged lengths,
-Sq != Skv, B > 1, 32 heads and a masked kv tail, beside D = 120 and 112
-(chunk-major), and K6 and K7 at head dim 128 (q8, k8 row-major, v in
+ties; K1, which reads q, k and v in place in 64-dim swizzled boxes at
+every head dim, at the UNet's 40 / 80 / 160 (660 and 2,228 tokens), at
+every head dim that stops inside a 64-dim slab (zero-filled dims, a p.v
+width inside a slab), with fewer keys than a tile, and at head dim 128
+with ragged lengths, Sq != Skv, B > 1, 32 heads and a masked kv tail,
+beside D = 120 and 112; libcuda's tensor-map encoder taking a 64-dim box
+over fewer dims; and K6 and K7 at head dim 128 (q8, k8 row-major, v in
 place / v8 channel-major, all swizzled; K7's max pass on s8 wgmma) with the
 same cases; for the window warp (K3) frames that end inside a tile, flows that
 leave the frame, flow ranges up to 100 px, every channel count and both
@@ -113,13 +117,14 @@ def test_flash_kernel_many_heads(cuda):
     (1, 300, 2500, 2, 128),   # Sq != Skv: the context-parallel DiT's gathered k, v
     (1, 2500, 300, 2, 128),
     (2, 257, 700, 32, 128),   # the DiTs' 32 heads
-    (1, 260, 700, 2, 120),    # D = 120 and 112 keep the chunk-major copies
+    (1, 260, 700, 2, 120),    # D = 120 and 112: the p.v width stops inside a slab
     (1, 260, 700, 2, 112),
 ])
 def test_flash_kernel_head_dim_128(cuda, b, sq, skv, h, d):
-    """Head dim 128 reads q, k and v in place in the 128-byte swizzle; the
-    head dims next to it keep the chunk-major path. Both against the plain
-    version, with the launch counted once and its shape key recorded."""
+    """Head dim 128 reads q, k and v in place in the 128-byte swizzle, two
+    slabs a row, as the head dims next to it do (their second slab part
+    zero-filled). Against the plain version, with the launch counted once
+    and its shape key recorded."""
     q = torch.randn(b, sq, h, d, device="cuda", generator=cuda).bfloat16()
     k = torch.randn(b, skv, h, d, device="cuda", generator=cuda).bfloat16()
     v = torch.randn(b, skv, h, d, device="cuda", generator=cuda).bfloat16()
@@ -129,10 +134,70 @@ def test_flash_kernel_head_dim_128(cuda, b, sq, skv, h, d):
     out = attention.flash_attention(q, k, v, scale=scale)
     torch.cuda.synchronize()
     assert stats.launches == before + 1 and stats.shapes[(b, sq, skv, h, d)] == keyed + 1
-    assert attention.flash_geometry(b, sq, skv, h, d)["kv_copies"] == (d != 128)
+    assert not attention.flash_geometry(b, sq, skv, h, d)["kv_copies"]
     ref = attention.flash_attention_plain(q.float(), k.float(), v.float(), scale)
     err = (out.float() - ref).abs().max().item()
     assert err <= 2e-2 * ref.abs().max().item(), err
+
+
+def _flash_against_plain(gen, b, sq, skv, h, d, scale):
+    q = torch.randn(b, sq, h, d, device="cuda", generator=gen).bfloat16()
+    k = torch.randn(b, skv, h, d, device="cuda", generator=gen).bfloat16()
+    v = torch.randn(b, skv, h, d, device="cuda", generator=gen).bfloat16()
+    k_ptr = k.data_ptr()
+    assert attention.flash_kv_operands(k, v)[0].data_ptr() == k_ptr  # read in place
+    out = attention.flash_attention(q, k, v, scale=scale)
+    torch.cuda.synchronize()
+    ref = attention.flash_attention_plain(q.float(), k.float(), v.float(), scale)
+    return (out.float() - ref).abs().max().item(), 2e-2 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("d", [40, 80, 160])
+@pytest.mark.parametrize("s", [660, 2228])
+def test_flash_kernel_unet_head_dims_in_place(cuda, d, s):
+    """The UNet's head dims at its small shapes' token counts (level 2's
+    660 and the yt pass's level-1 2,228): q, k and v read in place, one
+    64-dim box a slab (D = 40 one box with 24 zero-filled dims, 80 two,
+    160 three), p.v widths 48, 80 and 160."""
+    err, tol = _flash_against_plain(cuda, 2, s, s, 8, d, d ** -0.5)
+    assert err <= tol, err
+
+
+@pytest.mark.parametrize("d", [8, 24, 40, 56, 72, 88, 120, 152])
+@pytest.mark.parametrize("sq,skv", [(200, 37), (333, 700)])
+def test_flash_kernel_head_dims_that_stop_inside_a_slab(cuda, d, sq, skv):
+    """Every head dim that is a multiple of 8 and not of 16: the dims past
+    D read as TMA's zeros, the q.k^T depth ceil16(D) ends inside a slab,
+    the p.v width ceil16(D) (16 to 160) stops inside one; with fewer keys
+    than one tile (37) and with a ragged last tile (700)."""
+    err, tol = _flash_against_plain(cuda, 1, sq, skv, 2, d, 0.9 * d ** -0.5)
+    assert err <= tol, err
+
+
+@pytest.mark.parametrize("d", [8, 40, 80, 160])
+def test_tensor_map_takes_a_64_dim_box_over_fewer_dims(cuda, d):
+    """libcuda's cuTensorMapEncodeTiled, called as K1's
+    `tensor_map_bshd_slabs` calls it (bf16, 4-d (D, H, S, B), boxes of 64
+    x 1 x 128 x 1, the 128-byte swizzle, zero fill), takes a box whose 64
+    dims reach past a row of D: at D < 64 the whole row is shorter than
+    the box."""
+    import ctypes
+
+    b, s, h = 2, 300, 3
+    x = torch.zeros(b, s, h, d, device="cuda", dtype=torch.bfloat16)
+    lib = ctypes.CDLL("libcuda.so.1")
+    fn = lib.cuTensorMapEncodeTiled
+    u64x4, u64x3, u32x4 = ctypes.c_uint64 * 4, ctypes.c_uint64 * 3, ctypes.c_uint32 * 4
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_void_p,
+                   u64x4, u64x3, u32x4, u32x4, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int]
+    fn.restype = ctypes.c_int
+    tmap = (ctypes.c_uint8 * (128 + 64))()  # a CUtensorMap is 128 bytes, 64-byte aligned
+    addr = (ctypes.addressof(tmap) + 63) // 64 * 64
+    bf16, swizzle_128b, l2_128b = 9, 3, 2
+    rc = fn(addr, bf16, 4, x.data_ptr(), u64x4(d, h, s, b), u64x3(2 * d, 2 * d * h, 2 * d * h * s),
+            u32x4(64, 1, 128, 1), u32x4(1, 1, 1, 1), 0, swizzle_128b, l2_128b, 0)
+    assert rc == 0, f"cuTensorMapEncodeTiled refused a 64-dim box over D = {d}: CUresult {rc}"
 
 
 @pytest.mark.parametrize("d,skv", [(40, 130), (80, 1031), (160, 65), (128, 130), (128, 1031)])
