@@ -15,14 +15,16 @@ On the H100 it is bound by tensor-core operations (the level-0 global
 merge is ~0.7 TFLOP on ~30 MB of tokens); a matmul followed by a max would
 instead be bound by the bytes of its (B, S, D) f32 score tensor (~4.5 GB).
 Its design is a persistent, warp-specialised GEMM whose epilogue is a
-fold: a producer warp streams dst tiles by TMA, two consumer warpgroups
-run the products on wgmma and fold each score tile into a running (max,
-index) in registers, so no score reaches device memory. The (batch, dst)
-range is cut into chunks (`match_plan`) so that the units (src tile,
-batch, chunk) fill the card's last wave; each unit merges its rows' maxima
-into a packed 64-bit key per src row by atomicMax (`pack_match_keys`
-states the rule), and a second small kernel unpacks the keys. Details in
-the source.
+fold: a producer warp streams dst tiles by TMA, read in place from a and
+bt in the 128-byte swizzle (`match_geometry`; the wrapper copies
+nothing), beside a resident src tile; two consumer warpgroups run the
+products on wgmma and fold each score tile into a running (max, index) in
+registers, the fold of one accumulator under the products of the other,
+so no score reaches device memory. The (src tile, batch, dst tile) tiles
+are cut into one contiguous range a CTA (`match_plan`); each (src tile,
+batch) a range holds merges its rows' maxima into a packed 64-bit key per
+src row by atomicMax (`pack_match_keys` states the rule), and a second
+small kernel unpacks the keys. Details in the source.
 """
 
 from __future__ import annotations
@@ -36,15 +38,17 @@ import torch
 from tclight_torch.ops import kernels
 
 __all__ = ["online_argmax_scores", "online_argmax_scores_plain",
-           "online_argmax_scores_cuda", "match_plan", "pack_match_keys", "unpack_match_keys"]
+           "online_argmax_scores_cuda", "match_geometry", "match_plan", "match_operands",
+           "pack_match_keys", "unpack_match_keys"]
 
 DST_TILE = 128  # dst rows of one tile of the kernel
-STAGE_C = 64    # channels of one stage; the depth is padded to a multiple of it
+SLAB = 64       # channels of one stage and one TMA box: a 128-byte swizzle row
 MAX_C = 768
+SMEM_PER_CTA = 232448
 _TOP_BIT = -(1 << 63)  # int64 with only bit 63 set
 # tclight_match_argmax_bf16(a, bt, keys, node_max, node_idx, B, S, D, C,
-# n_chunks, grid, stream)
-K2_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+# grid, stream)
+K2_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
 def online_argmax_scores_plain(a: torch.Tensor, bt: torch.Tensor
@@ -60,39 +64,64 @@ def online_argmax_scores_plain(a: torch.Tensor, bt: torch.Tensor
     return s2.amax(dim=-1), s2.argmax(dim=-1).to(torch.int32)
 
 
+def match_geometry(b: int, s: int, d: int, c: int) -> dict:
+    """K2's launch geometry, as `csrc/match_argmax.cu` lays it out, by the
+    depth in 64-channel slabs (`slabs`, ceil(c / 64), at least two: c <=
+    64 reads a second slab of zeros, since ptxas serialises the one-slab
+    kernel's products): the 64-row src blocks of a consumer warpgroup (two
+    up to 6 slabs, else one) and the src rows of a CTA's resident tile
+    that follow (256 or 128), the dst rows of one accumulator (128, or 64
+    with one src block: each warpgroup keeps two accumulators), the ring's
+    stages (as many as fit, 2-8), the dynamic shared memory, the bytes
+    each mbarrier expects (a src slab, a dst stage), and the 4-d tensor
+    maps (dims innermost first, strides of dims 1-3 in bytes, box, swizzle
+    in bytes): a (B, S, C) and bt (B, D, C) read in place as (C, 1, rows,
+    B), boxes of 64 channels (one 128-byte swizzle row) by a src tile's or
+    a 128-row dst stage's rows; channels past c (`zero_channels` of the
+    last slab) and rows past s or d read as zeros. The wrapper makes no
+    copy (`copies` False)."""
+    slabs = max(-(-c // SLAB), 2)
+    mb = 2 if slabs <= 6 else 1
+    bs = 128 * mb
+
+    def smem(n: int) -> int:
+        return 1024 + bs * slabs * SLAB * 2 + n * DST_TILE * SLAB * 2 + 8 * (slabs + 1 + 2 * n)
+
+    stages = max([n for n in range(2, 9) if smem(n) <= SMEM_PER_CTA] or [2])
+
+    def inplace(rows: int, box_rows: int) -> dict:
+        return {"dims": (c, 1, rows, b), "strides": (2 * c, 2 * c, 2 * c * rows),
+                "box": (SLAB, 1, box_rows, 1), "swizzle": 128}
+
+    return {"slabs": slabs, "zero_channels": slabs * SLAB - c, "row_blocks": mb,
+            "src_rows": bs, "acc_rows": DST_TILE * mb // 2, "stages": stages,
+            "smem": smem(stages), "copies": False, "tx_src_slab": bs * SLAB * 2,
+            "tx_stage": DST_TILE * SLAB * 2,
+            "maps": {"a": inplace(s, bs), "bt": inplace(d, DST_TILE)}}
+
+
 @functools.lru_cache(maxsize=256)
 def match_plan(b: int, s: int, d: int, c: int, n_sm: int) -> dict:
-    """K2's work split, as `csrc/match_argmax.cu` runs it. A unit is (src
-    tile, batch, dst chunk): `src_rows` src rows of one batch against
-    `tiles_per_chunk` whole 128-row dst tiles of that batch (the last
-    chunk of a batch may hold fewer). The src tile holds 256 rows (two
-    64-row blocks per consumer warpgroup) while the depth padded to 64 is
-    at most 384 channels, else 128, where the resident tile leaves room
-    for too few stages. A persistent grid of min(n_sm, units) blocks walks
-    over the units in order (src tile fastest); block i takes units i,
-    i + grid, ... The chunk count is the one, of 1-32, whose busiest block
-    has the least work, counting a unit's tiles plus one tile's worth for
-    its src load and merge; the fewest chunks among equals."""
-    nkc = -(-c // STAGE_C)
-    mb = 2 if nkc <= 6 else 1
-    bs = 128 * mb
-    n_st, n_dt = -(-s // bs), -(-d // DST_TILE)
-    best = None
-    for n_chunks in range(1, min(32, n_dt) + 1):
-        tpc = -(-n_dt // n_chunks)
-        nc = -(-n_dt // tpc)
-        tiles = np.full(nc, tpc)
-        tiles[-1] = n_dt - (nc - 1) * tpc
-        units = n_st * b * nc
-        grid = min(n_sm, units)
-        cost = np.tile(np.repeat(tiles + 1, n_st), b)  # unit u = (b * nc + chunk) * n_st + st
-        busiest = np.bincount(np.arange(units) % grid, weights=cost).max()
-        if best is None or busiest < best[0]:
-            best = (busiest, n_chunks, tpc, nc, units, grid)
-    busiest, n_chunks, tpc, nc, units, grid = best
-    return {"depth_stages": nkc, "row_blocks": mb, "src_rows": bs, "src_tiles": n_st,
-            "dst_tiles": n_dt, "n_chunks": n_chunks, "tiles_per_chunk": tpc, "chunks": nc,
-            "units": units, "grid": grid, "busiest_tiles": float(busiest)}
+    """K2's work split, as `csrc/match_argmax.cu` runs it on a card of
+    `n_sm` SMs (one CTA an SM: its shared memory holds one). A tile is (src
+    tile of `src_rows` rows, batch, 128-row dst tile). The tiles, src tile
+    slowest and dst tile fastest, are cut into `ctas` contiguous ranges of
+    `tiles_per_cta` (the last may hold fewer, none is empty): min(n_sm,
+    tiles) CTAs, the ranges as even as whole tiles allow. `src_loads`: the
+    most src tiles a CTA loads (the (src tile, batch) pairs its range
+    enters)."""
+    g = match_geometry(b, s, d, c)
+    n_st, n_dt = -(-s // g["src_rows"]), -(-d // DST_TILE)
+    tiles = n_st * b * n_dt
+    ctas = min(max(n_sm, 1), tiles)
+    per = -(-tiles // ctas)
+    ctas = -(-tiles // per)
+    firsts = np.arange(ctas) * per
+    lasts = np.minimum(firsts + per, tiles) - 1
+    src_loads = int((lasts // n_dt - firsts // n_dt + 1).max())
+    return {"src_rows": g["src_rows"], "stages": g["stages"], "src_tiles": n_st,
+            "dst_tiles": n_dt, "tiles": tiles, "ctas": ctas, "tiles_per_cta": per,
+            "src_loads": src_loads}
 
 
 def pack_match_keys(node_max: torch.Tensor, node_idx: torch.Tensor) -> torch.Tensor:
@@ -121,6 +150,12 @@ def unpack_match_keys(keys: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return m, (~k & 0xFFFFFFFF).to(torch.int32)
 
 
+def match_operands(a: torch.Tensor, bt: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The a and bt that K2 reads: the (B, S, C) and (B, D, C) tensors
+    themselves (`match_geometry`'s maps read them in place)."""
+    return a, bt
+
+
 def online_argmax_scores_cuda(a: torch.Tensor, bt: torch.Tensor
                               ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch K2 on bf16 CUDA tensors; C % 8 == 0, C <= 768."""
@@ -139,26 +174,22 @@ def online_argmax_scores_cuda(a: torch.Tensor, bt: torch.Tensor
     if c % 8 or c > MAX_C:
         raise ValueError(f"match kernel: channels {c} must be a multiple of 8 "
                          "and at most 768")
-    plan = match_plan(b, s, d, c, torch.cuda.get_device_properties(a.device).multi_processor_count)
-    return _launch(a, bt, plan["n_chunks"], plan["grid"])
+    return _launch(a, bt, torch.cuda.get_device_properties(a.device).multi_processor_count)
 
 
-def _launch(a: torch.Tensor, bt: torch.Tensor, n_chunks: int, grid: int
-            ) -> tuple[torch.Tensor, torch.Tensor]:
-    """K2 with a given split: each batch's dst tiles in `n_chunks` chunks,
-    `grid` persistent blocks (checked inputs; the card tests force every
-    split through it)."""
+def _launch(a: torch.Tensor, bt: torch.Tensor, grid: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """K2 on at most `grid` CTAs (at least one), each one contiguous range
+    of the tiles (checked inputs; the card tests force other splits through
+    it)."""
     b, s, c = a.shape
     d = bt.shape[1]
-    # chunk-major copies (B, C / 8, rows, 8): a src tile and a dst stage
-    # are each one TMA box, in the layout wgmma reads (see the source)
-    ac, btc = (t.view(b, -1, c // 8, 8).transpose(1, 2).contiguous() for t in (a, bt))
+    ka, kb = match_operands(a, bt)
     keys = torch.empty(s, dtype=torch.int64, device=a.device)
     node_max = torch.empty(s, dtype=torch.float32, device=a.device)
     node_idx = torch.empty(s, dtype=torch.int32, device=a.device)
     fn = kernels.function("match_argmax", "tclight_match_argmax_bf16", K2_ARGTYPES, ctypes.c_int)
-    rc = fn(ac.data_ptr(), btc.data_ptr(), keys.data_ptr(), node_max.data_ptr(),
-            node_idx.data_ptr(), b, s, d, c, n_chunks, grid,
+    rc = fn(ka.data_ptr(), kb.data_ptr(), keys.data_ptr(), node_max.data_ptr(),
+            node_idx.data_ptr(), b, s, d, c, grid,
             torch.cuda.current_stream(a.device).cuda_stream)
     kernels.check_launch(rc, "online_argmax_scores")
     kernels.STATS["online_argmax_scores"].record((b, s, d, c))

@@ -14,6 +14,7 @@ batch of 16), both computed once by this checkout into build/turns/.
 
     python -m tclight_torch.turns OTHER_CHECKOUT [K1 K2 K6 K7 K3 K5 K5-path]
 
+K2 runs at every shape chip_smoke's paths launch it at (`K2_SHAPES`).
 K1, K6 and K7 run at the UNet's xy levels 0-2 and yt levels 0-1 and at
 the Cosmos DiTs' self-attention (32 heads of 128: 5,120, 14,080 and 56,320
 tokens); K1 through `flash_attention_cuda` (the wrapper's k/v copies
@@ -26,7 +27,8 @@ warms up).
 
 Prints the card's name and power limit, then one line per leg and shape:
 milliseconds (`cuda_event_ms`: CUDA events over a few calls, after a
-warm-up; K1's the median of three such runs, with their spread). Needs a
+warm-up; K1's and K2's the median of three such runs, with their
+spread). Needs a
 CUDA card and nvcc; each checkout builds its kernels into its own build/.
 """
 
@@ -49,10 +51,23 @@ DIT = [("dd", (1, 5120, 32, 128)), ("t2w", (1, 14080, 32, 128)),
        ("t2w-704", (1, 56320, 32, 128))]
 # K1's (B, S, H, D): the UNet's xy and yt levels and the DiTs' self-attention
 K1_SHAPES = ATTENTION + DIT
+# K2's (B, S, D, C): chip_smoke's merges at levels 0 and 1, then every other
+# shape its paths launch K2 at (the main run's CFG-shared batch of one, the
+# yt pass's, the editing paths' batch of three, the parallel check's tiny
+# UNet)
+K2_SHAPES = [("global L0", (2, 23760, 23760, 320)), ("local L0", (2, 32400, 10800, 320)),
+             ("global L1", (2, 5940, 5940, 640)), ("local L1", (2, 8100, 2700, 640)),
+             ("main global L0", (1, 23760, 23760, 320)), ("main local L0", (1, 32400, 10800, 320)),
+             ("yt global L0", (1, 5940, 5940, 320)), ("yt local L0", (1, 8100, 2700, 320)),
+             ("yt global L0 B2", (2, 5940, 5940, 320)), ("yt local L0 B2", (2, 8100, 2700, 320)),
+             ("yt global L1", (2, 1485, 1485, 640)), ("yt local L1", (2, 2025, 675, 640)),
+             ("pnp global L0", (3, 23760, 23760, 320)), ("pnp local L0", (3, 32400, 10800, 320)),
+             ("pnp global L1", (3, 5940, 5940, 640)), ("pnp local L1", (3, 8100, 2700, 640)),
+             ("parallel global L0", (2, 1440, 1440, 64)), ("parallel local L0", (2, 1728, 576, 64)),
+             ("parallel global L1", (2, 5760, 5760, 32)),
+             ("parallel local L1", (2, 6912, 2304, 32))]
 SHAPES = ([("K1", label, shape) for label, shape in K1_SHAPES]
-          + [("K2", "global L0", (2, 23760, 23760, 320)),
-             ("K2", "local L0", (2, 32400, 10800, 320)),
-             ("K2", "global L1", (2, 5940, 5940, 640)), ("K2", "local L1", (2, 8100, 2700, 640))]
+          + [("K2", label, shape) for label, shape in K2_SHAPES]
           + [("K6", label, shape) for label, shape in ATTENTION + DIT]
           + [("K7", label, shape) for label, shape in ATTENTION + DIT]
           + [("K3", f"{d} {case}", (16, 720, 960, r, d == "adjoint"))
@@ -133,7 +148,9 @@ def leg(shapes, flows_path, plans_path) -> None:
             b, s, d, c = shape
             a = F.normalize(torch.randn(b, s, c, device="cuda", generator=gen), dim=-1).bfloat16()
             bt = F.normalize(torch.randn(b, d, c, device="cuda", generator=gen), dim=-1).bfloat16()
-            t = ms(lambda: online_argmax_scores_cuda(a, bt), 5)
+            t, spread = cuda_event_ms(lambda: online_argmax_scores_cuda(a, bt),
+                                      5 if s * d > 1e8 else 20, 3)
+            label += f" spread_ms={spread:.4f}"
         elif kernel == "K5":
             n_rows, starts, offs, window = torch.load(plans_path, weights_only=False)[shape]
             table = torch.randn(n_rows, 3, device="cuda", generator=gen)

@@ -1,9 +1,11 @@
 """The port's hand-written CUDA kernels against their plain versions, on the
 card, at small and ragged shapes: head dims that need padding to the MMA
 depth, kv and q lengths that end inside a tile, dst counts that end inside
-a tile, channel counts on every shared-memory path of the matcher, exact
-ties; K1, which reads q, k and v in place in 64-dim swizzled boxes at
-every head dim, at the UNet's 40 / 80 / 160 (660 and 2,228 tokens), at
+a tile, channel counts on every shared-memory path of the matcher (C =
+40 and 72 read zero-filled channels), exact ties across ranges, batches,
+64-channel slabs and the halves of a dst tile, and -0.0 / +0.0 maxima;
+K1, which reads q, k and v in place in 64-dim swizzled boxes at every
+head dim, at the UNet's 40 / 80 / 160 (660 and 2,228 tokens), at
 every head dim that stops inside a 64-dim slab (zero-filled dims, a p.v
 width inside a slab), with fewer keys than a tile, and at head dim 128
 with ragged lengths, Sq != Skv, B > 1, 32 heads and a masked kv tail,
@@ -434,24 +436,12 @@ def _unit(gen, *shape):
     return F.normalize(torch.randn(*shape, device="cuda", generator=gen), dim=-1).bfloat16()
 
 
-@pytest.mark.parametrize("b,s,d,c", [
-    (2, 300, 500, 64),
-    (2, 1000, 777, 320),      # 256-row src tiles, 5 stages of depth (level 0)
-    (1, 130, 257, 40),        # C padded 40 -> 64 by TMA's zero fill
-    (3, 100, 70, 32),         # B = 3, D smaller than one dst tile
-    (2, 129, 200, 448),       # 128-row src tiles, 7 stages of depth
-    (2, 300, 64, 456),        # 128-row src tiles, a ragged last stage
-    (2, 200, 300, 640),       # level 1's channels, 4 stages in the ring
-    (2, 65, 129, 768),        # the widest, 2 stages in the ring
-    (2, 3000, 5000, 320),     # the plan splits the dst tiles into chunks
-    (1, 1, 1, 8),
-])
-def test_match_kernel_matches_plain(cuda, b, s, d, c):
-    a, bt = _unit(cuda, b, s, c), _unit(cuda, b, d, c)
-    before = kernels.STATS["online_argmax_scores"].launches
-    m, i = match_kernel.online_argmax_scores(a, bt)
-    torch.cuda.synchronize()
-    assert kernels.STATS["online_argmax_scores"].launches == before + 1
+def _hold_match(a, bt, m, i):
+    """K2's result against the plain version, as chip_smoke holds it:
+    maxima within 1e-4, and no index mismatch where the best two scores
+    differ by more than 1e-4."""
+    b, s, _ = a.shape
+    d = bt.shape[1]
     assert m.dtype == torch.float32 and i.dtype == torch.int32 and m.shape == (s,)
     mr, ir = match_kernel.online_argmax_scores_plain(a, bt)
     assert (m - mr).abs().max().item() <= 1e-4
@@ -462,43 +452,63 @@ def test_match_kernel_matches_plain(cuda, b, s, d, c):
     assert ((i != ir) & clear).sum().item() == 0
 
 
-@pytest.mark.parametrize("c", [40, 320, 456, 640, 768])
-@pytest.mark.parametrize("b,s,d,n_chunks,grid", [
-    (1, 300, 1000, 3, 5),     # B = 1, 3 chunks, blocks walk several units
-    (3, 257, 700, 6, 132),    # B = 3, one chunk per tile, ragged S and D
-    (2, 513, 129, 2, 1),      # one block walks every unit
+@pytest.mark.parametrize("b,s,d,c", [
+    (2, 300, 500, 64),
+    (2, 1000, 777, 320),      # 256-row src tiles, 5 slabs of depth (level 0)
+    (1, 130, 257, 40),        # C = 40: one 64-channel box, 24 channels zero-filled
+    (3, 100, 70, 32),         # B = 3, D smaller than one dst tile
+    (2, 129, 200, 448),       # 128-row src tiles, 7 slabs of depth
+    (2, 300, 64, 456),        # 128-row src tiles, a ragged last slab
+    (2, 200, 300, 640),       # level 1's channels, 4 stages in the ring
+    (2, 65, 129, 768),        # the widest, 2 stages in the ring
+    (2, 3000, 5000, 320),     # every CTA a range of many tiles
+    (1, 1, 1, 8),
+    (1, 700, 1000, 72),       # B = 1, C = 72: two slabs, the second 8 wide
+    (3, 1100, 1300, 320),     # B = 3, S and D not multiples of the tiles
+    (3, 600, 450, 640),       # B = 3 at level 1's channels, an odd src group
+    (1, 513, 129, 768),
 ])
-def test_match_kernel_every_split(cuda, c, b, s, d, n_chunks, grid):
-    """K2 with the split forced: any chunk count and grid give the plain
-    version's maxima and (up to near ties) indices, at every channel count
-    of both src tile sizes."""
+def test_match_kernel_matches_plain(cuda, b, s, d, c):
     a, bt = _unit(cuda, b, s, c), _unit(cuda, b, d, c)
-    m, i = match_kernel._launch(a, bt, n_chunks, grid)
+    before = kernels.STATS["online_argmax_scores"].launches
+    m, i = match_kernel.online_argmax_scores(a, bt)
     torch.cuda.synchronize()
-    mr, ir = match_kernel.online_argmax_scores_plain(a, bt)
-    assert (m - mr).abs().max().item() <= 1e-4
-    scores = torch.einsum("bsc,bdc->sbd", a.float(), bt.float()).reshape(s, b * d)
-    best = scores.max(dim=-1)
-    second = scores.scatter(1, best.indices[:, None], -float("inf")).amax(dim=-1)
-    clear = best.values - second > 1e-4
-    assert ((i != ir) & clear).sum().item() == 0
+    assert kernels.STATS["online_argmax_scores"].launches == before + 1
+    _hold_match(a, bt, m, i)
 
 
-@pytest.mark.parametrize("n_chunks,grid", [(1, 132), (4, 132), (4, 2), (9, 1)])
-def test_match_kernel_ties_across_chunks_and_batches(cuda, n_chunks, grid):
-    """Equal maxima in different dst chunks and different batches, and
-    equal maxima of +0.0 and -0.0: the b-major first index wins whatever
-    unit found it first. Exact scores: every product is 0 or +-1."""
+@pytest.mark.parametrize("c", [40, 72, 320, 456, 640, 768])
+@pytest.mark.parametrize("b,s,d,grid", [
+    (1, 300, 1000, 5),        # B = 1, five CTAs, each a range of many tiles
+    (3, 257, 700, 132),       # B = 3, ranges that cross batches, ragged S and D
+    (2, 513, 129, 1),         # one CTA walks every tile
+    (2, 900, 2000, 18),       # ranges that start and end inside a (src group, batch)
+])
+def test_match_kernel_every_split(cuda, c, b, s, d, grid):
+    """K2 with the split forced: any grid (one contiguous range of tiles a
+    CTA, ranges that start and end anywhere) gives the plain version's
+    maxima and (up to near ties) indices, at every channel count of both
+    src tile sizes, C = 40 and 72 reading zero-filled channels."""
+    a, bt = _unit(cuda, b, s, c), _unit(cuda, b, d, c)
+    m, i = match_kernel._launch(a, bt, grid)
+    torch.cuda.synchronize()
+    _hold_match(a, bt, m, i)
+
+
+@pytest.mark.parametrize("grid", [2, 8, 132, 1])
+def test_match_kernel_ties_across_chunks_and_batches(cuda, grid):
+    """Equal maxima in different ranges and different batches, and equal
+    maxima of +0.0 and -0.0: the b-major first index wins whatever range
+    found it first. Exact scores: every product is 0 or +-1."""
     b, s, d, c = 3, 40, 1100, 64
     a = torch.zeros(b, s, c, device="cuda", dtype=torch.bfloat16)
     a[:, :, 0] = 1.0
     bt = torch.full((b, d, c), 0.0, device="cuda", dtype=torch.bfloat16)
     bt[:, :, 0] = -1.0
-    bt[2, 30, 0] = 1.0     # ties of the max 1.0 in batch 2 (chunk 0),
-    bt[1, 900, 0] = 1.0    # batch 1 (a late chunk)
-    bt[1, 1050, 0] = 1.0   # and a later tile of batch 1 (a later chunk when a
-    #                        chunk is one tile): batch 1, d 900 wins
-    m, i = match_kernel._launch(a, bt, n_chunks, grid)
+    bt[2, 30, 0] = 1.0     # ties of the max 1.0 in batch 2 (an early tile),
+    bt[1, 900, 0] = 1.0    # batch 1 (a late tile)
+    bt[1, 1050, 0] = 1.0   # and a later tile of batch 1: batch 1, d 900 wins
+    m, i = match_kernel._launch(a, bt, grid)
     torch.cuda.synchronize()
     assert (m == 1.0).all() and (i == 1 * d + 900).all()
     # maxima of zero made of +0.0 and -0.0 products (which sign each sum
@@ -510,9 +520,54 @@ def test_match_kernel_ties_across_chunks_and_batches(cuda, n_chunks, grid):
     bt[0, 700, 0] = -0.0    # 1 * -0 + -1 * 0
     bt[0, 200, 0] = -0.0
     bt[0, 200, 1] = -0.0    # 1 * -0 + -1 * -0
-    m, i = match_kernel._launch(a, bt, n_chunks, grid)
+    m, i = match_kernel._launch(a, bt, grid)
     torch.cuda.synchronize()
     assert (m == 0.0).all() and (i == 200).all()
+
+
+@pytest.mark.parametrize("grid", [1, 4, 132])
+@pytest.mark.parametrize("c", [136, 320, 640])
+def test_match_kernel_ties_across_slabs_halves_and_ranges(cuda, c, grid):
+    """Exact ties whose scores come from different 64-channel slabs, from
+    the two halves of a dst tile (level 1's two 64-row accumulators), from
+    different dst tiles and from different batches, for src rows in
+    different src tiles (row 299 lies in the second at level 0's 256-row
+    tiles and in the third at level 1's 128), under splits that put them
+    in different ranges: the first b-major index wins; and -0.0 / +0.0
+    maxima from products in different slabs."""
+    b, s, d = 2, 300, 700
+    a = torch.zeros(b, s, c, device="cuda", dtype=torch.bfloat16)
+    a[:, :, 0] = 1.0          # slab 0
+    a[:, :, c - 8] = 1.0      # the last slab
+    bt = torch.zeros(b, d, c, device="cuda", dtype=torch.bfloat16)
+    bt[:, :, 0] = -1.0
+    bt[0, 520, c - 8] = 2.0   # 2 - 1 = 1 from the last slab (dst tile 4, first half)
+    bt[0, 500, c - 8] = 1.0   # 1 - 1 + ... = 0: not a max
+    bt[0, 90, 0] = 1.0        # 1 + 0 = 1 from slab 0 (dst tile 0, second half): wins
+    bt[1, 3, 0] = 1.0         # batch 1 ties later in b-major order
+    bt[0, 700 - 1, 0] = 1.0   # the last dst row ties too
+    m, i = match_kernel._launch(a, bt, grid)
+    torch.cuda.synchronize()
+    assert (m == 1.0).all() and (i == 90).all()
+    # a tie within one dst tile across its halves: dst 70 (second half of
+    # tile 0) against dst 10 (first half)
+    bt[0, 90, 0] = -1.0
+    bt[0, 70, c - 8] = 2.0
+    bt[0, 10, c - 8] = 2.0
+    m, i = match_kernel._launch(a, bt, grid)
+    torch.cuda.synchronize()
+    assert (m == 1.0).all() and (i == 10).all()
+    # maxima of zero: -1 * 0 + 1 * -0 in one slab pair, 1 * 0 + 1 * -0 in another
+    bt.fill_(0.0)
+    bt[:, :, 0] = -1.0
+    bt[:, :, c - 8] = -1.0
+    bt[1, 2, 0] = -0.0
+    bt[1, 2, c - 8] = 0.0
+    bt[0, 650, 0] = 0.0
+    bt[0, 650, c - 8] = -0.0
+    m, i = match_kernel._launch(a, bt, grid)
+    torch.cuda.synchronize()
+    assert (m == 0.0).all() and (i == 650).all()
 
 
 def test_match_kernel_ties_pick_first_b_major(cuda):

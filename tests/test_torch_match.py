@@ -3,6 +3,9 @@ CPU) against the JAX package's Pallas kernel in interpret mode and its
 dense XLA version: node_max within f32 rounding, node_idx equal, including
 the all-ties case (b-major first occurrence)."""
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -59,15 +62,14 @@ def test_cuda_wrapper_rejects_cpu_tensors():
         tmatch.online_argmax_scores_cuda(a, a)
 
 
-def _units(plan: dict, b: int, d: int):
-    """The units of `plan` in the kernel's order (`match_argmax_wgmma_kernel`
-    walks u = (batch * chunks + chunk) * src_tiles + src tile): (src tile,
-    batch, first dst row, end dst row)."""
-    n_st, nc, tpc = plan["src_tiles"], plan["chunks"], plan["tiles_per_chunk"]
-    for u in range(plan["units"]):
-        st, ch, bb = u % n_st, (u // n_st) % nc, u // n_st // nc
-        d0 = ch * tpc * tmatch.DST_TILE
-        yield st, bb, d0, min(d0 + tpc * tmatch.DST_TILE, d)
+def _tiles(plan: dict, b: int):
+    """Each CTA's tiles in the kernel's order (`match_argmax_wgmma_kernel`
+    walks w = (src tile * B + batch) * dst_tiles + dst tile over its range
+    [cta * tiles_per_cta, ...)): (cta, src tile, batch, dst tile)."""
+    n_dt, per = plan["dst_tiles"], plan["tiles_per_cta"]
+    for cta in range(plan["ctas"]):
+        for w in range(cta * per, min(cta * per + per, plan["tiles"])):
+            yield cta, w // n_dt // b, (w // n_dt) % b, w % n_dt
 
 
 @pytest.mark.parametrize("b,s,d,c", [
@@ -80,43 +82,57 @@ def _units(plan: dict, b: int, d: int):
     (2, 257, 129, 40),        # one row past a src tile and a dst tile
 ])
 def test_match_plan_covers_every_dst_row_once(b, s, d, c):
-    """K2's split (`match_plan`, as the kernel walks it): for every src
-    tile the units cover each (batch, dst row) exactly once, every unit
-    holds whole 128-row dst tiles and at least one, the grid is at most
-    the SM count, and at the main path's shapes the busiest block has at
-    most 12% more work than an even share."""
+    """K2's split (`match_plan`, as the kernel walks it): every src row of
+    every batch meets each dst row of its batch exactly once, in one CTA;
+    no CTA is empty, the busiest holds an even share of the tiles rounded
+    up, the grid is at most one CTA an SM, and a CTA loads at most
+    `src_loads` src tiles (three at the main path's shapes)."""
     n_sm = 132
     plan = tmatch.match_plan(b, s, d, c, n_sm)
-    assert plan["src_rows"] == (256 if -(-c // 64) <= 6 else 128)
+    g = tmatch.match_geometry(b, s, d, c)
+    assert plan["src_rows"] == g["src_rows"] == (256 if -(-c // 64) <= 6 else 128)
     assert plan["src_tiles"] == -(-s // plan["src_rows"])
-    assert plan["grid"] == min(n_sm, plan["units"])
-    seen = np.zeros((plan["src_tiles"], b, d), np.int32)
-    for st, bb, d0, d1 in _units(plan, b, d):
-        assert d0 % tmatch.DST_TILE == 0 and d0 < d1 <= d
-        seen[st, bb, d0:d1] += 1
-    assert (seen == 1).all()
-    cost = [-(-(d1 - d0) // tmatch.DST_TILE) + 1 for _, _, d0, d1 in _units(plan, b, d)]
-    busiest = np.bincount(np.arange(len(cost)) % plan["grid"], weights=cost).max()
-    assert busiest == plan["busiest_tiles"]
+    assert plan["ctas"] <= n_sm
+    seen = np.zeros((b, plan["src_tiles"] * plan["src_rows"], plan["dst_tiles"] * 128), np.int32)
+    count = np.zeros(plan["ctas"], np.int64)
+    loads = np.zeros(plan["ctas"], np.int64)
+    prev = {}
+    for cta, st, bb, dt in _tiles(plan, b):
+        count[cta] += 1
+        if prev.get(cta) != (st, bb):
+            loads[cta] += 1
+            prev[cta] = (st, bb)
+        r0 = st * plan["src_rows"]
+        seen[bb, r0:r0 + plan["src_rows"], dt * 128:dt * 128 + 128] += 1
+    assert (seen[:, :s, :d] == 1).all()
+    # every CTA works, and the busiest holds no more than an even share of
+    # the tiles over one CTA an SM, rounded up
+    assert (count > 0).all()
+    assert count.max() == -(-plan["tiles"] // min(n_sm, plan["tiles"]))
+    assert count.max() == plan["tiles_per_cta"] and count.sum() == plan["tiles"]
+    assert loads.max() == plan["src_loads"]
     if s > 5000:
-        assert busiest <= 1.12 * sum(cost) / plan["grid"]
+        assert plan["src_loads"] <= 3 and plan["ctas"] >= 0.95 * n_sm
 
 
-def _merge_by_keys(scores: np.ndarray, n_chunks: int):
-    """The kernel's merge: each (batch, dst chunk) finds its first maximiser
-    per src row with the strictly-greater rule, packs (max, b * D + d)
-    into a key, and the keys merge by max, in an arbitrary order."""
+def _merge_by_keys(scores: np.ndarray, n_ranges: int):
+    """The kernel's merge: the (batch, dst) pairs in b-major order are cut
+    into contiguous ranges, as `match_plan` cuts the tiles (a range may
+    cross a batch); each range's part of each batch finds its first
+    maximiser per src row with the strictly-greater rule, packs (max, b * D
+    + d) into a key, and the keys merge by max, in an arbitrary order."""
     s, b, d = scores.shape
-    edges = np.linspace(0, d, n_chunks + 1).astype(int)
+    edges = np.linspace(0, b * d, n_ranges + 1).astype(int)
     keys = []
-    for bb in range(b):
-        for c0, c1 in zip(edges[:-1], edges[1:]):
-            if c1 == c0:
+    for r0, r1 in zip(edges[:-1], edges[1:]):
+        for bb in range(r0 // d, -(-r1 // d)):
+            c0, c1 = max(r0 - bb * d, 0), min(r1 - bb * d, d)
+            if c1 <= c0:
                 continue
             part = torch.from_numpy(scores[:, bb, c0:c1])
-            m, i = part.max(dim=1)  # the first maximiser within the chunk
+            m, i = part.max(dim=1)  # the first maximiser within the range
             keys.append(tmatch.pack_match_keys(m, (bb * d + c0 + i).to(torch.int32)))
-    rng = np.random.default_rng(n_chunks)
+    rng = np.random.default_rng(n_ranges)
     order = rng.permutation(len(keys))
     merged = keys[order[0]]
     for j in order[1:]:
@@ -126,9 +142,9 @@ def _merge_by_keys(scores: np.ndarray, n_chunks: int):
 
 @pytest.mark.parametrize("n_chunks", [1, 3, 7])
 def test_packed_key_merge_matches_the_dense_argmax(n_chunks):
-    """Ties of the max in different dst chunks and different batches, equal
+    """Ties of the max in different ranges and different batches, equal
     maxima of +0.0 and -0.0, negative maxima: the max over the packed keys
-    of the chunks' partial results gives the dense argmax's first b-major
+    of the ranges' partial results gives the dense argmax's first b-major
     maximiser, and its value."""
     rng = np.random.default_rng(0)
     s, b, d = 64, 3, 50
@@ -167,15 +183,146 @@ def test_packed_keys_order_as_floats_then_first_index():
     np.testing.assert_array_equal(i.numpy(), np.arange(8))
 
 
+def _kernel_source() -> str:
+    return (Path(tmatch.__file__).resolve().parent.parent / "csrc" / "match_argmax.cu").read_text()
+
+
 def test_k2_argtypes_match_the_c_entry_point():
     """ctypes passes what `argtypes` says: one type per C parameter."""
-    import re
-    from pathlib import Path
-
-    text = (Path(tmatch.__file__).resolve().parent.parent / "csrc" / "match_argmax.cu").read_text()
+    text = _kernel_source()
     m = re.search(r'extern "C" int tclight_match_argmax_bf16\(([^)]*)\)', text)
     assert m and len(m.group(1).split(",")) == len(tmatch.K2_ARGTYPES)
-    for rule in ("nkc <= 6 ? 2 : 1", "constexpr int BN = 128;", "constexpr int KC = 64;",
-                 "const int st = u % n_st;", "const int c = (u / n_st) % nc;",
-                 "const int b = u / n_st / nc;"):
-        assert rule in text, rule
+
+
+def test_match_geometry_matches_the_kernel_source():
+    """The rules `match_geometry` and `match_plan` mirror, read from the
+    CUDA source and hopper.cuh."""
+    src = _kernel_source()
+    hopper = (Path(tmatch.__file__).resolve().parent.parent / "csrc" / "hopper.cuh").read_text()
+    for rule in ("constexpr int BN = 128;", "constexpr int SLAB = 64;",
+                 "constexpr int MAX_C = 768;", "constexpr size_t SMEM_LIMIT = 232448;",
+                 "row_blocks(int nkc) { return nkc <= 6 ? 2 : 1; }",
+                 "return 1024 + src_bytes(mb, nkc) + nst * STAGE_BYTES + 8 * (nkc + 1 + 2 * nst);",
+                 "return (size_t)128 * mb * nkc * SLAB * 2;",
+                 "constexpr int BW = BN * MB / 2;",
+                 "tensor_map_bshd_slabs(&ta, a, B, S, 1, C, bs)",
+                 "tensor_map_bshd_slabs(&tb, bt, B, D, 1, C, BN)",
+                 "mbar_init(&empty[s], 2 * 4);",
+                 "const int w0 = blockIdx.x * per;",
+                 "const int dt = w % n_dt;", "const int b = (w / n_dt) % B;",
+                 "const int row0 = w / n_dt / B * BS;",
+                 "int ctas = (int)std::min<long>(grid, n_tiles);",
+                 "const int per = (int)((n_tiles + ctas - 1) / ctas);",
+                 "ctas = (int)((n_tiles + per - 1) / per);",
+                 "setmaxnreg_dec<24>();", "setmaxnreg_inc<240>();",
+                 "int depth_slabs(int C) { return std::max((C + SLAB - 1) / SLAB, 2); }"):
+        assert rule in src, rule
+    assert "CU_TENSOR_MAP_SWIZZLE_128B" in hopper and "(1ull << 62)" in hopper
+    for c, (mb, stages) in ((8, (2, 8)), (40, (2, 8)), (72, (2, 8)), (320, (2, 4)),
+                            (384, (2, 2)), (456, (1, 6)), (640, (1, 4)), (768, (1, 2))):
+        g = tmatch.match_geometry(2, 1000, 1000, c)
+        assert (g["row_blocks"], g["stages"]) == (mb, stages), c
+        nkc = max(-(-c // 64), 2)  # C <= 64 reads a second slab of zeros
+        assert g["smem"] == (1024 + 128 * mb * nkc * 128 + stages * 16384
+                             + 8 * (nkc + 1 + 2 * stages))
+        assert g["smem"] <= tmatch.SMEM_PER_CTA
+        assert stages == 8 or g["smem"] + 16384 + 16 > tmatch.SMEM_PER_CTA  # as many as fit
+        assert g["acc_rows"] == (128 if mb == 2 else 64)
+
+
+@pytest.mark.parametrize("c", [8, 40, 72, 320, 456, 640, 768])
+def test_match_geometry_tensor_maps(c):
+    """K2's TMA geometry: a and bt read in place from (B, R, C) as 4-d (C,
+    1, R, B) maps with strides (2C, 2C, 2CR) (multiples of 16, rising),
+    boxes of 64 channels (one 128-byte swizzle row) by the src tile's rows
+    or the 128 dst rows of a stage, ceil(C / 64) a row (at least two),
+    channels past C zero-filled; each box a whole number of 1,024-byte
+    swizzle atoms; no copies."""
+    b, s, d = 2, 5940, 2700
+    g = tmatch.match_geometry(b, s, d, c)
+    assert g["copies"] is False
+    assert g["slabs"] == max(-(-c // 64), 2) and g["zero_channels"] == 64 * g["slabs"] - c
+    for name, rows, box_rows in (("a", s, g["src_rows"]), ("bt", d, 128)):
+        m = g["maps"][name]
+        assert m["dims"] == (c, 1, rows, b) and m["box"] == (64, 1, box_rows, 1)
+        assert m["box"][0] * 2 == m["swizzle"] == 128
+        assert m["strides"] == (2 * c, 2 * c, 2 * c * rows)
+        assert all(st % 16 == 0 for st in m["strides"])
+        assert list(m["strides"]) == sorted(m["strides"])
+        assert max(m["box"]) <= 256 and (box_rows * 128) % 1024 == 0
+    assert g["tx_src_slab"] == g["src_rows"] * 128 and g["tx_stage"] == 128 * 128
+
+
+def _tma_box(x: torch.Tensor, m: dict, coords: tuple) -> torch.Tensor:
+    """What a TMA load of map `m` at `coords` (innermost first) puts in
+    shared memory before the swizzle: the box's elements in row-major
+    order (outermost first), zero where a coordinate lies outside dims."""
+    flat = x.reshape(-1)
+    esize = x.element_size()
+    box = tuple(reversed(m["box"]))
+    out = torch.zeros(box, dtype=x.dtype)
+    strides = (esize,) + tuple(m["strides"])
+    for idx in np.ndindex(*box):
+        pos = [co + i for co, i in zip(coords, reversed(idx))]
+        if all(0 <= p < n for p, n in zip(pos, m["dims"])):
+            out[idx] = flat[sum(p * st for p, st in zip(pos, strides)) // esize]
+    return out
+
+
+@pytest.mark.parametrize("c", [40, 72, 136])
+def test_match_maps_read_rows_in_place_with_zero_fill(c):
+    """The boxes of K2's bt map, read as TMA reads them: a stage's slabs
+    hold each dst row's c channels, channels past c and rows past D read
+    as zeros, and nothing of the next row or batch leaks in."""
+    b, d = 2, 19
+    g = tmatch.match_geometry(b, 1, d, c)
+    m = dict(g["maps"]["bt"], box=(64, 1, 8, 1))  # 8 of a stage's rows, for speed
+    bt = torch.arange(1, b * d * c + 1, dtype=torch.int16).reshape(b, d, c)  # 2-byte, distinct
+    for bi, r0 in ((0, 0), (1, 16), (1, 8)):
+        tile = torch.cat([_tma_box(bt, m, (64 * k, 0, r0, bi))[0, :, 0, :]
+                          for k in range(g["slabs"])], dim=1)  # (8 rows, slabs * 64)
+        want = torch.zeros(8, 64 * g["slabs"], dtype=bt.dtype)
+        rows = bt[bi, r0:r0 + 8]
+        want[:rows.shape[0], :c] = rows
+        assert torch.equal(tile, want), (bi, r0)
+
+
+def test_match_wrapper_hands_the_kernel_a_and_bt_in_place(monkeypatch):
+    """K2's wrapper makes no copy: the pointers the C entry point gets are
+    a's and bt's own, and the module holds no contiguous() transpose."""
+    import inspect
+
+    got = {}
+
+    def entry(*args):
+        got["args"] = args
+        return 0
+
+    monkeypatch.setattr(tmatch.kernels, "function", lambda *a, **k: entry)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: type("S", (), {"cuda_stream": 0})())
+    a = torch.zeros(2, 40, 64, dtype=torch.bfloat16)
+    bt = torch.zeros(2, 50, 64, dtype=torch.bfloat16)
+    tmatch._launch(a, bt, 132)
+    assert got["args"][:2] == (a.data_ptr(), bt.data_ptr())
+    assert got["args"][5:10] == (2, 40, 50, 64, 132)
+    assert all(x is y for x, y in zip(tmatch.match_operands(a, bt), (a, bt)))
+    assert ".contiguous()" not in inspect.getsource(tmatch)
+
+
+def test_match_ablation_variants_apply_to_the_kernel_source():
+    """`python -m tclight_torch.ablate_match` builds each variant of K2 by
+    text substitution: every replaced text is still in the source, each
+    variant differs from the kernel (the base variant excepted), and the
+    same holds for this checkout laid out as another (`--tree`)."""
+    from tclight_torch import ablate_match
+
+    texts = ablate_match.variant_sources()
+    assert set(texts) == set(ablate_match.VARIANTS)
+    for name, text in texts.items():
+        assert (text == texts["base"]) == (name == "base"), name
+        assert "match_argmax_wgmma_kernel" in text
+    root = Path(tmatch.__file__).resolve().parents[2]
+    assert ablate_match.variant_sources(root) == texts
+    assert ablate_match.SHAPES["global-L0"] == (2, 23760, 23760, 320)
+    assert ablate_match.SHAPES["local-L1"] == (2, 8100, 2700, 640)
