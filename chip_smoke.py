@@ -971,7 +971,8 @@ def post_batch() -> np.ndarray:
 
 
 def check_warp(gen: torch.Generator) -> dict:
-    from tclight_torch.ops.warp_kernel import window_warp_cuda, window_warp_plain
+    from tclight_torch.ops.warp_kernel import (adjoint_fixed_point_exponent, window_warp_cuda,
+                                               window_warp_plain)
     from tclight_torch.pipeline.postopt import flow_radius
 
     cache = OUT / "vid_past_flow_farneback"
@@ -997,6 +998,11 @@ def check_warp(gen: torch.Generator) -> dict:
         lib_out = F.grid_sample(xt, grid, mode="bicubic", padding_mode="zeros",
                                 align_corners=True)
         g = torch.randn_like(lib_out)
+        # the body each direction launched: the adjoint's one-limb tiles
+        # (under 64 taps) of all
+        _, limbs = adjoint_fixed_point_exponent(x.cpu(), f.cpu(), r)
+        bodies = ("gather, a pixel a thread on 4x64 tiles",
+                  f"scatter, one limb at {int((limbs == 0).sum())} of {limbs.numel()} tiles")
         for adjoint in (False, True):
             out = window_warp_cuda(x, f, r, adjoint=adjoint)
             torch.cuda.synchronize()
@@ -1022,7 +1028,7 @@ def check_warp(gen: torch.Generator) -> dict:
             b_ms, by = bound_ms(4 * (x.numel() + f.numel() + out.numel()),
                                 n_px * 16 * (2 * 3 + 2 * 10), PEAK_F32_FLOPS)
             row = dict(shape=f"{'adjoint' if adjoint else 'forward'} {label} "
-                       f"N={n} {height}x{width}x3 radius={r}",
+                       f"N={n} {height}x{width}x3 radius={r}", body=bodies[adjoint],
                        max_abs_err=err, tol=tol, repeats=repeats, ms=k_ms, plain_ms=p_ms,
                        library_ms=l_ms, bound_ms=b_ms, bound_by=by)
             phase("K3", ok=ok, **row)
@@ -1062,12 +1068,15 @@ def _banded_rows(tag: str, gen, tables, hw: int, p_pad: int, batch: np.ndarray) 
     rows = []
     for label, table, starts, offs, window in cases:
         starts, offs = starts.contiguous(), offs.contiguous()
-        out = kern(table, starts, offs, window)
+        # as the main path launches them: K4's render runs the frames' blocks
+        # of one index together, its adjoint in plan order
+        kw = {"rows": b} if not multi and label == "render" else {}
+        out = kern(table, starts, offs, window, **kw)
         torch.cuda.synchronize()
         ref, p_ms = timed_once(lambda: plain(table, starts, offs, window))
         err = (out - ref).abs().max().item()
         ok = err == 0.0  # a gather: exact
-        k_ms = cuda_ms(lambda: kern(table, starts, offs, window), 10)
+        k_ms = cuda_ms(lambda: kern(table, starts, offs, window, **kw), 10)
         if multi:
             o = offs.long().clamp(min=0)
             kk = o // window
@@ -1082,8 +1091,11 @@ def _banded_rows(tag: str, gen, tables, hw: int, p_pad: int, batch: np.ndarray) 
                             + starts.numel() * 4 + rows_read * table.shape[1] * 4, 0.0)
         # both kernels read each selected row straight from the table (a
         # staged K5 measured slower, csrc/banded_gather.cu)
+        group = bg.block_order(offs.shape[0], b).shape[1]
+        body = ("direct gather" + (f", {group} frames' block j a CTA, block j of the {b} frames"
+                                   " together" if kw else ", plan order"))
         row = dict(shape=f"{label} B={b} hw={hw} p_pad={p_pad} NB={offs.shape[0]} "
-                   f"window={window} K={k} offs={str(offs.dtype)[6:]}", body="direct gather",
+                   f"window={window} K={k} offs={str(offs.dtype)[6:]}", body=body,
                    live_entries=int((offs >= 0).sum().item()), rows_read=rows_read,
                    max_abs_err=err, tol=0.0, ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
                    bound_ms=b_ms, bound_by=by)

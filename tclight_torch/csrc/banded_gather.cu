@@ -22,9 +22,34 @@
 // once; the offsets and the selected table rows are read once.
 //
 // K4 stages nothing: each thread gathers the rows its entries select
-// straight from global memory (the plan keeps a block's rows inside one
-// window, so they stay in L2) and writes them with float4 stores that
-// stream past L2 (see banded_gather_kernel). An earlier body staged each
+// straight from global memory and writes them with float4 stores that
+// stream past L2 (see banded_gather_kernel). The order of its blocks is
+// what bounded it. The render's plans come from tracks numbered by their
+// mean scanline position, so block j of every frame reads the same ~3.5k-
+// row span, about 7 rows apart: each 12-byte row costs a 32-byte sector
+// (a quarter of them two), and the frames share the span's sectors. In
+// plan order (frame-major) frame b + 1 reaches span j a whole table later
+// (57.7 MB at 960 x 720 x 8, above the 50 MB L2), so every frame's rows
+// crossed device memory again. The kernel takes the plan's leading rows
+// (the frames of a batch): a CTA gathers block j of two consecutive rows,
+// entry by entry, and the CTAs of block j are consecutive, so the spans in
+// flight are few and each sector crosses device memory about once.
+// Measured on the main path's render plan (16 x 691,200 px, window 8192;
+// ablate_postopt, NVIDIA H100 80GB HBM3, 700.00 W, PERF.md), padded batch
+// / 16 distinct frames: plan order 0.342 / 0.408 ms; a CTA a block, block j
+// of every row together, 0.167 / 0.188 (sorted by start through an index
+// array: 0.166); this body, 2 rows a CTA, 0.154 / 0.170 (1 row 0.155 /
+// 0.168, 4 rows 0.157 / 0.189, all 16 rows a CTA 0.347 / 0.408: every CTA
+// resident at once puts every span in flight); with no table read at all
+// (the offsets and the output alone) 0.097. An L2 evict-last policy on the
+// table changed nothing, 8 entries a thread cost 13-35%, and a table
+// padded to 16-byte rows (a copy the render would write every call) saved
+// up to 13% on some plans and lost 27% on others. The adjoint's plans (window 2048, a frame's rows
+// read once) keep plan order, one row: 0.435 / 0.818 against 0.469 / 0.910
+// for the same loads and stores in a body without the rows' loop (not
+// explained: no profiler runs here); interleaved over the frames they were
+// 5% slower, sorted by start 0.438 (a per-frame order the wrapper would have
+// to cache per batch). An earlier body staged each
 // block's whole selected span in shared memory: ~3.5k rows to write 512 at
 // the render's density of ~7 table rows per output. A staged body sized to
 // the span and fetched by one bulk copy lost to the direct gather on the
@@ -51,6 +76,15 @@ namespace {
 
 constexpr int K4_ROWS = 4;       // consecutive entries a thread gathers
 constexpr int K4_THREADS = 128;
+constexpr int K4_GROUP = 2;      // plan rows a CTA gathers, at most
+
+// the plan rows a K4 CTA gathers: the largest power of two up to K4_GROUP
+// that divides the plan's rows
+inline int k4_group(int rows) {
+  int group = 1;
+  while (group * 2 <= K4_GROUP && rows % (group * 2) == 0) group *= 2;
+  return group;
+}
 
 // the offsets of entries [i0, i0 + K4_ROWS) of a block: one 8- or 16-byte
 // load where the block's offsets allow it
@@ -86,43 +120,55 @@ __device__ __forceinline__ void fetch_row(float* r, const float* __restrict__ ta
   }
 }
 
-// K4: each thread reads the offsets of its K4_ROWS consecutive entries
-// once, issues the loads of all their selected rows, then writes its
+// K4: the plan's nb blocks are `rows` leading rows of nbr = nb / rows
+// blocks; a CTA gathers block j of `group` consecutive rows, and the rows /
+// group CTAs of block j are consecutive, so that the blocks of one index,
+// which read one table span, run together (a CTA of all the rows would put
+// every span in flight at once). A CTA goes entry by entry over its rows'
+// blocks: their entries at one position read rows close to each other (the
+// padded batch's repeated frames the same rows), which L1 then serves.
+// Each thread reads the offsets of its K4_ROWS consecutive entries of a
+// block once, issues the loads of all their selected rows, then writes its
 // K4_ROWS * C contiguous output floats (a multiple of 4) as float4 stores
 // that stream past L2 (evict-first), so that the output does not push the
-// table out; a warp covers one contiguous run of the block's output.
+// table out; a warp covers one contiguous run of a block's output.
 template <typename OffT, int C>
 __global__ void __launch_bounds__(K4_THREADS)
 banded_gather_kernel(const float* __restrict__ table, long long n_rows,
                      const int* __restrict__ starts, const OffT* __restrict__ offs,
-                     float* __restrict__ out, int bl) {
+                     float* __restrict__ out, int bl, int rows, int group) {
   constexpr int V = K4_ROWS;
-  const int b = blockIdx.x;
-  const OffT* ob = offs + (size_t)b * bl;
-  float* outb = out + (size_t)b * bl * C;
+  const int slots = rows / group;        // CTAs a block index
+  const int nbr = gridDim.x / slots;     // blocks a plan row
+  const int j = blockIdx.x / slots, r0 = blockIdx.x % slots * group;
   const bool vec = bl % V == 0 && reinterpret_cast<uintptr_t>(offs) % 16 == 0;
-  const bool vec_out = reinterpret_cast<uintptr_t>(outb) % 16 == 0;
-  const long long start = starts[b];
   for (int i0 = V * threadIdx.x; i0 < bl; i0 += V * blockDim.x) {
-    int o[V];
-    load_offs<OffT>(ob, i0, bl, vec, o);
-    float r[V * C];
-#pragma unroll
-    for (int e = 0; e < V; ++e) {
-      const long long row = start + o[e];
-      fetch_row<C>(r + e * C, table, row, o[e] >= 0 && row < n_rows);
-    }
-    if (vec_out && i0 + V <= bl) {
-      float4* dst = reinterpret_cast<float4*>(outb + (size_t)i0 * C);
-#pragma unroll
-      for (int q = 0; q < V * C / 4; ++q)
-        __stcs(dst + q, make_float4(r[4 * q], r[4 * q + 1], r[4 * q + 2], r[4 * q + 3]));
-    } else {
+#pragma unroll 2
+    for (int rr = 0; rr < group; ++rr) {
+      const int b = (r0 + rr) * nbr + j;
+      const OffT* ob = offs + (size_t)b * bl;
+      float* outb = out + (size_t)b * bl * C;
+      const long long start = __ldg(starts + b);
+      int o[V];
+      load_offs<OffT>(ob, i0, bl, vec, o);
+      float r[V * C];
 #pragma unroll
       for (int e = 0; e < V; ++e) {
-        if (i0 + e < bl) {
+        const long long row = start + o[e];
+        fetch_row<C>(r + e * C, table, row, o[e] >= 0 && row < n_rows);
+      }
+      if (reinterpret_cast<uintptr_t>(outb) % 16 == 0 && i0 + V <= bl) {
+        float4* dst = reinterpret_cast<float4*>(outb + (size_t)i0 * C);
 #pragma unroll
-          for (int ch = 0; ch < C; ++ch) outb[(size_t)(i0 + e) * C + ch] = r[e * C + ch];
+        for (int q = 0; q < V * C / 4; ++q)
+          __stcs(dst + q, make_float4(r[4 * q], r[4 * q + 1], r[4 * q + 2], r[4 * q + 3]));
+      } else {
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          if (i0 + e < bl) {
+#pragma unroll
+            for (int ch = 0; ch < C; ++ch) outb[(size_t)(i0 + e) * C + ch] = r[e * C + ch];
+          }
         }
       }
     }
@@ -131,23 +177,24 @@ banded_gather_kernel(const float* __restrict__ table, long long n_rows,
 
 template <typename OffT, int C>
 int launch_k4(const float* table, long long n_rows, const int* starts, const void* offs,
-              float* out, int nb, int bl, cudaStream_t s) {
+              float* out, int nb, int bl, int rows, cudaStream_t s) {
   // whole warps, enough for one pass of K4_ROWS entries each over a block
   int threads = ((bl + K4_ROWS - 1) / K4_ROWS + 31) / 32 * 32;
   if (threads > K4_THREADS) threads = K4_THREADS;
-  banded_gather_kernel<OffT, C><<<nb, threads, 0, s>>>(
-      table, n_rows, starts, static_cast<const OffT*>(offs), out, bl);
+  const int group = k4_group(rows);
+  banded_gather_kernel<OffT, C><<<nb / group, threads, 0, s>>>(
+      table, n_rows, starts, static_cast<const OffT*>(offs), out, bl, rows, group);
   return (int)cudaGetLastError();
 }
 
 template <typename OffT>
 int launch_k4_c(const float* table, long long n_rows, int c, const int* starts,
-                const void* offs, float* out, int nb, int bl, cudaStream_t s) {
+                const void* offs, float* out, int nb, int bl, int rows, cudaStream_t s) {
   switch (c) {
-    case 1: return launch_k4<OffT, 1>(table, n_rows, starts, offs, out, nb, bl, s);
-    case 2: return launch_k4<OffT, 2>(table, n_rows, starts, offs, out, nb, bl, s);
-    case 3: return launch_k4<OffT, 3>(table, n_rows, starts, offs, out, nb, bl, s);
-    default: return launch_k4<OffT, 4>(table, n_rows, starts, offs, out, nb, bl, s);
+    case 1: return launch_k4<OffT, 1>(table, n_rows, starts, offs, out, nb, bl, rows, s);
+    case 2: return launch_k4<OffT, 2>(table, n_rows, starts, offs, out, nb, bl, rows, s);
+    case 3: return launch_k4<OffT, 3>(table, n_rows, starts, offs, out, nb, bl, rows, s);
+    default: return launch_k4<OffT, 4>(table, n_rows, starts, offs, out, nb, bl, rows, s);
   }
 }
 
@@ -236,18 +283,22 @@ int launch_k5_c(const float* table, long long n_rows, int c, const int* starts, 
 }  // namespace
 
 // K4. table (n_rows, c) f32; starts (nb,) int32; offs (nb, bl) int16 when
-// offs_bytes == 2, else int32; out (nb, bl, c) f32. Returns the
-// cudaError_t. The window bounds the plan's offsets and is not needed to
-// gather them.
+// offs_bytes == 2, else int32; out (nb, bl, c) f32; the plan's nb blocks
+// are `rows` leading rows of nb / rows blocks each (1: one row, plan
+// order). Returns the cudaError_t. The window bounds the plan's offsets
+// and is not needed to gather them.
 extern "C" int tclight_banded_gather(const float* table, long long n_rows, int c,
                                      const int* starts, const void* offs, int offs_bytes,
-                                     float* out, int nb, int bl, int window, void* stream) {
-  if (c < 1 || c > 4 || bl < 1 || window < 1 || n_rows < 0) return (int)cudaErrorInvalidValue;
+                                     float* out, int nb, int bl, int window, int rows,
+                                     void* stream) {
+  if (c < 1 || c > 4 || bl < 1 || window < 1 || n_rows < 0 || rows < 1 || nb % rows != 0)
+    return (int)cudaErrorInvalidValue;
   if (reinterpret_cast<uintptr_t>(table) % 16 != 0) return (int)cudaErrorMisalignedAddress;
   if (nb == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return offs_bytes == 2 ? launch_k4_c<int16_t>(table, n_rows, c, starts, offs, out, nb, bl, s)
-                         : launch_k4_c<int32_t>(table, n_rows, c, starts, offs, out, nb, bl, s);
+  return offs_bytes == 2
+             ? launch_k4_c<int16_t>(table, n_rows, c, starts, offs, out, nb, bl, rows, s)
+             : launch_k4_c<int32_t>(table, n_rows, c, starts, offs, out, nb, bl, rows, s);
 }
 
 // K5. K windows per block: starts (nb, nwin) int32, offs encode the window

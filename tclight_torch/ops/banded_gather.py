@@ -28,7 +28,10 @@ K4 and K5 replace the TPU kernels `_kernel` and `_kernel_multi`. On the
 H100 both are bound by bytes: every output row is written once and every
 selected table row read once. Both gather each selected row straight from
 the table, with no staging (a staged K5 measured slower; details in the
-source).
+source). K4 takes the plan's leading rows (the frames of a batch): a CTA
+gathers block j of a few rows and the CTAs of block j run together
+(`block_order`). The render's frames read the same table span at the same
+block, so each table sector then crosses device memory about once.
 """
 
 from __future__ import annotations
@@ -44,7 +47,7 @@ __all__ = ["plan_banded_gather", "plan_banded_gather_rows",
            "plan_banded_gather_rows_robust", "plan_banded_gather_rows_multi",
            "row_blocks", "seg_tiles", "banded_geometry", "frame_tiles",
            "pack_frames", "banded_gather", "banded_gather_multi",
-           "banded_gather_plain", "banded_gather_plain_multi",
+           "banded_gather_plain", "banded_gather_plain_multi", "block_order",
            "banded_gather_cuda", "banded_gather_multi_cuda"]
 
 _TILE = 128    # ids per planner tile: window starts are multiples of it
@@ -421,6 +424,25 @@ def banded_gather_plain_multi(table: torch.Tensor, starts: torch.Tensor,
     return torch.where(((offs >= 0) & (o < n_win * window))[..., None], out, 0.0)
 
 
+K4_GROUP = 2  # plan rows a K4 CTA gathers, at most (csrc/banded_gather.cu)
+
+
+def block_order(nb: int, rows: int) -> np.ndarray:
+    """The plan blocks K4's CTAs gather, for a plan of nb blocks in `rows`
+    leading rows of nb / rows blocks each: row c holds CTA c's, block j of
+    `group` consecutive plan rows (the largest power of two up to
+    `K4_GROUP` that divides rows), and the CTAs of one block index are
+    consecutive."""
+    if rows < 1 or nb % rows:
+        raise ValueError(f"banded gather: {nb} blocks do not split into {rows} rows")
+    group = 1
+    while group * 2 <= K4_GROUP and rows % (group * 2) == 0:
+        group *= 2
+    slots, nbr = rows // group, nb // rows
+    c = np.arange(nb // group)[:, None]
+    return (c % slots * group + np.arange(group)) * nbr + c // slots
+
+
 # ---------------------------------------------------------------- kernels
 
 
@@ -447,30 +469,36 @@ def _check(table, starts, offs, nwin):
 
 _HEAD = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
          ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
-_ENTRIES = {"tclight_banded_gather": _HEAD + [ctypes.c_void_p],
+_ENTRIES = {"tclight_banded_gather": _HEAD + [ctypes.c_int, ctypes.c_void_p],
             "tclight_banded_gather_multi": _HEAD + [ctypes.c_int, ctypes.c_void_p]}
 
 
-def _launch(entry, stat, table, starts, offs, window, nwin):
+def _launch(entry, stat, table, starts, offs, window, extra):
     nb, bl = offs.shape
     c = table.shape[1]
     out = torch.empty((nb, bl, c), dtype=torch.float32, device=table.device)
     fn = kernels.function("banded_gather", entry, _ENTRIES[entry], ctypes.c_int)
     rc = fn(table.data_ptr(), table.shape[0], c, starts.data_ptr(), offs.data_ptr(),
-            offs.element_size(), out.data_ptr(), nb, bl, int(window),
-            *((nwin,) if nwin else ()), torch.cuda.current_stream(table.device).cuda_stream)
+            offs.element_size(), out.data_ptr(), nb, bl, int(window), int(extra),
+            torch.cuda.current_stream(table.device).cuda_stream)
     kernels.check_launch(rc, stat)
-    kernels.STATS[stat].record((nb, bl, c, int(window)) + ((nwin,) if nwin else ()))
+    kernels.STATS[stat].record((nb, bl, c, int(window))
+                               + ((extra,) if stat == "banded_gather_multi" else ()))
     return out
 
 
 def banded_gather_cuda(table: torch.Tensor, starts: torch.Tensor,
-                       offs: torch.Tensor, window: int) -> torch.Tensor:
+                       offs: torch.Tensor, window: int, rows: int = 1) -> torch.Tensor:
     """Launch K4: table (P, C<=4) f32 with a 16-byte-aligned base, starts
     (NB,) int32, offs (NB, BL) int16/int32 -> (NB, BL, C) f32. Each
-    selected row is read straight from the table."""
+    selected row is read straight from the table. The plan's NB blocks are
+    `rows` leading rows (the frames of a batch) of NB / rows blocks; the
+    rows' blocks of one index are gathered together (`block_order`)."""
     _check(table, starts, offs, None)
-    return _launch("tclight_banded_gather", "banded_gather", table, starts, offs, window, 0)
+    if rows < 1 or offs.shape[0] % rows:
+        raise ValueError(f"banded gather: {offs.shape[0]} blocks do not split into "
+                         f"{rows} rows")
+    return _launch("tclight_banded_gather", "banded_gather", table, starts, offs, window, rows)
 
 
 def banded_gather_multi_cuda(table: torch.Tensor, starts: torch.Tensor,
@@ -484,12 +512,13 @@ def banded_gather_multi_cuda(table: torch.Tensor, starts: torch.Tensor,
 
 
 def banded_gather(table: torch.Tensor, starts: torch.Tensor, offs: torch.Tensor,
-                  window: int) -> torch.Tensor:
+                  window: int, rows: int = 1) -> torch.Tensor:
     """Single-window banded gather. A CUDA tensor goes to K4 (or the call
-    raises); a CPU tensor to the plain version."""
+    raises); a CPU tensor to the plain version (`rows` orders K4's blocks
+    and does not change the result)."""
     if table.is_cuda:
         return banded_gather_cuda(table.contiguous(), starts.contiguous(),
-                                  offs.contiguous(), window)
+                                  offs.contiguous(), window, rows)
     return banded_gather_plain(table, starts, offs)
 
 

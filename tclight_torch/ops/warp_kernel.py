@@ -18,16 +18,18 @@ CPU tensor it takes `window_warp_plain` (`window_warp_xla`).
 K3 replaces the TPU kernel `_warp_kernel` of tclight_tpu/ops/warp_kernel.py.
 On the H100 it is bound by bytes when the flow is smooth (a few taps per
 pixel: x, flows and out cross device memory once) and by f32 operations
-when the tile's flow range is wide. Its design, a block per 32 x 64 output
-tile: the forward is a direct gather of each pixel's 4x4 (bilinear 2x2)
-taps with separable weights, read through L1 (a window staged in shared
-memory first measured slower, PERF.md); the adjoint bounds its sources by
-the flow range of the tile's halo (`tile_tap_bounds` is that step in plain
-torch) and scatters each source's 4x4 taps into the tile's fixed-point
-accumulators in shared memory, two 32-bit limbs scaled by 2^k
-(`adjoint_fixed_point_exponent` gives k and the low limb's width in plain
-torch), so its sums do not depend on the order of the adds and a run
-repeats bit for bit (details in the source).
+when the tile's flow range is wide. Its design: the forward is a direct
+gather of each pixel's 4x4 (bilinear 2x2) taps with separable weights,
+read through L1 (a window staged in shared memory first measured slower,
+PERF.md), a pixel a thread on 4 x 64 tiles, which also fill the card with
+a small frame batch; the adjoint, a block per 32 x 64 output tile,
+bounds its sources by the flow range of the tile's halo (`tile_tap_bounds`
+is that step in plain torch) and scatters each source's 4x4 taps into the
+tile's fixed-point accumulators in shared memory, scaled by 2^k: one
+32-bit limb where the tile has fewer than 64 taps (the post-optimization's
+smooth flows), two otherwise (`adjoint_fixed_point_exponent` gives k and
+the low limb's width in plain torch), so its sums do not depend on the
+order of the adds and a run repeats bit for bit (details in the source).
 
 `warp_flow_window` is the autograd wrapper: its image gradient is the
 adjoint window sum (exact: the warp is linear in the image) and its flow
@@ -88,7 +90,7 @@ def window_warp_plain(x: torch.Tensor, flows: torch.Tensor, radius: int,
     return out
 
 
-TILE = (32, 64)  # K3's output tile, rows x columns
+TILE = (32, 64)  # K3's adjoint output tile, rows x columns
 
 
 def tile_tap_bounds(flows: torch.Tensor, radius: int, mode: str = "bicubic",
@@ -129,11 +131,13 @@ def adjoint_fixed_point_exponent(g: torch.Tensor, flows: torch.Tensor, radius: i
                                  mode: str = "bicubic") -> tuple[torch.Tensor, torch.Tensor]:
     """K3's adjoint fixed point per output tile, in plain torch: (k, L),
     int tensors (N, tiles_y, tiles_x). The tile's tap count ntap (of its
-    `tile_tap_bounds`) is below 2^(32 - L) and max |g| over its halo below
-    2^e1; k = 2L - 2 - e1, clamped to [-100, 126]. Each of an output's at
-    most ntap terms is at most max |g|, so their sum scaled by 2^k stays
-    below 2^(L + 30): the kernel adds each rounded term's low L bits into
-    an unsigned 32-bit limb and the rest into a signed one."""
+    `tile_tap_bounds`) has bit length b and max |g| over its halo is below
+    2^e1. Each of an output's at most ntap terms is at most max |g|, and the
+    kernel rounds each term scaled by 2^k to an integer T. Below 64 taps it
+    sums T in one signed 32-bit limb (L = 0), with k = 31 - b - e1: ntap
+    terms sum below 2^31. From 64 taps on it adds T's low L = 32 - b bits
+    into an unsigned 32-bit limb and T >> L into a signed one, with k = 2L -
+    2 - e1: the terms sum below 2^(L + 30). k is clamped to [-126, 126]."""
     n, h, w, _ = g.shape
     rh = int(radius) + kernel_radius(mode)
     th, tw = TILE
@@ -147,7 +151,13 @@ def adjoint_fixed_point_exponent(g: torch.Tensor, flows: torch.Tensor, radius: i
                                 max(x0 - rh, 0):x0 + tw + rh].abs().reshape(n, -1).amax(1)
     e1 = torch.frexp(gmax).exponent.long()
     low_bits = 31 - torch.floor(torch.log2(ntap.double())).long()  # 32 - bit length
-    return (2 * low_bits - 2 - e1).clamp(-100, 126), low_bits
+    one = ntap < 64
+    k = torch.where(one, low_bits - 1 - e1, 2 * low_bits - 2 - e1).clamp(-126, 126)
+    return k, torch.where(one, 0, low_bits)
+
+
+# tclight_window_warp_f32's parameters
+K3_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
 def window_warp_cuda(x: torch.Tensor, flows: torch.Tensor, radius: int,
@@ -168,9 +178,7 @@ def window_warp_cuda(x: torch.Tensor, flows: torch.Tensor, radius: int,
     if mode not in _MODES or radius < 0:
         raise ValueError(f"window warp: mode {mode!r}, radius {radius}")
     out = torch.empty_like(x)
-    fn = kernels.library("window_warp").tclight_window_warp_f32
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = kernels.function("window_warp", "tclight_window_warp_f32", K3_ARGTYPES, ctypes.c_int)
     rc = fn(x.data_ptr(), flows.data_ptr(), out.data_ptr(), n, h, w, c,
             int(radius), _MODES[mode], int(adjoint),
             torch.cuda.current_stream(x.device).cuda_stream)

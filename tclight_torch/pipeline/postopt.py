@@ -305,7 +305,9 @@ def _banded_render(features, hw, fst, foff, fop, foi):
         raw = banded.banded_gather_multi(features, fst.reshape(-1, fst.shape[-1]),
                                          foff.reshape(-1, blk), wf)
     else:
-        raw = banded.banded_gather(features, fst.reshape(-1), foff.reshape(-1, blk), wf)
+        # the frames' blocks of one index read one table span: run them together
+        raw = banded.banded_gather(features, fst.reshape(-1), foff.reshape(-1, blk), wf,
+                                   rows=b)
     out = raw.reshape(b, nb * blk, -1)
     if fop.shape[1]:
         # exact patch for the window-miss pixels (pos -1 is padding)

@@ -1,18 +1,23 @@
 """K1 (the bf16 flash attention), K2 (the ToMe matcher), K6 and K7 (the
 int8 attentions, their pre-pass and max pass included), K3 (the window
-warp, both directions) and K5 (the K-window gather, both directions) of
-two checkouts of this repository, timed in turns on one card at
-chip_smoke's shapes: this checkout, the other, the other, this. Each leg
-is a process of its own that imports the `tclight_torch` of its checkout
-and calls only the wrappers both have, `flash_attention_cuda`,
-`online_argmax_scores_cuda`, `flash_attention_int8_cuda`,
-`window_warp_cuda` and `banded_gather_multi_cuda`, on the same inputs
-made from a seed; K3's farneback case uses the Farneback flows of
-chip_smoke's 8-frame video (rolling texture, 960x720), and K5 the K = 2
-plans of chip_smoke's turnover ids (8 frames at 960x720, its post-opt
-batch of 16), both computed once by this checkout into build/turns/.
+warp, both directions), K4 (the banded gather, render and adjoint) and K5
+(the K-window gather, both directions) of two checkouts of this
+repository, timed in turns on one card at chip_smoke's shapes: this
+checkout, the other, the other, this. Each leg is a process of its own
+that imports the `tclight_torch` of its checkout and calls only the
+wrappers both have, `flash_attention_cuda`, `online_argmax_scores_cuda`,
+`flash_attention_int8_cuda`, `window_warp_cuda`, `banded_gather_cuda`
+(with the plan's rows where a checkout's takes them) and
+`banded_gather_multi_cuda`, on the same inputs made from a seed; K3's
+farneback case uses the Farneback flows of chip_smoke's 8-frame video
+(rolling texture, 960x720), its random and wide cases chip_smoke's r = 24
+and 2 x 160 x 192 at r = 100; K4 the main path's plans (`k4_plans`: the
+padded batch of chip_smoke's 8-frame video and 16 distinct frames of a
+16-frame one); K5 the K = 2 plans of chip_smoke's turnover ids (8 frames
+at 960x720, its post-opt batch of 16), all computed once by this checkout
+into build/turns/.
 
-    python -m tclight_torch.turns OTHER_CHECKOUT [K1 K2 K6 K7 K3 K5 K5-path]
+    python -m tclight_torch.turns OTHER_CHECKOUT [K1 K2 K6 K7 K3 K4 K5 K5-path]
 
 K2 runs at every shape chip_smoke's paths launch it at (`K2_SHAPES`).
 K1, K6 and K7 run at the UNet's xy levels 0-2 and yt levels 0-1 and at
@@ -27,9 +32,9 @@ warms up).
 
 Prints the card's name and power limit, then one line per leg and shape:
 milliseconds (`cuda_event_ms`: CUDA events over a few calls, after a
-warm-up; K1's and K2's the median of three such runs, with their
-spread). Needs a
-CUDA card and nvcc; each checkout builds its kernels into its own build/.
+warm-up; K1's, K2's, K3's and K4's the median of three such runs, with
+their spread). Needs a CUDA card and nvcc; each checkout builds its
+kernels into its own build/.
 """
 
 from __future__ import annotations
@@ -70,8 +75,12 @@ SHAPES = ([("K1", label, shape) for label, shape in K1_SHAPES]
           + [("K2", label, shape) for label, shape in K2_SHAPES]
           + [("K6", label, shape) for label, shape in ATTENTION + DIT]
           + [("K7", label, shape) for label, shape in ATTENTION + DIT]
-          + [("K3", f"{d} {case}", (16, 720, 960, r, d == "adjoint"))
-             for case, r in (("farneback", 4), ("random", 24)) for d in ("forward", "adjoint")]
+          + [("K3", f"{d} {case}", shape[:4] + (d == "adjoint",))
+             for case, shape in (("farneback", (16, 720, 960, 4)), ("random", (16, 720, 960, 24)),
+                                 ("wide", (2, 160, 192, 100)))
+             for d in ("forward", "adjoint")]
+          + [("K4", f"{d} {tag}", f"{d} {tag}") for tag in ("padded", "distinct")
+             for d in ("render", "adjoint")]
           + [("K5", d, d) for d in ("render", "adjoint")]
           + [("K5-path", "run_uvt", (8, 720, 960, 5))])
 FRAMES = 8  # chip_smoke's main video; its post-opt batch pads it to 16 with frame 0
@@ -121,14 +130,81 @@ def k5_plans(path) -> None:
                             tables[7][idx].reshape(-1, 512), wb)}, path)
 
 
-def leg(shapes, flows_path, plans_path) -> None:
+def k4_plans(path) -> None:
+    """The main path's K4 plans, saved to `path`: the render's and the
+    adjoint's single-window plans of the Farneback tracks of chip_smoke's
+    video (its data layer: flows, soft masks, tracks), for its post-opt
+    batch (the 8 frames padded with frame 0, as chip_smoke's K4 rows take
+    them) and for 16 distinct frames of a 16-frame video made the same
+    way. Each entry: (table rows, starts (NB,), offs (NB, 512), window,
+    plan rows)."""
+    import numpy as np
+    import torch
+
+    from chip_smoke import HEIGHT, WIDTH, make_video, post_batch
+    from tclight_torch.data.dataparsers import VideoDataParser
+    from tclight_torch.ops import banded_gather as bg
+    from tclight_torch.pipeline import postopt
+
+    hw = HEIGHT * WIDTH
+    plans = {}
+    for n, batch, tag in ((FRAMES, post_batch(), "padded"), (16, np.arange(16), "distinct")):
+        vid = Path(path).parent / f"vid{n}"
+        make_video(vid, n, HEIGHT, WIDTH)
+        parser = VideoDataParser({"rgb_path": str(vid), "height": HEIGHT, "width": WIDTH,
+                                  "flow_model": "farneback"})
+        parser.load_data(list(range(n)), device="cuda")
+        p_pad = max(128, -(-parser.n_unique // 128) * 128)
+        tables, _ = postopt.build_uvt_tables(parser.unq_inv, n, HEIGHT, WIDTH, p_pad,
+                                             allow_banded=True)
+        if len(tables) != 10 or tables[1].dim() != 2:
+            print(f"[k4_plans] the {n}-frame video's ids took no single-window plans: "
+                  f"no {tag} entries", flush=True)
+            continue
+        idx = torch.from_numpy(batch)
+        wf, wb = postopt._banded_windows(hw, p_pad)
+        base = torch.arange(len(idx), dtype=torch.int32) * (bg.frame_tiles(hw) * 128)
+        plans[f"render {tag}"] = (p_pad, tables[1][idx].reshape(-1),
+                                  tables[2][idx].reshape(-1, 512), wf, len(idx))
+        plans[f"adjoint {tag}"] = (len(idx) * bg.frame_tiles(hw) * 128,
+                                   (tables[6][idx] + base[:, None]).reshape(-1),
+                                   tables[7][idx].reshape(-1, 512), wb, len(idx))
+    torch.save(plans, path)
+
+
+def farneback_path(root: Path) -> Path:
+    """build/turns/farneback_past.npy under `root`, made if missing."""
+    path = root / "build" / "turns" / "farneback_past.npy"
+    if not path.exists():
+        path.parent.mkdir(parents=True, exist_ok=True)
+        farneback_flows(path)
+    return path
+
+
+def plan_paths(root: Path) -> tuple[Path, Path]:
+    """build/turns/k4_plans.pt and k5_plans.pt under `root`, made if
+    missing (they read chip_smoke's helpers from `root`)."""
+    k4, k5 = root / "build" / "turns" / "k4_plans.pt", root / "build" / "turns" / "k5_plans.pt"
+    k4.parent.mkdir(parents=True, exist_ok=True)
+    if str(root) not in sys.path:
+        sys.path.insert(0, str(root))
+    if not k4.exists():
+        k4_plans(k4)
+    if not k5.exists():
+        k5_plans(k5)
+    return k4, k5
+
+
+def leg(shapes, flows_path, plans_path, k4_path=None) -> None:
     """One checkout's times; runs with that checkout first on sys.path."""
+    import inspect
+
     import numpy as np
     import torch
     import torch.nn.functional as F
 
     from tclight_torch.ops.attention import flash_attention_cuda, flash_attention_int8_cuda
-    from tclight_torch.ops.banded_gather import banded_gather_multi_cuda
+    from tclight_torch.ops.banded_gather import banded_gather_cuda, banded_gather_multi_cuda
     from tclight_torch.ops.match_kernel import online_argmax_scores_cuda
     from tclight_torch.ops.warp_kernel import window_warp_cuda
 
@@ -156,6 +232,17 @@ def leg(shapes, flows_path, plans_path) -> None:
             table = torch.randn(n_rows, 3, device="cuda", generator=gen)
             starts, offs = starts.cuda(), offs.cuda()
             t = ms(lambda: banded_gather_multi_cuda(table, starts, offs, window), 20)
+        elif kernel == "K4":
+            # as the main path launches it: the render's plan rows go to a
+            # checkout whose K4 takes them, the adjoint keeps plan order
+            n_rows, starts, offs, window, rows = torch.load(k4_path, weights_only=False)[shape]
+            table = torch.randn(n_rows, 3, device="cuda", generator=gen)
+            starts, offs = starts.cuda(), offs.cuda()
+            kw = ({"rows": rows} if shape.startswith("render")
+                  and "rows" in inspect.signature(banded_gather_cuda).parameters else {})
+            t, spread = cuda_event_ms(lambda: banded_gather_cuda(table, starts, offs, window, **kw),
+                                      20, 3)
+            label += f" spread_ms={spread:.4f}"
         elif kernel == "K5-path":
             # chip_smoke's K5-path phase: run_uvt on the turnover ids
             from tclight_torch.pipeline import postopt
@@ -177,8 +264,9 @@ def leg(shapes, flows_path, plans_path) -> None:
                 f = torch.from_numpy(np.load(flows_path)).cuda()
             else:
                 f = (torch.rand(n, h, w, 2, device="cuda", generator=gen) * 2 - 1) * r
-            t = ms(lambda: window_warp_cuda(x, f, r, adjoint=adjoint), 5 if r < 20 or not adjoint
-                   else 2)
+            t, spread = cuda_event_ms(lambda: window_warp_cuda(x, f, r, adjoint=adjoint),
+                                      5 if r < 20 or not adjoint else 2, 3)
+            label += f" spread_ms={spread:.4f}"
         else:
             b, s, h, d = shape
             q, k, v = (torch.randn(b, s, h, d, device="cuda", generator=gen, dtype=torch.bfloat16)
@@ -188,18 +276,18 @@ def leg(shapes, flows_path, plans_path) -> None:
         print(f"{kernel} {label} {shape} ms={t:.4f}", flush=True)
 
 
-def leg_code(root, shapes, flows_path, plans_path) -> str:
+def leg_code(root, shapes, flows_path, plans_path, k4_path=None) -> str:
     """The program of one leg: `leg` with the checkout at `root` first on
     sys.path, and this checkout's timer beside it (the other may lack it)."""
     return ("from __future__ import annotations\n"
             f"import sys; sys.path.insert(0, {str(root)!r})\n"
             "from typing import Any, Callable\nimport torch\n"
             + inspect.getsource(cuda_event_ms) + inspect.getsource(leg)
-            + f"\nleg({shapes!r}, {str(flows_path)!r}, {str(plans_path)!r})\n")
+            + f"\nleg({shapes!r}, {str(flows_path)!r}, {str(plans_path)!r}, {str(k4_path)!r})\n")
 
 
 def main(argv: list[str]) -> int:
-    every = {"K1", "K2", "K6", "K7", "K3", "K5", "K5-path"}
+    every = {"K1", "K2", "K6", "K7", "K3", "K4", "K5", "K5-path"}
     kernels = set(argv[1:]) or every
     if not argv or not kernels <= every:
         print(__doc__, file=sys.stderr)
@@ -209,19 +297,14 @@ def main(argv: list[str]) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     print(f"nvidia-smi: {smi}", flush=True)
-    flows_path = here / "build" / "turns" / "farneback_past.npy"
-    if "K3" in kernels and not flows_path.exists():
-        flows_path.parent.mkdir(parents=True, exist_ok=True)
-        farneback_flows(flows_path)
-    plans_path = here / "build" / "turns" / "k5_plans.pt"
-    if kernels & {"K5", "K5-path"} and not plans_path.exists():
-        plans_path.parent.mkdir(parents=True, exist_ok=True)
-        sys.path.insert(0, str(here))
-        k5_plans(plans_path)
+    flows_path = farneback_path(here) if "K3" in kernels else None
+    k4_path, plans_path = (plan_paths(here) if kernels & {"K4", "K5", "K5-path"}
+                           else (None, None))
     shapes = [sh for sh in SHAPES if sh[0] in kernels]
     for name, root in (("this", here), ("other", other), ("other", other), ("this", here)):
         print(f"[turn] {name} {root}", flush=True)
-        r = subprocess.run([sys.executable, "-c", leg_code(root, shapes, flows_path, plans_path)],
+        r = subprocess.run([sys.executable, "-c",
+                            leg_code(root, shapes, flows_path, plans_path, k4_path)],
                            cwd=root, text=True)
         if r.returncode != 0:
             return r.returncode

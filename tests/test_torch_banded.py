@@ -133,6 +133,55 @@ def test_cuda_wrappers_refuse_cpu_tensors():
                               torch.zeros(1, 512, dtype=torch.int16), 2048)
 
 
+@pytest.mark.parametrize("nb,rows,group", [(12, 1, 1), (12, 3, 1), (12, 4, 2), (24, 12, 2),
+                                           (5, 5, 1), (32, 16, 2), (12, 6, 2)])
+def test_block_order_is_a_permutation_by_index_within_rows(nb, rows, group):
+    """K4's CTAs over a plan of `rows` leading rows: a CTA gathers block j of
+    `group` consecutive rows (the largest power of two up to the kernel's
+    K4_GROUP dividing rows), the CTAs of block j are consecutive, and
+    together they gather every block once; one row keeps the plan's order,
+    a CTA a block."""
+    src = (Path(bg.__file__).resolve().parent.parent / "csrc" / "banded_gather.cu").read_text()
+    assert f"constexpr int K4_GROUP = {bg.K4_GROUP};" in src
+    order = bg.block_order(nb, rows)
+    per = nb // rows
+    assert order.shape == (nb // group, group)
+    np.testing.assert_array_equal(np.sort(order.reshape(-1)), np.arange(nb))
+    np.testing.assert_array_equal(order % per, np.repeat(np.arange(per), rows // group)[:, None]
+                                  .repeat(group, 1))
+    np.testing.assert_array_equal(np.diff(order // per, axis=1), 1)
+    with pytest.raises(ValueError, match="rows"):
+        bg.block_order(nb, nb + 1)
+
+
+def test_block_order_groups_one_table_span_on_relabelled_tracks():
+    """The render's premise: on kinematically relabelled tracks (tracks
+    that break every frame, numbered by their mean scanline position) the
+    frames' blocks of one index start within one window of each other, so
+    the CTAs of one index in `block_order`, which run together, read one
+    table span."""
+    rng = np.random.default_rng(0)
+    n, h, w = 4, 16, 256
+    ids = np.stack([t * h * w + rng.permutation(h * w) for t in range(n)])
+    inv = po.kinematic_relabel(ids, n * h * w)
+    window, slope = bg.banded_geometry(n * h * w, h * w)
+    _, st, _, _, _, ok = bg.plan_banded_gather_rows_robust(inv, window=window, slope=slope)
+    assert ok
+    # the CTAs of one block index, n / group of them, run together
+    starts = st.reshape(-1)[bg.block_order(st.size, n)].reshape(-1, n)
+    assert (starts.max(1) - starts.min(1) < window).all()
+
+
+def test_ablate_postopt_k4_variants_apply_to_the_kernel():
+    """`ablate_postopt`'s K4 variants for this kernel find their texts in
+    its source, and each changes it."""
+    from tclight_torch import ablate_postopt
+
+    texts = ablate_postopt.variant_sources("K4", list(ablate_postopt.K4_VARIANTS))
+    assert {"base", "noread", "sorted", "seq", "evict_last", "rows8", "c4"} <= set(texts)
+    assert all(text != texts["base"] for name, text in texts.items() if name != "base")
+
+
 def _c_params(source: str, entry: str) -> int:
     """The number of parameters of C entry point `entry` in a kernel source."""
     text = (Path(bg.__file__).resolve().parent.parent / "csrc" / source).read_text()

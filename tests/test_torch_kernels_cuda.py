@@ -14,9 +14,11 @@ over fewer dims; and K6 and K7 at head dim 128 (q8, k8 row-major, v in
 place / v8 channel-major, all swizzled; K7's max pass on s8 wgmma) with the
 same cases; for the window warp (K3) frames that end inside a tile, flows that
 leave the frame, flow ranges up to 100 px, every channel count and both
-kernels; for the banded gathers (K4, K5) masked entries, int16 and int32 offsets, windows that run
+kernels, frames under one wave of the card, smooth flows (the adjoint's one-limb tiles) and NaN cotangents
+there; for the banded gathers (K4, K5) masked entries, int16 and int32 offsets, windows that run
 past the table's end and K = 2, 3 windows; K4 on render-like and
-adjoint-like plans at every channel count and at windows 1024-8192. Every
+adjoint-like plans at every channel count and at windows 1024-8192, and
+with the plan's rows' blocks run together on a padded batch. Every
 test here needs a CUDA device and skips without one; on the card run them
 with
 
@@ -680,6 +682,55 @@ def test_window_warp_autograd_runs_the_adjoint_kernel(cuda):
     assert (x.grad - ref).abs().max().item() <= 1e-4
 
 
+def _smooth_flow(n, h, w, amp):
+    """A smooth flow, as the post-optimization's: under a pixel's range per
+    halo at amp <= 1.5 (K3's adjoint then takes one limb at every tile)."""
+    yy, xx = torch.meshgrid(torch.arange(h, device="cuda"), torch.arange(w, device="cuda"),
+                            indexing="ij")
+    f = torch.stack([-amp * (0.6 + 0.4 * torch.sin(xx / 90.0)), amp * 0.3 * torch.cos(yy / 70.0)],
+                    -1)
+    return f.expand(n, h, w, 2).contiguous()
+
+
+@pytest.mark.parametrize("radius,flow", [(0, "smooth"), (4, "smooth"), (4, "random"),
+                                         (24, "smooth"), (24, "random"), (100, "random")])
+@pytest.mark.parametrize("mode", ["bicubic", "bilinear"])
+@pytest.mark.parametrize("adjoint", [False, True])
+def test_window_warp_kernel_small_frames(cuda, radius, flow, mode, adjoint):
+    """K3 on frames under one wave of the card and not a multiple of its
+    tiles (2 x 45 x 150: the forward's 4 x 64 tiles, the adjoint's 32 x
+    64), at r = 0, 4, 24 and 100, with smooth flows (the adjoint's one-limb
+    tiles) and random ones (two limbs); the adjoint repeats bit for bit."""
+    n, h, w, c = 2, 45, 150, 3
+    x = torch.randn(n, h, w, c, device="cuda", generator=cuda)
+    if flow == "smooth":
+        f = _smooth_flow(n, h, w, min(1.5, radius))
+    else:
+        f = (torch.rand(n, h, w, 2, device="cuda", generator=cuda) * 2 - 1) * radius
+    out = warp_kernel.window_warp(x, f, radius, mode, adjoint)
+    torch.cuda.synchronize()
+    ref = warp_kernel.window_warp_plain(x, f, radius, mode, adjoint)
+    assert (out - ref).abs().max().item() <= 1e-5 * (2 * radius + 5)
+    if adjoint:
+        assert torch.equal(out, warp_kernel.window_warp(x, f, radius, mode, adjoint))
+
+
+def test_window_warp_adjoint_one_limb_nonfinite_cotangent_fills_its_tiles(cuda):
+    """With smooth flows (one limb a tile) a non-finite cotangent makes NaN
+    the outputs of the tiles whose halos hold it, and no others."""
+    radius = 4
+    x = torch.rand(1, 64, 256, 1, device="cuda", generator=cuda)
+    f = _smooth_flow(1, 64, 256, 1.0)
+    x[0, 40, 150, 0] = float("nan")
+    out = warp_kernel.window_warp(x, f, radius, adjoint=True)
+    torch.cuda.synchronize()
+    # halo rh = 6: (40, 150) lies in the halos of tile (1, 2) only
+    assert out[0, 32:64, 128:192].isnan().all()
+    rest = torch.cat([out[0, :26].reshape(-1), out[0, :, :122].reshape(-1),
+                      out[0, :, 198:].reshape(-1)])
+    assert torch.isfinite(rest).all()
+
+
 def _ids(n, h, w, shift=3):
     base = np.arange(h * w).reshape(h, w)
     return np.stack([np.roll(base, -shift * t, axis=1) for t in range(n)]).reshape(n, h * w)
@@ -745,6 +796,32 @@ def test_banded_gather_kernel_matches_plain_on_synthetic_plans(cuda, window, c, 
     assert stats.shapes[(40, 512, c, window)] >= 1
     assert torch.equal(out, banded_gather.banded_gather_plain(table, st_t, offs_t))
     assert (out[2] == 0).all()
+
+
+@pytest.mark.parametrize("offs_dtype", [torch.int16, torch.int32])
+@pytest.mark.parametrize("c", [1, 2, 3, 4])
+@pytest.mark.parametrize("bl", [512, 510])
+def test_banded_gather_kernel_runs_the_rows_blocks_together(cuda, offs_dtype, c, bl):
+    """K4 with the plan's rows (CTA j gathers block j of every row) on a
+    padded batch, as the render's: four frames' render-like plans and
+    four repeats of the first (blocks that repeat), at every channel count,
+    both offset types and a block length not a multiple of 4. Exact, and a
+    row count that does not divide the blocks is refused."""
+    rng = np.random.default_rng(c + bl)
+    frames = [_band_plan(rng, 8192, bl=bl, nb=9) for _ in range(4)]
+    batch = [0, 1, 2, 3, 0, 0, 0, 0]
+    starts = np.concatenate([frames[i][0] for i in batch])
+    offs = np.concatenate([frames[i][1] for i in batch])
+    table = torch.randn(max(fr[2] for fr in frames), c, device="cuda", generator=cuda)
+    st_t = torch.from_numpy(starts).cuda()
+    offs_t = torch.from_numpy(offs).to(offs_dtype).cuda()
+    before = kernels.STATS["banded_gather"].launches
+    out = banded_gather.banded_gather(table, st_t, offs_t, 8192, rows=len(batch))
+    torch.cuda.synchronize()
+    assert kernels.STATS["banded_gather"].launches == before + 1
+    assert torch.equal(out, banded_gather.banded_gather_plain(table, st_t, offs_t))
+    with pytest.raises(ValueError, match="rows"):
+        banded_gather.banded_gather(table, st_t, offs_t, 8192, rows=5)
 
 
 @pytest.mark.parametrize("k", [2, 3])

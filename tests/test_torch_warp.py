@@ -6,6 +6,7 @@ against `grid_sample_2d`, out-of-frame taps included. Tolerance 1e-5
 absolute on values of order 1: the same f32 arithmetic in another order
 (grid_sample normalises coordinates to [-1, 1] and back)."""
 
+import re
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -157,7 +158,7 @@ def test_tile_tap_bounds_keep_every_weighted_tap(mode, adjoint, radius, fmax, sm
 
 
 def test_tile_matches_the_kernel_source():
-    """`TILE` is the kernel's output tile."""
+    """`TILE` is the kernel's adjoint output tile."""
     src = (kernels.CSRC / "window_warp.cu").read_text()
     assert f"constexpr int TH = {warp_kernel.TILE[0]}, TW = {warp_kernel.TILE[1]};" in src
 
@@ -177,6 +178,32 @@ def test_adjoint_fixed_point_sums_hold_the_window_sum(radius, mode, gscale):
     rng = np.random.default_rng(radius)
     g = torch.from_numpy((rng.uniform(-1, 1, (2, 40, 150, 3)) * gscale).astype(np.float32))
     f = torch.from_numpy(rng.uniform(-radius, radius, (2, 40, 150, 2)).astype(np.float32))
+    _assert_fixed_point_holds(g, f, radius, mode)
+
+
+@pytest.mark.parametrize("mode,gscale", [("bicubic", 1.0), ("bilinear", 1.0),
+                                         ("bicubic", 1e-30), ("bicubic", 1e30)])
+def test_adjoint_one_limb_sums_hold_the_window_sum(mode, gscale):
+    """Below 64 taps a tile sums its terms in one signed 32-bit limb (L = 0,
+    k = 31 - bitlen(ntap) - e1): on 2 x 40 x 150 frames with smooth flows of
+    under a pixel's range per halo (as the post-optimization's Farneback
+    flows), every tile takes it, its sums do not overflow, and they give the
+    plain window sum within 1e-6 of max |g|."""
+    rng = np.random.default_rng(7)
+    g = torch.from_numpy((rng.uniform(-1, 1, (2, 40, 150, 3)) * gscale).astype(np.float32))
+    yy, xx = np.meshgrid(np.arange(40), np.arange(150), indexing="ij")
+    f = np.stack([-0.6 + 0.3 * np.sin(xx / 50.0), 0.2 * np.cos(yy / 30.0)], -1)
+    f = torch.from_numpy(np.broadcast_to(f, (2, 40, 150, 2)).astype(np.float32).copy())
+    k, low_bits = warp_kernel.adjoint_fixed_point_exponent(g, f, 4, mode)
+    assert (low_bits == 0).all()
+    _assert_fixed_point_holds(g, f, 4, mode)
+
+
+def _assert_fixed_point_holds(g, f, radius, mode):
+    """The limbs of `adjoint_fixed_point_exponent` (one, or low and high)
+    overflow nowhere, their total is within ntap half-units of the f64 sum
+    of the same f32 terms, and it gives the plain window sum within 1e-6 of
+    max |g|."""
     n, h, w, _ = g.shape
     th, tw = warp_kernel.TILE
     rh = radius + warp_kernel.kernel_radius(mode)
@@ -211,6 +238,24 @@ def test_adjoint_fixed_point_sums_hold_the_window_sum(radius, mode, gscale):
     got = total.double() * torch.exp2(-k.double())
     ref = warp_kernel.window_warp_plain(g, f, radius, mode, adjoint=True).double()
     assert (got - ref).abs().max().item() <= 1e-6 * g.abs().max().item()
+
+
+def test_k3_argtypes_match_the_c_entry_point():
+    """ctypes passes what `K3_ARGTYPES` says: one type per C parameter."""
+    src = (kernels.CSRC / "window_warp.cu").read_text()
+    m = re.search(r'extern "C" int tclight_window_warp_f32\(([^)]*)\)', src)
+    assert m and len(m.group(1).split(",")) == len(warp_kernel.K3_ARGTYPES)
+
+
+def test_ablate_postopt_k3_variants_apply_to_the_kernel():
+    """`ablate_postopt`'s K3 variants for this kernel find their texts in
+    its source, and each changes it."""
+    from tclight_torch import ablate_postopt
+
+    texts = ablate_postopt.variant_sources("K3", list(ablate_postopt.K3_VARIANTS))
+    assert {"base", "noatomic", "nocvt", "norange", "noscatter", "twolimb", "walkonly",
+            "tile16x32"} <= set(texts)
+    assert all(text != texts["base"] for name, text in texts.items() if name != "base")
 
 
 def test_window_warp_cuda_refuses_cpu_tensors():
