@@ -18,9 +18,10 @@ Phases, one line each:
      against their plain version on the same inputs at the xy shapes of
      phase 3 and at the yt pass's level-0 and level-1 shapes of a 30-frame
      960x720 run, beside K1 and SDPA at the same shapes and the
-     quantization error against the fp attention; K6's pre-pass kernels,
-     and K7's pre-pass kernels and max pass, against their plain versions
-     at the same shapes;
+     quantization error against the fp attention, the exponentials' bound
+     and whether the kernel read its operands in place (no copy at any
+     head dim); K6's pre-pass kernels, and K7's pre-pass kernels and max
+     pass, against their plain versions at the same shapes;
   6. reference: the tiny stack end to end on a small input, post-
      optimization included (3 + 3 epochs), on the card in bf16 against the
      CPU in f32 (`check_small_reference`);
@@ -344,8 +345,9 @@ def int8_row(level: str, b: int, s: int, h: int, d: int, gen: torch.Generator,
     layout, to out["prepass_rows"], and for K7 the max pass's against its
     plain version to out["maxpass_rows"]. `operands_in_place`: the kernel
     read q8 and k8 row-major and v in place (K6) or a channel-major v8 and
-    no bf16 copies (K7), the head-dim-128 layout; the row fails if that is
-    not so exactly at d = 128. `plain_heads`: the plain attention (and the
+    no copy of q8 or k8 (K7); the row fails if that is not so at any head
+    dim. `exp_bound_ms`: one exponential a score at the special-function
+    units' rate, as K1's rows. `plain_heads`: the plain attention (and the
     fp attention beside it) held on the first so many heads only, where
     the whole call's would take too long; each head is quantized on its
     own, so their outputs are the kernel's on those heads.""" 
@@ -383,7 +385,7 @@ def int8_row(level: str, b: int, s: int, h: int, d: int, gen: torch.Generator,
     quant_err = (ref - fp).abs().max().item() / fp.abs().max().item()
     kernel_fp_err = (res_p - fp).abs().max().item() / fp.abs().max().item()
     del res_p
-    ok = math.isfinite(err) and err <= tol and in_place == (d == 128)
+    ok = math.isfinite(err) and err <= tol and in_place
     reps = 3 if s > 20000 else 10
     k_ms = cuda_ms(lambda: flash_attention_int8_cuda(q, k, v, scale, pv_int8), reps)
     plain_pre_ms = cuda_ms(lambda: operands_plain(q, k, v), reps)
@@ -398,22 +400,26 @@ def int8_row(level: str, b: int, s: int, h: int, d: int, gen: torch.Generator,
     k1_ms = cuda_ms(lambda: flash_attention_cuda(q, k, v, scale), reps)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale), reps)
-    # the kernel's operands cross memory once: q8, k8 (head dim padded
-    # to 32) and v8 (to 16) or v in bf16, the scales, the bf16 output;
-    # q.k^T at the int8 peak, p.v at the int8 (K7) or bf16 (K6) peak
-    dk, dv, bh = -(-d // 32) * 32, -(-d // 16) * 16, b * h
-    n_bytes = (bh * s * dk * 2 + (bh * s * dv if pv_int8 else 2 * v.numel())
-               + 2 * q.numel() + 4 * bh * (s + -(-s // 1024) + (dv if pv_int8 else 0)))
+    # the kernel's operands cross memory once: q8 and k8 (d bytes a row),
+    # v8 (K7) or v in bf16, the scales (an f32 a key, a Q-scale block and,
+    # K7, a channel), the bf16 output; q.k^T at the int8 peak, p.v at the
+    # int8 (K7) or bf16 (K6) peak
+    bh = b * h
+    n_bytes = (bh * s * d * 2 + (bh * s * d if pv_int8 else 2 * v.numel()) + 2 * q.numel()
+               + 4 * bh * (s + -(-s // 1024) + (d if pv_int8 else 0)))
     prod = 2.0 * bh * s * s * d
     t_ops = (prod / PEAK_INT8_OPS + prod / (PEAK_INT8_OPS if pv_int8 else PEAK_BF16_FLOPS)) * 1e3
     t_bytes = n_bytes / PEAK_BYTES * 1e3
     b_ms, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    # one exponential a score: the softmax's floor on the special-function
+    # units, beside the tensor-core and byte bound, as K1's rows
+    exp_ms = bh * s * s / PEAK_EXP2 * 1e3
     row = dict(shape=f"{level} B={b} S={s} H={h} D={d}", max_abs_err=err, tol=tol,
                plain_heads=plain_heads or h, operands_in_place=in_place,
                quant_rel_err_plain_vs_fp=quant_err, rel_err_kernel_vs_fp=kernel_fp_err,
                ms=k_ms, prepass_ms=pre_ms, prepass_plain_ms=plain_pre_ms, **extra,
                plain_ms=p_ms, library_ms=None, k1_ms=k1_ms, sdpa_ms=sdpa_ms, bound_ms=b_ms,
-               bound_by=by)
+               bound_by=by, exp_bound_ms=exp_ms)
     phase(tag, ok=ok, **row)
     if not ok:
         raise SystemExit(f"{tag} disagrees with its plain version, or its operands' layout "
@@ -426,31 +432,29 @@ def int8_row(level: str, b: int, s: int, h: int, d: int, gen: torch.Generator,
 
 def check_prepass(tag: str, level: str, q, k, v, kernel, plain, k_ms: float) -> dict:
     """K6's (or K7's) pre-pass kernels against the plain pre-pass in the
-    kernel's layout: q8, the Q scales and the v copy (K7: v8, the V scales
-    and q8's bf16 copy) bit-equal; k8 within 1 and the K scales within a bf16 step,
-    where K's token mean (an f32 sum in another order) rounds to another
-    bf16 value (`max_abs_err` is k8's largest difference, `k8_differ` the
-    share of k8 values that differ). Bound: q, k and v read once, the
-    operands written once."""
+    kernel's layout: q8 and the Q scales (K7: also v8 and the V scales)
+    bit-equal, K6's v the input itself; k8 within 1 and the K scales within
+    a bf16 step, where K's token mean (an f32 sum in another order) rounds
+    to another bf16 value (`max_abs_err` is k8's largest difference,
+    `k8_differ` the share of k8 values that differ). Bound: q and k (K7:
+    and v) read once, the function's outputs written once, whatever the
+    layout pads: q8 and k8 (K7: and v8) a byte a value, an f32 scale a key,
+    each Q-scale block's (K7: and each V channel's)."""
     ops = kernel(q, k, v)
     torch.cuda.synchronize()
     ref, p_ms = timed_once(lambda: plain(q, k, v))
-    exact_names = (("q8", "sq", "v8", "sv") + (("qb",) if "qb" in ops else ()) if tag == "K7"
-                   else ("q8", "sq", "v"))
-    exact = all(torch.equal(ops[n], ref[n]) for n in exact_names)
+    exact_names = ("q8", "sq", "v8", "sv") if tag == "K7" else ("q8", "sq")
+    exact = all(torch.equal(ops[n], ref[n]) for n in exact_names) and (
+        tag == "K7" or ops["v"] is v)
     dk8 = (ops["k8"].int() - ref["k8"].int()).abs()
-    sk_ok = bool(((ops["sk"] - ref["sk"]).abs() <= ref["sk"] * 2.0 ** -7).all())
+    sk_ok = bool(((ops["sk"] - ref["sk"]).abs() <= ref["sk"].abs() * 2.0 ** -7).all())
     err, share = float(dk8.max().item()), float((dk8 > 0).float().mean().item())
     ok = exact and err <= 1 and share <= 0.01 and sk_ok
-    # K7's bf16 copies qb / kb serve only its max pass's design: the
-    # function's bound leaves them out; K6's v is read in place at d = 128
-    # (then K6 reads q and k only)
-    in_place_v = tag == "K6" and ops["v"] is v
-    n_bytes = 2 * (2 if in_place_v else 3) * q.numel() + sum(
-        ops[n].numel() * ops[n].element_size() for n in ("k8", "sk") + exact_names
-        if n != "qb" and not (n == "v" and in_place_v))
-    b_ms, by = bound_ms(n_bytes, 0.0)
     b, s, h, d = q.shape
+    n_vals = b * h * s * d
+    n_bytes = (2 * (3 if tag == "K7" else 2) * n_vals + 2 * n_vals + 4 * b * h * s
+               + 4 * ops["sq"].numel() + (n_vals + 4 * b * h * d if tag == "K7" else 0))
+    b_ms, by = bound_ms(n_bytes, 0.0)
     row = dict(shape=f"{level} B={b} S={s} H={h} D={d}", max_abs_err=err, tol=1.0,
                k8_differ=share, exact=f"{'/'.join(exact_names)} {exact}", ms=k_ms,
                plain_ms=p_ms, library_ms=None, bound_ms=b_ms, bound_by=by)
@@ -466,8 +470,7 @@ def check_maxpass(level: str, q, k, v, scale: float, reps: int) -> dict:
     but for f32 rounding (held at 1e-6 relative). Bound: that of the
     function, an int8 q.k^T times scales and a max: the larger of q8, k8
     and their scales read once with the block maxes written once, and
-    q.k^T at the int8 peak (off head dim 128 the kernel runs it on bf16
-    copies, which the bound does not price)."""
+    q.k^T at the int8 peak."""
     from tclight_torch.ops.attention import int8_block_rowmax, int8_block_rowmax_plain, int8pv_operands
 
     b, s, h, d = q.shape
@@ -478,8 +481,8 @@ def check_maxpass(level: str, q, k, v, scale: float, reps: int) -> dict:
     err = float(((bm - ref).abs() / ref.abs().clamp(min=1e-30)).max().item())
     ok = bool(torch.isfinite(bm).all()) and err <= 1e-6
     k_ms = cuda_ms(lambda: int8_block_rowmax(ops, b, h, s, s, d, scale), reps)
-    n_bytes = sum(ops[n].numel() * ops[n].element_size() for n in ("q8", "k8", "sq", "sk")) \
-        + bm.numel() * 4
+    # q8 and k8 d bytes a row, an f32 a key and a Q-scale block
+    n_bytes = 2 * b * h * s * d + 4 * (b * h * s + ops["sq"].numel() + bm.numel())
     b_ms, by = bound_ms(n_bytes, 2.0 * b * h * s * s * d, PEAK_INT8_OPS)
     row = dict(shape=f"{level} B={b} S={s} H={h} D={d}", max_abs_err=err, tol=1e-6,
                err_is="relative", n_kb=bm.shape[-1], ms=k_ms, plain_ms=p_ms, library_ms=None,
@@ -856,7 +859,13 @@ def run_int8_variants() -> dict:
     from tclight_torch.ops import kernels
     from tclight_torch.run import main
 
-    fp_frames = read_frames(next((OUT / "wd_off").rglob("output.mp4")).parent / "frames")
+    fp_dir = next((OUT / "wd_off").rglob("output.mp4")).parent
+    fp_frames = read_frames(fp_dir / "frames")
+    # the fp run's steady step (the main config, post-optimization off), and
+    # the main path's, beside each int8 run's
+    fp_steps = yaml.safe_load((fp_dir / "config.yaml").read_text())["stage_times"]["step_times"]
+    main_steps = yaml.safe_load((next((OUT / "wd").rglob("output.mp4")).parent
+                                 / "config.yaml").read_text())["stage_times"]["step_times"]
     launches = {}
     for tag, flags, name in (("int8", ["generation.attn_qk_int8=true"], "flash_attention_int8"),
                              ("int8pv", ["generation.attn_qk_int8=true",
@@ -887,7 +896,8 @@ def run_int8_variants() -> dict:
               and frames.shape == fp_frames.shape and float(frames.std()) > 0)
         steady = float(np.mean(st["step_times"][1:]))
         phase(tag, ok=ok, frames=n, wall_s=wall, step_s=st["step_times"],
-              step_steady_s=steady, launches=stats[name],
+              step_steady_s=steady, fp_step_steady_s=float(np.mean(fp_steps[1:])),
+              main_step_steady_s=float(np.mean(main_steps[1:])), launches=stats[name],
               part_launches={k: stats[k] for k in parts},
               other_flash_launches={k: stats[k] for k in others},
               frames_max_abs_diff_vs_fp=float(diff.max()),

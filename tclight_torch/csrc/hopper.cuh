@@ -124,6 +124,22 @@ __device__ __forceinline__ uint64_t wgmma_desc_sw128(const void* p, uint32_t lbo
   return wgmma_desc(p, lbo, sbo) | (1ull << 62);
 }
 
+// the same in the 64-byte swizzle (layout type 2): rows of 64 bytes in
+// atoms of 8 rows (512 bytes), row r's 16-byte chunk c stored at chunk c ^
+// ((r / 2) % 4), TMA's CU_TENSOR_MAP_SWIZZLE_64B; K-major, the 8-row groups
+// 512 bytes apart and k32 step i of an int8 row 32 * i bytes into it
+__device__ __forceinline__ uint64_t wgmma_desc_sw64(const void* p, uint32_t lbo, uint32_t sbo) {
+  return wgmma_desc(p, lbo, sbo) | (2ull << 62);
+}
+
+// a K-major tile of rows of `row` bytes (128 or 64) in the swizzle of that
+// width, as TMA's boxes of `row`-byte rows lay it out: the 8-row groups 8 *
+// row bytes apart; a start moved 32 bytes on within the rows selects the
+// next k32 (int8) or k16 (bf16) step
+__device__ __forceinline__ uint64_t wgmma_desc_rows(const void* p, int row) {
+  return row == 64 ? wgmma_desc_sw64(p, 16, 512) : wgmma_desc_sw128(p, 16, 1024);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -867,18 +883,22 @@ inline bool tensor_map_4d(CUtensorMap* map, CUtensorMapDataType type, const void
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// the same, with the 128-byte swizzle: the box's innermost extent is 128
-// bytes (an int8 row of 128 values, or 64 bf16 values), and each 1,024 bytes of shared memory it fills (8 rows of 128
-// bytes) hold row r's 16-byte chunk c at chunk c ^ (r % 8), the layout
-// wgmma_desc_sw128 reads; the destination is 1,024-byte aligned
+// the same, with the 128-byte swizzle (or the 64-byte one, `swizzle` 64):
+// the box's innermost extent is at most that many bytes (an int8 row of 128
+// values, or 64 bf16 values), and each 1,024 bytes of shared memory it
+// fills (8 rows of 128 bytes) hold row r's 16-byte chunk c at chunk c ^ (r
+// % 8), the layout wgmma_desc_sw128 reads (64: each 512 bytes, 8 rows of
+// 64, chunk c ^ ((r / 2) % 4), wgmma_desc_sw64's); the destination is
+// 1,024-byte aligned
 inline bool tensor_map_4d_sw128(CUtensorMap* map, CUtensorMapDataType type, const void* base,
                                 const cuuint64_t (&dims)[4], const cuuint64_t (&strides)[3],
-                                const cuuint32_t (&box)[4]) {
+                                const cuuint32_t (&box)[4], int swizzle = 128) {
   const EncodeTiledFn fn = encode_tiled();
   if (!fn) return false;
   const cuuint32_t estr[4] = {1, 1, 1, 1};
   return fn(map, type, 4, const_cast<void*>(base), dims, strides, box, estr,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_INTERLEAVE_NONE,
+            swizzle == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -897,21 +917,17 @@ inline bool tensor_map_bshd_slabs(CUtensorMap* map, const void* x, int B, int S,
   return tensor_map_4d_sw128(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, dims, strides, box);
 }
 
-// the same at D = 128: two boxes a row
-inline bool tensor_map_bshd_sw128(CUtensorMap* map, const void* x, int B, int S, int H,
-                                  int rows) {
-  return tensor_map_bshd_slabs(map, x, B, S, H, 128, rows);
-}
-
 // a row-major (N, R, C) int8 tensor, C a multiple of 16, as 4-d (C, R, N,
-// 1) in the 128-byte swizzle: boxes of 128 values of C x `rows` rows of one
-// n, each box row one swizzle row; everything outside reads as zeros
-inline bool tensor_map_rows_sw128(CUtensorMap* map, const void* x, int N, int R, int C,
-                                  int rows) {
+// 1) in the `box_c`-byte swizzle (128 or 64): boxes of box_c values of C x
+// `rows` rows of one n, each box row one swizzle row; everything outside
+// the tensor reads as zeros (a row of C < box_c values, or the last box's
+// tail, is zero-filled)
+inline bool tensor_map_rows_sw(CUtensorMap* map, const void* x, int N, int R, int C, int box_c,
+                               int rows) {
   const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)R, (cuuint64_t)N, 1};
   const cuuint64_t strides[3] = {(cuuint64_t)C, (cuuint64_t)C * R, (cuuint64_t)C * R * N};
-  const cuuint32_t box[4] = {128, (cuuint32_t)rows, 1, 1};
-  return tensor_map_4d_sw128(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, x, dims, strides, box);
+  const cuuint32_t box[4] = {(cuuint32_t)box_c, (cuuint32_t)rows, 1, 1};
+  return tensor_map_4d_sw128(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, x, dims, strides, box, box_c);
 }
 
 }  // namespace hopper

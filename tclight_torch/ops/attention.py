@@ -33,15 +33,19 @@ wrapper makes no copy: `flash_kv_operands`; `flash_geometry` gives the
 tiles and the tensor maps), two or three consumer warpgroups run both
 products on wgmma and the softmax in registers, and overlap one's softmax
 with the others' products (details in the source). K6
-replaces `_flash_kernel_qk_int8` in K1's design, with q.k^T on int8 wgmma
-and operands that its pre-pass kernels write in the layout its TMA boxes
-read (`qk_int8_geometry`); K7 replaces `_flash_kernel_int8_full` in the
-same design, p.v on int8 wgmma too, after a max pass in that design that
-writes the P blocks' maxes (`int8pv_geometry`; details in their sources).
-At head dim 128 K6 and K7 read q8 and k8 row-major (one int8 row is one
-128-byte swizzle row), K6 reads v in place and K7 a channel-major v8, all
-in the 128-byte swizzle; the wrappers make no v copy and no bf16 copies
-there (`v_copy`, `bf16_copies`).
+replaces `_flash_kernel_qk_int8` in K1's design and geometry, with q.k^T on
+int8 wgmma; K7 replaces `_flash_kernel_int8_full` in the same design, p.v
+on int8 wgmma too, after a max pass in that design that writes the P
+blocks' maxes. Both read their operands in place at every head dim: q8 and
+k8 row-major in boxes of 128 bytes in the 128-byte swizzle (rows of
+ceil16(D) bytes, zero-filled to the int8 depth), v as K1 reads it (K6), v8
+channel-major (K7); their pre-pass kernels write q8, k8, the scales and
+v8, and no copy of v or of q8 / k8 (`qk_int8_geometry`,
+`int8pv_geometry`; details in their sources). The int32 dots become f32
+logits by the conversion instruction and a multiply by the key's scale,
+but in K7's max pass at head dim 40, where the conversion's quarter rate
+binds it, by an integer add and one FMA with each key's scale pair
+(`kernel_k_scales`).
 
 The int8 products of the plain version are f32 matmuls of integer-valued
 tensors: exact, since |dot| <= 127^2 * 160 < 2^24, as long as TF32 is off
@@ -62,9 +66,9 @@ __all__ = ["dot_product_attention", "flash_attention", "flash_attention_plain",
            "flash_attention_cuda", "flash_geometry", "flash_kv_operands",
            "flash_attention_int8_plain", "flash_attention_int8_cuda", "quantize_rows",
            "quantize_blocks", "quantize_channels", "smooth_k", "int8_prepass", "qk_int8_geometry",
-           "qk_int8_operands", "qk_int8_operands_plain", "chunk_major", "from_chunk_major",
-           "int8pv_geometry", "int8pv_operands", "int8pv_operands_plain", "v8_chunks",
-           "v8_channels", "operand_rows", "int8_block_rowmax", "int8_block_rowmax_plain",
+           "qk_int8_operands", "qk_int8_operands_plain", "kernel_k_scales", "int8pv_geometry",
+           "int8pv_operands", "int8pv_operands_plain", "v8_channels", "int8_block_rowmax",
+           "int8_block_rowmax_plain",
            "BACKENDS"]
 
 BACKENDS = (None, "int8", "int8pv")
@@ -118,7 +122,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 SMEM_PER_BLOCK = 232_448  # dynamic shared memory a block may use on the H100
 # tclight_flash_attention_bf16(q, k, v, o, B, H, Sq, Skv, D, scale, stream)
 K1_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
-SW_D = 128  # the head dim K6 and K7 read in the 128-byte swizzle, with no copy
+ROUND_MAGIC = 12582912.0  # 1.5 * 2^23: plus an int32 below 2^22 in magnitude, exact in f32
 SLAB = 64  # head dims of one of K1's TMA boxes: a 128-byte swizzle row
 
 
@@ -339,113 +343,97 @@ def int8_prepass(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pv_int8: boo
     return ops
 
 
-def chunk_major(x: torch.Tensor, width: int) -> torch.Tensor:
-    """(N, S, C) -> (N, C / width, S, width): the rows' `width`-element
-    chunks, chunk by chunk, the layout the kernels' TMA boxes read."""
-    n, s, c = x.shape
-    return x.reshape(n, s, c // width, width).transpose(1, 2).contiguous()
+def kernel_k_scales(sk: torch.Tensor) -> torch.Tensor:
+    """K7's K scales, from (N, S) f32 scales: (N, 2, S), each key's sk' (the
+    scale with its two lowest significand bits cleared) and -1.5 * 2^23 *
+    sk', exact in f32. K7's max pass adds the bits of 1.5 * 2^23 to an
+    int32 dot x, which makes the float 1.5 * 2^23 + x, and one FMA with the
+    pair leaves x * sk' rounded once: the conversion and the multiply
+    without the conversion instruction, whose quarter rate binds the pass
+    at the UNet's head dim 40 (it uses the pairs up to dp 48). The
+    attention and the max pass above multiply by sk' too. sk' differs from
+    sk by less than 2^-21 of it."""
+    s = (sk.float().contiguous().view(torch.int32) & ~3).view(torch.float32)
+    return torch.stack([s, s * -ROUND_MAGIC], dim=-2)
 
 
-def from_chunk_major(x: torch.Tensor) -> torch.Tensor:
-    """Inverse of `chunk_major`: (N, C / w, S, w) -> (N, S, C)."""
-    n, nc, s, w = x.shape
-    return x.transpose(1, 2).reshape(n, s, nc * w)
-
-
-def _rows_sw128(n: int, r: int, c: int, rows: int) -> dict:
-    """The tensor map of a row-major (N, R, C) int8 operand in the 128-byte
-    swizzle (`tensor_map_rows_sw128` of csrc/hopper.cuh): dims innermost
-    first, strides in bytes, boxes of 128 values of a row by `rows` rows."""
-    return {"dims": (c, r, n, 1), "strides": (c, c * r, c * r * n), "box": (128, rows, 1, 1),
-            "swizzle": 128}
+def _rows_map(n: int, r: int, c: int, box_c: int, rows: int) -> dict:
+    """The tensor map of a row-major (N, R, C) int8 operand
+    (`tensor_map_rows_sw` of csrc/hopper.cuh): dims innermost first,
+    strides in bytes, boxes of `box_c` values of a row (128, or 64 in the
+    64-byte swizzle) by `rows` rows, ceil(C / box_c) a row, the values past
+    C read as zeros."""
+    return {"dims": (c, r, n, 1), "strides": (c, c * r, c * r * n), "box": (box_c, rows, 1, 1),
+            "swizzle": box_c}
 
 
 def qk_int8_geometry(b: int, sq: int, skv: int, h: int, d: int) -> dict:
     """The layout of K6's operands, as its pre-pass writes them and its TMA
-    boxes read them (`csrc/flash_attention_qk_int8.cu`): the q.k^T depth
-    `dk` (d padded to the int8 wgmma's 32 with zero columns) and the p.v
-    width `dp` (padded to 16 by TMA's zero fill); the Q-scale block `bq`
-    and its count; the K scales padded to 128 keys (zeros); the pre-pass's
-    slices of 256 queries and 256 keys, and its f32 scratch (per batch *
-    head: each q slice's amax, each k slice's channel sums, the token mean
-    and a counter); each operand's shape; the q rows, keys and stages of
-    K1's design before it read every head dim in place (two 64-row q
-    blocks a warpgroup up to dp 96), which K6 keeps. q8 and k8 are
-    chunk-major in 16-byte chunks and v a chunk-major copy (`v_copy`),
-    except at d = 128: q8 and k8 row-major (BH, S, 128), v read in place
-    from (B, S, H, D), all three in the 128-byte swizzle (`maps`, as
-    `flash_geometry`'s)."""
-    dk, dp = _ceil_to(d, 32), _ceil_to(d, 16)
+    boxes read them (`csrc/flash_attention_qk_int8.cu`), at every head dim:
+    the q.k^T depth `dk` (d padded to the int8 wgmma's 32 by TMA's zero
+    fill) and the p.v width `dp` (d padded to 16), which is also the bytes
+    of a q8 or k8 row (`row_bytes`); the bytes of a row of q8's and k8's
+    boxes (`row8`: 64, in the 64-byte swizzle, where dk fits it, else 128)
+    and the boxes a row (`slabs8`); the Q-scale block `bq` and its count;
+    the K scales padded to 128 keys (zeros); the pre-pass's slices of 256
+    queries and 256 keys, and its f32 scratch (per batch * head: each q
+    slice's amax, each k slice's channel sums, the token mean and a
+    counter); each operand's shape: q8 and k8 row-major, v the input read
+    in place (the pre-pass copies nothing); K1's tiles (`flash_geometry`:
+    consumer warpgroups, q rows, keys per tile, stages, the row sums on the
+    tensor cores at d = dp - 8 up to dp 64); the dynamic shared memory; and
+    the tensor maps (`maps`): q8 and k8 in boxes of row8 bytes by a tile's
+    rows, v K1's."""
+    k1 = flash_geometry(b, sq, skv, h, d)
+    dk, dp = _ceil_to(d, 32), k1["dp"]
     bq = min(QBLOCK, _ceil_to(sq, 128))
     bh = b * h
-    mb = 2 if dp <= 96 else 1
     n_qs, n_ks = -(-sq // 256), -(-skv // 256)
-    g = {"dk": dk, "dp": dp, "bq": bq, "n_qb": -(-sq // bq), "skv_pad": _ceil_to(skv, 128),
-         "q_slices": n_qs, "k_slices": n_ks, "row_blocks": mb, "q_rows": 128 * mb,
-         "kv_rows": 64 if mb == 2 else 128, "stages": 4 if mb == 2 else (3 if dp <= 128 else 2),
-         "v_copy": d != SW_D, "swizzle": 0,
-         "shapes": {"q8": (bh, dk // 16, sq, 16), "k8": (bh, dk // 16, skv, 16),
-                    "v": (bh, d // 8, skv, 8), "sq": (bh, -(-sq // bq)),
-                    "sk": (bh, _ceil_to(skv, 128)), "scratch": (bh, n_qs + n_ks * d + d + 1)}}
-    if d == SW_D:
-        g["shapes"].update(q8=(bh, sq, d), k8=(bh, skv, d), v=(b, skv, h, d))
-        g.update(swizzle=128, smem=128 * d + 3 * 128 * (3 * d + 4) + 8 * 7 + 1024,
-                 maps={"q8": _rows_sw128(bh, sq, d, 128), "k8": _rows_sw128(bh, skv, d, 128),
-                       "v": flash_geometry(b, sq, skv, h, d)["maps"]["v"]})
-    return g
+    row8 = 64 if dk <= 64 else 128
+    slabs8 = -(-dk // row8)
+    bk, stages = k1["kv_rows"], k1["stages"]
+    stage = bk * (slabs8 * row8 + k1["slabs"] * SLAB * 2 + 4)
+    return {"dk": dk, "dp": dp, "row_bytes": dp, "row8": row8, "slabs8": slabs8, "bq": bq,
+            "n_qb": -(-sq // bq), "skv_pad": _ceil_to(skv, 128), "q_slices": n_qs,
+            "k_slices": n_ks,
+            **{key: k1[key] for key in ("consumers", "q_rows", "kv_rows", "stages", "sums_on_tc",
+                                        "threads", "grid")},
+            "smem": k1["q_rows"] * slabs8 * row8 + stages * stage + 8 * (1 + 2 * stages) + 1024,
+            "shapes": {"q8": (bh, sq, dp), "k8": (bh, skv, dp), "v": (b, skv, h, d),
+                       "sq": (bh, -(-sq // bq)), "sk": (bh, _ceil_to(skv, 128)),
+                       "scratch": (bh, n_qs + n_ks * d + d + 1)},
+            "maps": {"q8": _rows_map(bh, sq, dp, row8, k1["q_rows"]),
+                     "k8": _rows_map(bh, skv, dp, row8, bk), "v": k1["maps"]["v"]}}
 
 
 def _int8_rows_layout(x: torch.Tensor, s: int, d: int) -> torch.Tensor:
     """q8 or k8 (BH, S_pad, DK) of the plain pre-pass in the kernels'
-    layout: its S real rows, chunk-major in 16-byte chunks, or row-major at
-    d = 128."""
-    x = x[:, :s]
-    return x.contiguous() if d == SW_D else chunk_major(x, 16)
-
-
-def operand_rows(x: torch.Tensor) -> torch.Tensor:
-    """q8, k8 (or their bf16 copies) as (BH, S, DK), from either layout of
-    the kernels' operands: row-major (d = 128) as it is, chunk-major by
-    `from_chunk_major`."""
-    return x if x.dim() == 3 else from_chunk_major(x)
+    layout: its S real rows, row-major, ceil16(d) bytes a row."""
+    return x[:, :s, :_ceil_to(d, 16)].contiguous()
 
 
 def qk_int8_operands_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> dict:
     """K6's operands from the plain pre-pass `int8_prepass`, in the layout
     of `qk_int8_geometry` (the plain version of the pre-pass kernels):
-    q8 and k8 chunk-major in 16-byte chunks (row-major at d = 128), only
-    the real rows; v chunk-major in 8-element chunks (at d = 128 v itself,
-    read in place); the K scales of the padded keys 0."""
+    q8 and k8 row-major, only the real rows; v itself (read in place); the
+    K scales of the padded keys 0."""
     b, sq, h, d = q.shape
     skv = k.shape[1]
     g = qk_int8_geometry(b, sq, skv, h, d)
     ops = int8_prepass(q, k, v, pv_int8=False)
     return {"q8": _int8_rows_layout(ops["q8"], sq, d), "k8": _int8_rows_layout(ops["k8"], skv, d),
-            "v": chunk_major(_heads_first(v), 8) if g["v_copy"] else v, "sq": ops["sq"],
-            "sk": F.pad(ops["sk"][:, :skv], (0, g["skv_pad"] - skv)), "bq": g["bq"]}
-
-
-def v8_chunks(v8: torch.Tensor) -> torch.Tensor:
-    """K7's v8 layout from a plain (BH, Skv, D) int8: (BH, ceil16(Skv) /
-    16, D, 16), the 16 keys of each channel contiguous (8-bit wgmma reads
-    its B operand K-major only), keys past Skv zero, and within each 16
-    keys byte 4t + 2a + c holding key 8a + 2t + c: a thread's int32 score
-    fragment (keys 2t, 2t + 1 of each 8) then packs as it lies into the s8
-    A fragment (bytes 4t..4t+3 of each 16)."""
-    bh, skv, d = v8.shape
-    n_vc = -(-skv // 16)
-    x = F.pad(v8, (0, 0, 0, 16 * n_vc - skv)).reshape(bh, n_vc, 2, 4, 2, d)
-    # (bh, chunk, a, t, c, d) -> (bh, chunk, d, t, a, c)
-    return x.permute(0, 1, 5, 3, 2, 4).reshape(bh, n_vc, d, 16).contiguous()
+            "v": v, "sq": ops["sq"], "sk": F.pad(ops["sk"][:, :skv], (0, g["skv_pad"] - skv)),
+            "bq": g["bq"]}
 
 
 def v8_channels(v8: torch.Tensor) -> torch.Tensor:
-    """K7's v8 layout at d = 128 from a plain (BH, Skv, D) int8: (BH, D,
-    ceil128(Skv)), each channel's keys contiguous (a channel's 128 keys of a
-    tile are one 128-byte swizzle row, K-major for the s8 wgmma), keys past
-    Skv zero, and within each 16 keys the order of `v8_chunks` (byte 4t + 2a
-    + c holds key 8a + 2t + c), which is the k32 A fragment's as well: its
-    bytes 4t..4t+3 of each 16 are a thread's keys 2t, 2t + 1, 8 + 2t, 9 + 2t."""
+    """K7's v8 layout from a plain (BH, Skv, D) int8: (BH, D,
+    ceil128(Skv)), each channel's keys contiguous (a channel's keys of a
+    tile are one swizzle row, K-major for the s8 wgmma), keys past Skv
+    zero, and within each 16 keys byte 4t + 2a + c holding key 8a + 2t + c:
+    a thread's int32 score fragment (keys 2t, 2t + 1 of each 8) then packs
+    as it lies into the k32 A fragment, whose bytes 4t..4t+3 of each 16 are
+    a thread's keys 2t, 2t + 1, 8 + 2t, 9 + 2t."""
     bh, skv, d = v8.shape
     n16 = _ceil_to(skv, 128) // 16
     x = F.pad(v8, (0, 0, 0, 16 * n16 - skv)).reshape(bh, n16, 2, 4, 2, d)
@@ -455,83 +443,68 @@ def v8_channels(v8: torch.Tensor) -> torch.Tensor:
 
 def int8pv_geometry(b: int, sq: int, skv: int, h: int, d: int) -> dict:
     """The layout of K7's operands and tiles, as its pre-pass, max pass and
-    attention (`csrc/flash_attention_int8.cu`) lay them out: K6's q8, k8,
-    sq and sk; v8 (`v8_chunks`) and sv; qb and kb, q8's and k8's values in
-    bf16 for the max pass, chunk-major in 8-value chunks with the head dim
-    padded to dp = ceil16(D) (`bf16_copies`); the P block `pb` (min(1024,
-    ceil128(Skv)) keys) and its count; the block maxes (BH, Sq, n_kb); the
-    q rows per block (two 64-row blocks per consumer warpgroup up to DP =
-    ceil16(D) = 48, one above), the keys per tile (64, 128 for 48 < DP <=
-    96), its 4 stages and the tiles per P block; the pre-pass's f32
-    scratch; the dynamic shared memory of the attention and the max
-    pass. At d = 128: K6's row-major q8 and k8, v8 channel-major
-    (`v8_channels`), all read in the 128-byte swizzle (`maps`), one 64-row
-    block per consumer warpgroup with 128-key tiles in 3 stages, and no
-    bf16 copies: the max pass reads q8 and k8."""
+    attention (`csrc/flash_attention_int8.cu`) lay them out, at every head
+    dim: K6's q8, k8, sq, boxes, keys per tile and stages (K1's), with three
+    consumer warpgroups up to dp 48 and two above (the live registers
+    outgrow three above), in the attention and the max pass alike; the K
+    scales as `kernel_k_scales` makes them, (BH, 2, ceil128(Skv)); v8
+    channel-major (BH, D, ceil128(Skv)) (`v8_channels`) and sv; the P
+    block `pb` (min(1024, ceil128(Skv))
+    keys), its count and the tiles per P block; the block maxes (BH, Sq,
+    n_kb); the pre-pass's f32 scratch; the dynamic shared memory of the
+    attention and the max pass; and the tensor maps: K6's q8 and k8, and v8
+    in boxes of a tile's keys by dp channels, in the 128-byte swizzle at
+    128-key tiles and the 64-byte one at 64."""
     g6 = qk_int8_geometry(b, sq, skv, h, d)
-    dk, dp, bh = g6["dk"], g6["dp"], b * h
+    dk, dp, bh, bk, stages = g6["dk"], g6["dp"], b * h, g6["kv_rows"], g6["stages"]
+    nwg, row8, slabs8 = 3 if dp <= 48 else 2, g6["row8"], g6["slabs8"]
     pb = min(QBLOCK, _ceil_to(skv, 128))
     n_kb = -(-skv // pb)
-    shapes = {n: g6["shapes"][n] for n in ("q8", "k8", "sq", "sk")}
-    shapes.update(sv=(bh, d), blockmax=(bh, sq, n_kb),
+    skv_pad = g6["skv_pad"]
+    shapes = {n: g6["shapes"][n] for n in ("q8", "k8", "sq")}
+    shapes.update(sk=(bh, 2, skv_pad), v8=(bh, d, skv_pad), sv=(bh, d), blockmax=(bh, sq, n_kb),
                   scratch=(bh * (g6["q_slices"] + 2 * g6["k_slices"] * d + d + 1),))
-    if d == SW_D:
-        # q8, k8 row-major, v8 channel-major, 128-key tiles; the max pass on
-        # q8 and k8 by s8 wgmma: no bf16 copies
-        bk, stages, skv_pad = 128, 3, g6["skv_pad"]
-        bars = 8 * (1 + 2 * stages) + 1024
-        shapes.update(v8=(bh, d, skv_pad))
-        return {"dk": dk, "dp": dp, "bq": g6["bq"], "n_qb": g6["n_qb"], "pb": pb, "n_kb": n_kb,
-                "row_blocks": 1, "q_rows": 128, "kv_rows": bk, "stages": stages,
-                "tiles_per_block": pb // bk, "skv_pad": skv_pad, "bf16_copies": False,
-                "swizzle": 128, "smem": 128 * dk + stages * bk * (dk + dp + 4) + bars,
-                "smem_maxpass": 128 * dk + stages * bk * (dk + 4) + bars, "shapes": shapes,
-                "maps": {"q8": g6["maps"]["q8"], "k8": g6["maps"]["k8"],
-                         "v8": _rows_sw128(bh, d, skv_pad, 128)}}
-    mb = 2 if dp <= 48 else 1
-    bk = 64 if (mb == 2 or dp > 96) else 128
-    bars = 8 * (1 + 2 * 4) + 128
-    shapes.update(v8=(bh, -(-skv // 16), d, 16), qb=(bh, dp // 8, sq, 8),
-                  kb=(bh, dp // 8, skv, 8))
-    return {"dk": dk, "dp": dp, "bq": g6["bq"], "n_qb": g6["n_qb"], "pb": pb, "n_kb": n_kb,
-            "row_blocks": mb, "q_rows": 128 * mb, "kv_rows": bk, "stages": 4,
-            "tiles_per_block": pb // bk, "skv_pad": g6["skv_pad"], "bf16_copies": True,
-            "swizzle": 0, "smem": 128 * mb * dk + 4 * bk * (dk + dp + 4) + bars,
-            "smem_maxpass": 128 * mb * 2 * dp + 4 * bk * (2 * dp + 4) + bars, "shapes": shapes}
+    k_tile, bars = bk * slabs8 * row8, 8 * (1 + 2 * stages) + 1024
+    return {"dk": dk, "dp": dp, "row8": row8, "slabs8": slabs8, "bq": g6["bq"],
+            "n_qb": g6["n_qb"], "pb": pb, "n_kb": n_kb, "consumers": nwg, "q_rows": 64 * nwg,
+            "threads": 128 * (1 + nwg), "grid": (-(-sq // (64 * nwg)), bh),
+            "kv_rows": bk, "stages": stages, "tiles_per_block": pb // bk, "skv_pad": skv_pad,
+            "smem": 64 * nwg * slabs8 * row8 + stages * (k_tile + dp * bk + 4 * bk) + bars,
+            "smem_maxpass": 64 * nwg * slabs8 * row8 + stages * (k_tile + 8 * bk) + bars,
+            "shapes": shapes,
+            "maps": {"q8": _rows_map(bh, sq, dp, row8, 64 * nwg), "k8": g6["maps"]["k8"],
+                     "v8": _rows_map(bh, d, skv_pad, bk, dp)}}
 
 
 def int8pv_operands_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> dict:
     """K7's operands from the plain pre-pass `int8_prepass`, in the layout
     of `int8pv_geometry` (the plain version of the PV pre-pass kernels):
-    K6's q8, k8, sq and sk, v8 by `v8_chunks`, sv, and q8's and k8's values
-    in bf16 (qb, kb); at d = 128 v8 by `v8_channels` and no qb, kb."""
+    K6's q8, k8 and sq, the K scales by `kernel_k_scales`, v8 by
+    `v8_channels`, and sv."""
     ops = int8_prepass(q, k, v, pv_int8=True)
     b, sq, h, d = q.shape
     skv = k.shape[1]
     g = int8pv_geometry(b, sq, skv, h, d)
-    out = {"q8": _int8_rows_layout(ops["q8"], sq, d), "k8": _int8_rows_layout(ops["k8"], skv, d),
-           "sq": ops["sq"], "sk": F.pad(ops["sk"][:, :skv], (0, g["skv_pad"] - skv)),
-           "sv": ops["sv"], "bq": g["bq"]}
-    if not g["bf16_copies"]:
-        return out | {"v8": v8_channels(ops["v8"])}
-    q8, k8 = ops["q8"][:, :sq], ops["k8"][:, :skv]
-    return out | {"v8": v8_chunks(ops["v8"]), "qb": chunk_major(q8[..., :g["dp"]].bfloat16(), 8),
-                  "kb": chunk_major(k8[..., :g["dp"]].bfloat16(), 8)}
+    return {"q8": _int8_rows_layout(ops["q8"], sq, d), "k8": _int8_rows_layout(ops["k8"], skv, d),
+            "sq": ops["sq"],
+            "sk": F.pad(kernel_k_scales(ops["sk"][:, :skv]), (0, g["skv_pad"] - skv)),
+            "sv": ops["sv"], "v8": v8_channels(ops["v8"]), "bq": g["bq"]}
 
 
 def int8_block_rowmax_plain(ops: dict, sq: int, skv: int, scale: float) -> torch.Tensor:
     """The plain version of K7's max pass: from the operands of
     `int8pv_operands`, (BH, Sq, n_kb) f32, each (query, P block)'s max of
-    the logits in log2 units, w = (f32(q8 . k8) * sk) * c with c = scale *
-    log2(e) * sq of the query's Q-scale block, the keys past Skv left out.
-    For c > 0 the max is taken before the multiply by c (the same value:
-    rounding is monotone), as the kernel does. One Q-scale block of
-    queries at a time."""
-    q8, k8 = operand_rows(ops["q8"]).float(), operand_rows(ops["k8"]).float()
+    the logits in log2 units, w = (f32(q8 . k8) * sk') * c with sk' the
+    kernels' K scale (`kernel_k_scales`) and c = scale * log2(e) * sq of
+    the query's Q-scale block, the keys past Skv left out. For c > 0 the
+    max is taken before the multiply by c (the same value: rounding is
+    monotone), as the kernel does. One Q-scale block of queries at a
+    time."""
+    q8, k8 = ops["q8"].float(), ops["k8"].float()
     bq = ops["bq"]
     pb = min(QBLOCK, _ceil_to(skv, 128))
     n_kb = -(-skv // pb)
-    sk = ops["sk"][:, :skv]
+    sk = ops["sk"][:, 0, :skv]
     out = []
     for i, r0 in enumerate(range(0, sq, bq)):
         u = torch.matmul(q8[:, r0:r0 + bq], k8.transpose(1, 2)) * sk[:, None, :]  # exact dots
@@ -546,16 +519,16 @@ def int8_block_rowmax_plain(ops: dict, sq: int, skv: int, scale: float) -> torch
     return torch.cat(out, dim=1)
 
 
-# tclight_qk_int8_prepass(q, k, v, q8, k8, vc, sq, sk, scratch, B, H, Sq, Skv,
-# D, bq, stream)
-PREPASS_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-# tclight_flash_attention_qk_int8(q8, k8, vc, sq, sk, o, B, H, Sq, Skv, D,
-# bq, scale, stream)
+# tclight_qk_int8_prepass(q, k, q8, k8, sq, sk, scratch, B, H, Sq, Skv, D, bq,
+# stream)
+PREPASS_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+# tclight_flash_attention_qk_int8(q8, k8, v, sq, sk, o, B, H, Sq, Skv, D, bq,
+# scale, stream)
 K6_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
-# tclight_int8pv_prepass(q, k, v, q8, k8, v8, qb, kb, sq, sk, sv, scratch, B,
-# H, Sq, Skv, D, bq, stream)
-PV_PREPASS_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-# tclight_int8pv_blockmax(qb, kb, sq, sk, blockmax, B, H, Sq, Skv, D, bq,
+# tclight_int8pv_prepass(q, k, v, q8, k8, v8, sq, sk, sv, scratch, B, H, Sq,
+# Skv, D, bq, stream)
+PV_PREPASS_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+# tclight_int8pv_blockmax(q8, k8, sq, sk, blockmax, B, H, Sq, Skv, D, bq,
 # scale, stream)
 MAXPASS_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
 # tclight_flash_attention_int8pv(q8, k8, v8, sq, sk, sv, blockmax, o, B, H,
@@ -583,33 +556,35 @@ def _check_int8_inputs(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Ten
         raise ValueError(f"{name} kernel: batch * heads = {b * h} is over the grid's 65535")
 
 
+def _empty_operands(g: dict, names, device) -> dict:
+    """Uninitialised operands of the pre-pass kernels, shaped by the geometry
+    `g`: the int8 ones (q8, k8, v8) and the f32 ones."""
+    return {n: torch.empty(g["shapes"][n], device=device,
+                           dtype=torch.int8 if n in ("q8", "k8", "v8") else torch.float32)
+            for n in names}
+
+
 def qk_int8_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> dict:
     """K6's operands (`qk_int8_geometry`): on CUDA tensors from the
     hand-written pre-pass kernels, on CPU tensors from the plain version
-    `qk_int8_operands_plain`."""
+    `qk_int8_operands_plain`. v is read in place: the pre-pass copies
+    nothing."""
     if not q.is_cuda:
         return qk_int8_operands_plain(q, k, v)
     _check_int8_inputs("flash_attention_int8", q, k, v)
     b, sq, h, d = q.shape
     skv = k.shape[1]
     g = qk_int8_geometry(b, sq, skv, h, d)
-    sh = g["shapes"]
-    ops = {name: torch.empty(sh[name], dtype=dt, device=q.device) for name, dt in (
-        ("q8", torch.int8), ("k8", torch.int8), ("v", torch.bfloat16), ("sq", torch.float32),
-        ("sk", torch.float32), ("scratch", torch.float32)) if name != "v" or g["v_copy"]}
-    if not g["v_copy"]:
-        ops["v"] = v  # read in place; the pre-pass writes no copy
+    ops = _empty_operands(g, ("q8", "k8", "sq", "sk", "scratch"), q.device)
     fn = kernels.function("flash_attention_qk_int8", "tclight_qk_int8_prepass",
                           PREPASS_ARGTYPES, ctypes.c_int)
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), ops["q8"].data_ptr(),
-            ops["k8"].data_ptr(), ops["v"].data_ptr(), ops["sq"].data_ptr(),
-            ops["sk"].data_ptr(), ops["scratch"].data_ptr(), b, h, sq, skv, d, g["bq"],
-            torch.cuda.current_stream(q.device).cuda_stream)
+    rc = fn(q.data_ptr(), k.data_ptr(), *(ops[n].data_ptr() for n in ("q8", "k8", "sq", "sk",
+                                                                     "scratch")),
+            b, h, sq, skv, d, g["bq"], torch.cuda.current_stream(q.device).cuda_stream)
     kernels.check_launch(rc, "flash_attention_int8 pre-pass")
     kernels.STATS["flash_attention_int8_prepass"].record((sq, skv, d))
     del ops["scratch"]
-    ops["bq"] = g["bq"]
-    return ops
+    return ops | {"v": v, "bq": g["bq"]}
 
 
 def int8pv_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> dict:
@@ -622,38 +597,30 @@ def int8pv_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> dict:
     b, sq, h, d = q.shape
     skv = k.shape[1]
     g = int8pv_geometry(b, sq, skv, h, d)
-    sh = g["shapes"]
-    # at d = 128 there are no bf16 copies (qb, kb): the max pass reads q8, k8
-    ops = {name: torch.empty(sh[name], dtype=dt, device=q.device) for name, dt in (
-        ("q8", torch.int8), ("k8", torch.int8), ("v8", torch.int8), ("qb", torch.bfloat16),
-        ("kb", torch.bfloat16), ("sq", torch.float32), ("sk", torch.float32),
-        ("sv", torch.float32), ("scratch", torch.float32)) if name in sh}
+    names = ("q8", "k8", "v8", "sq", "sk", "sv", "scratch")
+    ops = _empty_operands(g, names, q.device)
     fn = kernels.function("flash_attention_qk_int8", "tclight_int8pv_prepass",
                           PV_PREPASS_ARGTYPES, ctypes.c_int)
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            *(ops[n].data_ptr() if n in ops else None
-              for n in ("q8", "k8", "v8", "qb", "kb", "sq", "sk", "sv", "scratch")),
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), *(ops[n].data_ptr() for n in names),
             b, h, sq, skv, d, g["bq"], torch.cuda.current_stream(q.device).cuda_stream)
     kernels.check_launch(rc, "flash_attention_int8pv pre-pass")
     kernels.STATS["flash_attention_int8pv_prepass"].record((sq, skv, d))
     del ops["scratch"]
-    ops["bq"] = g["bq"]
-    return ops
+    return ops | {"bq": g["bq"]}
 
 
 def int8_block_rowmax(ops: dict, b: int, h: int, sq: int, skv: int, d: int,
                       scale: float) -> torch.Tensor:
     """K7's max pass on the operands of `int8pv_operands`: on CUDA tensors
-    the kernel (on the bf16 copies qb and kb, at d = 128 on q8 and k8), on
-    CPU tensors `int8_block_rowmax_plain`."""
+    the kernel (on q8 and k8 in place), on CPU tensors
+    `int8_block_rowmax_plain`."""
     if not ops["q8"].is_cuda:
         return int8_block_rowmax_plain(ops, sq, skv, scale)
     g = int8pv_geometry(b, sq, skv, h, d)
     bm = torch.empty(g["shapes"]["blockmax"], dtype=torch.float32, device=ops["q8"].device)
     fn = kernels.function("flash_attention_int8", "tclight_int8pv_blockmax", MAXPASS_ARGTYPES,
                           ctypes.c_int)
-    qb, kb = (ops["qb"], ops["kb"]) if g["bf16_copies"] else (ops["q8"], ops["k8"])
-    rc = fn(qb.data_ptr(), kb.data_ptr(), ops["sq"].data_ptr(),
+    rc = fn(ops["q8"].data_ptr(), ops["k8"].data_ptr(), ops["sq"].data_ptr(),
             ops["sk"].data_ptr(), bm.data_ptr(), b, h, sq, skv, d, ops["bq"], float(scale),
             torch.cuda.current_stream(bm.device).cuda_stream)
     kernels.check_launch(rc, "flash_attention_int8pv max pass")

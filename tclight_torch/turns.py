@@ -17,23 +17,36 @@ padded batch of chip_smoke's 8-frame video and 16 distinct frames of a
 at 960x720, its post-opt batch of 16), all computed once by this checkout
 into build/turns/.
 
-    python -m tclight_torch.turns OTHER_CHECKOUT [K1 K2 K6 K7 K3 K4 K5 K5-path]
+    python -m tclight_torch.turns OTHER_CHECKOUT [K1 K2 K6 K7 K6-prepass K7-prepass
+        K7-maxpass K3 K4 K5 K5-path steps]
 
 K2 runs at every shape chip_smoke's paths launch it at (`K2_SHAPES`).
 K1, K6 and K7 run at the UNet's xy levels 0-2 and yt levels 0-1 and at
 the Cosmos DiTs' self-attention (32 heads of 128: 5,120, 14,080 and 56,320
 tokens); K1 through `flash_attention_cuda` (the wrapper's k/v copies
 included where a checkout makes them), K6 and K7 through
-`flash_attention_int8_cuda` (`attn_backend="int8"` / `"int8pv"`).
+`flash_attention_int8_cuda` (`attn_backend="int8"` / `"int8pv"`, the
+pre-pass and K7's max pass included); K6-prepass and K7-prepass through
+`qk_int8_operands` / `int8pv_operands`, K7-maxpass through
+`int8_block_rowmax` on the operands of that checkout's pre-pass, all at
+the same shapes.
 
 K5-path is chip_smoke's K5 path: `run_uvt` on the turnover ids for 5
 epochs; its ms is the median epoch past the first (the first plans and
 warms up).
 
+steps are chip_smoke's int8 runs through each checkout's CLI
+(`tclight_torch.run`, random full-width weights, 4 sampling steps, the
+post-optimization off): `yt-int8` (configs/examples/tclight_navsim.yaml,
+30 frames at 960x720, int8 q.k^T), `int8` and `int8pv` (the main config, 8
+frames, int8 q.k^T, and p.v too); the videos are chip_smoke's, made once
+by this checkout into build/turns/. Its ms is the steady step, the mean of
+the steps past the first (`stage_times`), each step beside it.
+
 Prints the card's name and power limit, then one line per leg and shape:
 milliseconds (`cuda_event_ms`: CUDA events over a few calls, after a
-warm-up; K1's, K2's, K3's and K4's the median of three such runs, with
-their spread). Needs a CUDA card and nvcc; each checkout builds its
+warm-up; all but K5's the median of three such runs, with their
+spread). Needs a CUDA card and nvcc; each checkout builds its
 kernels into its own build/.
 """
 
@@ -73,8 +86,9 @@ K2_SHAPES = [("global L0", (2, 23760, 23760, 320)), ("local L0", (2, 32400, 1080
              ("parallel local L1", (2, 6912, 2304, 32))]
 SHAPES = ([("K1", label, shape) for label, shape in K1_SHAPES]
           + [("K2", label, shape) for label, shape in K2_SHAPES]
-          + [("K6", label, shape) for label, shape in ATTENTION + DIT]
-          + [("K7", label, shape) for label, shape in ATTENTION + DIT]
+          + [(kernel, label, shape) for kernel in ("K6", "K7", "K6-prepass", "K7-prepass",
+                                                   "K7-maxpass")
+             for label, shape in ATTENTION + DIT]
           + [("K3", f"{d} {case}", shape[:4] + (d == "adjoint",))
              for case, shape in (("farneback", (16, 720, 960, 4)), ("random", (16, 720, 960, 24)),
                                  ("wide", (2, 160, 192, 100)))
@@ -172,6 +186,33 @@ def k4_plans(path) -> None:
     torch.save(plans, path)
 
 
+def step_runs(root: Path) -> list:
+    """The `steps` entries: (kernel, label, (config, video, overrides)) of
+    chip_smoke's yt-int8, int8 and int8pv runs, on its videos made under
+    build/turns/ of `root` if missing (with `root`'s chip_smoke)."""
+    if str(root) not in sys.path:
+        sys.path.insert(0, str(root))
+    from chip_smoke import CHUNK, HEIGHT, PROMPT, STEPS, WIDTH, YT_FRAMES, make_video
+
+    vids = {}
+    for n in (FRAMES, YT_FRAMES):
+        vids[n] = root / "build" / "turns" / f"vid{n}"
+        if not vids[n].exists():
+            make_video(vids[n], n, HEIGHT, WIDTH)
+    common = ("post_opt.apply_opt=false", f"generation.n_timesteps={STEPS}",
+              "generation.attn_qk_int8=true")
+    # the prompt option before the overrides: the CLI takes those as one list
+    main = ("-p", PROMPT) + common + (
+        "data.flow_model=farneback", f"generation.chunk_size={CHUNK}",
+        "generation.chunk_ord=mix-4", f"generation.frame_range=[0,{FRAMES},1]",
+        f"data.height={HEIGHT}", f"data.width={WIDTH}")
+    return [("steps", "yt-int8", ("configs/examples/tclight_navsim.yaml", str(vids[YT_FRAMES]),
+                                  common)),
+            ("steps", "int8", ("configs/tclight_default.yaml", str(vids[FRAMES]), main)),
+            ("steps", "int8pv", ("configs/tclight_default.yaml", str(vids[FRAMES]),
+                                 main + ("generation.attn_pv_int8=true",)))]
+
+
 def farneback_path(root: Path) -> Path:
     """build/turns/farneback_past.npy under `root`, made if missing."""
     path = root / "build" / "turns" / "farneback_past.npy"
@@ -203,7 +244,9 @@ def leg(shapes, flows_path, plans_path, k4_path=None) -> None:
     import torch
     import torch.nn.functional as F
 
-    from tclight_torch.ops.attention import flash_attention_cuda, flash_attention_int8_cuda
+    from tclight_torch.ops.attention import (flash_attention_cuda, flash_attention_int8_cuda,
+                                             int8_block_rowmax, int8pv_operands,
+                                             qk_int8_operands)
     from tclight_torch.ops.banded_gather import banded_gather_cuda, banded_gather_multi_cuda
     from tclight_torch.ops.match_kernel import online_argmax_scores_cuda
     from tclight_torch.ops.warp_kernel import window_warp_cuda
@@ -257,6 +300,28 @@ def leg(shapes, flows_path, plans_path, k4_path=None) -> None:
                                           warp_radius=postopt.flow_radius(flows.cpu().numpy()))
             label += " epoch_s=" + ",".join(f"{x:.4f}" for x in times)
             t = float(np.median(times[1:])) * 1e3
+        elif kernel == "steps":
+            # the checkout's CLI (cwd: the checkout); ms the steady step
+            import shutil
+            from pathlib import Path
+
+            import yaml
+
+            from tclight_torch.run import main as run_main
+
+            config, video, overrides = shape
+            work = Path("build") / "turns_steps" / label
+            shutil.rmtree(work, ignore_errors=True)
+            rc = run_main(["--config", config, "-i", video, "--full-width-random", *overrides,
+                           f"work_dir={work}"])
+            if rc != 0:
+                raise SystemExit(f"{label} run exited {rc}")
+            out_dir = next(work.rglob("output.mp4")).parent
+            steps = yaml.safe_load((out_dir / "config.yaml").read_text())["stage_times"]
+            steps = steps["step_times"]
+            label += " step_s=" + ",".join(f"{x:.4f}" for x in steps)
+            t = float(np.mean(steps[1:])) * 1e3
+            shape = config
         elif kernel == "K3":
             n, h, w, r, adjoint = shape
             x = torch.rand(n, h, w, 3, device="cuda", generator=gen)
@@ -271,8 +336,17 @@ def leg(shapes, flows_path, plans_path, k4_path=None) -> None:
             b, s, h, d = shape
             q, k, v = (torch.randn(b, s, h, d, device="cuda", generator=gen, dtype=torch.bfloat16)
                        for _ in range(3))
-            t = ms(lambda: flash_attention_int8_cuda(q, k, v, d ** -0.5, kernel == "K7"),
-                   3 if s > 20000 else 10)
+            if kernel == "K7-maxpass":
+                ops = int8pv_operands(q, k, v)
+                fn = lambda: int8_block_rowmax(ops, b, h, s, s, d, d ** -0.5)  # noqa: E731
+            elif kernel.endswith("prepass"):
+                make = qk_int8_operands if kernel == "K6-prepass" else int8pv_operands
+                fn = lambda: make(q, k, v)  # noqa: E731
+            else:
+                fn = lambda: flash_attention_int8_cuda(q, k, v, d ** -0.5,  # noqa: E731
+                                                       kernel == "K7")
+            t, spread = cuda_event_ms(fn, 3 if s > 20000 else 10, 3)
+            label += f" spread_ms={spread:.4f}"
         print(f"{kernel} {label} {shape} ms={t:.4f}", flush=True)
 
 
@@ -287,7 +361,8 @@ def leg_code(root, shapes, flows_path, plans_path, k4_path=None) -> str:
 
 
 def main(argv: list[str]) -> int:
-    every = {"K1", "K2", "K6", "K7", "K3", "K4", "K5", "K5-path"}
+    every = {"K1", "K2", "K6", "K7", "K6-prepass", "K7-prepass", "K7-maxpass", "K3", "K4", "K5",
+             "K5-path", "steps"}
     kernels = set(argv[1:]) or every
     if not argv or not kernels <= every:
         print(__doc__, file=sys.stderr)
@@ -301,6 +376,8 @@ def main(argv: list[str]) -> int:
     k4_path, plans_path = (plan_paths(here) if kernels & {"K4", "K5", "K5-path"}
                            else (None, None))
     shapes = [sh for sh in SHAPES if sh[0] in kernels]
+    if "steps" in kernels:
+        shapes += step_runs(here)
     for name, root in (("this", here), ("other", other), ("other", other), ("this", here)):
         print(f"[turn] {name} {root}", flush=True)
         r = subprocess.run([sys.executable, "-c",

@@ -131,25 +131,37 @@ def test_int8_plain_matches_jax_bf16(pv_int8):
                                atol=2.0 ** -8 * np.abs(ref).max())
 
 
-def test_int8_prepass_lays_out_the_kernel_operands():
+@pytest.mark.parametrize("d", [40, 80, 160])
+def test_int8_prepass_lays_out_the_kernel_operands(d):
     """The plain pre-pass of K6 / K7: contiguous (a B = 1 head-major view is
     not), head dim padded with zeros to the int8 MMA depth, keys to 64, the
     Q scale per 1024-row block; with pv_int8 V quantized per channel, (BH,
-    Skv, D), which `int8pv_operands_plain` lays out for K7 (see
-    `test_int8pv_operands_match_jax_quantizers`)."""
-    q, k, v = (torch.from_numpy(a).bfloat16() for a in _qkv(3, 1, 1030, 200, 2, 80))
+    Skv, D). The kernels' layout made from it (`qk_int8_operands_plain`,
+    `int8pv_operands_plain`) copies nothing at any head dim: q8 and k8 its
+    real rows, row-major, ceil16(D) bytes a row; K6's v the input itself;
+    K7's v8 channel-major (`v8_channels`) and no copy of q8 or k8."""
+    q, k, v = (torch.from_numpy(a).bfloat16() for a in _qkv(3, 1, 1030, 200, 2, d))
+    dk, dr = -(-d // 32) * 32, -(-d // 16) * 16
     ops = tattn.int8_prepass(q, k, v, pv_int8=True)
     assert all(t.is_contiguous() for t in ops.values() if torch.is_tensor(t))
-    assert ops["q8"].shape == (2, 2048, 96) and ops["q8"].dtype == torch.int8
-    assert ops["k8"].shape == (2, 256, 96) and ops["sk"].shape == (2, 256)
+    assert ops["q8"].shape == (2, 2048, dk) and ops["q8"].dtype == torch.int8
+    assert ops["k8"].shape == (2, 256, dk) and ops["sk"].shape == (2, 256)
     assert ops["sq"].shape == (2, 2) and ops["bq"] == 1024
-    assert ops["v8"].shape == (2, 200, 80) and ops["sv"].shape == (2, 80)
-    assert (ops["q8"][:, :, 80:] == 0).all() and (ops["k8"][:, 200:] == 0).all()
+    assert ops["v8"].shape == (2, 200, d) and ops["sv"].shape == (2, d)
+    assert (ops["q8"][:, :, d:] == 0).all() and (ops["k8"][:, 200:] == 0).all()
     q8, sqs = tattn.quantize_blocks(torch.nn.functional.pad(
         tattn._heads_first(q), (0, 0, 0, 2048 - 1030)), 1024)
-    assert torch.equal(ops["q8"][:, :, :80], q8) and torch.equal(ops["sq"], sqs)
+    assert torch.equal(ops["q8"][:, :, :d], q8) and torch.equal(ops["sq"], sqs)
     v8, sv = tattn.quantize_channels(tattn._heads_first(v))
     assert torch.equal(ops["v8"], v8) and torch.equal(ops["sv"], sv)
+    k6, k7 = tattn.qk_int8_operands_plain(q, k, v), tattn.int8pv_operands_plain(q, k, v)
+    for o in (k6, k7):
+        assert o["q8"].shape == (2, 1030, dr) and o["k8"].shape == (2, 200, dr)
+        assert o["q8"].is_contiguous() and o["k8"].is_contiguous()
+        assert torch.equal(o["q8"], ops["q8"][:, :1030, :dr])
+        assert torch.equal(o["k8"], ops["k8"][:, :200, :dr])
+    assert k6["v"] is v and set(k7) == {"q8", "k8", "v8", "sq", "sk", "sv", "bq"}
+    assert torch.equal(k7["v8"], tattn.v8_channels(ops["v8"])) and k7["v8"].shape == (2, d, 256)
 
 
 def test_int8_prepass_lays_out_head_dim_128():
@@ -171,38 +183,21 @@ def test_int8_prepass_lays_out_head_dim_128():
     assert torch.equal(k7["v8"], tattn.v8_channels(ops["v8"])) and k7["v8"].shape == (2, 128, 256)
 
 
-def _from_v8_chunks(v8c: torch.Tensor, skv: int) -> torch.Tensor:
-    """Inverse of `v8_chunks` (and of `v8_channels`, the channel-major
-    layout of head dim 128): byte 4t + 2a + c of a chunk is key 8a + 2t + c."""
-    if v8c.dim() == 3:  # (bh, d, keys) -> (bh, keys / 16, d, 16)
-        bh, d, n = v8c.shape
-        v8c = v8c.reshape(bh, d, n // 16, 16).transpose(1, 2)
-    bh, n_vc, d, _ = v8c.shape
-    x = v8c.reshape(bh, n_vc, d, 4, 2, 2).permute(0, 1, 4, 3, 5, 2)  # (bh, chunk, a, t, c, d)
-    return x.reshape(bh, n_vc * 16, d)[:, :skv], x.reshape(bh, n_vc * 16, d)[:, skv:]
-
-
-def test_v8_chunks_key_order():
-    """Each 16 keys of a channel: byte 4t + 2a + c holds key 8a + 2t + c, the
-    order in which a thread's int32 score fragment (keys 2t, 2t + 1 of each
-    8) packs into the s8 A fragment (bytes 4t..4t+3 of each 16)."""
-    keys = torch.arange(40, dtype=torch.int8)[None, :, None].repeat(1, 1, 3)
-    c = tattn.v8_chunks(keys)
-    assert c.shape == (1, 3, 3, 16)
-    for t in range(4):
-        for a in range(2):
-            for cc in range(2):
-                assert c[0, 1, 2, 4 * t + 2 * a + cc] == 16 + 8 * a + 2 * t + cc
-    back, pad = _from_v8_chunks(c, 40)
-    assert torch.equal(back, keys) and (pad == 0).all()
+def _from_v8_channels(v8c: torch.Tensor, skv: int):
+    """Inverse of `v8_channels`: (BH, D, keys) -> (BH, keys, D), byte 4t +
+    2a + c of each 16 keys being key 8a + 2t + c; the real keys and the
+    padding."""
+    bh, d, n = v8c.shape
+    x = v8c.reshape(bh, d, n // 16, 4, 2, 2).permute(0, 2, 4, 3, 5, 1)  # (bh, chunk, a, t, c, d)
+    return x.reshape(bh, n, d)[:, :skv], x.reshape(bh, n, d)[:, skv:]
 
 
 def test_v8_channels_key_order():
-    """Head dim 128's channel-major v8 (BH, D, ceil128(Skv)): each channel's
-    keys contiguous, padded with zeros to 128, in `v8_chunks`' order within
-    each 16, which is the k32 A fragment's: bytes 4t..4t+3 of each 16 keys
-    hold a thread's keys 2t, 2t + 1, 8 + 2t, 9 + 2t (the score fragment's
-    keys of two 8-key blocks, packed as they lie)."""
+    """K7's channel-major v8 (BH, D, ceil128(Skv)): each channel's keys
+    contiguous, padded with zeros to 128, and within each 16 byte 4t + 2a +
+    c holding key 8a + 2t + c, the k32 A fragment's order: bytes 4t..4t+3
+    of each 16 keys hold a thread's keys 2t, 2t + 1, 8 + 2t, 9 + 2t (the
+    score fragment's keys of two 8-key blocks, packed as they lie)."""
     keys = torch.arange(40, dtype=torch.int8)[None, :, None].repeat(1, 1, 3)
     keys[..., 1] += 50
     c = tattn.v8_channels(keys)
@@ -210,7 +205,7 @@ def test_v8_channels_key_order():
     for t in range(4):
         assert c[0, 1, 16 + 4 * t:16 + 4 * t + 4].tolist() == [
             66 + 2 * t, 67 + 2 * t, 74 + 2 * t, 75 + 2 * t]
-    back, pad = _from_v8_chunks(c, 40)
+    back, pad = _from_v8_channels(c, 40)
     assert torch.equal(back, keys) and (pad == 0).all() and pad.shape[1] == 128 - 40
 
 
@@ -263,22 +258,30 @@ def test_tiny_unet_with_int8_attention_matches_jax(tiny_unet, backend, monkeypat
     np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-3 * np.abs(ref).max())
 
 
+def _kernel_k_scales_of(jsk) -> np.ndarray:
+    """JAX's K scales as the kernels take them: the two lowest significand
+    bits cleared (`kernel_k_scales`)."""
+    return (np.asarray(jsk, dtype=np.float32).view(np.int32) & ~3).view(np.float32)
+
+
 @pytest.mark.parametrize("b,sq,skv,h,d", [
-    (1, 1030, 200, 2, 40),    # two Q-scale blocks, D padded 40 -> 64
+    (1, 1030, 200, 2, 40),    # two Q-scale blocks, rows of 48 bytes, depth 64
     (2, 300, 1100, 1, 80),    # one Q block of 384 rows, a ragged last k slice
     (1, 129, 65, 2, 8),       # the smallest head dim
     (1, 64, 130, 1, 160),     # the largest
-    (1, 1030, 200, 2, 128),   # head dim 128: q8 and k8 row-major, v in place
+    (1, 1030, 200, 2, 128),   # head dim 128
     (2, 300, 1100, 1, 128),
+    (2, 130, 65, 1, 40),      # B = 2, a ragged 128-key tile
+    (1, 300, 1100, 2, 160),   # two heads, ragged 64-key tiles
 ])
 def test_qk_int8_operands_match_jax_quantizers(b, sq, skv, h, d):
     """K6's operands in the layout its pre-pass kernels write
-    (`qk_int8_operands`, the plain version on the CPU), read back into
-    (B * H, S, D): q8 and the Q scales equal JAX's `_quantize_blocks` of the
-    zero-padded queries, k8 and the K scales JAX's `_quantize_rows` of K
-    minus its token mean (bf16 inputs: bit-equal, see
-    `test_k_smoothing_matches`), v the heads-first v (at d = 128 v as it
-    lies); the head dim's padding and the padded keys' scales are zeros."""
+    (`qk_int8_operands`, the plain version on the CPU): q8 and the Q scales
+    equal JAX's `_quantize_blocks` of the zero-padded queries, k8 and the K
+    scales JAX's `_quantize_rows` of K minus its token mean (bf16 inputs:
+    bit-equal, see `test_k_smoothing_matches`), v the input itself at every
+    head dim; q8 and k8 row-major, ceil16(D) bytes a row, the dims past D
+    and the padded keys' scales zeros."""
     q, k, v = _qkv(5, b, sq, skv, h, d)
     jq, tq = _pair(q, "bf16")
     jk, tk = _pair(k, "bf16")
@@ -289,8 +292,8 @@ def test_qk_int8_operands_match_jax_quantizers(b, sq, skv, h, d):
         assert tuple(ops[name].shape) == g["shapes"][name], name
         assert ops[name].is_contiguous()
     assert ops["q8"].dtype == ops["k8"].dtype == torch.int8 and ops["bq"] == g["bq"]
-    q8 = tattn.operand_rows(ops["q8"])
-    k8 = tattn.operand_rows(ops["k8"])
+    assert ops["v"] is tv and g["row_bytes"] == ops["q8"].shape[-1] == -(-d // 16) * 16
+    q8, k8 = ops["q8"], ops["k8"]
     assert (q8[:, :, d:] == 0).all() and (k8[:, :, d:] == 0).all()
     bq, sq_pad = g["bq"], g["n_qb"] * g["bq"]
     jqt = jq.transpose(0, 2, 1, 3).reshape(b * h, sq, d)
@@ -302,71 +305,81 @@ def test_qk_int8_operands_match_jax_quantizers(b, sq, skv, h, d):
     np.testing.assert_array_equal(k8[:, :, :d].numpy(), np.asarray(jk8))
     np.testing.assert_array_equal(ops["sk"][:, :skv].numpy(), np.asarray(jsk))
     assert (ops["sk"][:, skv:] == 0).all()
-    if d == 128:
-        assert ops["v"] is tv
-    else:
-        assert torch.equal(tattn.from_chunk_major(ops["v"]), tattn._heads_first(tv))
+
+
+def test_kernel_k_scales_make_the_products_exact():
+    """K7's max pass makes a score as fma(float(1.5 * 2^23 + x), sk', -1.5 *
+    2^23 * sk') (`kernel_k_scales`), x * sk' rounded once for every int32
+    dot |x| < 2^22: the pair's second term is exact, and sk' is within 3
+    units in the last place of sk (two significand bits cleared)."""
+    rng = np.random.default_rng(11)
+    sk = torch.from_numpy((rng.uniform(1e-8, 1e-1, 4096)).astype(np.float32))[None]
+    pair = tattn.kernel_k_scales(sk)[0].double()
+    assert pair.shape == (2, 4096) and torch.equal(pair[0] * -12582912.0, pair[1])
+    assert ((pair[0] - sk[0].double()).abs() <= 3 * 2.0 ** -23 * sk[0].double()).all()
+    x = torch.from_numpy(rng.integers(-2 ** 22 + 1, 2 ** 22, 4096)).double()
+    # (M + x) * sk' is exact in f64 (24 + 23 bits), so the f64 sum rounded
+    # once to f32 is the FMA's result
+    fma = ((12582912.0 + x) * pair[0] + pair[1]).float()
+    assert torch.equal(fma, x.float() * pair[0].float())
 
 
 @pytest.mark.parametrize("d", [8, 16, 24, 40, 64, 80, 96, 128, 144, 160])
 def test_qk_int8_geometry_matches_the_kernel_source(d):
-    """K6 keeps the tiles (q rows, keys, stages) of K1's design before K1
-    read every head dim in place, for the p.v width dp: two 64-row q blocks
-    a warpgroup and 64-key tiles in 4 stages up to dp 96, else one block
-    and 128 keys in 3 stages up to dp 128, 2 above; at d = 128 they are
-    K1's; its q.k^T depth dk is d padded to 32; its shared memory fits a
-    block; the rules are those of `csrc/flash_attention_qk_int8.cu`."""
+    """K6 takes K1's tiles at every head dim (consumer warpgroups, q rows,
+    keys a tile, stages, the row sums on the tensor cores at d = dp - 8 up
+    to dp 64); its q.k^T depth dk is d padded to 32, a q8 or k8 row is
+    ceil16(d) bytes, read in boxes of 64 bytes in the 64-byte swizzle where
+    dk <= 64, else of 128 bytes in the 128-byte swizzle (ceil(dk / box) a
+    row), by a tile's rows, v in place through K1's map;
+    a warpgroup's 64 rows lie in one Q-scale block; its shared memory fits
+    a block; the rules are those of `csrc/flash_attention_qk_int8.cu` and
+    `csrc/hopper.cuh`."""
     from pathlib import Path
 
     g = tattn.qk_int8_geometry(2, 35640, 35640, 8, d)
     k1 = tattn.flash_geometry(2, 35640, 35640, 8, d)
-    assert g["dk"] % 32 == 0 and d <= g["dk"] < d + 32 and g["dp"] == k1["dp"]
-    mb = 2 if g["dp"] <= 96 else 1
-    assert (g["row_blocks"], g["q_rows"], g["kv_rows"], g["stages"]) == (
-        mb, 128 * mb, 64 if mb == 2 else 128, 4 if mb == 2 else (3 if g["dp"] <= 128 else 2))
-    if d == 128:
-        for key in ("row_blocks", "q_rows", "kv_rows", "stages"):
-            assert g[key] == k1[key], key
-    smem = (g["q_rows"] * g["dk"] + g["stages"] * g["kv_rows"] * (g["dk"] + 2 * g["dp"] + 4)
-            + 8 * (1 + 2 * g["stages"]) + 128)
-    assert smem <= tattn.SMEM_PER_BLOCK
+    assert g["dk"] % 32 == 0 and d <= g["dk"] < d + 32 and g["dp"] == k1["dp"] == g["row_bytes"]
+    for key in ("consumers", "q_rows", "kv_rows", "stages", "sums_on_tc", "threads", "grid"):
+        assert g[key] == k1[key], key
+    row8 = 64 if g["dk"] <= 64 else 128
+    assert g["row8"] == row8 and g["slabs8"] == -(-g["dk"] // row8)
+    bk, dp = g["kv_rows"], g["dp"]
+    smem = (g["q_rows"] * g["slabs8"] * row8 + g["stages"] * bk * (g["slabs8"] * row8
+                                                                   + k1["slabs"] * 128 + 4)
+            + 8 * (1 + 2 * g["stages"]) + 1024)
+    assert g["smem"] == smem <= tattn.SMEM_PER_BLOCK
     assert g["bq"] == 1024 and g["n_qb"] == 35 and g["skv_pad"] % 128 == 0
-    assert g["q_rows"] <= g["bq"] and g["bq"] % g["q_rows"] == 0  # a q tile reads one sq
-    src = (Path(tattn.__file__).resolve().parent.parent / "csrc"
-           / "flash_attention_qk_int8.cu").read_text()
-    for rule in ("row_blocks(int dp) { return dp <= 96 ? 2 : 1; }",
-                 "return (size_t)q_rows(dp) * dk + (size_t)n_stages(dp) * kv_rows(dp) * "
-                 "(dk + 2 * dp + 4) +",
-                 "constexpr int SLICE = 256;",
-                 "constexpr int CH8 = (D + 31) / 32 * 2;",
-                 "const cuuint32_t box[4] = {16, (cuuint32_t)rows, (cuuint32_t)(DK / 16), 1};"):
-        assert rule in src, rule
-    if d != 128:
-        assert g["v_copy"] and g["swizzle"] == 0
-        return
-    # head dim 128: q8, k8 row-major and v in place, read by 128-byte-swizzled
-    # tensor maps (hopper.cuh's, K1's for v), with K1's D = 128 tiles
-    hopper = (Path(tattn.__file__).resolve().parent.parent / "csrc" / "hopper.cuh").read_text()
-    assert not g["v_copy"] and g["swizzle"] == 128
-    assert g["shapes"]["q8"] == (16, 35640, 128) and g["shapes"]["v"] == (2, 35640, 8, 128)
-    for name in ("q8", "k8"):
-        assert g["maps"][name] == {"dims": (128, 35640, 16, 1),
-                                   "strides": (128, 128 * 35640, 128 * 35640 * 16),
-                                   "box": (128, 128, 1, 1), "swizzle": 128}
+    assert g["bq"] % 64 == 0  # a warpgroup's 64 rows read one sq
+    assert g["shapes"]["q8"] == (16, 35640, dp) and g["shapes"]["k8"] == (16, 35640, dp)
+    assert g["shapes"]["v"] == (2, 35640, 8, d) and g["shapes"]["sk"] == (16, 35712)
+    for name, rows in (("q8", g["q_rows"]), ("k8", bk)):
+        assert g["maps"][name] == {"dims": (dp, 35640, 16, 1),
+                                   "strides": (dp, dp * 35640, dp * 35640 * 16),
+                                   "box": (row8, rows, 1, 1), "swizzle": row8}
     assert g["maps"]["v"] == k1["maps"]["v"] and k1["maps"]["v"]["swizzle"] == 128
-    assert g["smem"] == 128 * 128 + 3 * 128 * (3 * 128 + 4) + 56 + 1024 <= tattn.SMEM_PER_BLOCK
-    for rule in ("constexpr int SW_D = 128;", "constexpr int SW_BQ = 128;",
-                 "constexpr int SW_BK = 128;", "constexpr int SW_NST = 3;",
-                 "constexpr size_t SW_SMEM = (size_t)SW_BQ * SW_D + (size_t)SW_NST * SW_BK * "
-                 "(3 * SW_D + 4) +\n                           8 * (1 + 2 * SW_NST) + 1024;",
-                 "tensor_map_rows_sw128(&tq, q8, B * H, Sq, SW_D, SW_BQ)",
-                 "tensor_map_bshd_sw128(&tv, vc, B, Skv, H, SW_BK);",
-                 "return launch<SW_D, SW_D, true>(q8, k8, vc, sq, sk, o, B, H, Sq, Skv, D, bq,",
-                 "return SW ? ((long)bh * S + r) * CH8 + c16 : ((long)bh * CH8 + c16) * S + r;"):
-        assert rule in src + hopper, rule
+    csrc = Path(tattn.__file__).resolve().parent.parent / "csrc"
+    src = (csrc / "flash_attention_qk_int8.cu").read_text()
+    k1_src = (csrc / "flash_attention.cu").read_text()
+    hopper = (csrc / "hopper.cuh").read_text()
+    for rule in ("consumers(int dp) { return dp <= 64 ? 3 : 2; }",
+                 "kv_rows(int dp) { return dp <= 128 ? 128 : 64; }",
+                 "n_stages(int dp) { return dp <= 64 ? 4 : 3; }",
+                 "sums_on_tc(int dp) { return dp <= 64; }"):
+        assert rule in src and rule in k1_src, rule
+    for rule in ("depth8(int dp) { return (dp + 31) / 32 * 32; }",
+                 "row8(int dp) { return depth8(dp) <= 64 ? 64 : 128; }",
+                 "return kv_rows(dp) * (slabs8(dp) * row8(dp) + slabs(dp) * SLAB * 2 + 4);",
+                 "constexpr int SLICE = 256;",
+                 "constexpr int W16 = (D + 15) / 16;",
+                 "tensor_map_rows_sw(&tq, q8, B * H, Sq, DP, row8(DP), q_rows(DP))",
+                 "tensor_map_bshd_slabs(&tv, v, B, Skv, H, D, kv_rows(DP))",
+                 "min((q0 + cw * 64) / bq, n_qb - 1)"):
+        assert rule in src, rule
     for rule in ("const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)R, (cuuint64_t)N, 1};",
-                 "const cuuint32_t box[4] = {128, (cuuint32_t)rows, 1, 1};",
-                 "CU_TENSOR_MAP_SWIZZLE_128B"):
+                 "const cuuint32_t box[4] = {(cuuint32_t)box_c, (cuuint32_t)rows, 1, 1};",
+                 "swizzle == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B",
+                 "return row == 64 ? wgmma_desc_sw64(p, 16, 512) : wgmma_desc_sw128(p, 16, 1024);"):
         assert rule in hopper, rule
 
 
@@ -375,7 +388,7 @@ def test_qk_int8_geometry_matches_the_kernel_source(d):
     (2, 300, 1100, 1, 80),    # a ragged last k slice and P block
     (1, 129, 65, 2, 8),       # the smallest head dim
     (1, 64, 130, 1, 160),     # the largest
-    (1, 1030, 200, 2, 128),   # head dim 128: v8 channel-major, no bf16 copies
+    (1, 1030, 200, 2, 128),   # head dim 128
     (2, 300, 1100, 1, 128),
 ])
 def test_int8pv_operands_match_jax_quantizers(b, sq, skv, h, d):
@@ -383,58 +396,55 @@ def test_int8pv_operands_match_jax_quantizers(b, sq, skv, h, d):
     (`int8pv_operands`, the plain version on the CPU), read back: q8, k8
     and their scales as for K6 (`test_qk_int8_operands_match_jax_quantizers`),
     v8 and sv equal to JAX's `_quantize_channels` of the heads-first V
-    (bf16 inputs: bit-equal), the keys past Skv zero (at d = 128 the keys
-    up to ceil128(Skv), and there are no bf16 copies)."""
+    (bf16 inputs: bit-equal), v8 channel-major with the keys up to
+    ceil128(Skv) past Skv zero; no copy of q8 or k8 at any head dim."""
     q, k, v = _qkv(6, b, sq, skv, h, d)
     jq, tq = _pair(q, "bf16")
     jk, tk = _pair(k, "bf16")
     jv, tv = _pair(v, "bf16")
     g = tattn.int8pv_geometry(b, sq, skv, h, d)
     ops = tattn.int8pv_operands(tq, tk, tv)
-    names = ("q8", "k8", "v8", "sq", "sk", "sv") + (("qb", "kb") if d != 128 else ())
+    names = ("q8", "k8", "v8", "sq", "sk", "sv")
     assert set(names) | {"bq"} == set(ops)
     for name in names:
         assert tuple(ops[name].shape) == g["shapes"][name], name
         assert ops[name].is_contiguous()
     assert ops["v8"].dtype == torch.int8 and ops["bq"] == g["bq"]
-    # the max pass's bf16 copies hold q8's and k8's values exactly, the head
-    # dim padded to 16 with zeros
-    dp = g["dp"]
-    for bf, i8 in (("qb", "q8"), ("kb", "k8")) if d != 128 else ():
-        assert ops[bf].dtype == torch.bfloat16
-        vals = tattn.from_chunk_major(ops[bf])
-        assert torch.equal(vals.float(), tattn.from_chunk_major(ops[i8])[..., :dp].float())
     bq, sq_pad = g["bq"], g["n_qb"] * g["bq"]
     jqt = jq.transpose(0, 2, 1, 3).reshape(b * h, sq, d)
     jq8, jsq = jattn._quantize_blocks(jnp.pad(jqt, ((0, 0), (0, sq_pad - sq), (0, 0))), bq)
-    np.testing.assert_array_equal(tattn.operand_rows(ops["q8"])[:, :, :d].numpy(),
-                                  np.asarray(jq8)[:, :sq])
+    np.testing.assert_array_equal(ops["q8"][:, :, :d].numpy(), np.asarray(jq8)[:, :sq])
     np.testing.assert_array_equal(ops["sq"].numpy(), np.asarray(jsq))
     jkt = jk.transpose(0, 2, 1, 3).reshape(b * h, skv, d)
     jk8, jsk = jattn._quantize_rows(jkt - jnp.mean(jkt, axis=1, keepdims=True))
-    np.testing.assert_array_equal(tattn.operand_rows(ops["k8"])[:, :, :d].numpy(),
-                                  np.asarray(jk8))
-    np.testing.assert_array_equal(ops["sk"][:, :skv].numpy(), np.asarray(jsk))
+    np.testing.assert_array_equal(ops["k8"][:, :, :d].numpy(), np.asarray(jk8))
+    np.testing.assert_array_equal(ops["sk"][:, 0, :skv].numpy(), _kernel_k_scales_of(jsk))
+    np.testing.assert_array_equal(ops["sk"][:, 1, :skv].numpy(),
+                                  _kernel_k_scales_of(jsk) * np.float32(-12582912.0))
+    assert (ops["sk"][:, :, skv:] == 0).all()
     jv8, jsv = jattn._quantize_channels(jv.transpose(0, 2, 1, 3).reshape(b * h, skv, d))
-    v8, pad = _from_v8_chunks(ops["v8"], skv)
+    v8, pad = _from_v8_channels(ops["v8"], skv)
     np.testing.assert_array_equal(v8.numpy(), np.asarray(jv8))
     np.testing.assert_array_equal(ops["sv"].numpy(), np.asarray(jsv))
-    assert (pad == 0).all()
+    assert (pad == 0).all() and pad.shape[1] == g["skv_pad"] - skv
 
 
 @pytest.mark.parametrize("b,sq,skv,h,d", [
     (1, 1100, 1300, 2, 40),   # two P blocks, the second ragged (276 keys)
     (2, 300, 700, 1, 80),     # one P block of 768 keys, 68 of them padding
     (1, 2100, 1030, 1, 24),   # three Q-scale blocks, a 6-key last P block
-    (1, 1100, 1300, 2, 128),  # head dim 128: q8 and k8 row-major
+    (1, 1100, 1300, 2, 128),  # head dim 128
     (2, 300, 700, 1, 128),
+    (1, 300, 1300, 1, 160),   # head dim 160: 64-key tiles
 ])
 def test_int8_block_rowmax_plain_matches_jax(b, sq, skv, h, d):
     """K7's max pass, plain: each (query, P block)'s logit max, against the
     block maxes of the logits that `_flash_attention_int8_xla` forms from
-    JAX's quantized operands (times log2(e): the kernel works in log2
-    units), the padded keys left out. The two multiply the same exact dots
-    by the same scales in another order: within 4 f32 ulps."""
+    JAX's quantized operands with the kernels' K scales (JAX's, two
+    significand bits cleared: `kernel_k_scales`), times log2(e) (the kernel
+    works in log2 units), the padded keys left out. The two multiply the
+    same exact dots by the same scales in another order: within 4 f32
+    ulps."""
     q, k, v = _qkv(7, b, sq, skv, h, d)
     jq, tq = _pair(q, "bf16")
     jk, tk = _pair(k, "bf16")
@@ -452,7 +462,7 @@ def test_int8_block_rowmax_plain_matches_jax(b, sq, skv, h, d):
     dots = jax.lax.dot_general(q8, k8, (((2,), (2,)), ((0,), (0,))),
                                preferred_element_type=jnp.int32)
     logits = (dots.astype(jnp.float32)[:, :sq] * (scale * jnp.repeat(sqs, bq, axis=1)[:, :sq, None])
-              * sks[:, None, :])
+              * jnp.asarray(_kernel_k_scales_of(sks))[:, None, :])
     logits = jnp.pad(logits, ((0, 0), (0, 0), (0, g["n_kb"] * pb - skv)),
                      constant_values=-jnp.inf)
     ref = np.asarray(logits.reshape(bh, sq, g["n_kb"], pb).max(axis=-1)) * np.log2(np.e)
@@ -470,10 +480,10 @@ def _k7_order(q, k, v, scale):
     ops = tattn.int8pv_operands(q, k, v)
     bm = tattn.int8_block_rowmax(ops, b, h, sq, skv, d, scale)
     g = tattn.int8pv_geometry(b, sq, skv, h, d)
-    q8, k8 = tattn.operand_rows(ops["q8"]).double(), tattn.operand_rows(ops["k8"]).double()
-    v8 = _from_v8_chunks(ops["v8"], skv)[0].double()
+    q8, k8 = ops["q8"].double(), ops["k8"].double()
+    v8 = _from_v8_channels(ops["v8"], skv)[0].double()
     c = scale * np.log2(np.e) * ops["sq"].double().repeat_interleave(g["bq"], 1)[:, :sq, None]
-    w = torch.matmul(q8, k8.transpose(1, 2)) * ops["sk"][:, None, :skv].double() * c
+    w = torch.matmul(q8, k8.transpose(1, 2)) * ops["sk"][:, 0, None, :skv].double() * c
     m = bm.double().amax(dim=-1, keepdim=True)
     acc = torch.zeros(b * h, sq, d, dtype=torch.float64)
     l = torch.zeros(b * h, sq, 1, dtype=torch.float64)
@@ -491,7 +501,8 @@ def _k7_order(q, k, v, scale):
     (1, 300, 1300, 2, 40),    # a ragged second P block
     (1, 200, 700, 1, 80),     # one P block with padding
     (2, 130, 1030, 1, 24),    # a 6-key last P block
-    (1, 300, 1300, 2, 128),   # head dim 128's layout: channel-major v8
+    (1, 300, 1300, 2, 128),   # head dim 128
+    (1, 200, 700, 2, 160),    # head dim 160: 64-key tiles
 ])
 def test_k7_order_matches_the_plain_int8pv(b, sq, skv, h, d):
     """The kernel's order (max pass first, alpha 1 throughout, P quantized
@@ -509,90 +520,79 @@ def test_k7_order_matches_the_plain_int8pv(b, sq, skv, h, d):
 
 @pytest.mark.parametrize("d", [8, 16, 24, 40, 64, 80, 96, 128, 144, 160])
 def test_int8pv_geometry_matches_the_kernel_source(d):
-    """K7's tiles: two 64-row blocks per consumer warpgroup up to DP = 48,
-    one above, with 128-key tiles up to DP = 96; 4 stages (at D = 128 3,
-    of 128-key tiles); a P block a
-    whole number of tiles; the shared memory of both kernels fits a block;
-    the rules are those of `csrc/flash_attention_int8.cu` and its pre-pass
-    of `csrc/flash_attention_qk_int8.cu`."""
+    """K7's tiles are K6's (K1's) at every head dim but for the consumer
+    warpgroups (the attention's and the max pass's): three up to dp 48,
+    two above; 128-key tiles up to dp 128,
+    64 above, 4 stages up to dp 64, 3 above; a P block a whole number of
+    tiles; v8 channel-major (BH, D, ceil128(Skv)) in boxes of a tile's keys
+    by dp channels, in the 128-byte swizzle at 128 keys and the 64-byte one
+    at 64; the shared memory of both kernels fits a block; the registers a
+    consumer keeps live fit its share; the rules are those of
+    `csrc/flash_attention_int8.cu`, its pre-pass's of
+    `csrc/flash_attention_qk_int8.cu` and `csrc/hopper.cuh`."""
     from pathlib import Path
 
     g = tattn.int8pv_geometry(2, 35640, 35640, 8, d)
-    assert g["dk"] == tattn.qk_int8_geometry(2, 35640, 35640, 8, d)["dk"]
-    assert g["row_blocks"] == (2 if g["dp"] <= 48 else 1)
-    assert g["pb"] == 1024 and g["n_kb"] == 35 and g["pb"] % g["kv_rows"] == 0
-    assert g["tiles_per_block"] * g["kv_rows"] == g["pb"]
+    g6 = tattn.qk_int8_geometry(2, 35640, 35640, 8, d)
+    for key in ("dk", "dp", "kv_rows", "stages", "row8", "slabs8"):
+        assert g[key] == g6[key], key
+    assert g["consumers"] == (3 if g["dp"] <= 48 else 2) and g["q_rows"] == 64 * g["consumers"]
+    bk, dp, row8 = g["kv_rows"], g["dp"], g["row8"]
+    assert g["pb"] == 1024 and g["n_kb"] == 35 and g["pb"] % bk == 0
+    assert g["tiles_per_block"] * bk == g["pb"]
     assert max(g["smem"], g["smem_maxpass"]) <= tattn.SMEM_PER_BLOCK
-    assert g["q_rows"] <= g["bq"] and g["bq"] % g["q_rows"] == 0
-    # registers a consumer thread keeps live: scores, int32 p.v sums, the
-    # f32 accumulator and p8's A fragments
-    mb, bk, dp = g["row_blocks"], g["kv_rows"], g["dp"]
-    # (at head dim 128, 128-key tiles: 208, under 240 less what the rows'
-    # maxes, sums, scales and the loop keep)
-    assert mb * (bk // 2 + dp + bk // 8) <= (208 if d == 128 else 200)
+    assert g["q_rows"] <= 256 and g["bq"] % 64 == 0
+    # registers a consumer thread keeps live in the attention: scores, int32
+    # p.v sums, the f32 accumulator and p8's A fragments, under its share
+    # (160 with three consumers, 240 with two) less what the rows' maxes,
+    # sums, scales and the loop keep
+    live = bk // 2 + dp + bk // 8
+    assert live <= (136 if g["consumers"] == 3 else 208)
     assert tattn.int8pv_geometry(1, 100, 300, 1, d)["pb"] == 384
+    assert g["shapes"]["v8"] == (16, d, 35712) and "qb" not in g["shapes"]
+    assert g["shapes"]["sk"] == (16, 2, 35712)
+    assert g["maps"]["v8"] == {"dims": (35712, d, 16, 1),
+                               "strides": (35712, 35712 * d, 35712 * d * 16),
+                               "box": (bk, dp, 1, 1), "swizzle": bk}
+    assert g["maps"]["k8"] == g6["maps"]["k8"]
+    assert g["maps"]["q8"] == {**g6["maps"]["q8"], "box": (row8, g["q_rows"], 1, 1)}
+    q_tile, k_tile = g["q_rows"] * g["slabs8"] * row8, bk * g["slabs8"] * row8
+    bars = 8 * (1 + 2 * g["stages"]) + 1024
+    assert g["smem"] == q_tile + g["stages"] * (k_tile + dp * bk + 4 * bk) + bars
+    assert g["smem_maxpass"] == q_tile + g["stages"] * (k_tile + 8 * bk) + bars
     csrc = Path(tattn.__file__).resolve().parent.parent / "csrc"
     src = (csrc / "flash_attention_int8.cu").read_text()
-    for rule in ("row_blocks(int dp) { return dp <= 48 ? 2 : 1; }",
-                 "return row_blocks(dp) == 2 ? 64 : (dp <= 96 ? 128 : 64);",
-                 "constexpr int NST = 4;", "constexpr int PBLOCK = 1024;",
-                 "return (size_t)q_rows(dp) * dk + (size_t)NST * kv_rows(dp) * (dk + dp + 4) +",
-                 "return (size_t)q_rows(dp) * dp * 2 + (size_t)NST * kv_rows(dp) * (dp * 2 + 4) +",
-                 "const cuuint64_t dims[4] = {16, (cuuint64_t)D, (cuuint64_t)n_vc, (cuuint64_t)BH};"):
+    for rule in ("consumers(int dp) { return dp <= 48 ? 3 : 2; }",
+                 "mp_consumers(int dp) { return dp <= 48 ? 3 : 2; }",
+                 "mp_magic(int dp) { return dp <= 48; }",
+                 "kv_rows(int dp) { return dp <= 128 ? 128 : 64; }",
+                 "n_stages(int dp) { return dp <= 64 ? 4 : 3; }",
+                 "row8(int dp) { return depth8(dp) <= 64 ? 64 : 128; }",
+                 "constexpr int PBLOCK = 1024;",
+                 "return kv_rows(dp) * (slabs8(dp) * row8(dp) + (pv ? dp + 4 : 8));",
+                 "tensor_map_rows_sw(&tv, v8, B * H, D, skv_pad, bk, DP)",
+                 "tensor_map_rows_sw(&tq, q8, B * H, Sq, DP, row8(DP), bq_rows)",
+                 "wgmma_desc_sw64(tV + kk * 32, 16, 8 * BK)"):
         assert rule in src, rule
     pre = (csrc / "flash_attention_qk_int8.cu").read_text()
     assert "const int perm = 4 * ((kp % 8) / 2) + 2 * (kp / 8) + kp % 2;" in pre
-    if d != 128:
-        assert g["bf16_copies"] and g["swizzle"] == 0 and "qb" in g["shapes"]
-        return
-    # head dim 128: q8 and k8 row-major, v8 channel-major, all in the
-    # 128-byte swizzle; 128-key tiles; the max pass on q8 and k8 by s8 wgmma
-    assert not g["bf16_copies"] and g["swizzle"] == 128 and "qb" not in g["shapes"]
-    assert (g["row_blocks"], g["q_rows"], g["kv_rows"], g["tiles_per_block"]) == (1, 128, 128, 8)
-    assert g["shapes"]["v8"] == (16, 128, 35712)
-    assert g["maps"]["v8"] == {"dims": (35712, 128, 16, 1),
-                               "strides": (35712, 35712 * 128, 35712 * 128 * 16),
-                               "box": (128, 128, 1, 1), "swizzle": 128}
-    assert g["maps"]["q8"]["box"] == (128, 128, 1, 1)
-    assert g["stages"] == 3
-    assert g["smem"] == 128 * 128 + 3 * 128 * 260 + 56 + 1024
-    assert g["smem_maxpass"] == 128 * 128 + 3 * 128 * 132 + 56 + 1024
-    for rule in ("constexpr int SW_D = 128;", "constexpr int SW_BQ = 128;",
-                 "constexpr int SW_BK = 128;", "constexpr int SW_NST = 3;",
-                 "constexpr size_t SW_SMEM = (size_t)SW_BQ * SW_D + (size_t)SW_NST * SW_BK * "
-                 "(2 * SW_D + 4) +",
-                 "constexpr int NS = SW ? SW_NST : NST;",
-                 "tensor_map_rows_sw128(&tv, v8, B * H, SW_D, skv_pad, SW_D);",
-                 "tensor_map_rows_sw128(&tq, qb, B * H, Sq, SW_D, bq_rows)",
-                 "return launch_blockmax<SW_D, true>(qb, kb, sq, sk, blockmax, B, H, Sq, Skv, bq,"):
-        assert rule in src, rule
     assert "reinterpret_cast<uint4*>(v8 + ((long)bh * D + c) * skv_pad + k0)[u] =" in pre
+    assert "const float s_kern = __uint_as_float(__float_as_uint(s) & ~3u);" in pre
 
 
 @pytest.mark.parametrize("d", [40, 80, 112, 120, 128, 160])
-def test_int8_wrappers_copy_all_but_head_dim_128(d):
-    """At head dim 128 K6's operands hold v itself (the kernel reads it in
-    place, the pre-pass writes no copy) and K7's hold no bf16 copies of q8
-    and k8 (the max pass reads q8 and k8); at every other head dim, the
-    UNet's 40 / 80 / 160 and 112 / 120 near 128 included, the chunk-major v
-    copy and the bf16 copies are made as before."""
+def test_int8_wrappers_copy_no_head_dim(d):
+    """At every head dim, the UNet's 40 / 80 / 160, the DiTs' 128 and 112 /
+    120 near it, K6's operands hold v itself (the kernel reads it in place,
+    the pre-pass writes no copy), q8 and k8 are row-major (BH, S,
+    ceil16(D)), and K7's operands hold no copy of q8 or k8 (the max pass
+    reads q8 and k8) and a channel-major v8."""
     q, k, v = (torch.from_numpy(a).bfloat16() for a in _qkv(9, 1, 130, 200, 2, d))
-    g6, g7 = tattn.qk_int8_geometry(1, 130, 200, 2, d), tattn.int8pv_geometry(1, 130, 200, 2, d)
     ops6, ops7 = tattn.qk_int8_operands(q, k, v), tattn.int8pv_operands(q, k, v)
-    assert g6["v_copy"] == g7["bf16_copies"] == (d != 128)
-    assert (ops6["v"] is v) == (d == 128)
-    assert ("qb" in ops7) == ("kb" in ops7) == (d != 128)
-    assert ops6["q8"].dim() == ops7["q8"].dim() == (3 if d == 128 else 4)
-    if d != 128:
-        assert tuple(ops6["v"].shape) == (2, d // 8, 200, 8)
-        assert ops7["qb"].dtype == torch.bfloat16
-
-
-def test_chunk_major_round_trip():
-    x = torch.arange(2 * 5 * 48).reshape(2, 5, 48)
-    c = tattn.chunk_major(x, 16)
-    assert c.shape == (2, 3, 5, 16) and c[1, 2, 4, 3] == x[1, 4, 2 * 16 + 3]
-    assert torch.equal(tattn.from_chunk_major(c), x)
+    assert ops6["v"] is v and "qb" not in ops7 and "kb" not in ops7
+    for ops in (ops6, ops7):
+        assert ops["q8"].shape == (2, 130, -(-d // 16) * 16) and ops["k8"].shape[:2] == (2, 200)
+    assert ops7["v8"].shape == (2, d, 256)
 
 
 def test_k6_argtypes_match_the_c_entry_points():
@@ -619,7 +619,7 @@ def test_k6_ablation_variants_apply_to_the_kernel_source():
     variant differs from the kernel (the base variant excepted)."""
     from tclight_torch import ablate_qk_int8
 
-    texts = ablate_qk_int8.variant_sources()
+    texts = ablate_qk_int8.variant_sources(ablate_qk_int8.VARIANTS, "flash_attention_qk_int8.cu")
     assert set(texts) == set(ablate_qk_int8.VARIANTS)
     for name, text in texts.items():
         assert (text == texts["base"]) == (name == "base"), name
@@ -630,10 +630,71 @@ def test_k7_ablation_variants_apply_to_the_kernel_source():
     """`python -m tclight_torch.ablate_int8pv` builds each variant of K7's
     kernels by text substitution: every replaced text is still in the
     source, and each variant differs from the kernels (base excepted)."""
-    from tclight_torch import ablate_int8pv
+    from tclight_torch import ablate_int8pv, ablate_qk_int8
 
-    texts = ablate_int8pv.variant_sources()
+    texts = ablate_qk_int8.variant_sources(ablate_int8pv.VARIANTS, "flash_attention_int8.cu")
     assert set(texts) == set(ablate_int8pv.VARIANTS)
     for name, text in texts.items():
         assert (text == texts["base"]) == (name == "base"), name
         assert "flash_int8pv_wgmma_kernel" in text and "flash_int8_blockmax_kernel" in text
+
+
+@pytest.mark.parametrize("kernel", ["K6", "K7", "K6-prepass", "K7-prepass", "K7-maxpass"])
+def test_turns_time_the_int8_parts_at_every_attention_shape(kernel, tmp_path):
+    """`python -m tclight_torch.turns OTHER K6 K7 K6-prepass K7-prepass
+    K7-maxpass` times each int8 part at the UNet's five shapes and the DiTs'
+    three, through the wrappers both checkouts have; its leg program
+    compiles."""
+    import ast
+    import inspect
+
+    from tclight_torch import turns
+
+    shapes = [sh for sh in turns.SHAPES if sh[0] == kernel]
+    assert [sh[1] for sh in shapes] == ["L0", "L1", "L2", "yt-L0", "yt-L1", "dd", "t2w",
+                                        "t2w-704"]
+    ast.parse(turns.leg_code(tmp_path, shapes, tmp_path / "f.npy", tmp_path / "p.pt"))
+    src = inspect.getsource(turns.leg)
+    for name in ("qk_int8_operands", "int8pv_operands", "int8_block_rowmax",
+                 "flash_attention_int8_cuda"):
+        assert name in src, name
+
+
+def test_turns_steps_are_chip_smokes_int8_runs(monkeypatch, tmp_path):
+    """`python -m tclight_torch.turns OTHER steps` runs chip_smoke's
+    `[yt-int8]`, `[int8]` and `[int8pv]` runs through each checkout's CLI:
+    the navsim config for the yt pass and the main config for the others,
+    the int8 flags as chip_smoke sets them, the post-optimization off, the
+    prompt before the overrides (the CLI takes those as one list), on
+    chip_smoke's videos; its leg program compiles."""
+    import ast
+    import sys
+    from pathlib import Path
+
+    from tclight_torch import turns
+
+    root = Path(turns.__file__).resolve().parents[1]
+    monkeypatch.syspath_prepend(str(root))
+    import chip_smoke
+
+    monkeypatch.setattr(chip_smoke, "make_video", lambda path, n, h, w: None)
+    runs = turns.step_runs(root)
+    assert str(root) in sys.path
+    assert [(k, label) for k, label, _ in runs] == [("steps", "yt-int8"), ("steps", "int8"),
+                                                  ("steps", "int8pv")]
+    for _, label, (config, video, overrides) in runs:
+        assert (root / config).is_file()
+        assert "post_opt.apply_opt=false" in overrides
+        assert "generation.attn_qk_int8=true" in overrides
+        assert ("generation.attn_pv_int8=true" in overrides) == (label == "int8pv")
+        assert f"generation.n_timesteps={chip_smoke.STEPS}" in overrides
+        frames = chip_smoke.YT_FRAMES if label == "yt-int8" else chip_smoke.FRAMES
+        assert Path(video) == root / "build" / "turns" / f"vid{frames}"
+        if label == "yt-int8":
+            assert config == "configs/examples/tclight_navsim.yaml" and "-p" not in overrides
+        else:
+            assert config == "configs/tclight_default.yaml"
+            assert overrides[:2] == ("-p", chip_smoke.PROMPT)
+            assert all(not o.startswith("-") for o in overrides[2:])
+    ast.parse(turns.leg_code(tmp_path, runs, tmp_path / "f.npy", tmp_path / "p.pt"))
+    assert 'kernel == "steps"' in turns.leg_code(tmp_path, runs, None, None)

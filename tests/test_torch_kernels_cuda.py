@@ -10,9 +10,12 @@ every head dim that stops inside a 64-dim slab (zero-filled dims, a p.v
 width inside a slab), with fewer keys than a tile, and at head dim 128
 with ragged lengths, Sq != Skv, B > 1, 32 heads and a masked kv tail,
 beside D = 120 and 112; libcuda's tensor-map encoder taking a 64-dim box
-over fewer dims; and K6 and K7 at head dim 128 (q8, k8 row-major, v in
-place / v8 channel-major, all swizzled; K7's max pass on s8 wgmma) with the
-same cases; for the window warp (K3) frames that end inside a tile, flows that
+over fewer dims; K6 and K7, which read q8 and k8 row-major in 128-byte
+swizzled boxes and v in place (K6) or v8 channel-major (K7) at every head
+dim, their pre-pass and K7's max pass (s8 wgmma on q8 / k8), at the
+UNet's 40 / 80 / 160, at 128 and at 8, 24, 112, 120 and 144, with ragged
+lengths, Sq != Skv both ways, B = 2, one query and a kv tail inside a
+tile; for the window warp (K3) frames that end inside a tile, flows that
 leave the frame, flow ranges up to 100 px, every channel count and both
 kernels, frames under one wave of the card, smooth flows (the adjoint's one-limb tiles) and NaN cotangents
 there; for the banded gathers (K4, K5) masked entries, int16 and int32 offsets, windows that run
@@ -234,13 +237,20 @@ def test_flash_kernel_masks_the_kv_tail_before_the_max(cuda, d, skv):
     (2, 100, 37, 1, 80),      # fewer keys than one tile
     (1, 257, 129, 2, 160),    # one row past a 128-row tile, one key past a tile
     (1, 1, 1, 1, 40),         # one query, one key
-    (1, 200, 300, 2, 128),    # head dim 128 (swizzled, in place), both lengths ragged
+    (1, 200, 300, 2, 128),    # head dim 128, both lengths ragged
     (1, 1030, 2100, 3, 128),  # Sq < Skv, two Q-scale blocks, a ragged third P block
     (2, 1100, 700, 2, 128),   # Sq > Skv, B = 2
     (1, 300, 1025, 32, 128),  # 32 heads, one key past a whole P block
     (1, 1, 1, 1, 128),
-    (1, 129, 600, 2, 120),    # next to 128: the chunk-major path
-    (1, 257, 129, 2, 112),
+    (1, 129, 600, 2, 120),    # next to 128: a row of 128 bytes, depth 128
+    (1, 257, 129, 2, 112),    # a row of 112 bytes, depth 128
+    (2, 1100, 700, 2, 40),    # Sq > Skv, B = 2, a kv tail inside a 128-key tile
+    (1, 1, 300, 2, 80),       # one query against a ragged kv
+    (1, 700, 200, 2, 160),    # Sq > Skv at 64-key tiles
+    (1, 1, 1, 1, 160),
+    (2, 333, 1500, 1, 144),   # 64-key tiles, a row of 144 bytes (two slabs)
+    (1, 300, 130, 2, 24),     # a row of 32 bytes, the row sums on the tensor cores
+    (2, 65, 700, 2, 40),      # one row past a 64-row warpgroup block, B = 2
 ])
 def test_int8_flash_kernels_match_plain(cuda, pv_int8, b, sq, skv, h, d):
     """K6 (pv_int8 False) and K7 against the plain version on the same
@@ -276,10 +286,10 @@ def test_int8_flash_kernels_match_plain(cuda, pv_int8, b, sq, skv, h, d):
     (1100, 3073),   # two Q-scale blocks; a last P block of one key
 ])
 def test_k7_p_blocks_and_tiles(cuda, d, sq, skv):
-    """K7 at the head dims of the three UNet levels (two row blocks and
-    64-key tiles at D = 40, one row block with 128-key tiles at D = 80 and
-    64-key tiles at D = 160; at D = 128 128-key tiles of the swizzled
-    path) with P blocks that end inside a tile, a last
+    """K7 at the head dims of the three UNet levels (three consumer
+    warpgroups and 128-key tiles at D = 40, two with 128-key tiles at D =
+    80 and 128, two with 64-key tiles, v8 in the 64-byte swizzle, at D =
+    160) with P blocks that end inside a tile, a last
     P block shorter than one tile, and Skv below one P block: against the
     plain version, as `test_int8_flash_kernels_match_plain`. The kernel
     also launched its pre-pass and its max pass once each."""
@@ -300,8 +310,12 @@ def test_k7_p_blocks_and_tiles(cuda, d, sq, skv):
     (2, 300, 513, 1, 80),
     (1, 129, 65, 3, 160),
     (1, 64, 3000, 2, 8),
-    (1, 2500, 1030, 2, 128),  # head dim 128: v8 channel-major, the max pass on q8 / k8
+    (1, 2500, 1030, 2, 128),  # head dim 128
     (2, 300, 513, 32, 128),
+    (1, 700, 1300, 2, 24),
+    (2, 129, 700, 1, 112),
+    (1, 300, 130, 2, 144),
+    (1, 1, 200, 1, 120),
 ])
 def test_int8pv_prepass_kernels_and_max_pass_match_plain(cuda, b, sq, skv, h, d):
     """K7's pre-pass kernels (the PV variant of K6's) against the plain
@@ -309,11 +323,11 @@ def test_int8pv_prepass_kernels_and_max_pass_match_plain(cuda, b, sq, skv, h, d)
     each 16, padding zero) and the V scales bit-equal; k8 and the K scales
     as for K6 (`test_int8_prepass_kernels_match_plain`). Then the max pass
     on the kernels' operands against its plain version on the same
-    operands: exact dots (bf16 products of int8 values, f32 sums below 2^22;
-    at D = 128 int32 sums of s8 products, below 2^24, converted exactly)
-    and the same two f32 multiplies, so bit-equal but for the order of the
-    multiplies (held at 1e-6 relative). At D = 128 there are no bf16
-    copies."""
+    operands: exact dots (int32 sums of s8 products, below 2^22, made f32
+    times the K scale sk' by one FMA with its pair, rounded once as the
+    plain product) and the same f32 multiplies, so bit-equal but for the
+    order of the multiplies (held at 1e-6 relative). No head dim has
+    copies of q8 or k8."""
     q, k, v = (torch.randn(b, s, h, d, device="cuda", generator=cuda).bfloat16()
                for s in (sq, skv, skv))
     before = kernels.STATS["flash_attention_int8pv_prepass"].launches
@@ -322,20 +336,16 @@ def test_int8pv_prepass_kernels_and_max_pass_match_plain(cuda, b, sq, skv, h, d)
     assert kernels.STATS["flash_attention_int8pv_prepass"].launches == before + 1
     ref = attention.int8pv_operands_plain(q, k, v)
     g = attention.int8pv_geometry(b, sq, skv, h, d)
-    copies = ("qb", "kb") if g["bf16_copies"] else ()
-    assert set(ops) == set(ref) == {"q8", "k8", "v8", "sq", "sk", "sv", "bq", *copies}
-    for name in ("q8", "k8", "v8", "sq", "sk", "sv") + copies:
+    assert set(ops) == set(ref) == {"q8", "k8", "v8", "sq", "sk", "sv", "bq"}
+    for name in ("q8", "k8", "v8", "sq", "sk", "sv"):
         assert tuple(ops[name].shape) == g["shapes"][name] == tuple(ref[name].shape), name
         assert ops[name].dtype == ref[name].dtype, name
-    for name in ("q8", "sq", "v8", "sv") + copies[:1]:
+    for name in ("q8", "sq", "v8", "sv"):
         assert torch.equal(ops[name], ref[name]), name
     dk8 = (ops["k8"].int() - ref["k8"].int()).abs()
     assert dk8.max().item() <= 1 and (dk8 > 0).float().mean().item() <= 0.01
-    # kb holds the kernel's own k8 values
-    if copies:
-        assert torch.equal(attention.from_chunk_major(ops["kb"]).float(),
-                           attention.from_chunk_major(ops["k8"])[..., :g["dp"]].float())
-    assert ((ops["sk"] - ref["sk"]).abs() <= ref["sk"] * 2.0 ** -7).all()
+    assert ((ops["sk"] - ref["sk"]).abs() <= ref["sk"].abs() * 2.0 ** -7).all()
+    assert torch.equal(ops["sk"][:, 1], ops["sk"][:, 0] * -12582912.0)
     scale = d ** -0.5
     before = kernels.STATS["flash_attention_int8pv_maxpass"].launches
     bm = attention.int8_block_rowmax(ops, b, h, sq, skv, d, scale)
@@ -371,13 +381,17 @@ def test_int8_flash_kernel_masks_the_kv_tail_before_the_max(cuda, pv_int8, d, sk
     (2, 300, 513, 1, 80),     # one Q block of 384 rows
     (1, 129, 65, 3, 160),
     (1, 64, 3000, 2, 8),
-    (1, 2500, 1030, 2, 128),  # head dim 128: q8, k8 row-major, no v copy
+    (1, 2500, 1030, 2, 128),  # head dim 128
     (2, 300, 513, 32, 128),
+    (1, 700, 1300, 2, 24),
+    (2, 129, 700, 1, 112),
+    (1, 300, 130, 2, 144),
+    (1, 1, 200, 1, 120),
 ])
 def test_int8_prepass_kernels_match_plain(cuda, b, sq, skv, h, d):
     """K6's pre-pass kernels against the plain pre-pass on the same bf16
-    inputs, in K6's layout. q8, the Q scales and the v copy are bit-equal
-    (at D = 128 v is the input itself, not copied).
+    inputs, in K6's layout. q8 and the Q scales are bit-equal, and v is
+    the input itself at every head dim (the pre-pass copies nothing).
     k8 and the K scales depend on K's token mean, an f32 sum over the keys
     that the kernel adds in another order than torch: where the f32 means
     differ by an ulp, their bf16 rounding can differ, which moves k - mean
@@ -396,7 +410,7 @@ def test_int8_prepass_kernels_match_plain(cuda, b, sq, skv, h, d):
         assert tuple(ops[name].shape) == g["shapes"][name] == tuple(ref[name].shape), name
         assert ops[name].dtype == ref[name].dtype, name
     assert torch.equal(ops["q8"], ref["q8"]) and torch.equal(ops["sq"], ref["sq"])
-    assert torch.equal(ops["v"], ref["v"]) and (ops["v"] is v) == (d == 128)
+    assert ops["v"] is v and ref["v"] is v
     dk8 = (ops["k8"].int() - ref["k8"].int()).abs()
     assert dk8.max().item() <= 1 and (dk8 > 0).float().mean().item() <= 0.01
     assert ((ops["sk"] - ref["sk"]).abs() <= ref["sk"] * 2.0 ** -7).all()
