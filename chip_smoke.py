@@ -56,7 +56,7 @@ Phases, one line each:
      of its launch shapes not held before;
  11. int8 / int8pv: the 8-frame main config with the post-optimization
      off and attn_qk_int8 (then attn_pv_int8 too): K6 (then K7, with its
-     pre-pass and max pass once a launch) launched, K1 never, and the frames against the fp run's (max abs difference,
+     pre-pass once a launch, and no max pass) launched, K1 never, and the frames against the fp run's (max abs difference,
      PSNR);
  12. traced runs of 2 sampling steps (fp, then int8 q.k^T), of one step
      of the yt-int8 config and of 2 + 2 post-opt epochs give the device
@@ -322,9 +322,8 @@ def check_flash(gen: torch.Generator) -> dict:
 def check_int8(gen: torch.Generator, pv_int8: bool) -> dict:
     """K6 (pv_int8 False) or K7 against the plain int8 version on the same
     bf16 inputs, at the xy shapes and the 30-frame yt pass's shapes
-    (`int8_row`). Returns the rows, the pre-pass rows and (K7) the max
-    pass rows."""
-    out = {"rows": [], "prepass_rows": [], "maxpass_rows": []}
+    (`int8_row`). Returns the rows and the pre-pass rows."""
+    out = {"rows": [], "prepass_rows": []}
     for level, b, s, d in attention_shapes() + attention_shapes(YT_FRAMES, HEIGHT // 8, "yt-"):
         int8_row(level, b, s, HEADS, d, gen, pv_int8, out)
     return out
@@ -334,16 +333,13 @@ def int8_row(level: str, b: int, s: int, h: int, d: int, gen: torch.Generator,
              pv_int8: bool, out: dict, plain_heads: int | None = None) -> dict:
     """K6 (pv_int8 False) or K7 against the plain int8 version on random
     bf16 inputs of one shape. `ms` is the wrapper's (the quantization
-    pre-pass and the kernel; for K7 its max pass too), `prepass_ms` the
-    pre-pass kernels alone, with the plain pre-pass's time beside it
-    (`prepass_plain_ms`); for K7 also `maxpass_ms`, its max pass alone,
-    beside its plain version's (`maxpass_plain_ms`). Beside them K1 and
-    SDPA at the same shape (the library has no call for the quantized
-    function), and the quantization error of the plain version against
-    the fp attention. Appends the row to out["rows"], the pre-pass
-    kernels' row against the plain pre-pass, in the kernel's operand
-    layout, to out["prepass_rows"], and for K7 the max pass's against its
-    plain version to out["maxpass_rows"]. `operands_in_place`: the kernel
+    pre-pass and the kernel), `prepass_ms` the pre-pass kernels alone, with
+    the plain pre-pass's time beside it (`prepass_plain_ms`). Beside them
+    K1 and SDPA at the same shape (the library has no call for the
+    quantized function), and the quantization error of the plain version
+    against the fp attention. Appends the row to out["rows"] and the
+    pre-pass kernels' row against the plain pre-pass, in the kernel's
+    operand layout, to out["prepass_rows"]. `operands_in_place`: the kernel
     read q8 and k8 row-major and v in place (K6) or a channel-major v8 and
     no copy of q8 or k8 (K7); the row fails if that is not so at any head
     dim. `exp_bound_ms`: one exponential a score at the special-function
@@ -392,11 +388,6 @@ def int8_row(level: str, b: int, s: int, h: int, d: int, gen: torch.Generator,
     pre_ms = cuda_ms(lambda: operands(q, k, v), reps)
     out["prepass_rows"].append(check_prepass(tag, level, q, k, v, operands, operands_plain,
                                              pre_ms))
-    extra = {}
-    if pv_int8:
-        out["maxpass_rows"].append(check_maxpass(level, q, k, v, scale, reps))
-        extra = {"maxpass_ms": out["maxpass_rows"][-1]["ms"],
-                 "maxpass_plain_ms": out["maxpass_rows"][-1]["plain_ms"]}
     k1_ms = cuda_ms(lambda: flash_attention_cuda(q, k, v, scale), reps)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale), reps)
@@ -417,7 +408,7 @@ def int8_row(level: str, b: int, s: int, h: int, d: int, gen: torch.Generator,
     row = dict(shape=f"{level} B={b} S={s} H={h} D={d}", max_abs_err=err, tol=tol,
                plain_heads=plain_heads or h, operands_in_place=in_place,
                quant_rel_err_plain_vs_fp=quant_err, rel_err_kernel_vs_fp=kernel_fp_err,
-               ms=k_ms, prepass_ms=pre_ms, prepass_plain_ms=plain_pre_ms, **extra,
+               ms=k_ms, prepass_ms=pre_ms, prepass_plain_ms=plain_pre_ms,
                plain_ms=p_ms, library_ms=None, k1_ms=k1_ms, sdpa_ms=sdpa_ms, bound_ms=b_ms,
                bound_by=by, exp_bound_ms=exp_ms)
     phase(tag, ok=ok, **row)
@@ -461,36 +452,6 @@ def check_prepass(tag: str, level: str, q, k, v, kernel, plain, k_ms: float) -> 
     phase(f"{tag}-prepass", ok=ok, **row)
     if not ok:
         raise SystemExit(f"{tag}'s pre-pass disagrees with the plain pre-pass at {row['shape']}")
-    return row
-
-
-def check_maxpass(level: str, q, k, v, scale: float, reps: int) -> dict:
-    """K7's max pass against its plain version on the same operands (the
-    pre-pass kernels'): exact dots times the same two f32 scales, so equal
-    but for f32 rounding (held at 1e-6 relative). Bound: that of the
-    function, an int8 q.k^T times scales and a max: the larger of q8, k8
-    and their scales read once with the block maxes written once, and
-    q.k^T at the int8 peak."""
-    from tclight_torch.ops.attention import int8_block_rowmax, int8_block_rowmax_plain, int8pv_operands
-
-    b, s, h, d = q.shape
-    ops = int8pv_operands(q, k, v)
-    bm = int8_block_rowmax(ops, b, h, s, s, d, scale)
-    torch.cuda.synchronize()
-    ref, p_ms = timed_once(lambda: int8_block_rowmax_plain(ops, s, s, scale))
-    err = float(((bm - ref).abs() / ref.abs().clamp(min=1e-30)).max().item())
-    ok = bool(torch.isfinite(bm).all()) and err <= 1e-6
-    k_ms = cuda_ms(lambda: int8_block_rowmax(ops, b, h, s, s, d, scale), reps)
-    # q8 and k8 d bytes a row, an f32 a key and a Q-scale block
-    n_bytes = 2 * b * h * s * d + 4 * (b * h * s + ops["sq"].numel() + bm.numel())
-    b_ms, by = bound_ms(n_bytes, 2.0 * b * h * s * s * d, PEAK_INT8_OPS)
-    row = dict(shape=f"{level} B={b} S={s} H={h} D={d}", max_abs_err=err, tol=1e-6,
-               err_is="relative", n_kb=bm.shape[-1], ms=k_ms, plain_ms=p_ms, library_ms=None,
-               bound_ms=b_ms, bound_by=by)
-    phase("K7-maxpass", ok=ok, **row)
-    if not ok:
-        raise SystemExit(f"K7's max pass disagrees with its plain version at {row['shape']}")
-    del ops, bm, ref
     return row
 
 
@@ -888,11 +849,12 @@ def run_int8_variants() -> dict:
         psnr = 10 * math.log10(1.0 / max(float((diff ** 2).mean()), 1e-12))
         others = [k for k in ("flash_attention", "flash_attention_int8", "flash_attention_int8pv")
                   if k != name]
-        # K7 runs its pre-pass kernels and its max pass once a launch
-        parts = ([f"{name}_prepass", f"{name}_maxpass"] if tag == "int8pv"
-                 else [f"{name}_prepass"])
+        # K6 and K7 run their pre-pass kernels once a launch, and nothing
+        # else of their own (K7 makes its P blocks' maxes itself)
+        parts = [f"{name}_prepass"]
         ok = (n == FRAMES and stats[name] > 0 and all(stats[k] == 0 for k in others)
               and all(stats[k] == stats[name] for k in parts)
+              and not any("maxpass" in k for k in stats)
               and frames.shape == fp_frames.shape and float(frames.std()) > 0)
         steady = float(np.mean(st["step_times"][1:]))
         phase(tag, ok=ok, frames=n, wall_s=wall, step_s=st["step_times"],
@@ -1187,7 +1149,7 @@ def check_turnover(gen: torch.Generator) -> dict:
     return {"rows": rows, "launches": directions}
 
 
-KERNEL_GROUPS = (("K6/K7 flash_attention_int8 (pre-passes and max pass included)",
+KERNEL_GROUPS = (("K6/K7 flash_attention_int8 (pre-passes included)",
                   ("flash_int8",)),
                  ("K1 flash_attention", ("flash_fwd_wgmma_kernel",)),
                  ("K2 match_argmax", ("match_argmax",)),
@@ -3326,8 +3288,7 @@ def main() -> int:
     hold("yt-int8", shapes)
     launches.update(yt_launches)
     int8_launches = run_int8_variants()
-    for name in ("flash_attention_int8pv", "flash_attention_int8pv_prepass",
-                 "flash_attention_int8pv_maxpass"):
+    for name in ("flash_attention_int8pv", "flash_attention_int8pv_prepass"):
         launches[name] = int8_launches[name]
     profile_main_path()
     # PyTorch's default again (TF32 on for cuDNN's convolutions): the flow
@@ -3386,7 +3347,7 @@ def main() -> int:
     # / "int8pv" sends it: the decoder's 5,120 tokens, the t2w run's 14,080
     # and the CLI's default 704 x 1280 (56,320; the plain version held on 8
     # of the 32 heads there: the whole call's takes ~5 s and ~40 GB)
-    dit_int8 = {pv: {"rows": [], "prepass_rows": [], "maxpass_rows": []} for pv in (False, True)}
+    dit_int8 = {pv: {"rows": [], "prepass_rows": []} for pv in (False, True)}
     for pv in (False, True):
         for label, s, heads in (("dit dd", 5120, None), ("dit t2w", 14080, None),
                                 ("dit t2w-704", 56320, 8)):
@@ -3454,11 +3415,6 @@ def main() -> int:
                      launches["flash_attention_int8pv_prepass"],
                      int8[True]["prepass_rows"] + dit_int8[True]["prepass_rows"],
                      path="int8pv (K7's quantization pre-pass, two kernels a launch)"),
-        kernel_entry("flash_attention_int8pv:maxpass", "tclight_torch/csrc/flash_attention_int8.cu",
-                     "tclight_tpu/ops/attention.py:227",
-                     launches["flash_attention_int8pv_maxpass"],
-                     int8[True]["maxpass_rows"] + dit_int8[True]["maxpass_rows"],
-                     path="int8pv (K7's max pass: each (row, P block)'s logit max)"),
     ]}), flush=True)
     print(f"nvidia-smi: {smi}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -58,6 +58,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import importlib.util
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -126,9 +127,31 @@ def variant_sources(variants: dict, source: str, root: Path | None = None) -> di
     return texts
 
 
+def ptxas_summary(log: str) -> str:
+    """ptxas -v's lines per kernel instance, shortened: `name<first template
+    int>:registers`, with its spill stores / loads in bytes where it spills,
+    then every C75xx warning (a serialised wgmma) as ptxas wrote it."""
+    lines, items = log.splitlines(), []
+    for i, ln in enumerate(lines):
+        m = re.search(r"Function properties for (\S+)", ln)
+        if not m:
+            continue
+        k = re.search(r"\d+([a-z][a-z_0-9]*)I(?:Li(\d+)E)?", m.group(1))
+        name = f"{k.group(1)}<{k.group(2)}>" if k else m.group(1)
+        after = "\n".join(lines[i + 1:i + 3])  # the spill line, then the registers
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", after)
+        regs = re.search(r"Used (\d+) registers", after)
+        items.append(f"{name}:{regs.group(1) if regs else '?'}"
+                     + (f" SPILLS {spill[1]}/{spill[2]}" if spill and spill.groups() != ("0", "0")
+                        else ""))
+    warns = sorted({ln.strip() for ln in log.splitlines() if "C75" in ln or "error" in ln})
+    return " | ".join(sorted(items) + warns)
+
+
 def build(out: Path, texts: dict[str, str]) -> dict[str, ctypes.CDLL]:
     """The libraries of `texts` (name -> source), compiled in parallel;
-    prints ptxas's register, spill and serialisation lines for each."""
+    prints ptxas's registers and spills per kernel instance and its
+    serialisation warnings for each (`ptxas_summary`)."""
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, text in texts.items():
@@ -140,10 +163,7 @@ def build(out: Path, texts: dict[str, str]) -> dict[str, ctypes.CDLL]:
     failed = []
     for name, p in procs.items():
         log, _ = p.communicate()
-        keep = sorted({ln.split("ptxas info    :")[-1].strip() for ln in log.splitlines()
-                       if any(w in ln for w in ("registers", "spill", "C75", "error"))
-                       and "0 bytes spill" not in ln})
-        print(f"[ptxas] {name}: " + " | ".join(keep), flush=True)
+        print(f"[ptxas] {name}: " + ptxas_summary(log), flush=True)
         if p.returncode:
             failed.append(name)
     if failed:

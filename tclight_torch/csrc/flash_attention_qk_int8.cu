@@ -44,8 +44,8 @@
 // makes sv = max(amax, 1e-6) / 127 per (batch * head, channel); the quant
 // kernel's k slices write K7's K scales, (BH, 2, ceil128(Skv)): each key's
 // sk' (its scale with the two lowest significand bits cleared) and -1.5 *
-// 2^23 * sk', exact (K7's max pass makes x * sk' from them by an integer
-// add and one FMA), and v8 = round_half_even(v / sv) channel-major,
+// 2^23 * sk', exact (x * sk' from them by an integer add and one FMA; K7
+// reads the first row), and v8 = round_half_even(v / sv) channel-major,
 // (BH, D, ceil128(Skv)), each channel's keys contiguous (8-bit wgmma reads
 // its B operand K-major only, and a tile of a channel's keys is one
 // swizzle row), keys past Skv zero. Within each 16 keys the order is
@@ -76,7 +76,7 @@
 // - Scores. The int32 sums convert to f32 exactly, |q8 . k8| <= 127^2 *
 //   160 < 2^24, by the conversion instruction, times the key's scale (a
 //   float2 of two keys' scales from the stage). An integer add and one
-//   FMA with a pair of scales a key (K7's max pass) measured slower here:
+//   FMA with a pair of scales a key (`kernel_k_scales`) measured slower here:
 //   the pairs' shared-memory reads cost more than the conversion, whose
 //   unit is not the exponentials'. Then K1's softmax with the row factor
 //   c = sq * scale * log2(e) of the warpgroup's 64 rows (64 divides the

@@ -16,9 +16,9 @@ Layout: (B, S, H, D) — batch, sequence, heads, head_dim. Inference only.
   K6 (int8 QK^T, bf16 PV; `csrc/flash_attention_qk_int8.cu`) runs on the
   operands of its own pre-pass kernels (`qk_int8_operands`), and K7 (int8
   QK^T and PV, P quantized per (row, 1024-key block);
-  `csrc/flash_attention_int8.cu`) on those of the same pre-pass kernels'
-  PV variant (`int8pv_operands`) and of its max pass (`int8_block_rowmax`,
-  each (row, P block)'s logit max); on a CPU tensor
+  `csrc/flash_attention_int8.cu`, one kernel that makes each P block's
+  logit max in a first sweep of its q.k^T) on those of the same pre-pass
+  kernels' PV variant (`int8pv_operands`); on a CPU tensor
   `flash_attention_int8_plain`, the dense emulation of
   `_flash_attention_int8_xla`, one 1024-row block of queries at a time.
 
@@ -35,17 +35,16 @@ products on wgmma and the softmax in registers, and overlap one's softmax
 with the others' products (details in the source). K6
 replaces `_flash_kernel_qk_int8` in K1's design and geometry, with q.k^T on
 int8 wgmma; K7 replaces `_flash_kernel_int8_full` in the same design, p.v
-on int8 wgmma too, after a max pass in that design that writes the P
-blocks' maxes. Both read their operands in place at every head dim: q8 and
-k8 row-major in boxes of 128 bytes in the 128-byte swizzle (rows of
-ceil16(D) bytes, zero-filled to the int8 depth), v as K1 reads it (K6), v8
+on int8 wgmma too, each P block swept twice (its maxes, then its softmax
+and p.v) and the row max kept online across P blocks. Both read their
+operands in place at every head dim: q8 and k8 row-major in boxes of 128
+bytes in the 128-byte swizzle (rows of ceil16(D) bytes, zero-filled to
+the int8 depth), v as K1 reads it (K6), v8
 channel-major (K7); their pre-pass kernels write q8, k8, the scales and
 v8, and no copy of v or of q8 / k8 (`qk_int8_geometry`,
 `int8pv_geometry`; details in their sources). The int32 dots become f32
-logits by the conversion instruction and a multiply by the key's scale,
-but in K7's max pass at head dim 40, where the conversion's quarter rate
-binds it, by an integer add and one FMA with each key's scale pair
-(`kernel_k_scales`).
+logits by the conversion instruction and a multiply by the key's scale
+(K7's softmax by one FMA with the key's scale times the row factor).
 
 The int8 products of the plain version are f32 matmuls of integer-valued
 tensors: exact, since |dot| <= 127^2 * 160 < 2^24, as long as TF32 is off
@@ -67,8 +66,7 @@ __all__ = ["dot_product_attention", "flash_attention", "flash_attention_plain",
            "flash_attention_int8_plain", "flash_attention_int8_cuda", "quantize_rows",
            "quantize_blocks", "quantize_channels", "smooth_k", "int8_prepass", "qk_int8_geometry",
            "qk_int8_operands", "qk_int8_operands_plain", "kernel_k_scales", "int8pv_geometry",
-           "int8pv_operands", "int8pv_operands_plain", "v8_channels", "int8_block_rowmax",
-           "int8_block_rowmax_plain",
+           "int8pv_operands", "int8pv_operands_plain", "v8_channels", "int8_block_rowmax_plain",
            "BACKENDS"]
 
 BACKENDS = (None, "int8", "int8pv")
@@ -346,13 +344,12 @@ def int8_prepass(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pv_int8: boo
 def kernel_k_scales(sk: torch.Tensor) -> torch.Tensor:
     """K7's K scales, from (N, S) f32 scales: (N, 2, S), each key's sk' (the
     scale with its two lowest significand bits cleared) and -1.5 * 2^23 *
-    sk', exact in f32. K7's max pass adds the bits of 1.5 * 2^23 to an
-    int32 dot x, which makes the float 1.5 * 2^23 + x, and one FMA with the
-    pair leaves x * sk' rounded once: the conversion and the multiply
-    without the conversion instruction, whose quarter rate binds the pass
-    at the UNet's head dim 40 (it uses the pairs up to dp 48). The
-    attention and the max pass above multiply by sk' too. sk' differs from
-    sk by less than 2^-21 of it."""
+    sk', exact in f32: the bits of 1.5 * 2^23 added to an int32 dot x make
+    the float 1.5 * 2^23 + x, and one FMA with the pair leaves x * sk'
+    rounded once, without the conversion instruction. K7 reads the first
+    row: its conversion instruction and a multiply by sk' measured faster
+    than the pair's add and FMA. sk' differs from sk by less than 2^-21 of
+    it."""
     s = (sk.float().contiguous().view(torch.int32) & ~3).view(torch.float32)
     return torch.stack([s, s * -ROUND_MAGIC], dim=-2)
 
@@ -442,36 +439,43 @@ def v8_channels(v8: torch.Tensor) -> torch.Tensor:
 
 
 def int8pv_geometry(b: int, sq: int, skv: int, h: int, d: int) -> dict:
-    """The layout of K7's operands and tiles, as its pre-pass, max pass and
-    attention (`csrc/flash_attention_int8.cu`) lay them out, at every head
-    dim: K6's q8, k8, sq, boxes, keys per tile and stages (K1's), with three
-    consumer warpgroups up to dp 48 and two above (the live registers
-    outgrow three above), in the attention and the max pass alike; the K
-    scales as `kernel_k_scales` makes them, (BH, 2, ceil128(Skv)); v8
-    channel-major (BH, D, ceil128(Skv)) (`v8_channels`) and sv; the P
-    block `pb` (min(1024, ceil128(Skv))
-    keys), its count and the tiles per P block; the block maxes (BH, Sq,
-    n_kb); the pre-pass's f32 scratch; the dynamic shared memory of the
-    attention and the max pass; and the tensor maps: K6's q8 and k8, and v8
-    in boxes of a tile's keys by dp channels, in the 128-byte swizzle at
+    """The layout of K7's operands and tiles, as its pre-pass and its kernel
+    (`csrc/flash_attention_int8.cu`) lay them out, at every head dim: K6's
+    q8, k8, sq, boxes and keys per tile (K1's), with three consumer
+    warpgroups up to dp 48 and two above (the live registers outgrow three
+    above); the K scales as `kernel_k_scales` makes them, (BH, 2,
+    ceil128(Skv)); v8 channel-major (BH, D, ceil128(Skv)) (`v8_channels`)
+    and sv; the P block `pb` (min(1024, ceil128(Skv)) keys), its count and
+    the tiles per P block; the k8 ring (`k_slots`, each a tile and its keys'
+    scales sk'): with `resident` the tiles of a P block and of the next
+    one's first sweep, each k8 tile loaded once, where that ring fits the
+    block's shared memory (dp <= 112), else four slots, each tile loaded
+    twice; the v8 ring (K6's `stages`); the pre-pass's f32 scratch; the
+    dynamic shared memory; and the tensor maps: K6's q8 and k8, and v8 in
+    boxes of a tile's keys by dp channels, in the 128-byte swizzle at
     128-key tiles and the 64-byte one at 64."""
     g6 = qk_int8_geometry(b, sq, skv, h, d)
     dk, dp, bh, bk, stages = g6["dk"], g6["dp"], b * h, g6["kv_rows"], g6["stages"]
     nwg, row8, slabs8 = 3 if dp <= 48 else 2, g6["row8"], g6["slabs8"]
     pb = min(QBLOCK, _ceil_to(skv, 128))
-    n_kb = -(-skv // pb)
     skv_pad = g6["skv_pad"]
     shapes = {n: g6["shapes"][n] for n in ("q8", "k8", "sq")}
-    shapes.update(sk=(bh, 2, skv_pad), v8=(bh, d, skv_pad), sv=(bh, d), blockmax=(bh, sq, n_kb),
+    shapes.update(sk=(bh, 2, skv_pad), v8=(bh, d, skv_pad), sv=(bh, d),
                   scratch=(bh * (g6["q_slices"] + 2 * g6["k_slices"] * d + d + 1),))
-    k_tile, bars = bk * slabs8 * row8, 8 * (1 + 2 * stages) + 1024
+
+    def smem(slots: int) -> int:
+        return (64 * nwg * slabs8 * row8 + slots * bk * (slabs8 * row8 + 4) + stages * dp * bk
+                + 8 * (1 + 2 * slots + 2 * stages) + 1024)
+
+    slots = QBLOCK // bk + (4 if dp <= 64 else 2)
+    resident = smem(slots) <= SMEM_PER_BLOCK
+    slots = slots if resident else 4
     return {"dk": dk, "dp": dp, "row8": row8, "slabs8": slabs8, "bq": g6["bq"],
-            "n_qb": g6["n_qb"], "pb": pb, "n_kb": n_kb, "consumers": nwg, "q_rows": 64 * nwg,
-            "threads": 128 * (1 + nwg), "grid": (-(-sq // (64 * nwg)), bh),
-            "kv_rows": bk, "stages": stages, "tiles_per_block": pb // bk, "skv_pad": skv_pad,
-            "smem": 64 * nwg * slabs8 * row8 + stages * (k_tile + dp * bk + 4 * bk) + bars,
-            "smem_maxpass": 64 * nwg * slabs8 * row8 + stages * (k_tile + 8 * bk) + bars,
-            "shapes": shapes,
+            "n_qb": g6["n_qb"], "pb": pb, "n_kb": -(-skv // pb), "consumers": nwg,
+            "q_rows": 64 * nwg, "threads": 128 * (1 + nwg), "grid": (-(-sq // (64 * nwg)), bh),
+            "kv_rows": bk, "stages": stages, "k_slots": slots,
+            "resident": resident, "tiles_per_block": pb // bk, "skv_pad": skv_pad,
+            "smem": smem(slots), "shapes": shapes,
             "maps": {"q8": _rows_map(bh, sq, dp, row8, 64 * nwg), "k8": g6["maps"]["k8"],
                      "v8": _rows_map(bh, d, skv_pad, bk, dp)}}
 
@@ -492,7 +496,7 @@ def int8pv_operands_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> 
 
 
 def int8_block_rowmax_plain(ops: dict, sq: int, skv: int, scale: float) -> torch.Tensor:
-    """The plain version of K7's max pass: from the operands of
+    """The plain version of K7's first sweep: from the operands of
     `int8pv_operands`, (BH, Sq, n_kb) f32, each (query, P block)'s max of
     the logits in log2 units, w = (f32(q8 . k8) * sk') * c with sk' the
     kernels' K scale (`kernel_k_scales`) and c = scale * log2(e) * sq of
@@ -528,12 +532,9 @@ K6_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float, ctyp
 # tclight_int8pv_prepass(q, k, v, q8, k8, v8, sq, sk, sv, scratch, B, H, Sq,
 # Skv, D, bq, stream)
 PV_PREPASS_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-# tclight_int8pv_blockmax(q8, k8, sq, sk, blockmax, B, H, Sq, Skv, D, bq,
-# scale, stream)
-MAXPASS_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
-# tclight_flash_attention_int8pv(q8, k8, v8, sq, sk, sv, blockmax, o, B, H,
-# Sq, Skv, D, bq, scale, stream)
-K7_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+# tclight_flash_attention_int8pv(q8, k8, v8, sq, sk, sv, o, B, H, Sq, Skv,
+# D, bq, scale, stream)
+K7_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
 
 
 def _check_int8_inputs(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -609,30 +610,11 @@ def int8pv_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> dict:
     return ops | {"bq": g["bq"]}
 
 
-def int8_block_rowmax(ops: dict, b: int, h: int, sq: int, skv: int, d: int,
-                      scale: float) -> torch.Tensor:
-    """K7's max pass on the operands of `int8pv_operands`: on CUDA tensors
-    the kernel (on q8 and k8 in place), on CPU tensors
-    `int8_block_rowmax_plain`."""
-    if not ops["q8"].is_cuda:
-        return int8_block_rowmax_plain(ops, sq, skv, scale)
-    g = int8pv_geometry(b, sq, skv, h, d)
-    bm = torch.empty(g["shapes"]["blockmax"], dtype=torch.float32, device=ops["q8"].device)
-    fn = kernels.function("flash_attention_int8", "tclight_int8pv_blockmax", MAXPASS_ARGTYPES,
-                          ctypes.c_int)
-    rc = fn(ops["q8"].data_ptr(), ops["k8"].data_ptr(), ops["sq"].data_ptr(),
-            ops["sk"].data_ptr(), bm.data_ptr(), b, h, sq, skv, d, ops["bq"], float(scale),
-            torch.cuda.current_stream(bm.device).cuda_stream)
-    kernels.check_launch(rc, "flash_attention_int8pv max pass")
-    kernels.STATS["flash_attention_int8pv_maxpass"].record((sq, skv, d))
-    return bm
-
-
 def flash_attention_int8_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               scale: float, pv_int8: bool = False) -> torch.Tensor:
     """Launch K6 (`pv_int8` False: after its pre-pass kernels) or K7 (after
-    the PV pre-pass kernels and the max pass) on bf16 CUDA tensors (B, S,
-    H, D), D % 8 == 0, D <= 160."""
+    the PV pre-pass kernels) on bf16 CUDA tensors (B, S, H, D), D % 8 ==
+    0, D <= 160."""
     name = "flash_attention_int8pv" if pv_int8 else "flash_attention_int8"
     _check_int8_inputs(name, q, k, v)
     b, sq, h, d = q.shape
@@ -641,12 +623,10 @@ def flash_attention_int8_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     if pv_int8:
         ops = int8pv_operands(q, k, v)
-        bm = int8_block_rowmax(ops, b, h, sq, skv, d, scale)
         fn = kernels.function("flash_attention_int8", "tclight_flash_attention_int8pv",
                               K7_ARGTYPES, ctypes.c_int)
         rc = fn(*(ops[n].data_ptr() for n in ("q8", "k8", "v8", "sq", "sk", "sv")),
-                bm.data_ptr(), out.data_ptr(), b, h, sq, skv, d, ops["bq"], float(scale),
-                stream)
+                out.data_ptr(), b, h, sq, skv, d, ops["bq"], float(scale), stream)
     else:
         ops = qk_int8_operands(q, k, v)
         fn = kernels.function("flash_attention_qk_int8", "tclight_flash_attention_qk_int8",

@@ -57,8 +57,7 @@ class KernelStats:
 
 STATS = {name: KernelStats() for name in (
     "flash_attention", "flash_attention_int8", "flash_attention_int8_prepass",
-    "flash_attention_int8pv", "flash_attention_int8pv_prepass", "flash_attention_int8pv_maxpass",
-    "online_argmax_scores", "window_warp", "banded_gather", "banded_gather_multi")}
+    "flash_attention_int8pv", "flash_attention_int8pv_prepass", "online_argmax_scores", "window_warp", "banded_gather", "banded_gather_multi")}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _functions: dict[tuple[str, str], object] = {}

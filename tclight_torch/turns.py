@@ -1,5 +1,5 @@
 """K1 (the bf16 flash attention), K2 (the ToMe matcher), K6 and K7 (the
-int8 attentions, their pre-pass and max pass included), K3 (the window
+int8 attentions, their pre-pass included), K3 (the window
 warp, both directions), K4 (the banded gather, render and adjoint) and K5
 (the K-window gather, both directions) of two checkouts of this
 repository, timed in turns on one card at chip_smoke's shapes: this
@@ -18,7 +18,7 @@ at 960x720, its post-opt batch of 16), all computed once by this checkout
 into build/turns/.
 
     python -m tclight_torch.turns OTHER_CHECKOUT [K1 K2 K6 K7 K6-prepass K7-prepass
-        K7-maxpass K3 K4 K5 K5-path steps]
+        K3 K4 K5 K5-path steps]
 
 K2 runs at every shape chip_smoke's paths launch it at (`K2_SHAPES`).
 K1, K6 and K7 run at the UNet's xy levels 0-2 and yt levels 0-1 and at
@@ -26,10 +26,9 @@ the Cosmos DiTs' self-attention (32 heads of 128: 5,120, 14,080 and 56,320
 tokens); K1 through `flash_attention_cuda` (the wrapper's k/v copies
 included where a checkout makes them), K6 and K7 through
 `flash_attention_int8_cuda` (`attn_backend="int8"` / `"int8pv"`, the
-pre-pass and K7's max pass included); K6-prepass and K7-prepass through
-`qk_int8_operands` / `int8pv_operands`, K7-maxpass through
-`int8_block_rowmax` on the operands of that checkout's pre-pass, all at
-the same shapes.
+pre-pass included, and a max pass where a checkout launches one); K6-prepass
+and K7-prepass through `qk_int8_operands` / `int8pv_operands`, all at the
+same shapes.
 
 K5-path is chip_smoke's K5 path: `run_uvt` on the turnover ids for 5
 epochs; its ms is the median epoch past the first (the first plans and
@@ -86,8 +85,7 @@ K2_SHAPES = [("global L0", (2, 23760, 23760, 320)), ("local L0", (2, 32400, 1080
              ("parallel local L1", (2, 6912, 2304, 32))]
 SHAPES = ([("K1", label, shape) for label, shape in K1_SHAPES]
           + [("K2", label, shape) for label, shape in K2_SHAPES]
-          + [(kernel, label, shape) for kernel in ("K6", "K7", "K6-prepass", "K7-prepass",
-                                                   "K7-maxpass")
+          + [(kernel, label, shape) for kernel in ("K6", "K7", "K6-prepass", "K7-prepass")
              for label, shape in ATTENTION + DIT]
           + [("K3", f"{d} {case}", shape[:4] + (d == "adjoint",))
              for case, shape in (("farneback", (16, 720, 960, 4)), ("random", (16, 720, 960, 24)),
@@ -245,8 +243,7 @@ def leg(shapes, flows_path, plans_path, k4_path=None) -> None:
     import torch.nn.functional as F
 
     from tclight_torch.ops.attention import (flash_attention_cuda, flash_attention_int8_cuda,
-                                             int8_block_rowmax, int8pv_operands,
-                                             qk_int8_operands)
+                                             int8pv_operands, qk_int8_operands)
     from tclight_torch.ops.banded_gather import banded_gather_cuda, banded_gather_multi_cuda
     from tclight_torch.ops.match_kernel import online_argmax_scores_cuda
     from tclight_torch.ops.warp_kernel import window_warp_cuda
@@ -336,10 +333,7 @@ def leg(shapes, flows_path, plans_path, k4_path=None) -> None:
             b, s, h, d = shape
             q, k, v = (torch.randn(b, s, h, d, device="cuda", generator=gen, dtype=torch.bfloat16)
                        for _ in range(3))
-            if kernel == "K7-maxpass":
-                ops = int8pv_operands(q, k, v)
-                fn = lambda: int8_block_rowmax(ops, b, h, s, s, d, d ** -0.5)  # noqa: E731
-            elif kernel.endswith("prepass"):
+            if kernel.endswith("prepass"):
                 make = qk_int8_operands if kernel == "K6-prepass" else int8pv_operands
                 fn = lambda: make(q, k, v)  # noqa: E731
             else:
@@ -361,8 +355,8 @@ def leg_code(root, shapes, flows_path, plans_path, k4_path=None) -> str:
 
 
 def main(argv: list[str]) -> int:
-    every = {"K1", "K2", "K6", "K7", "K6-prepass", "K7-prepass", "K7-maxpass", "K3", "K4", "K5",
-             "K5-path", "steps"}
+    every = {"K1", "K2", "K6", "K7", "K6-prepass", "K7-prepass", "K3", "K4", "K5", "K5-path",
+             "steps"}
     kernels = set(argv[1:]) or every
     if not argv or not kernels <= every:
         print(__doc__, file=sys.stderr)

@@ -308,7 +308,7 @@ def test_qk_int8_operands_match_jax_quantizers(b, sq, skv, h, d):
 
 
 def test_kernel_k_scales_make_the_products_exact():
-    """K7's max pass makes a score as fma(float(1.5 * 2^23 + x), sk', -1.5 *
+    """The K scales' pair makes a score as fma(float(1.5 * 2^23 + x), sk', -1.5 *
     2^23 * sk') (`kernel_k_scales`), x * sk' rounded once for every int32
     dot |x| < 2^22: the pair's second term is exact, and sk' is within 3
     units in the last place of sk (two significand bits cleared)."""
@@ -438,7 +438,7 @@ def test_int8pv_operands_match_jax_quantizers(b, sq, skv, h, d):
     (1, 300, 1300, 1, 160),   # head dim 160: 64-key tiles
 ])
 def test_int8_block_rowmax_plain_matches_jax(b, sq, skv, h, d):
-    """K7's max pass, plain: each (query, P block)'s logit max, against the
+    """K7's first sweep, plain: each (query, P block)'s logit max, against the
     block maxes of the logits that `_flash_attention_int8_xla` forms from
     JAX's quantized operands with the kernels' K scales (JAX's, two
     significand bits cleared: `kernel_k_scales`), times log2(e) (the kernel
@@ -451,9 +451,9 @@ def test_int8_block_rowmax_plain_matches_jax(b, sq, skv, h, d):
     _, tv = _pair(v, "bf16")
     scale = d ** -0.5
     ops = tattn.int8pv_operands(tq, tk, tv)
-    bm = tattn.int8_block_rowmax(ops, b, h, sq, skv, d, scale)
+    bm = tattn.int8_block_rowmax_plain(ops, sq, skv, scale)
     g = tattn.int8pv_geometry(b, sq, skv, h, d)
-    assert tuple(bm.shape) == g["shapes"]["blockmax"]
+    assert tuple(bm.shape) == (b * h, sq, g["n_kb"])
     bh, bq, pb = b * h, g["bq"], g["pb"]
     jqt = jq.transpose(0, 2, 1, 3).reshape(bh, sq, d)
     jkt = jk.transpose(0, 2, 1, 3).reshape(bh, skv, d)
@@ -469,21 +469,33 @@ def test_int8_block_rowmax_plain_matches_jax(b, sq, skv, h, d):
     np.testing.assert_allclose(bm.numpy(), ref, rtol=4 * 2.0 ** -23, atol=0)
 
 
-def _k7_order(q, k, v, scale):
-    """K7's arithmetic in its own order, on the CPU: the operands of
-    `int8pv_operands`, the block maxes of the max pass, the row max m from
-    them, p = exp2(w - bm), p8 = round(127 p), each P block's exact
-    p8 . v8 dequantized with sp / 127 (sp = exp2(bm - m)), l the sum of
-    sp * p, out = acc * sv / l."""
+def _k7_operands(q, k, v, scale):
+    """K7's operands (`int8pv_operands`), each P block's logit max (its
+    first sweep, plain), the exact dots x, the K scales sk', the row factor
+    c = scale * log2(e) * sq and v8 as (BH, Skv, D)."""
     b, sq, h, d = q.shape
     skv = k.shape[1]
     ops = tattn.int8pv_operands(q, k, v)
-    bm = tattn.int8_block_rowmax(ops, b, h, sq, skv, d, scale)
     g = tattn.int8pv_geometry(b, sq, skv, h, d)
-    q8, k8 = ops["q8"].double(), ops["k8"].double()
-    v8 = _from_v8_channels(ops["v8"], skv)[0].double()
-    c = scale * np.log2(np.e) * ops["sq"].double().repeat_interleave(g["bq"], 1)[:, :sq, None]
-    w = torch.matmul(q8, k8.transpose(1, 2)) * ops["sk"][:, 0, None, :skv].double() * c
+    bm = tattn.int8_block_rowmax_plain(ops, sq, skv, scale)
+    x = torch.matmul(ops["q8"].double(), ops["k8"].double().transpose(1, 2))
+    c = (scale * np.log2(np.e)
+         * ops["sq"].double().repeat_interleave(g["bq"], 1)[:, :sq, None])
+    v8 = _from_v8_channels(ops["v8"], skv)[0]
+    return ops, g, bm, x, ops["sk"][:, 0, None, :skv], c, v8
+
+
+def _k7_order(q, k, v, scale):
+    """K7's arithmetic in the order of the kernel before the online max,
+    on the CPU: the row max m from every P block's max first, p = exp2(w -
+    bm), p8 = round(127 p), each P block's exact p8 . v8 dequantized with sp
+    / 127 (sp = exp2(bm - m)), l the sum of sp * p, out = acc * sv / l; in
+    f64."""
+    b, sq, h, d = q.shape
+    skv = k.shape[1]
+    ops, g, bm, x, sk, c, v8 = _k7_operands(q, k, v, scale)
+    w = x * sk.double() * c
+    v8 = v8.double()
     m = bm.double().amax(dim=-1, keepdim=True)
     acc = torch.zeros(b * h, sq, d, dtype=torch.float64)
     l = torch.zeros(b * h, sq, 1, dtype=torch.float64)
@@ -497,39 +509,116 @@ def _k7_order(q, k, v, scale):
     return out.reshape(b, h, sq, d).permute(0, 2, 1, 3).float()
 
 
+def _k7_online_order(q, k, v, scale):
+    """K7's arithmetic in the fused kernel's order, on the CPU, in f32 as
+    the kernel computes it: P blocks in turn, each block's max bm from its
+    first sweep; at the block's start the running row max m moves to m_new
+    = max(m, bm), l and acc take alpha = exp2(m - m_new) and sp = exp2(bm -
+    m_new); p = exp2(x * sk' * c - bm), p8 = round(127 p) (half to even),
+    the block's p8 . v8 exact in int32 and dequantized with sp / 127, l +=
+    sp * sum(p); out = acc * sv / max(l, 1e-30). Also returns the smallest
+    alpha of a block start after the first, per row."""
+    b, sq, h, d = q.shape
+    skv = k.shape[1]
+    ops, g, bm, x, sk, c, v8 = _k7_operands(q, k, v, scale)
+    u = x.float() * sk  # exact dots times sk', rounded once
+    c, v8 = c.float(), v8.to(torch.int64)
+    m = torch.full((b * h, sq, 1), -np.inf)
+    acc = torch.zeros(b * h, sq, d)
+    l = torch.zeros(b * h, sq, 1)
+    alpha_min = torch.ones(b * h, sq, 1)
+    for kb in range(g["n_kb"]):
+        sl = slice(kb * g["pb"], min(skv, (kb + 1) * g["pb"]))
+        bmk = bm[:, :, kb, None]
+        m_new = torch.maximum(m, bmk)
+        alpha = torch.exp2(m - m_new)
+        sp = torch.exp2(bmk - m_new)
+        if kb:
+            alpha_min = torch.minimum(alpha_min, alpha)
+        p = torch.exp2(u[:, :, sl] * c - bmk)
+        pv = torch.matmul(torch.round(127 * p).to(torch.int64), v8[:, sl]).float()
+        acc = acc * alpha + pv * (sp / 127)
+        l = l * alpha + sp * p.sum(dim=-1, keepdim=True)
+        m = m_new
+    out = acc * ops["sv"][:, None, :] / torch.clamp(l, min=1e-30)
+    return out.reshape(b, h, sq, d).permute(0, 2, 1, 3), alpha_min
+
+
+def _rising_qkv(seed, b, sq, skv, h, d):
+    """Inputs whose logits rise from P block to P block: q leans on a
+    direction u and k's part along u grows with the key, ~3 nats a
+    1024-key block beside noise of ~1."""
+    q, k, v = _qkv(seed, b, sq, skv, h, d)
+    u = np.ones(d, np.float32) / np.sqrt(d)
+    ramp = np.linspace(-1.0, 1.0, skv, dtype=np.float32)[None, :, None, None]
+    return q + 3 * u, k + 2 * np.sqrt(d) * ramp * u, v
+
+
+@pytest.mark.parametrize("order", ["max_first", "online"])
 @pytest.mark.parametrize("b,sq,skv,h,d", [
     (1, 300, 1300, 2, 40),    # a ragged second P block
     (1, 200, 700, 1, 80),     # one P block with padding
     (2, 130, 1030, 1, 24),    # a 6-key last P block
     (1, 300, 1300, 2, 128),   # head dim 128
     (1, 200, 700, 2, 160),    # head dim 160: 64-key tiles
+    (1, 70, 3300, 2, 40),     # four P blocks whose logits rise: alpha < 1
 ])
-def test_k7_order_matches_the_plain_int8pv(b, sq, skv, h, d):
-    """The kernel's order (max pass first, alpha 1 throughout, P quantized
-    against each block's own max, l of the exact p) gives the dense plain
-    version's output: p8 is a ratio to its block's max, so only f32
-    rounding differs, and a p8 at a rounding tie may move by one step:
-    held to 2e-3 of the largest output, as the plain pair with JAX."""
-    q, k, v = (torch.from_numpy(a).bfloat16() for a in _qkv(8, b, sq, skv, h, d))
+def test_k7_order_matches_the_plain_int8pv(order, b, sq, skv, h, d):
+    """The kernel's order gives the dense plain version's output: the order
+    of the kernel before (`max_first`: every block max first, alpha 1
+    throughout) and the fused kernel's (`online`: the row max kept online
+    across P blocks, acc and l rescaled by alpha once a block), P quantized
+    against each block's own max and l of the exact p in both: p8 is a
+    ratio to its block's max, so only f32 rounding differs, and a p8 at a
+    rounding tie may move by one step: held to 2e-3 of the largest output,
+    as the plain pair with JAX. The last shape's logits rise from block to
+    block, so the online order's alpha is below 1 at every block start."""
+    make = _rising_qkv if skv == 3300 else _qkv
+    q, k, v = (torch.from_numpy(a).bfloat16() for a in make(8, b, sq, skv, h, d))
     scale = d ** -0.5
     ref = tattn.flash_attention_int8_plain(q, k, v, scale, pv_int8=True).float()
-    out = _k7_order(q, k, v, scale)
+    if order == "online":
+        out, alpha_min = _k7_online_order(q, k, v, scale)
+        if skv == 3300:
+            assert (alpha_min < 0.5).float().mean().item() >= 0.9
+    else:
+        out = _k7_order(q, k, v, scale)
     np.testing.assert_allclose(out.numpy(), ref.numpy(), rtol=0,
                                atol=2e-3 * ref.abs().max().item() + 2.0 ** -8 * ref.abs().max().item())
+
+
+def test_k7_online_order_matches_jax():
+    """The fused kernel's order against JAX's `_flash_attention_int8_xla`
+    (what "pallas_int8pv" runs off the TPU) on the same bf16 inputs, whose
+    logits rise over three P blocks: as the plain pair, 2e-3 of the largest
+    output and a bf16 step."""
+    q, k, v = _rising_qkv(12, 1, 130, 2500, 2, 40)
+    jq, tq = _pair(q, "bf16")
+    jk, tk = _pair(k, "bf16")
+    jv, tv = _pair(v, "bf16")
+    scale = 40 ** -0.5
+    ref = np.asarray(jattn._flash_attention_int8_xla(jq, jk, jv, scale, pv_int8=True)
+                     .astype(jnp.float32))
+    out, alpha_min = _k7_online_order(tq, tk, tv, scale)
+    assert (alpha_min < 0.5).float().mean().item() >= 0.9
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0,
+                               atol=2e-3 * np.abs(ref).max() + 2.0 ** -8 * np.abs(ref).max())
 
 
 @pytest.mark.parametrize("d", [8, 16, 24, 40, 64, 80, 96, 128, 144, 160])
 def test_int8pv_geometry_matches_the_kernel_source(d):
     """K7's tiles are K6's (K1's) at every head dim but for the consumer
-    warpgroups (the attention's and the max pass's): three up to dp 48,
-    two above; 128-key tiles up to dp 128,
-    64 above, 4 stages up to dp 64, 3 above; a P block a whole number of
-    tiles; v8 channel-major (BH, D, ceil128(Skv)) in boxes of a tile's keys
-    by dp channels, in the 128-byte swizzle at 128 keys and the 64-byte one
-    at 64; the shared memory of both kernels fits a block; the registers a
-    consumer keeps live fit its share; the rules are those of
-    `csrc/flash_attention_int8.cu`, its pre-pass's of
-    `csrc/flash_attention_qk_int8.cu` and `csrc/hopper.cuh`."""
+    warpgroups: three up to dp 48, two above; 128-key tiles up to dp 128,
+    64 above, a v8 ring of 4 stages up to dp 64, 3 above; a P block a whole
+    number of tiles; v8 channel-major (BH, D, ceil128(Skv)) in boxes of a
+    tile's keys by dp channels, in the 128-byte swizzle at 128 keys and the
+    64-byte one at 64; a k8 ring of a P block's tiles and two or four more
+    (sweep 1 runs a block ahead of sweep 2), each tile loaded once, where it
+    fits the block's shared memory (up to dp 112: the UNet's 40 and 80), else
+    four slots, each tile loaded twice (the DiTs' 128, the UNet's 160); the
+    shared memory fits a block; the registers a consumer keeps live fit its
+    share; the rules are those of `csrc/flash_attention_int8.cu`, its
+    pre-pass's of `csrc/flash_attention_qk_int8.cu` and `csrc/hopper.cuh`."""
     from pathlib import Path
 
     g = tattn.int8pv_geometry(2, 35640, 35640, 8, d)
@@ -540,12 +629,14 @@ def test_int8pv_geometry_matches_the_kernel_source(d):
     bk, dp, row8 = g["kv_rows"], g["dp"], g["row8"]
     assert g["pb"] == 1024 and g["n_kb"] == 35 and g["pb"] % bk == 0
     assert g["tiles_per_block"] * bk == g["pb"]
-    assert max(g["smem"], g["smem_maxpass"]) <= tattn.SMEM_PER_BLOCK
+    assert g["smem"] <= tattn.SMEM_PER_BLOCK
+    assert g["resident"] == (dp <= 112)
+    assert g["k_slots"] == (g["tiles_per_block"] + (4 if dp <= 64 else 2) if g["resident"] else 4)
     assert g["q_rows"] <= 256 and g["bq"] % 64 == 0
-    # registers a consumer thread keeps live in the attention: scores, int32
-    # p.v sums, the f32 accumulator and p8's A fragments, under its share
-    # (160 with three consumers, 240 with two) less what the rows' maxes,
-    # sums, scales and the loop keep
+    # registers a consumer thread keeps live: scores, int32 p.v sums, the
+    # f32 accumulator and p8's A fragments, under its share (160 with three
+    # consumers, 240 with two) less what the rows' maxes, sums, scales,
+    # sweep 1's running maxes and the loop keep
     live = bk // 2 + dp + bk // 8
     assert live <= (136 if g["consumers"] == 3 else 208)
     assert tattn.int8pv_geometry(1, 100, 300, 1, d)["pb"] == 384
@@ -557,19 +648,24 @@ def test_int8pv_geometry_matches_the_kernel_source(d):
     assert g["maps"]["k8"] == g6["maps"]["k8"]
     assert g["maps"]["q8"] == {**g6["maps"]["q8"], "box": (row8, g["q_rows"], 1, 1)}
     q_tile, k_tile = g["q_rows"] * g["slabs8"] * row8, bk * g["slabs8"] * row8
-    bars = 8 * (1 + 2 * g["stages"]) + 1024
-    assert g["smem"] == q_tile + g["stages"] * (k_tile + dp * bk + 4 * bk) + bars
-    assert g["smem_maxpass"] == q_tile + g["stages"] * (k_tile + 8 * bk) + bars
+    slots, stages = g["k_slots"], g["stages"]
+    bars = 8 * (1 + 2 * slots + 2 * stages) + 1024
+    assert g["smem"] == q_tile + slots * (k_tile + 4 * bk) + stages * dp * bk + bars
+    if not g["resident"]:  # the ring of a P block's tiles and two more does not fit
+        n = g["tiles_per_block"] + 2
+        big = q_tile + n * (k_tile + 4 * bk) + stages * dp * bk + 8 * (1 + 2 * n + 2 * stages)
+        assert big + 1024 > tattn.SMEM_PER_BLOCK
     csrc = Path(tattn.__file__).resolve().parent.parent / "csrc"
     src = (csrc / "flash_attention_int8.cu").read_text()
     for rule in ("consumers(int dp) { return dp <= 48 ? 3 : 2; }",
-                 "mp_consumers(int dp) { return dp <= 48 ? 3 : 2; }",
-                 "mp_magic(int dp) { return dp <= 48; }",
                  "kv_rows(int dp) { return dp <= 128 ? 128 : 64; }",
                  "n_stages(int dp) { return dp <= 64 ? 4 : 3; }",
                  "row8(int dp) { return depth8(dp) <= 64 ? 64 : 128; }",
                  "constexpr int PBLOCK = 1024;",
-                 "return kv_rows(dp) * (slabs8(dp) * row8(dp) + (pv ? dp + 4 : 8));",
+                 "constexpr size_t SMEM_MAX = 232448;",
+                 "return kv_rows(dp) * (slabs8(dp) * row8(dp) + 4);",
+                 "return res ? PBLOCK / kv_rows(dp) + (dp <= 64 ? 4 : 2) : 4;",
+                 "resident(int dp) { return smem_bytes(dp, true) <= SMEM_MAX; }",
                  "tensor_map_rows_sw(&tv, v8, B * H, D, skv_pad, bk, DP)",
                  "tensor_map_rows_sw(&tq, q8, B * H, Sq, DP, row8(DP), bq_rows)",
                  "wgmma_desc_sw64(tV + kk * 32, 16, 8 * BK)"):
@@ -585,7 +681,7 @@ def test_int8_wrappers_copy_no_head_dim(d):
     """At every head dim, the UNet's 40 / 80 / 160, the DiTs' 128 and 112 /
     120 near it, K6's operands hold v itself (the kernel reads it in place,
     the pre-pass writes no copy), q8 and k8 are row-major (BH, S,
-    ceil16(D)), and K7's operands hold no copy of q8 or k8 (the max pass
+    ceil16(D)), and K7's operands hold no copy of q8 or k8 (the kernel
     reads q8 and k8) and a channel-major v8."""
     q, k, v = (torch.from_numpy(a).bfloat16() for a in _qkv(9, 1, 130, 200, 2, d))
     ops6, ops7 = tattn.qk_int8_operands(q, k, v), tattn.int8pv_operands(q, k, v)
@@ -607,7 +703,6 @@ def test_k6_argtypes_match_the_c_entry_points():
     for entry, types in (("tclight_qk_int8_prepass", tattn.PREPASS_ARGTYPES),
                          ("tclight_flash_attention_qk_int8", tattn.K6_ARGTYPES),
                          ("tclight_int8pv_prepass", tattn.PV_PREPASS_ARGTYPES),
-                         ("tclight_int8pv_blockmax", tattn.MAXPASS_ARGTYPES),
                          ("tclight_flash_attention_int8pv", tattn.K7_ARGTYPES)):
         m = re.search(rf'extern "C" int {entry}\(([^)]*)\)', text)
         assert m and len(m.group(1).split(",")) == len(types), entry
@@ -627,24 +722,26 @@ def test_k6_ablation_variants_apply_to_the_kernel_source():
 
 
 def test_k7_ablation_variants_apply_to_the_kernel_source():
-    """`python -m tclight_torch.ablate_int8pv` builds each variant of K7's
-    kernels by text substitution: every replaced text is still in the
-    source, and each variant differs from the kernels (base excepted)."""
+    """`python -m tclight_torch.ablate_int8pv` builds each variant of K7 by
+    text substitution: every replaced text is still in the source, and
+    each variant differs from the kernel (base excepted). K7 is one kernel:
+    no max pass of its own."""
     from tclight_torch import ablate_int8pv, ablate_qk_int8
 
     texts = ablate_qk_int8.variant_sources(ablate_int8pv.VARIANTS, "flash_attention_int8.cu")
     assert set(texts) == set(ablate_int8pv.VARIANTS)
     for name, text in texts.items():
         assert (text == texts["base"]) == (name == "base"), name
-        assert "flash_int8pv_wgmma_kernel" in text and "flash_int8_blockmax_kernel" in text
+        assert "flash_int8pv_wgmma_kernel" in text and "blockmax_kernel" not in text
+        assert "tclight_int8pv_blockmax" not in text
 
 
-@pytest.mark.parametrize("kernel", ["K6", "K7", "K6-prepass", "K7-prepass", "K7-maxpass"])
+@pytest.mark.parametrize("kernel", ["K6", "K7", "K6-prepass", "K7-prepass"])
 def test_turns_time_the_int8_parts_at_every_attention_shape(kernel, tmp_path):
-    """`python -m tclight_torch.turns OTHER K6 K7 K6-prepass K7-prepass
-    K7-maxpass` times each int8 part at the UNet's five shapes and the DiTs'
-    three, through the wrappers both checkouts have; its leg program
-    compiles."""
+    """`python -m tclight_torch.turns OTHER K6 K7 K6-prepass K7-prepass`
+    times each int8 part at the UNet's five shapes and the DiTs' three,
+    through the wrappers both checkouts have (K7's includes a checkout's
+    max pass where it launches one); its leg program compiles."""
     import ast
     import inspect
 
@@ -655,8 +752,7 @@ def test_turns_time_the_int8_parts_at_every_attention_shape(kernel, tmp_path):
                                         "t2w-704"]
     ast.parse(turns.leg_code(tmp_path, shapes, tmp_path / "f.npy", tmp_path / "p.pt"))
     src = inspect.getsource(turns.leg)
-    for name in ("qk_int8_operands", "int8pv_operands", "int8_block_rowmax",
-                 "flash_attention_int8_cuda"):
+    for name in ("qk_int8_operands", "int8pv_operands", "flash_attention_int8_cuda"):
         assert name in src, name
 
 

@@ -12,10 +12,11 @@ with ragged lengths, Sq != Skv, B > 1, 32 heads and a masked kv tail,
 beside D = 120 and 112; libcuda's tensor-map encoder taking a 64-dim box
 over fewer dims; K6 and K7, which read q8 and k8 row-major in 128-byte
 swizzled boxes and v in place (K6) or v8 channel-major (K7) at every head
-dim, their pre-pass and K7's max pass (s8 wgmma on q8 / k8), at the
-UNet's 40 / 80 / 160, at 128 and at 8, 24, 112, 120 and 144, with ragged
-lengths, Sq != Skv both ways, B = 2, one query and a kv tail inside a
-tile; for the window warp (K3) frames that end inside a tile, flows that
+dim, and their pre-pass, at the UNet's 40 / 80 / 160, at 128 and at 8,
+24, 112, 120 and 144, with ragged lengths, Sq != Skv both ways, B = 2, one
+query and a kv tail inside a tile, and K7 (its P blocks' maxes made in a
+first sweep, the row max kept online) with logits that rise from P block
+to P block; for the window warp (K3) frames that end inside a tile, flows that
 leave the frame, flow ranges up to 100 px, every channel count and both
 kernels, frames under one wave of the card, smooth flows (the adjoint's one-limb tiles) and NaN cotangents
 there; for the banded gathers (K4, K5) masked entries, int16 and int32 offsets, windows that run
@@ -33,8 +34,7 @@ and its p.v product takes p in bf16, so it is held to 2e-2 of the largest
 output, and so are the int8 kernels K6 and K7 (see their test); K6's
 pre-pass kernels agree with the plain pre-pass bit for bit but where K's
 token mean rounds otherwise (see their test), and so do K7's pre-pass
-kernels, whose V operands are bit-equal; K7's max pass agrees with its
-plain version bit for bit (exact dots, the same two multiplies); K2 sums exact bf16 products
+kernels, whose V operands are bit-equal; K2 sums exact bf16 products
 in f32 in another order than the plain version, so its maxima agree to
 1e-4 and an index may differ only where the best two scores are that
 close, and exact ties go to the first b-major index under every split. K3 sums the same f32 taps in
@@ -291,16 +291,17 @@ def test_k7_p_blocks_and_tiles(cuda, d, sq, skv):
     80 and 128, two with 64-key tiles, v8 in the 64-byte swizzle, at D =
     160) with P blocks that end inside a tile, a last
     P block shorter than one tile, and Skv below one P block: against the
-    plain version, as `test_int8_flash_kernels_match_plain`. The kernel
-    also launched its pre-pass and its max pass once each."""
+    plain version, as `test_int8_flash_kernels_match_plain`. The wrapper
+    launched its pre-pass and the kernel once each, and no max pass of its
+    own (the kernel makes the P blocks' maxes)."""
     q, k, v = (torch.randn(1, s, 2, d, device="cuda", generator=cuda).bfloat16()
                for s in (sq, skv, skv))
-    names = ("flash_attention_int8pv", "flash_attention_int8pv_prepass",
-             "flash_attention_int8pv_maxpass")
+    names = ("flash_attention_int8pv", "flash_attention_int8pv_prepass")
     before = [kernels.STATS[n].launches for n in names]
     out = attention.flash_attention(q, k, v, backend="int8pv")
     torch.cuda.synchronize()
-    assert [kernels.STATS[n].launches - b for n, b in zip(names, before)] == [1, 1, 1]
+    assert [kernels.STATS[n].launches - b for n, b in zip(names, before)] == [1, 1]
+    assert not any("maxpass" in n for n in kernels.STATS)
     ref = attention.flash_attention_int8_plain(q, k, v, d ** -0.5, True).float()
     assert (out.float() - ref).abs().max().item() <= 2e-2 * ref.abs().max().item()
 
@@ -317,16 +318,11 @@ def test_k7_p_blocks_and_tiles(cuda, d, sq, skv):
     (1, 300, 130, 2, 144),
     (1, 1, 200, 1, 120),
 ])
-def test_int8pv_prepass_kernels_and_max_pass_match_plain(cuda, b, sq, skv, h, d):
+def test_int8pv_prepass_kernels_match_plain(cuda, b, sq, skv, h, d):
     """K7's pre-pass kernels (the PV variant of K6's) against the plain
     pre-pass in K7's layout: q8, the Q scales, v8 (keys permuted within
     each 16, padding zero) and the V scales bit-equal; k8 and the K scales
-    as for K6 (`test_int8_prepass_kernels_match_plain`). Then the max pass
-    on the kernels' operands against its plain version on the same
-    operands: exact dots (int32 sums of s8 products, below 2^22, made f32
-    times the K scale sk' by one FMA with its pair, rounded once as the
-    plain product) and the same f32 multiplies, so bit-equal but for the
-    order of the multiplies (held at 1e-6 relative). No head dim has
+    as for K6 (`test_int8_prepass_kernels_match_plain`). No head dim has
     copies of q8 or k8."""
     q, k, v = (torch.randn(b, s, h, d, device="cuda", generator=cuda).bfloat16()
                for s in (sq, skv, skv))
@@ -346,15 +342,41 @@ def test_int8pv_prepass_kernels_and_max_pass_match_plain(cuda, b, sq, skv, h, d)
     assert dk8.max().item() <= 1 and (dk8 > 0).float().mean().item() <= 0.01
     assert ((ops["sk"] - ref["sk"]).abs() <= ref["sk"].abs() * 2.0 ** -7).all()
     assert torch.equal(ops["sk"][:, 1], ops["sk"][:, 0] * -12582912.0)
+
+
+@pytest.mark.parametrize("d", [40, 80, 128, 160])
+@pytest.mark.parametrize("sq,skv", [
+    (300, 3500),    # four P blocks, the last of 428 keys
+    (130, 2049),    # three, the last of one key
+])
+def test_k7_row_max_moves_between_p_blocks(cuda, d, sq, skv):
+    """K7 keeps the row max online across P blocks (acc and l rescaled by
+    alpha = exp2(m - m_new) at each block's start, sp against the running
+    max): here the logits rise from block to block, so alpha < 1 at every
+    block start of most rows, at the head dims of the three UNet levels
+    (D = 40 three warpgroups with the k8 tiles kept for both sweeps, 80 two
+    with them kept, 160 two with 64-key tiles loaded twice) and the DiTs'
+    128 (loaded twice). Against the plain version, as
+    `test_int8_flash_kernels_match_plain`; the plain block maxes of the
+    kernel's operands show the rise."""
+    # q leans on u, and k's part along u rises with the key: the logits of
+    # a row rise by ~3 nats a P block beside noise of ~1
+    u = torch.ones(d, device="cuda") / d ** 0.5
+    ramp = torch.linspace(-1.0, 1.0, skv, device="cuda")[None, :, None, None]
+    q = (torch.randn(1, sq, 2, d, device="cuda", generator=cuda) + 3 * u).bfloat16()
+    k = (torch.randn(1, skv, 2, d, device="cuda", generator=cuda)
+         + 2 * d ** 0.5 * ramp * u).bfloat16()
+    v = torch.randn(1, skv, 2, d, device="cuda", generator=cuda).bfloat16()
     scale = d ** -0.5
-    before = kernels.STATS["flash_attention_int8pv_maxpass"].launches
-    bm = attention.int8_block_rowmax(ops, b, h, sq, skv, d, scale)
+    bm = attention.int8_block_rowmax_plain(attention.int8pv_operands(q, k, v), sq, skv, scale)
+    full = skv // 1024  # the whole P blocks (the ragged last one may hold one key)
+    rises = (bm[:, :, 1:full] > bm[:, :, :full - 1]).float().mean().item()
+    assert bm.shape[-1] == -(-skv // 1024) and rises >= 0.9, rises
+    out = attention.flash_attention(q, k, v, scale=scale, backend="int8pv")
     torch.cuda.synchronize()
-    assert kernels.STATS["flash_attention_int8pv_maxpass"].launches == before + 1
-    bm_ref = attention.int8_block_rowmax_plain(ops, sq, skv, scale)
-    assert bm.shape == bm_ref.shape == g["shapes"]["blockmax"]
-    assert torch.isfinite(bm).all()
-    assert ((bm - bm_ref).abs() <= 1e-6 * bm_ref.abs()).all()
+    ref = attention.flash_attention_int8_plain(q, k, v, scale, True).float()
+    assert torch.isfinite(out.float()).all()
+    assert (out.float() - ref).abs().max().item() <= 2e-2 * ref.abs().max().item()
 
 
 @pytest.mark.parametrize("pv_int8", [False, True])
