@@ -1,0 +1,3 @@
+"""`readers.k1_ms_per_step` in the xy-only sampling cells (moves sampling_s_per_frame)."""
+
+from tcbench.readers import k1_ms_per_step as read  # noqa: F401
