@@ -1,0 +1,3 @@
+"""`spans.host_syncs_per_step` in the xy-only sampling cells (moves sampling_s_per_frame)."""
+
+from tcbench.spans import host_syncs_per_step as read  # noqa: F401

@@ -1,0 +1,3 @@
+"""`spans.unet_idle_ms_per_step` in the yt-pass sampling cells (moves sampling_s_per_frame.yt)."""
+
+from tcbench.spans import unet_idle_ms_per_step as read  # noqa: F401

@@ -34,6 +34,7 @@ from tclight_torch.models.layers import (Downsample2D, FeedForward,
 from tclight_torch.ops import tome
 from tclight_torch.parallel.mesh import gather_rows, split_rows
 from tclight_torch.ops.attention import dot_product_attention, flash_attention
+from tclight_torch.utils.logging import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,10 +105,11 @@ class Attention(nn.Module):
         q = q.reshape(b, sq, self.heads, self.dim_head)
         k = k.reshape(b, skv, self.heads, self.dim_head)
         v = self.to_v(ctx).reshape(b, skv, self.heads, self.dim_head)
-        if skv <= 512:
-            out = dot_product_attention(q, k, v)
-        else:
-            out = flash_attention(q, k, v, backend=backend)
+        with span("attention"):
+            if skv <= 512:
+                out = dot_product_attention(q, k, v)
+            else:
+                out = flash_attention(q, k, v, backend=backend)
         return self.to_out_0(out.reshape(b, sq, self.heads * self.dim_head))
 
 
@@ -134,29 +136,30 @@ class BasicTransformerBlock(nn.Module):
         spec = tome_spec
         if merge_active and spec is not None and spec.n_frames > 1:
             f = spec.n_frames
-            levels = tome.plan_local_levels(f, h.shape[1], spec.local_ratio,
-                                            spec.target_stride)
-            joined = tome.join_frame(h, f)
-            local_merged, infos = tome.local_merge_sequence(
-                joined, joined, levels, randf, spec.align_batch)
-            l_len = local_merged.shape[1]
-            # the local chain's row maps (and the global level's) compose
-            # into one gather of the attention output
-            rows = tome.local_unmerge_rows(infos)
-            if spec.merge_global and use_global and bank is not None:
-                merged, mi_g, _ = tome.global_merge(
-                    local_merged, bank, local_merged, bank, spec.global_ratio,
-                    flip, spec.align_batch)
-                g_rows = tome.global_unmerge_rows(mi_g, flip, l_len)
-                new_bank = tome.gather_rows(merged, g_rows)
-                attn_out = self.attn1(merged, backend=attn_backend, inject_qk=pnp_attn)
-                rows = tome.compose_rows(g_rows, rows)
-            else:
-                if spec.merge_global:
-                    new_bank = local_merged
-                attn_out = self.attn1(local_merged, backend=attn_backend,
-                                      inject_qk=pnp_attn)
-            attn_out = tome.split_frame(tome.gather_rows(attn_out, rows), f)
+            with span("tome"):  # the merge
+                levels = tome.plan_local_levels(f, h.shape[1], spec.local_ratio,
+                                                spec.target_stride)
+                joined = tome.join_frame(h, f)
+                merged, infos = tome.local_merge_sequence(
+                    joined, joined, levels, randf, spec.align_batch)
+                # the local chain's row maps (and the global level's) compose
+                # into one gather of the attention output
+                rows = tome.local_unmerge_rows(infos)
+                g_rows = None
+                if spec.merge_global and use_global and bank is not None:
+                    l_len = merged.shape[1]
+                    merged, mi_g, _ = tome.global_merge(
+                        merged, bank, merged, bank, spec.global_ratio, flip,
+                        spec.align_batch)
+                    g_rows = tome.global_unmerge_rows(mi_g, flip, l_len)
+                    new_bank = tome.gather_rows(merged, g_rows)
+                elif spec.merge_global:
+                    new_bank = merged
+            attn_out = self.attn1(merged, backend=attn_backend, inject_qk=pnp_attn)
+            with span("tome"):  # the unmerge
+                if g_rows is not None:
+                    rows = tome.compose_rows(g_rows, rows)
+                attn_out = tome.split_frame(tome.gather_rows(attn_out, rows), f)
         else:
             attn_out = self.attn1(h, backend=attn_backend, inject_qk=pnp_attn)
         x = x + attn_out
@@ -280,85 +283,86 @@ class UNet2DCondition(nn.Module):
                 use_global: bool = False, cfg_dedup: bool = False,
                 attn_backend: Optional[str] = None, pnp_attn: bool = False, pnp_conv: bool = False,
                 down_residuals=None, mid_residual=None, mesh=None):
-        cfg = self.config
-        ch = cfg.block_out_channels
-        n = len(ch)
-        # CFG-prefix dedup: `x` is the SINGLE shared half of the
-        # [uncond | cond] pair, `context` the full CFG batch; the first
-        # attention block duplicates its tokens and bank before its
-        # cross-attention (see BasicTransformerBlock)
-        rows = x.shape[0] * (1 if mesh is None else mesh.shape["data"])
-        if cfg_dedup and (context.shape[0] != 2 * rows or n < 2):
-            raise ValueError("cfg_dedup: x is the shared half, context the "
-                             "full batch, and the UNet needs an attention level")
-        if cfg_dedup and (pnp_attn or pnp_conv or down_residuals is not None
-                          or mid_residual is not None):
-            raise ValueError("cfg_dedup excludes PnP and ControlNet residuals")
-        if mesh is not None and (pnp_attn or pnp_conv or down_residuals is not None
-                                 or mid_residual is not None):
-            raise ValueError("a data-split batch excludes PnP and ControlNet residuals")
-        x = x.permute(0, 3, 1, 2)
-        h0, w0 = x.shape[-2:]
-        timesteps = torch.as_tensor(timesteps, dtype=torch.float32,
-                                    device=x.device)
-        if timesteps.dim() == 0:
-            timesteps = timesteps.expand(x.shape[0])
-        banks = banks or {}
-        new_banks: dict = {}
+        with span("unet"):
+            cfg = self.config
+            ch = cfg.block_out_channels
+            n = len(ch)
+            # CFG-prefix dedup: `x` is the SINGLE shared half of the
+            # [uncond | cond] pair, `context` the full CFG batch; the first
+            # attention block duplicates its tokens and bank before its
+            # cross-attention (see BasicTransformerBlock)
+            rows = x.shape[0] * (1 if mesh is None else mesh.shape["data"])
+            if cfg_dedup and (context.shape[0] != 2 * rows or n < 2):
+                raise ValueError("cfg_dedup: x is the shared half, context the "
+                                 "full batch, and the UNet needs an attention level")
+            if cfg_dedup and (pnp_attn or pnp_conv or down_residuals is not None
+                              or mid_residual is not None):
+                raise ValueError("cfg_dedup excludes PnP and ControlNet residuals")
+            if mesh is not None and (pnp_attn or pnp_conv or down_residuals is not None
+                                     or mid_residual is not None):
+                raise ValueError("a data-split batch excludes PnP and ControlNet residuals")
+            x = x.permute(0, 3, 1, 2)
+            h0, w0 = x.shape[-2:]
+            timesteps = torch.as_tensor(timesteps, dtype=torch.float32,
+                                        device=x.device)
+            if timesteps.dim() == 0:
+                timesteps = timesteps.expand(x.shape[0])
+            banks = banks or {}
+            new_banks: dict = {}
 
-        temb = self.time_embedding(
-            timestep_embedding(timesteps, ch[0]).to(cfg.dtype))
-        temb_full = torch.cat([temb, temb]) if cfg_dedup else temb
-        pending = cfg_dedup
+            temb = self.time_embedding(
+                timestep_embedding(timesteps, ch[0]).to(cfg.dtype))
+            temb_full = torch.cat([temb, temb]) if cfg_dedup else temb
+            pending = cfg_dedup
 
-        def run_attn(key, h, dup=False, inject=False):
-            active = self._merge_active(tome_spec, h.shape[-2], h.shape[-1],
-                                        h0, w0)
-            h, nb = getattr(self, key)(h, context, tome_spec, active, randf,
-                                       flip, banks.get(key), use_global, dup,
-                                       attn_backend, inject, mesh)
-            if nb is not None:
-                new_banks[key] = nb
-            return h
+            def run_attn(key, h, dup=False, inject=False):
+                active = self._merge_active(tome_spec, h.shape[-2], h.shape[-1],
+                                            h0, w0)
+                h, nb = getattr(self, key)(h, context, tome_spec, active, randf,
+                                           flip, banks.get(key), use_global, dup,
+                                           attn_backend, inject, mesh)
+                if nb is not None:
+                    new_banks[key] = nb
+                return h
 
-        h = self.conv_in(x)
-        skips = [split_rows(torch.cat([gather_rows(h, mesh)] * 2), mesh) if cfg_dedup else h]
-        for lvl in range(n):
-            for blk in range(cfg.layers_per_block):
-                h = getattr(self, f"down_{lvl}_res_{blk}")(
-                    h, temb if pending else temb_full)
+            h = self.conv_in(x)
+            skips = [split_rows(torch.cat([gather_rows(h, mesh)] * 2), mesh) if cfg_dedup else h]
+            for lvl in range(n):
+                for blk in range(cfg.layers_per_block):
+                    h = getattr(self, f"down_{lvl}_res_{blk}")(
+                        h, temb if pending else temb_full)
+                    if lvl < n - 1:
+                        h = run_attn(f"down_{lvl}_attn_{blk}", h, pending)
+                        pending = False
+                    skips.append(h)
                 if lvl < n - 1:
-                    h = run_attn(f"down_{lvl}_attn_{blk}", h, pending)
-                    pending = False
-                skips.append(h)
-            if lvl < n - 1:
-                h = getattr(self, f"down_{lvl}_ds")(h)
-                skips.append(h)
+                    h = getattr(self, f"down_{lvl}_ds")(h)
+                    skips.append(h)
 
-        if down_residuals is not None:
-            if len(down_residuals) != len(skips):
-                raise ValueError(f"{len(down_residuals)} residuals for {len(skips)} skips")
-            skips = [s + r.permute(0, 3, 1, 2).to(s.dtype)
-                     for s, r in zip(skips, down_residuals)]
+            if down_residuals is not None:
+                if len(down_residuals) != len(skips):
+                    raise ValueError(f"{len(down_residuals)} residuals for {len(skips)} skips")
+                skips = [s + r.permute(0, 3, 1, 2).to(s.dtype)
+                         for s, r in zip(skips, down_residuals)]
 
-        h = self.mid_res_0(h, temb_full)
-        h = run_attn("mid_attn", h)
-        h = self.mid_res_1(h, temb_full)
-        if mid_residual is not None:
-            h = h + mid_residual.permute(0, 3, 1, 2).to(h.dtype)
+            h = self.mid_res_0(h, temb_full)
+            h = run_attn("mid_attn", h)
+            h = self.mid_res_1(h, temb_full)
+            if mid_residual is not None:
+                h = h + mid_residual.permute(0, 3, 1, 2).to(h.dtype)
 
-        for lvl in reversed(range(n)):
-            for blk in range(cfg.layers_per_block + 1):
-                h = torch.cat([h, skips.pop()], dim=1)
-                h = getattr(self, f"up_{lvl}_res_{blk}")(h, temb_full)
-                if pnp_conv and lvl == n - 2 and blk == 1:
-                    h = h[: h.shape[0] // 3].repeat(3, 1, 1, 1)
-                if lvl < n - 1:
-                    h = run_attn(f"up_{lvl}_attn_{blk}", h,
-                                 inject=pnp_attn and not (lvl == n - 2 and blk == 0))
-            if lvl > 0:
-                h = getattr(self, f"up_{lvl}_us")(
-                    h, out_size=tuple(skips[-1].shape[-2:]))
+            for lvl in reversed(range(n)):
+                for blk in range(cfg.layers_per_block + 1):
+                    h = torch.cat([h, skips.pop()], dim=1)
+                    h = getattr(self, f"up_{lvl}_res_{blk}")(h, temb_full)
+                    if pnp_conv and lvl == n - 2 and blk == 1:
+                        h = h[: h.shape[0] // 3].repeat(3, 1, 1, 1)
+                    if lvl < n - 1:
+                        h = run_attn(f"up_{lvl}_attn_{blk}", h,
+                                     inject=pnp_attn and not (lvl == n - 2 and blk == 0))
+                if lvl > 0:
+                    h = getattr(self, f"up_{lvl}_us")(
+                        h, out_size=tuple(skips[-1].shape[-2:]))
 
-        h = self.conv_out(torch.nn.functional.silu(self.conv_norm_out(h)))
-        return h.permute(0, 2, 3, 1).float(), new_banks
+            h = self.conv_out(torch.nn.functional.silu(self.conv_norm_out(h)))
+            return h.permute(0, 2, 3, 1).float(), new_banks

@@ -98,7 +98,7 @@ from tclight_torch.pipeline.invert import check_latent_exists, load_latent
 from tclight_torch.pipeline.postopt import (PostOptConfig, flow_radius,
                                             run_exposure_align, run_uvt)
 from tclight_torch.utils.device import resolve_device
-from tclight_torch.utils.logging import CostTracker, get_logger
+from tclight_torch.utils.logging import CostTracker, get_logger, span
 from tclight_torch.utils.video_io import save_frames, save_video
 
 log = get_logger()
@@ -338,9 +338,10 @@ class Generator:
         noises = torch.zeros_like(x)
         banks = None
         for s in range(plan.n_slots):
-            idx = torch.as_tensor(plan.indices[s], dtype=torch.long, device=x.device)
-            e, banks = pred(idx, int(randfs[s]), bool(flips[s]), banks, s > 0)
-            self._scatter_noise(noises, e, plan.indices[s], plan.valid[s])
+            with span("slot"):
+                idx = torch.as_tensor(plan.indices[s], dtype=torch.long, device=x.device)
+                e, banks = pred(idx, int(randfs[s]), bool(flips[s]), banks, s > 0)
+                self._scatter_noise(noises, e, plan.indices[s], plan.valid[s])
         return noises
 
     # ------------------------------------------------------------ yt pass
@@ -394,18 +395,19 @@ class Generator:
         models = self._yt_bind(cs_t)
         noises_t = torch.zeros_like(x)
         for widx, sl in enumerate(starts):
-            plan = chunklib.make_chunk_plan(w, cs_t, rng, self.chunk_ord,
-                                            self.tome_spec.merge_global)
-            randfs = rng.integers(0, 4, size=plan.n_slots)
-            flips = rng.random(plan.n_slots) <= self.global_rand
-            # (win, H, W, C) -> (W, win, H, C)
-            xt = x[sl: sl + win].permute(2, 0, 1, 3).contiguous()
-            cct = concat_conds[sl: sl + win].permute(2, 0, 1, 3).contiguous()
-            pred = self._step_core(xt, cct, embeds_t, t, plan, randfs, flips, models)
-            noises_t[sl: sl + win] = pred.permute(1, 2, 0, 3)  # back to (win, H, W, C)
-            if sl > 0:
-                ov = overlaps[widx - 1]
-                noises_t[sl: sl + ov] *= math.sqrt(0.5)
+            with span("yt_window"):
+                plan = chunklib.make_chunk_plan(w, cs_t, rng, self.chunk_ord,
+                                                self.tome_spec.merge_global)
+                randfs = rng.integers(0, 4, size=plan.n_slots)
+                flips = rng.random(plan.n_slots) <= self.global_rand
+                # (win, H, W, C) -> (W, win, H, C)
+                xt = x[sl: sl + win].permute(2, 0, 1, 3).contiguous()
+                cct = concat_conds[sl: sl + win].permute(2, 0, 1, 3).contiguous()
+                pred = self._step_core(xt, cct, embeds_t, t, plan, randfs, flips, models)
+                noises_t[sl: sl + win] = pred.permute(1, 2, 0, 3)  # back to (win, H, W, C)
+                if sl > 0:
+                    ov = overlaps[widx - 1]
+                    noises_t[sl: sl + ov] *= math.sqrt(0.5)
         return noises_t
 
     @staticmethod
@@ -456,35 +458,40 @@ class Generator:
         self._last_step_times = []
         timesteps = sched.timesteps()
         for i, t in enumerate(timesteps):
-            t_step0 = time.perf_counter()
-            plan = chunklib.make_chunk_plan(n, self.chunk_size, plan_rng,
-                                            self.chunk_ord,
-                                            self.tome_spec.merge_global)
-            randfs = plan_rng.integers(0, 4, size=plan.n_slots)
-            flips = plan_rng.random(plan.n_slots) <= self.global_rand
-            if editing:
-                noises = self._editing_noises(x, concat_conds, embeds, t, i,
-                                              len(timesteps), plan, randfs, flips)
-            else:
-                noises = self._step_core(x, concat_conds, embeds, float(t), plan,
-                                         randfs, flips)
-            if self.alpha_t > 0 and not editing:
-                alpha = self.alpha_t * self.final_factor_t ** min(i / len(timesteps), 1.0)
-                noises_t = self._temporal_noises(x, concat_conds, embeds_t, float(t),
-                                                 plan_rng)
-                noises = self._fuse_yt(noises, noises_t, alpha)
-            noise = None
-            if sched.sde and step_noises is not None:
-                noise = step_noises[i]
-                if not torch.is_tensor(noise):
-                    noise = torch.from_numpy(np.array(noise, dtype=np.float32))
-                noise = noise.to(device=x.device, dtype=x.dtype)
-            elif sched.sde:
-                noise = torch.randn(x.shape, generator=generator, dtype=x.dtype,
-                                    device=x.device)
-            state, x = sched.step(state, noises, x, noise)
-            self._sync()
-            self._last_step_times.append(time.perf_counter() - t_step0)
+            # the step's stopwatch is its span's clock: one start, one end
+            t_step0 = time.perf_counter_ns()
+            with span("step", step=i, t0=t_step0) as step_span:
+                plan = chunklib.make_chunk_plan(n, self.chunk_size, plan_rng,
+                                                self.chunk_ord,
+                                                self.tome_spec.merge_global)
+                randfs = plan_rng.integers(0, 4, size=plan.n_slots)
+                flips = plan_rng.random(plan.n_slots) <= self.global_rand
+                if editing:
+                    noises = self._editing_noises(x, concat_conds, embeds, t, i,
+                                                  len(timesteps), plan, randfs, flips)
+                else:
+                    with span("xy"):
+                        noises = self._step_core(x, concat_conds, embeds, float(t), plan,
+                                                 randfs, flips)
+                if self.alpha_t > 0 and not editing:
+                    alpha = self.alpha_t * self.final_factor_t ** min(i / len(timesteps), 1.0)
+                    with span("yt"):
+                        noises_t = self._temporal_noises(x, concat_conds, embeds_t, float(t),
+                                                         plan_rng)
+                        noises = self._fuse_yt(noises, noises_t, alpha)
+                noise = None
+                if sched.sde and step_noises is not None:
+                    noise = step_noises[i]
+                    if not torch.is_tensor(noise):
+                        noise = torch.from_numpy(np.array(noise, dtype=np.float32))
+                    noise = noise.to(device=x.device, dtype=x.dtype)
+                elif sched.sde:
+                    noise = torch.randn(x.shape, generator=generator, dtype=x.dtype,
+                                        device=x.device)
+                with span("scheduler"):
+                    state, x = sched.step(state, noises, x, noise)
+                self._sync()
+                self._last_step_times.append((step_span.end() - t_step0) * 1e-9)
             log.info("step %d/%d t=%.1f [%s]", i + 1, len(timesteps), float(t), self.control)
         return x
 
