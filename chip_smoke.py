@@ -59,8 +59,8 @@ Phases, one line each:
      pre-pass once a launch, and no max pass) launched, K1 never, and the frames against the fp run's (max abs difference,
      PSNR);
  12. traced runs of 2 sampling steps (fp, then int8 q.k^T), of one step
-     of the yt-int8 config and of 2 + 2 post-opt epochs give the device
-     time per kernel group (torch.profiler);
+     of the yt-int8 config (after an untraced one) and of 2 + 2 post-opt
+     epochs give the device time per kernel group (torch.profiler);
  13. raft: a full-width RAFT on random weights, written as a reference
      checkpoint and loaded by the evaluate CLI's loader: the card against
      the CPU at 128x160 under the entry point's own precision (f32 on
@@ -1200,7 +1200,7 @@ def profile_window(tag: str, fn, units: int, unit: str) -> None:
 def profile_main_path() -> None:
     """Traced runs on the main path's config and inputs: 2 sampling steps,
     the same 2 steps with int8 q.k^T (K6), one step of the yt-int8 run's
-    config (30 frames, the yt pass, K6), then 2 exposure and 2 UVT epochs
+    config (30 frames, the yt pass, K6) after an untraced one, then 2 exposure and 2 UVT epochs
     (one batch of 16 each) on the main video's flows, masks and tracks."""
     from tclight_torch.config import load_config
     from tclight_torch.data.dataparsers import VideoDataParser
@@ -1236,6 +1236,9 @@ def profile_main_path() -> None:
                                                  gen_yt.negative_prompt_t)))
     x_yt = gen_yt.prepare_init_noise(YT_FRAMES, HEIGHT, WIDTH,
                                      torch.Generator(device="cuda").manual_seed(0))
+    # the first yt pass captures the slots' CUDA graphs (pipeline/
+    # slot_graphs.py): it runs before the trace, which holds a later step
+    gen_yt.ddim_sample(x_yt, embeds, conds_yt, embeds_t=embeds_t)
     profile_window("profile-yt-int8", lambda: gen_yt.ddim_sample(x_yt, embeds, conds_yt,
                                                                  embeds_t=embeds_t), 1, "step")
     del gen8, gen_yt, conds_yt, x_yt, models

@@ -12,11 +12,16 @@ rule everywhere: the b-major first occurrence. The chunked scan
 `_greedy_match_chunked` of the JAX package, whose ties are chunk-major, has
 no counterpart here.
 
+A yt slot captured into CUDA graphs (pipeline/slot_graphs.py) splits its
+capture at each matching: inside `matcher_hook(hook)` a batch-aligned
+matching calls `hook(a, bt)` in place of the matcher.
+
 Hazard: `jnp.argsort` is stable, so every sort here passes `stable=True`.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple, Sequence
 
 import torch
@@ -29,8 +34,23 @@ __all__ = [
     "tome_unmerge", "unmerge_rows", "compose_rows", "gather_rows",
     "join_frame", "split_frame", "local_merge_sequence", "local_unmerge_rows",
     "local_unmerge_sequence", "global_merge", "global_unmerge_rows",
-    "global_unmerge",
+    "global_unmerge", "matcher_hook",
 ]
+
+_matcher_hook = None  # set by `matcher_hook`; None calls the matcher
+
+
+@contextlib.contextmanager
+def matcher_hook(hook):
+    """Route every batch-aligned matching to `hook(a, bt)`, which returns
+    (node_max, node_idx) as `online_argmax_scores` does, while the block
+    runs."""
+    global _matcher_hook
+    prev, _matcher_hook = _matcher_hook, hook
+    try:
+        yield
+    finally:
+        _matcher_hook = prev
 
 
 def join_frame(x: torch.Tensor, fsize: int) -> torch.Tensor:
@@ -104,7 +124,8 @@ def _greedy_match(metric: torch.Tensor, a_idx: torch.Tensor,
     d = b.shape[1]
     if align_batch:
         # one matching shared across the batch: max over all (b, d)
-        node_max, node_idx = online_argmax_scores(a, b)
+        match = online_argmax_scores if _matcher_hook is None else _matcher_hook
+        node_max, node_idx = match(a, b)
         edge_idx = torch.argsort(-node_max, stable=True)
         src_idx = edge_idx[:r][None]
         unm_idx = edge_idx[r:][None]

@@ -20,8 +20,11 @@ columns become the chunked frame axis of (time, height) images, over
 overlapping temporal windows, and its noise prediction is fused into the
 xy one (AdaIN, then a decayed weight). The TPU's dispatch split of many
 slots into groups (`max_fused_slots`) is left out; the slot order and the
-bank carry are kept. `generation.attn_qk_int8` (and `attn_pv_int8`) pick
-the int8 attention kernels for every self-attention of both passes.
+bank carry are kept. On the card without a mesh the yt slots run as
+replays of CUDA graphs split at each ToMe matching
+(pipeline/slot_graphs.py); the xy pass, whose slots keep the card busy,
+runs eagerly. `generation.attn_qk_int8` (and `attn_pv_int8`) pick the
+int8 attention kernels for every self-attention of both passes.
 
 Random choices come from host numpy generators seeded like the JAX
 package's, so both packages draw the same chunk plans, dst frames and
@@ -97,6 +100,7 @@ from tclight_torch.pipeline.iclight import ICLightModels, encode_prompt, encode_
 from tclight_torch.pipeline.invert import check_latent_exists, load_latent
 from tclight_torch.pipeline.postopt import (PostOptConfig, flow_radius,
                                             run_exposure_align, run_uvt)
+from tclight_torch.pipeline.slot_graphs import SlotGraphs
 from tclight_torch.utils.device import resolve_device
 from tclight_torch.utils.logging import CostTracker, get_logger, span
 from tclight_torch.utils.video_io import save_frames, save_video
@@ -185,6 +189,7 @@ class Generator:
         self.attn_backend = "int8pv" if pv_int8 else "int8" if qk_int8 else None
         self.models = models.with_tome(self.tome_spec, attn_backend=self.attn_backend)
         self._yt_models: tuple[int, ICLightModels] | None = None
+        self._slot_graphs: SlotGraphs | None = None
         self.scheduler = dataclasses.replace(
             models.scheduler, num_inference_steps=self.n_timesteps)
         self.data_parser = data_parser
@@ -313,13 +318,29 @@ class Generator:
         return eps_u + self.guidance_scale * (eps_c - eps_u), banks
 
     @staticmethod
-    def _scatter_noise(noises, e, idx: np.ndarray, valid: np.ndarray) -> None:
-        """Write the valid frames of one slot into the noise buffer (in
+    def _device_plan(plan, device):
+        """A plan on the device in one upload: the slots' frame indices,
+        and for each slot the rows and positions of its valid frames.
+        Returns (indices (n_slots, cs) long, scatter(noises, e, slot)), the
+        scatter writing one slot's valid frames into the noise buffer (in
         place; padded and empty positions are dropped)."""
-        sel = np.flatnonzero(valid)
-        if sel.size:
-            pos = torch.as_tensor(sel, device=e.device)
-            noises[torch.as_tensor(idx[sel], device=e.device)] = e[pos]
+        n, cs = plan.indices.shape
+        parts, offs, at = [plan.indices.astype(np.int64).ravel()], [], n * cs
+        for s in range(n):
+            sel = np.flatnonzero(plan.valid[s])
+            parts += [plan.indices[s][sel].astype(np.int64), sel.astype(np.int64)]
+            offs.append((at, sel.size))
+            at += 2 * sel.size
+        flat = torch.from_numpy(np.concatenate(parts))
+        if device.type == "cuda":
+            flat = flat.pin_memory()
+        flat = flat.to(device, non_blocking=True)
+
+        def scatter(noises, e, s: int) -> None:
+            o, k = offs[s]
+            if k:
+                noises[flat[o: o + k]] = e[flat[o + k: o + 2 * k]]
+        return flat[: n * cs].view(n, cs), scatter
 
     def _step_core(self, x, concat_conds, embeds, t, plan, randfs, flips, models=None):
         """One denoising pass over a chunk plan of x's first axis (frames,
@@ -334,14 +355,15 @@ class Generator:
     def _run_plan(self, x, plan, randfs, flips, pred):
         """The chunk slots of `plan` in order into a noise buffer shaped
         like x: `pred(idx, randf, flip, banks, use_global)` gives a slot's
-        noise and the banks it carries on."""
+        noise and the banks it carries on, `idx` the slot's frame indices
+        on the device (the plan is uploaded once)."""
         noises = torch.zeros_like(x)
+        idx, scatter = self._device_plan(plan, x.device)
         banks = None
         for s in range(plan.n_slots):
             with span("slot"):
-                idx = torch.as_tensor(plan.indices[s], dtype=torch.long, device=x.device)
-                e, banks = pred(idx, int(randfs[s]), bool(flips[s]), banks, s > 0)
-                self._scatter_noise(noises, e, plan.indices[s], plan.valid[s])
+                e, banks = pred(idx[s], int(randfs[s]), bool(flips[s]), banks, s > 0)
+                scatter(noises, e, s)
         return noises
 
     # ------------------------------------------------------------ yt pass
@@ -382,6 +404,16 @@ class Generator:
                 spec_t, attn_backend=self.attn_backend))
         return self._yt_models[1]
 
+    def _yt_step_core(self, x, concat_conds, embeds, t, plan, randfs, flips, models):
+        """One yt window's pass: on the card without a mesh the slots are
+        CUDA graph replays (pipeline/slot_graphs.py), else `_step_core`."""
+        if not x.is_cuda or self.mesh is not None:
+            return self._step_core(x, concat_conds, embeds, t, plan, randfs, flips, models)
+        if self._slot_graphs is None:
+            self._slot_graphs = SlotGraphs(self)
+        pred = self._slot_graphs.pred(models, x, concat_conds, embeds, t, plan.indices.shape[1])
+        return self._run_plan(x, plan, randfs, flips, pred)
+
     def _temporal_noises(self, x, concat_conds, embeds_t, t, rng):
         """yt-plane noise prediction (generate.py:241-278): the width
         columns become the chunked frame axis of (time, height) images;
@@ -403,7 +435,7 @@ class Generator:
                 # (win, H, W, C) -> (W, win, H, C)
                 xt = x[sl: sl + win].permute(2, 0, 1, 3).contiguous()
                 cct = concat_conds[sl: sl + win].permute(2, 0, 1, 3).contiguous()
-                pred = self._step_core(xt, cct, embeds_t, t, plan, randfs, flips, models)
+                pred = self._yt_step_core(xt, cct, embeds_t, t, plan, randfs, flips, models)
                 noises_t[sl: sl + win] = pred.permute(1, 2, 0, 3)  # back to (win, H, W, C)
                 if sl > 0:
                     ov = overlaps[widx - 1]
